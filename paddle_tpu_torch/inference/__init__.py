@@ -1,6 +1,9 @@
 from .kv_cache import BlockPool
+from .prefix_cache import PrefixCache
 from .serving import (Request, RequestTrace, ServingConfig, ServingEngine,
-                      ServingMetrics, synthetic_traffic)
+                      ServingMetrics, repeated_traffic, shared_prefix_traffic,
+                      synthetic_traffic)
 
-__all__ = ["BlockPool", "Request", "RequestTrace", "ServingConfig",
-           "ServingEngine", "ServingMetrics", "synthetic_traffic"]
+__all__ = ["BlockPool", "PrefixCache", "Request", "RequestTrace",
+           "ServingConfig", "ServingEngine", "ServingMetrics",
+           "repeated_traffic", "shared_prefix_traffic", "synthetic_traffic"]

@@ -16,8 +16,13 @@ caller, which updates them in place.
 Block 0 is the TRASH block: table padding entries and writes that must go
 nowhere (right-padded prompt columns past a row's blocks, dummy batch
 slots) land there, so the scatters never need a mask. Usable capacity is
-``(num_blocks - 1) * block_size`` tokens. Shared (refcounted) blocks and
-the host spill tier arrive with the prefix-cache slice.
+``(num_blocks - 1) * block_size`` tokens.
+
+Blocks are refcounted: the prefix cache (inference/prefix_cache.py)
+retains the blocks it caches, and a request admitted on a cached prefix
+maps them SHARED into its own reservation; a block returns to the free
+list when its last reference drops. The host spill tier (``read_block``/
+``write_block``, ``HostSpillTier``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ class BlockPool:
         # LIFO free list: recently freed blocks are re-issued first
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._rows: Dict[int, List[int]] = {}
+        self._refs: Dict[int, int] = {}     # block id -> reference count
 
     @classmethod
     def for_model(cls, model, *, num_blocks: int, block_size: int,
@@ -102,6 +108,18 @@ class BlockPool:
         return self.capacity_blocks * self.block_size
 
     @property
+    def bytes_per_block(self) -> int:
+        """Device bytes ONE block pins across every layer's K and V pools
+        (codes and f32 scales for int8): the unit the prefix cache's byte
+        budget is charged in."""
+        rows = self.block_size * self.num_heads
+        if self.cache_dtype == "int8":
+            per = rows * self.head_dim + rows * 4
+        else:
+            per = rows * self.head_dim * self.dtype.itemsize
+        return 2 * per * self.num_layers
+
+    @property
     def free_blocks(self) -> int:
         return len(self._free)
 
@@ -116,29 +134,100 @@ class BlockPool:
         return self.blocks_needed(tokens) <= self.capacity_blocks
 
     # --------------------------------------------------------- alloc/free
-    def alloc(self, owner: int, tokens: int) -> Optional[np.ndarray]:
-        """Reserve blocks covering `tokens` KV rows for `owner`. Returns
-        the int32 block-id vector (the owner's table row in position
-        order), or None when too few blocks are free right now. An owner
-        holds one reservation; a second alloc raises."""
+    def alloc(self, owner: int, tokens: int,
+              shared=None) -> Optional[np.ndarray]:
+        """Reserve blocks covering `tokens` KV rows for `owner`.
+
+        `shared` maps already-populated blocks, in prefix order, into the
+        reservation: each gains a reference, and only
+        ``blocks_needed(tokens) - len(shared)`` fresh blocks come off the
+        free list, after the shared run. Returns the int32 block-id vector
+        (the owner's table row in position order), or None when too few
+        blocks are free right now. An owner holds one reservation; a
+        second alloc raises."""
         if owner in self._rows:
             raise ValueError(f"owner {owner} already holds "
                              f"{len(self._rows[owner])} blocks; free first")
-        n = self.blocks_needed(tokens)
+        shared = [int(b) for b in (shared or ())]
+        if any(b == 0 for b in shared):
+            raise ValueError("the trash block (0) is never shared")
+        n = self.blocks_needed(tokens) - len(shared)
+        if n < 0:
+            raise ValueError(f"shared prefix ({len(shared)} blocks) longer "
+                             f"than the reservation ({tokens} tokens)")
         if n > len(self._free):
             return None
-        blocks = [self._free.pop() for _ in range(n)]
+        for b in shared:
+            if self._refs.get(b, 0) < 1:
+                raise ValueError(f"block {b} is not live; cannot share")
+            self._refs[b] += 1
+        fresh = [self._free.pop() for _ in range(n)]
+        for b in fresh:
+            self._refs[b] = 1
+        blocks = shared + fresh
         self._rows[owner] = blocks
         return np.asarray(blocks, dtype=np.int32)
 
     def free(self, owner: int) -> int:
-        """Return every block `owner` holds to the free list; returns how
-        many. Freeing an unknown owner is a no-op (0)."""
+        """Drop `owner`'s reference on every block it holds; returns how
+        many actually returned to the free list (a block another owner or
+        the prefix cache still references stays resident). Freeing an
+        unknown owner is a no-op (0)."""
         blocks = self._rows.pop(owner, None)
         if not blocks:
             return 0
-        self._free.extend(reversed(blocks))
-        return len(blocks)
+        return self._deref(reversed(blocks))
+
+    def take(self, n: int = 1) -> Optional[List[int]]:
+        """Reserve `n` ownerless blocks at refcount 1 (blocks that belong
+        to the cache, not to a request); balanced by :meth:`release`.
+        Returns the block ids, or None when the free list is short."""
+        if n < 1 or n > len(self._free):
+            return None
+        out = []
+        for _ in range(n):
+            b = self._free.pop()
+            self._refs[b] = 1
+            out.append(b)
+        return out
+
+    # ------------------------------------------------- cache references
+    def retain(self, blocks) -> None:
+        """Add one reference per block: how the prefix cache pins a cached
+        prefix independent of the request that computed it."""
+        for b in blocks:
+            b = int(b)
+            if b == 0:
+                raise ValueError("the trash block (0) is never retained")
+            if self._refs.get(b, 0) < 1:
+                raise ValueError(f"block {b} is not live; cannot retain")
+            self._refs[b] += 1
+
+    def release(self, blocks) -> int:
+        """Drop one reference per block (cache eviction); returns how many
+        hit zero and went back to the free list."""
+        return self._deref(int(b) for b in blocks)
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(int(block), 0)
+
+    def _deref(self, blocks) -> int:
+        freed = 0
+        for b in blocks:
+            b = int(b)
+            r = self._refs.get(b, 0)
+            if r < 1:
+                raise ValueError(f"refcount underflow on block {b}")
+            if r == 1:
+                del self._refs[b]
+                self._free.append(b)
+                freed += 1
+            else:
+                self._refs[b] = r - 1
+        return freed
+
+    def owned(self, owner: int) -> List[int]:
+        return list(self._rows.get(owner, ()))
 
     def table_row(self, owner: int, width: int) -> np.ndarray:
         """The owner's int32 block-table row, zero-padded (trash block) to
@@ -164,6 +253,7 @@ class BlockPool:
     def reset(self):
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._rows.clear()
+        self._refs.clear()
 
     def __repr__(self):
         return (f"BlockPool(blocks={self.num_blocks}x{self.block_size}, "

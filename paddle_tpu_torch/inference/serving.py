@@ -12,22 +12,42 @@ paddle_tpu/inference/serving.py).
                   freed blocks; only a request that could never fit is
                   rejected.
 
+                  Three options share the multi-token paged-attention
+                  kernel (a [B, S] query window at per-row offsets):
+                  prefix_cache   a radix trie (inference/prefix_cache.py)
+                                 maps cached full blocks of a prompt into
+                                 the new request's table; a partial hit
+                                 prefills only the suffix, a full hit
+                                 prefills nothing and re-decodes the last
+                                 prompt token (copy-on-write of the last
+                                 block when it is shared);
+                  prefill_chunk  prompts prefill in [1, prefill_chunk]
+                                 windows, one per engine step, between
+                                 decode chunks;
+                  spec_decode    each decode step verifies spec_k drafted
+                                 tokens (from the trie, or a callable) in
+                                 one [B, spec_k + 1] window; greedy output
+                                 equals the plain chain.
+
   RequestTrace    per-request timestamps (enqueue -> admit -> prefill ->
                   first token -> finish) and the engine-call windows the
                   request rode.
 
   ServingMetrics  log-bucketed TTFT / TPOT / e2e / queue-wait histograms,
-                  queue and KV gauges, request and token counters.
+                  the speculative accept-length histogram, queue and KV
+                  gauges, request, token, prefix and spec counters.
 
 Greedy engine output equals the JAX engine's and the JAX
 `generate_static_ragged`'s token chains per request (tests). On a CUDA
-model every decode step runs the hand-written paged-attention kernels.
+model every attention call of the serving path runs a hand-written
+paged-attention kernel.
 
 Not ported yet: the padded engine (paged=False) and weight_dtype="int8"
-(static-decode slice), prefix_cache / spec_decode / prefill_chunk (prefix
-slice, kernels #3-#4), shards > 1 (multi-GPU slice), and the graph-lint,
-recompile accounting, per-request JSONL rows, Prometheus text, telemetry
-server, memz, chaos, probe and fleet-router hooks.
+(static-decode slice), the host spill tier (spill_host_bytes) and
+`model_draft_fn` (after the static-decode slice), shards > 1 (multi-GPU
+slice), and the graph-lint, recompile accounting, per-request JSONL rows,
+Prometheus text, telemetry server, memz, chaos, probe and fleet-router
+hooks.
 """
 from __future__ import annotations
 
@@ -42,6 +62,7 @@ import numpy as np
 import torch
 
 from .kv_cache import BlockPool
+from .prefix_cache import PrefixCache
 
 
 # --------------------------------------------------------------- requests
@@ -50,7 +71,8 @@ from .kv_cache import BlockPool
 class RequestTrace:
     """Timestamps of one request's life (engine clock seconds) and the
     engine-call windows it rode, as (name, t0, t1) tuples ("prefill",
-    "decode"). finish is stamped at the end of the decode chunk in which
+    "suffix_prefill", "prefill_chunk", "decode", "spec_verify"). finish
+    is stamped at the end of the decode chunk in which
     the row hit EOS or its budget."""
     t_enqueue: Optional[float] = None
     t_admit: Optional[float] = None
@@ -96,6 +118,10 @@ class Request:
     deadline_s: Optional[float] = None      # max queue wait before admit
     tokens: Optional[np.ndarray] = None     # generated ids (done only)
     n_out: int = 0                          # tokens up to & incl. EOS
+    # speculative decoding: draft tokens proposed for this request across
+    # its verify windows, and how many the target accepted
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     trace: RequestTrace = field(default_factory=RequestTrace)
 
     @property
@@ -106,15 +132,19 @@ class Request:
 # ---------------------------------------------------------------- metrics
 
 class LogHistogram:
-    """Fixed-memory latency histogram with log-spaced bucket bounds
-    lo * 10^(k / per_decade) up to hi, plus an overflow bucket.
-    Percentiles interpolate inside the containing bucket and clamp to the
-    observed min/max."""
+    """Fixed-memory histogram with log-spaced bucket bounds
+    lo * 10^(k / per_decade) up to hi (or the explicit `bounds`), plus an
+    overflow bucket. Percentiles interpolate inside the containing bucket
+    and clamp to the observed min/max."""
 
     def __init__(self, lo: float = 1e-4, hi: float = 1e3,
-                 per_decade: int = 10):
-        n = int(math.ceil(per_decade * math.log10(hi / lo))) + 1
-        self.bounds = [lo * 10.0 ** (k / per_decade) for k in range(n)]
+                 per_decade: int = 10,
+                 bounds: Optional[Sequence[float]] = None):
+        if bounds is not None:
+            self.bounds = [float(b) for b in bounds]
+        else:
+            n = int(math.ceil(per_decade * math.log10(hi / lo))) + 1
+            self.bounds = [lo * 10.0 ** (k / per_decade) for k in range(n)]
         self.counts = [0] * (len(self.bounds) + 1)
         self.count = 0
         self.sum = 0.0
@@ -162,16 +192,32 @@ class ServingMetrics:
     The JAX package's per-request JSONL rows and Prometheus exposition
     arrive with the telemetry slice."""
 
-    HISTS = ("ttft_seconds", "tpot_seconds", "e2e_seconds", "queue_seconds")
+    HISTS = ("ttft_seconds", "tpot_seconds", "e2e_seconds", "queue_seconds",
+             "spec_accept_len")
 
     def __init__(self):
-        self.hists = {name: LogHistogram() for name in self.HISTS}
+        self.hists = {name: LogHistogram() for name in self.HISTS
+                      if name != "spec_accept_len"}
+        # tokens emitted per verify window (1..spec_k+1): half-integer
+        # bounds resolve every integer exactly
+        self.hists["spec_accept_len"] = LogHistogram(
+            bounds=[i + 0.5 for i in range(33)])
         self.counters = {"requests": 0, "completed": 0, "rejected": 0,
                          "overloaded": 0, "timeout": 0, "errors": 0,
-                         "tokens_in": 0, "tokens_out": 0, "batches": 0}
+                         "tokens_in": 0, "tokens_out": 0, "batches": 0,
+                         # prefix cache: admissions that mapped >= 1 cached
+                         # block / none, and prompt tokens whose prefill
+                         # was skipped because their KV was pooled
+                         "prefix_hit": 0, "prefix_miss": 0,
+                         "prefill_tokens_saved": 0,
+                         # speculative decoding: windows, draft tokens
+                         # proposed / accepted, and each draft's source
+                         "spec_windows": 0, "spec_proposed": 0,
+                         "spec_accepted": 0, "spec_drafts_trie": 0,
+                         "spec_drafts_model": 0}
         self.gauges = {"queue_depth": 0, "inflight": 0,
                        "batch_fill_ratio": None, "kv_occupancy": None,
-                       "kv_slots_occupancy": None}
+                       "kv_slots_occupancy": None, "kv_shared_tokens": None}
 
     def record_request(self, req: Request):
         self.counters["requests"] += 1
@@ -200,14 +246,18 @@ class ServingMetrics:
             self.counters["errors"] += 1
 
     def record_batch(self, *, n_real: int, capacity: int, kv_tokens: int,
-                     kv_slots: int, kv_capacity: int, queue_depth: int):
-        """kv_tokens = live (attendable) KV rows; kv_slots = rows the
-        reserved blocks pin; kv_capacity = total pooled rows."""
+                     kv_slots: int, kv_capacity: int, queue_depth: int,
+                     kv_shared_tokens: int = 0):
+        """kv_tokens = live (attendable) KV rows, each distinct block
+        counted once; kv_slots = rows the reserved blocks pin; kv_capacity
+        = total pooled rows; kv_shared_tokens = rows the live requests
+        read from blocks they mapped shared from the prefix cache."""
         self.counters["batches"] += 1
         self.gauges["batch_fill_ratio"] = n_real / max(capacity, 1)
         self.gauges["kv_occupancy"] = kv_tokens / max(kv_capacity, 1)
         self.gauges["kv_slots_occupancy"] = kv_slots / max(kv_capacity, 1)
         self.gauges["queue_depth"] = queue_depth
+        self.gauges["kv_shared_tokens"] = kv_shared_tokens
 
     def summary(self) -> dict:
         out = {**{f"{k}_total": v for k, v in self.counters.items()},
@@ -248,12 +298,25 @@ class ServingConfig:
     kv_blocks: Optional[int] = None  # total pool blocks INCL. trash block;
     #                            default = worst case for max_batch rows
     shards: Optional[int] = None
+    # prefix cache: cached full blocks of a prompt map shared into the new
+    # request's table; a full hit skips prefill, a partial hit prefills
+    # only the suffix. prefix_cache_bytes is the LRU budget for cached
+    # blocks (None = bounded by the pool; admission reclaims under
+    # pressure)
     prefix_cache: bool = False
     prefix_cache_bytes: Optional[int] = None
     spill_host_bytes: Optional[int] = None
+    # speculative decoding: each decode step verifies spec_k drafted
+    # tokens plus the pending one in one [B, spec_k + 1] window; greedy
+    # only. spec_draft "trie" drafts from the prefix cache's cached
+    # continuations (requires prefix_cache=True; block-granular, so keep
+    # kv_block below the typical generation length); a callable
+    # (context tokens, k) -> up to k token ids fills the trie's misses
     spec_decode: bool = False
     spec_k: int = 4
     spec_draft: object = "trie"
+    # chunked prefill: prompts prefill in [1, prefill_chunk] windows, one
+    # per engine step, so a long prompt never stalls the decode batch
     prefill_chunk: Optional[int] = None
     lint: object = None
 
@@ -272,15 +335,56 @@ class ServingConfig:
             raise ValueError(
                 f"queue_high_watermark must be in [1, queue_capacity="
                 f"{self.queue_capacity}], got {self.queue_high_watermark}")
+        if self.prefix_cache and not self.paged:
+            raise ValueError("prefix_cache=True requires paged=True (the "
+                             "trie shares BLOCK-pool blocks; the padded "
+                             "engine has no blocks to share)")
+        if self.spill_host_bytes is not None and not self.prefix_cache:
+            raise ValueError("spill_host_bytes requires prefix_cache="
+                             "True (the spill tier holds EVICTED trie "
+                             "blocks; without the trie nothing is ever "
+                             "evicted into it)")
+        if self.spec_decode:
+            if not self.paged:
+                raise ValueError("spec_decode=True requires paged=True "
+                                 "(the verify call runs the [B, k] "
+                                 "multi-token kernel over the block "
+                                 "pool)")
+            if not (1 <= self.spec_k <= 31):
+                # keeps the spec_accept_len histogram's exact-integer
+                # buckets (counts <= 32 = spec_k + 1) honest
+                raise ValueError(f"spec_k must be in [1, 31], "
+                                 f"got {self.spec_k}")
+            if self.temperature > 0.0:
+                raise ValueError(
+                    "spec_decode=True requires greedy sampling "
+                    "(temperature=0): the bit-exact acceptance rule is "
+                    "argmax equality; sampled speculative decoding needs "
+                    "a rejection-sampling rule this engine does not "
+                    "implement")
+            if self.spec_draft == "trie":
+                if not self.prefix_cache:
+                    raise ValueError(
+                        "spec_draft='trie' requires prefix_cache=True "
+                        "(prompt-lookup drafts are the radix trie's "
+                        "cached continuation tokens); pass a callable "
+                        "spec_draft to use a draft model instead")
+            elif not callable(self.spec_draft):
+                raise ValueError(f"spec_draft must be 'trie' or a "
+                                 f"callable (context, k) -> tokens; got "
+                                 f"{self.spec_draft!r}")
+        if self.prefill_chunk is not None:
+            if not self.paged:
+                raise ValueError("prefill_chunk requires paged=True (the "
+                                 "chunk windows write pool blocks via "
+                                 "the start-offset executable)")
+            if not (1 <= self.prefill_chunk <= self.prompt_cap):
+                raise ValueError(
+                    f"prefill_chunk must be in [1, prompt_cap="
+                    f"{self.prompt_cap}], got {self.prefill_chunk}")
         later = (
-            ("prefix_cache", self.prefix_cache,
-             "the prefix-cache slice (kernels #3-#4)"),
             ("spill_host_bytes", self.spill_host_bytes is not None,
-             "the prefix-cache slice"),
-            ("spec_decode", self.spec_decode,
-             "the prefix-cache / spec-decode slice (kernels #3-#4)"),
-            ("prefill_chunk", self.prefill_chunk is not None,
-             "the prefix-cache / chunked-prefill slice (kernels #3-#4)"),
+             "the host spill tier, after the static-decode slice"),
             ("shards", (self.shards or 1) > 1, "the multi-GPU slice"),
             ("weight_dtype", self.weight_dtype is not None,
              "the static-decode slice (int8_matmul, kernel #5)"),
@@ -317,7 +421,8 @@ class ServingEngine:
     """Paged continuous-batching serving loop.
 
     Synchronous: `submit()` enqueues, `step()` splices queued requests
-    into free slots and runs ONE decode chunk over the live slots,
+    into free slots, advances chunked prefills by one window and runs ONE
+    decode chunk (or speculative verify window) over the live slots,
     `drain()` loops until the queue and the slots are empty. Not
     internally synchronized: hold one lock around every engine call when
     several threads drive it. The engine runs on the model's device; the
@@ -350,7 +455,22 @@ class ServingEngine:
         self._pending = np.zeros((B,), np.int32)
         self._done = np.ones((B,), bool)
         self._calls = 0            # sampling seed cursor
-        self._kv_snapshot = (0, 0)   # (live tokens, reserved rows)
+        # (physical live tokens, reserved rows, logical shared tokens) at
+        # the last step's decode entry
+        self._kv_snapshot = (0, 0, 0)
+        # per slot: lens tokens living in blocks mapped shared from the
+        # prefix cache (the kv_shared_tokens gauge)
+        self._shared_tok = np.zeros((B,), np.int64)
+        self._prefix = PrefixCache(
+            self._pool, byte_budget=config.prefix_cache_bytes) \
+            if config.prefix_cache else None
+        # chunked prefill: next prompt position to prefill per slot; -1 =
+        # not mid-prefill (a decode row)
+        self._prefill_pos = np.full((B,), -1, np.int64)
+        # speculative decoding: the trie drafts first, this callable fills
+        # its misses
+        self._draft_fn = config.spec_draft \
+            if callable(config.spec_draft) else None
 
     # -- admission ------------------------------------------------------
     @property
@@ -407,17 +527,25 @@ class ServingEngine:
         return [i for i, r in enumerate(self._slots) if r is not None]
 
     def step(self) -> List[Request]:
-        """One engine step: splice queued requests into free slots
-        (prefill into fresh blocks), then run ONE decode chunk over the
-        live slots. Returns every request that reached a terminal status
-        this step (served rows and queue-deadline timeouts). If a device
-        call raises, the in-flight requests are recorded as status
-        "error", the pool is rebuilt, and the exception propagates."""
+        """One engine step: splice queued requests into free slots (the
+        prefix cache decides what each must prefill), advance every
+        chunked prefill by one window, then run ONE decode chunk (or
+        speculative verify window) over the decodable slots. Returns every
+        request that reached a terminal status this step (served rows and
+        queue-deadline timeouts). If a device call raises, the in-flight
+        requests are recorded as status "error", the pool and the prefix
+        cache are rebuilt, and the exception propagates."""
+        live = []
         try:
             finished, expired, admitted = self._admit_paged()
-            live = self._live()
+            pf_done, pf_ran = self._advance_prefill()
+            finished.extend(pf_done)
+            live = self._decodable()
             if live:
-                finished.extend(self._decode_chunk_paged(live))
+                if self.config.spec_decode:
+                    finished.extend(self._decode_chunk_spec(live))
+                else:
+                    finished.extend(self._decode_chunk_paged(live))
         except BaseException:
             now = self.clock()
             for i, r in enumerate(self._slots):
@@ -427,23 +555,27 @@ class ServingEngine:
                     self.metrics.record_request(r)
                     self._slots[i] = None
                     self._clear_slot(i)
-            # a failed call may have left the pools half-written
+            # a failed call may have left the pools half-written; the
+            # reset wipes the refcounts, so the cache drops its entries
+            # without releasing them
+            if self._prefix is not None:
+                self._prefix.clear(release=False)
             self._pool.reset()
             self._pools = self._pool.make_pools()
             self.metrics.gauges["inflight"] = 0
             raise
         self.metrics.gauges["inflight"] = len(self._live())
-        if admitted or live:
+        if admitted or pf_ran or live:
             # the batch the step served: rows live at decode entry (or, on
             # an admission-only step, the requests that finished there)
             n_real = len(live) if live else min(len(finished),
                                                 len(self._slots))
-            kv_tokens, kv_slots = self._kv_snapshot
+            kv_tokens, kv_slots, kv_shared = self._kv_snapshot
             self.metrics.record_batch(
                 n_real=n_real, capacity=len(self._slots),
                 kv_tokens=kv_tokens, kv_slots=kv_slots,
                 kv_capacity=self._pool.capacity_tokens,
-                queue_depth=len(self._queue))
+                queue_depth=len(self._queue), kv_shared_tokens=kv_shared)
         return expired + finished
 
     def drain(self, max_batches: Optional[int] = None) -> List[Request]:
@@ -466,20 +598,135 @@ class ServingEngine:
         self._lens[slot] = 0
         self._pending[slot] = 0
         self._done[slot] = True
+        self._shared_tok[slot] = 0
+        self._prefill_pos[slot] = -1
+
+    def _decodable(self) -> List[int]:
+        """Live slots whose prefill completed: the decode batch. Rows
+        still mid-(chunked-)prefill are left out and neutralized in the
+        shipped device state (`_ship_decode_state`)."""
+        return [i for i in self._live() if self._prefill_pos[i] < 0]
+
+    def _ship_decode_state(self):
+        """The per-slot vectors a decode or verify call takes, as device
+        tensors: tables [B, MB], lens [B], pending [B], done [B]. Empty
+        slots and rows still mid-chunked-prefill ship a trash table row,
+        lens 0 and done=True, so the fixed-[B] call cannot write into (or
+        attend) their blocks; their host state is untouched."""
+        tables, lens = self._tables, self._lens
+        pending, done = self._pending, self._done
+        pf = self._prefill_pos >= 0
+        if pf.any():
+            tables, lens = tables.copy(), lens.copy()
+            pending, done = pending.copy(), done.copy()
+            tables[pf] = 0
+            lens[pf] = 0
+            pending[pf] = 0
+            done[pf] = True
+        dev = self.model.device
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (tables, lens, pending, done))
+
+    def _kv_physical(self):
+        """(physical live tokens, logical shared tokens) over live slots.
+        Physical occupancy counts each distinct block once: walk every
+        live slot's blocks in position order, credit each block its live
+        rows, and take the max where two slots map the same block. Shared
+        tokens sum the per-slot volume read from blocks mapped shared."""
+        bs = self._pool.block_size
+        rows: dict = {}
+        shared = 0
+        for s in self._live():
+            ln = int(self._lens[s])
+            shared += int(self._shared_tok[s])
+            for j, blk in enumerate(self._pool.owned(self._slots[s].id)):
+                r = min(max(ln - j * bs, 0), bs)
+                if r == 0:
+                    break
+                rows[blk] = max(rows.get(blk, 0), r)
+        return sum(rows.values()), shared
 
     def _snapshot_kv(self):
-        live_tokens = int(sum(int(self._lens[s]) for s in self._live()))
-        self._kv_snapshot = (live_tokens, self._pool.used_blocks
-                             * self._pool.block_size)
+        phys, shared = self._kv_physical()
+        self._kv_snapshot = (
+            phys, self._pool.used_blocks * self._pool.block_size, shared)
+
+    def _insert_prefix(self, req: Request, blocks, written: int,
+                       tokens=None):
+        """Cache the request's blocks whose KV is written: the full
+        blocks among positions [0, written). The partial tail keeps taking
+        decode writes and is never shared. `tokens` defaults to the
+        prompt; the spec-decode finish passes prompt + generated chain so
+        later identical traffic zero-prefills and drafts from it."""
+        if self._prefix is None:
+            return
+        bs = self._pool.block_size
+        toks = req.prompt if tokens is None else tokens
+        n_full = min(int(written), len(toks)) // bs
+        if n_full:
+            self._prefix.insert(toks[:n_full * bs], blocks[:n_full])
+
+    def warmup_prefix_cache(self, vocab_size: int, *, seed: int = 2,
+                            clear: bool = True):
+        """Run the prefix-cache paths once before measuring: a full-prefill
+        miss, an identical block-aligned repeat (the COW copy), and a
+        mid-prefix divergence (suffix prefill), each to completion so
+        decode (and, with spec_decode, a verify window drafted from the
+        first run's cached chain) runs too. `clear=True` then drops the
+        warmup's cached prefixes so measured traffic starts cold."""
+        if self._prefix is None:
+            raise ValueError("warmup_prefix_cache needs "
+                             "ServingConfig(prefix_cache=True)")
+        bs = self.config.kv_block
+        aligned = (self.config.prompt_cap // bs) * bs
+        if aligned < max(bs, 2):
+            raise ValueError(f"prompt_cap {self.config.prompt_cap} holds "
+                             f"no full kv_block ({bs}); nothing to warm")
+        rng = np.random.RandomState(seed)
+        p = rng.randint(1, vocab_size, (aligned,)).astype(np.int64)
+        for prompt in (p, p):        # miss, then aligned full hit (COW)
+            self.submit(prompt)
+            self.drain()
+        if aligned > bs:             # partial hit -> suffix prefill
+            d = p.copy()
+            d[bs:] = rng.randint(1, vocab_size, (aligned - bs,))
+            self.submit(d)
+            self.drain()
+        if clear:
+            self._prefix.clear()
+        return self
+
+    def _cow_copy(self, src: int, dst: int):
+        """Copy pool block `src` into private block `dst` in every layer's
+        planes (codes and scales for int8): the copy-on-write an aligned
+        full-prefix hit needs before its re-decode of the last prompt
+        token writes inside the last shared block."""
+        for layer in self._pools:
+            for plane in layer:
+                plane[dst] = plane[src]
 
     def _admit_paged(self):
-        """Fill every free slot from the queue: allocate the request's
-        worst-case blocks, prefill its prompt into them ([1, prompt_cap],
-        right-padded), and install the row for the next decode chunk.
+        """Fill every free slot from the queue: consult the prefix trie,
+        map shared blocks and allocate fresh ones, prefill what the cache
+        does not hold yet, and install the row for the next decode chunk.
         When the head of the queue does not fit the free blocks, admission
         waits for live rows to free theirs. Returns (finished, expired,
-        admitted) — a budget-1 or instant-EOS request finishes here."""
+        admitted): a budget-1 or instant-EOS request finishes here.
+
+        With the prefix cache, admission splits three ways on the matched
+        full-block token count t against the prompt length plen:
+          t == 0           full prefill;
+          0 < t < plen-1   partial hit: prefill ONLY the suffix (start=t,
+                           attending the shared prefix blocks);
+          t >= plen-1      zero-prefill hit: the last prompt token
+                           re-enters as the pending decode token (lens =
+                           plen-1). When t == plen that re-decode would
+                           write INTO the last shared block, which is
+                           first copied into a private block.
+        With prefill_chunk, admission only installs the slot and
+        `_advance_prefill` prefills from position t window by window."""
         cfg = self.config
+        bs = self._pool.block_size
         finished: List[Request] = []
         expired: List[Request] = []
         admitted = 0
@@ -496,8 +743,32 @@ class ServingEngine:
                 expired.append(req)
                 continue
             plen = req.prompt_len
-            if self._pool.alloc(req.id, plen + req.max_new_tokens - 1) \
-                    is None:
+            need_rows = plen + req.max_new_tokens - 1
+            matched, t = ([], 0) if self._prefix is None \
+                else self._prefix.match(req.prompt)
+            # an aligned full hit shares every matched block but the last,
+            # which becomes a private copy (the re-decode writes in it)
+            cow = t == plen and t > 0
+            shared = matched[:-1] if cow else matched
+            blocks = self._pool.alloc(req.id, need_rows, shared=shared)
+            if blocks is None and self._prefix is not None:
+                # cached-but-idle prefixes are soft capacity: evict LRU
+                # refcount-free entries before deciding to wait, sparing
+                # the whole matched run (shared plus the COW source)
+                n_fresh = self._pool.blocks_needed(need_rows) - len(shared)
+                if self._prefix.reclaim(n_fresh, protect=matched):
+                    blocks = self._pool.alloc(req.id, need_rows,
+                                              shared=shared)
+                if blocks is None and not self._live():
+                    # nothing in flight will free blocks, so waiting
+                    # cannot help: drop the hit, reclaim freely and
+                    # prefill in full rather than starve on the request's
+                    # own protected prefix
+                    matched, t, cow, shared = [], 0, False, []
+                    if self._prefix.reclaim(
+                            self._pool.blocks_needed(need_rows)):
+                        blocks = self._pool.alloc(req.id, need_rows)
+            if blocks is None:
                 break            # wait for live rows to free their blocks
             self._queue.popleft()
             slot = free.pop(0)
@@ -509,33 +780,107 @@ class ServingEngine:
             self._slots[slot] = req
             table_row = self._pool.table_row(req.id, self._tables.shape[1])
             self._tables[slot] = table_row
-            ids = np.full((1, cfg.prompt_cap), cfg.pad_token_id,
-                          dtype=np.int64)
-            ids[0, :plen] = req.prompt
-            t_pf0 = self.clock()
-            self._pools, first = self.model.prefill_paged(
-                ids, np.asarray([plen], np.int32), self._pools,
-                table_row[None], temperature=cfg.temperature,
-                top_k=cfg.top_k, top_p=cfg.top_p,
-                seed=cfg.seed + self._calls, cache_dtype=cfg.cache_dtype)
-            tok = int(first.cpu()[0])         # host sync: TTFT is known
-            self._calls += 1
+            self._shared_tok[slot] = len(shared) * bs
             admitted += 1
-            req.trace.events.append(("prefill", t_pf0, self.clock()))
-            if self._complete_prefill(slot, req, tok, self.clock()):
-                finished.append(req)
-                free.insert(0, slot)
+            if self._prefix is not None:
+                self.metrics.counters[
+                    "prefix_hit" if t else "prefix_miss"] += 1
+            if t >= plen - 1 and t > 0:
+                # zero-prefill admission: every prompt position but the
+                # re-decoded last one is served from cached blocks
+                if cow:
+                    self._cow_copy(matched[-1], int(blocks[len(shared)]))
+                self._lens[slot] = plen - 1
+                self._pending[slot] = int(req.prompt[plen - 1])
+                self._done[slot] = False
+                req._chunks = []
+                req._produced = 0
+                req.trace.t_prefill_done = now   # nothing to prefill
+                self.metrics.counters["prefill_tokens_saved"] += plen - 1
+                # only positions < t hold written KV yet
+                self._insert_prefix(req, blocks, t)
+            elif cfg.prefill_chunk is not None:
+                self._prefill_pos[slot] = t
+                req._chunks = []
+                req._produced = 0
+                self.metrics.counters["prefill_tokens_saved"] += t
+            else:
+                suffix = plen - t
+                ids = np.full((1, cfg.prompt_cap), cfg.pad_token_id,
+                              dtype=np.int64)
+                ids[0, :suffix] = req.prompt[t:]
+                t_pf0 = self.clock()
+                self._pools, first = self.model.prefill_paged(
+                    ids, np.asarray([suffix], np.int32), self._pools,
+                    table_row[None], temperature=cfg.temperature,
+                    top_k=cfg.top_k, top_p=cfg.top_p,
+                    seed=cfg.seed + self._calls, cache_dtype=cfg.cache_dtype,
+                    start=None if t == 0 else np.asarray([t], np.int32))
+                tok = int(first.cpu()[0])         # host sync: TTFT is known
+                self._calls += 1
+                req.trace.events.append(
+                    ("prefill" if t == 0 else "suffix_prefill", t_pf0,
+                     self.clock()))
+                self.metrics.counters["prefill_tokens_saved"] += t
+                if self._complete_prefill(slot, req, tok, self.clock()):
+                    finished.append(req)
+                    free.insert(0, slot)
             self._batch_id += 1
         self.metrics.gauges["queue_depth"] = len(self._queue)
         if admitted:
             self._snapshot_kv()
         return finished, expired, admitted
 
+    def _advance_prefill(self):
+        """One [1, prefill_chunk] prefill window for every slot still
+        mid-chunked-prefill, at its next position (start = offset). The
+        final window's sampled token is the request's first token and the
+        row joins the next decode chunk. Returns (finished, ran): a
+        budget-1 or instant-EOS request finishes when its prefill lands."""
+        cfg = self.config
+        finished: List[Request] = []
+        if cfg.prefill_chunk is None:
+            return finished, False
+        pc = cfg.prefill_chunk
+        ran = False
+        for slot in self._live():
+            off = int(self._prefill_pos[slot])
+            if off < 0:
+                continue
+            req = self._slots[slot]
+            plen = req.prompt_len
+            clen = min(pc, plen - off)
+            final = off + clen >= plen
+            ids = np.full((1, pc), cfg.pad_token_id, dtype=np.int64)
+            ids[0, :clen] = req.prompt[off:off + clen]
+            t_pf0 = self.clock()
+            self._pools, first = self.model.prefill_paged(
+                ids, np.asarray([clen], np.int32), self._pools,
+                self._tables[slot][None], temperature=cfg.temperature,
+                top_k=cfg.top_k, top_p=cfg.top_p,
+                seed=cfg.seed + self._calls, cache_dtype=cfg.cache_dtype,
+                start=np.asarray([off], np.int32))
+            # only the final window's token is used: syncing the others
+            # would put a host round trip on every window
+            tok = int(first.cpu()[0]) if final else 0
+            self._calls += 1
+            ran = True
+            req.trace.events.append(("prefill_chunk", t_pf0, self.clock()))
+            off += clen
+            if not final:
+                self._prefill_pos[slot] = off
+                continue
+            self._prefill_pos[slot] = -1
+            if self._complete_prefill(slot, req, tok, self.clock()):
+                finished.append(req)
+        return finished, ran
+
     def _complete_prefill(self, slot: int, req: Request, tok: int,
                           tp: float) -> bool:
-        """The sampled token becomes the row's pending and first token;
-        a budget-1 or instant-EOS request finishes on the spot. Returns
-        True when it did (the slot is free again)."""
+        """The sampled token becomes the row's pending and first token,
+        the prompt's full blocks enter the prefix cache, and a budget-1 or
+        instant-EOS request finishes on the spot. Returns True when it did
+        (the slot is free again)."""
         cfg = self.config
         req.trace.t_prefill_done = tp
         req.trace.t_first_token = tp  # sampled with the prefill
@@ -545,21 +890,13 @@ class ServingEngine:
         self._done[slot] = hit_eos
         req._chunks = [np.asarray([tok], np.int64)]
         req._produced = 1
+        # insert BEFORE any instant finish: the cache's retain must land
+        # while the request still holds its blocks
+        self._insert_prefix(req, self._pool.owned(req.id), req.prompt_len)
         if req._produced >= req.max_new_tokens or hit_eos:
             self._finish_paged_row(slot, tp)
             return True
         return False
-
-    def _ship_decode_state(self):
-        """The per-slot vectors a decode call takes, as device tensors:
-        tables [B, MB], lens [B], pending [B], done [B]. Empty slots ship
-        trash tables and done=True, so their rows write block 0 and their
-        tokens are ignored."""
-        dev = self.model.device
-        return (torch.from_numpy(self._tables).to(dev),
-                torch.from_numpy(self._lens).to(dev),
-                torch.from_numpy(self._pending).to(dev),
-                torch.from_numpy(self._done).to(dev))
 
     def _decode_chunk_paged(self, live: List[int]) -> List[Request]:
         """One fixed-shape [B, decode_chunk] decode call over every slot;
@@ -577,8 +914,13 @@ class ServingEngine:
         arr = toks.cpu().numpy()                     # host sync per chunk
         self._calls += 1
         t = self.clock()
-        self._pending = arr[:, -1].astype(np.int32)
-        self._done = done_d.cpu().numpy().copy()
+        pend_new = arr[:, -1].astype(np.int32)
+        done_new = done_d.cpu().numpy().copy()
+        pf = self._prefill_pos >= 0        # mid-prefill rows rode as
+        pend_new[pf] = self._pending[pf]   # neutralized dummies: their
+        done_new[pf] = self._done[pf]      # real state survives
+        self._pending = pend_new
+        self._done = done_new
         finished: List[Request] = []
         for slot in live:
             req = self._slots[slot]
@@ -586,6 +928,10 @@ class ServingEngine:
             take = min(c, req.max_new_tokens - req._produced)
             req._chunks.append(arr[slot, :take])
             req._produced += take
+            if req.trace.t_first_token is None:
+                # zero-prefill admission: this chunk's first token is the
+                # request's first token
+                req.trace.t_first_token = t
             self._lens[slot] += c     # the device wrote c rows regardless
             if req._produced >= req.max_new_tokens or \
                     _hit_eos(arr[slot, :take], cfg.eos_token_id):
@@ -593,15 +939,118 @@ class ServingEngine:
                 finished.append(req)
         return finished
 
+    def _draft_context(self, req: Request) -> List[int]:
+        """The slot's draft context: prompt plus every emitted token (the
+        pending token included, since drafts continue after it), kept
+        incrementally so each window costs O(new tokens)."""
+        ctx = getattr(req, "_ctx", None)
+        if ctx is None:
+            ctx = req._ctx = [int(t) for t in req.prompt]
+            req._ctx_chunks = 0
+        for c in req._chunks[req._ctx_chunks:]:
+            ctx.extend(int(t) for t in c)
+        req._ctx_chunks = len(req._chunks)
+        return ctx
+
+    def _draft_for_slot(self, slot: int):
+        """Up to spec_k draft tokens for the slot's next positions and
+        their source ("trie" | "model" | None): the trie first, then the
+        callable."""
+        cfg = self.config
+        req = self._slots[slot]
+        context = self._draft_context(req)
+        if self._prefix is not None:
+            d = self._prefix.lookup_continuation(context, cfg.spec_k)
+            if d:
+                return np.asarray(d, np.int32), "trie"
+        if self._draft_fn is not None:
+            d = np.asarray(self._draft_fn(context, cfg.spec_k)).reshape(-1)
+            if d.size:
+                return d[:cfg.spec_k].astype(np.int32), "model"
+        return None, None
+
+    def _decode_chunk_spec(self, live: List[int]) -> List[Request]:
+        """One speculative verify window over the slot batch: a
+        [B, spec_k + 1] call through model.verify_paged. Rows with a draft
+        advance by their accepted length + 1; rows without one ride along
+        on pad drafts and advance by >= 1 (a pad that matches the chain is
+        a real acceptance: every emitted token is the argmax). A step
+        where no row has a draft runs the plain decode chunk."""
+        cfg = self.config
+        B = len(self._slots)
+        drafts = np.full((B, cfg.spec_k), cfg.pad_token_id, np.int32)
+        src = {}
+        for slot in live:
+            d, tag = self._draft_for_slot(slot)
+            if d is not None:
+                drafts[slot, :len(d)] = d
+                src[slot] = (tag, len(d))
+        if not src:
+            return self._decode_chunk_paged(live)
+        self._snapshot_kv()
+        tables, lens, pending, done = self._ship_decode_state()
+        t_c0 = self.clock()
+        toks, n_acc, self._pools, done_d = self.model.verify_paged(
+            self._pools, tables, lens, pending, drafts, done,
+            eos_token_id=cfg.eos_token_id, cache_dtype=cfg.cache_dtype)
+        arr = toks.cpu().numpy()                    # host sync per window
+        acc = n_acc.cpu().numpy()
+        done_new = done_d.cpu().numpy()
+        self._calls += 1
+        t = self.clock()
+        finished: List[Request] = []
+        mt = self.metrics
+        for slot in live:
+            req = self._slots[slot]
+            req.trace.events.append(("spec_verify", t_c0, t))
+            n_emit = int(acc[slot]) + 1
+            take = min(n_emit, req.max_new_tokens - req._produced)
+            fresh = arr[slot, :take]
+            req._chunks.append(fresh)
+            req._produced += take
+            if req.trace.t_first_token is None:
+                req.trace.t_first_token = t
+            self._lens[slot] += n_emit   # the accepted frontier
+            self._pending[slot] = np.int32(arr[slot, n_emit - 1])
+            self._done[slot] = bool(done_new[slot])
+            if slot in src:
+                # acceptance covers drafted rows and real draft tokens
+                # only; a budget-truncated final window credits only the
+                # accepted drafts it emitted
+                tag, dlen = src[slot]
+                used = min(int(acc[slot]), take, dlen)
+                req.spec_proposed += dlen
+                req.spec_accepted += used
+                mt.counters["spec_windows"] += 1
+                mt.counters["spec_proposed"] += dlen
+                mt.counters["spec_accepted"] += used
+                mt.counters["spec_drafts_trie" if tag == "trie"
+                            else "spec_drafts_model"] += 1
+                mt.hists["spec_accept_len"].observe(take)
+            if req._produced >= req.max_new_tokens or \
+                    _hit_eos(fresh, cfg.eos_token_id):
+                self._finish_paged_row(slot, t)
+                finished.append(req)
+        return finished
+
     def _finish_paged_row(self, slot: int, t: float):
         """Terminal bookkeeping for one slot: its blocks free at once, so
-        the next admission can splice a queued request into the slot."""
+        the next admission can splice a queued request into the slot.
+        With spec decode and the prefix cache, the written chain (prompt +
+        generated, minus the never-written last token) enters the trie
+        first, so the next identical request zero-prefills it and drafts
+        its continuation from it."""
         req = self._slots[slot]
         row = np.concatenate(req._chunks)[:req.max_new_tokens]
         req.tokens = row.astype(np.int64)
         req.n_out = _n_out(req.tokens, self.config.eos_token_id)
         req.status = "done"
         req.trace.t_finish = t
+        if self.config.spec_decode and self._prefix is not None:
+            chain = np.concatenate([req.prompt, req.tokens[:req.n_out]])
+            self._insert_prefix(req, self._pool.owned(req.id),
+                                req.prompt_len + req._produced - 1,
+                                tokens=chain)
         self._pool.free(req.id)
         self._slots[slot] = None
         self._clear_slot(slot)
@@ -647,6 +1096,63 @@ def synthetic_traffic(n_requests: int, *, prompt_cap: int, vocab_size: int,
     return out
 
 
+def shared_prefix_traffic(n_requests: int, *, n_prefixes: int,
+                          prefix_len: int, prompt_cap: int,
+                          vocab_size: int, rate: float = 50.0,
+                          seed: int = 0) -> List[dict]:
+    """System-prompt workload: every request draws one of `n_prefixes`
+    fixed token prefixes (`prefix_len` tokens) followed by a fresh random
+    suffix, Poisson arrivals at `rate` req/s. After each prefix's first
+    request, every later one sharing it can admit with only its suffix
+    prefilled. Returns [{"at", "prompt", "prefix_id"}] sorted by arrival;
+    the same seed gives the JAX package's traffic exactly."""
+    if not (1 <= prefix_len < prompt_cap):
+        raise ValueError(f"prefix_len must be in [1, prompt_cap), got "
+                         f"{prefix_len} vs cap {prompt_cap}")
+    if n_prefixes < 1:
+        raise ValueError(f"n_prefixes must be >= 1, got {n_prefixes}")
+    rng = np.random.RandomState(seed)
+    prefixes = rng.randint(1, vocab_size,
+                           (n_prefixes, prefix_len)).astype(np.int64)
+    gaps = rng.exponential(1.0 / max(rate, 1e-9), size=n_requests)
+    at = np.cumsum(gaps) - gaps[0]
+    out = []
+    for i in range(n_requests):
+        p = int(rng.randint(0, n_prefixes))
+        ln = int(rng.randint(1, prompt_cap - prefix_len + 1))
+        suffix = rng.randint(1, vocab_size, (ln,)).astype(np.int64)
+        out.append({"at": float(at[i]),
+                    "prompt": np.concatenate([prefixes[p], suffix]),
+                    "prefix_id": p})
+    return out
+
+
+def repeated_traffic(n_requests: int, *, n_prompts: int, prompt_len: int,
+                     vocab_size: int, rate: float = 50.0,
+                     seed: int = 0) -> List[dict]:
+    """Agentic / retry workload: every request is one of `n_prompts`
+    fixed prompts repeated verbatim, Poisson arrivals at `rate` req/s.
+    After each prompt's first completion, later identical requests
+    zero-prefill from the trie and draft their whole continuation from
+    the cached chain. Returns [{"at", "prompt", "prompt_id"}] sorted by
+    arrival; the same seed gives the JAX package's traffic exactly."""
+    if n_prompts < 1 or prompt_len < 1:
+        raise ValueError(f"need n_prompts >= 1 and prompt_len >= 1, got "
+                         f"{n_prompts}, {prompt_len}")
+    rng = np.random.RandomState(seed)
+    prompts = rng.randint(1, vocab_size,
+                          (n_prompts, prompt_len)).astype(np.int64)
+    gaps = rng.exponential(1.0 / max(rate, 1e-9), size=n_requests)
+    at = np.cumsum(gaps) - gaps[0]
+    out = []
+    for i in range(n_requests):
+        p = int(rng.randint(0, n_prompts))
+        out.append({"at": float(at[i]), "prompt": prompts[p].copy(),
+                    "prompt_id": p})
+    return out
+
+
 __all__: Sequence[str] = ["RequestTrace", "Request", "ServingMetrics",
                           "ServingConfig", "ServingEngine",
-                          "synthetic_traffic"]
+                          "synthetic_traffic", "shared_prefix_traffic",
+                          "repeated_traffic"]

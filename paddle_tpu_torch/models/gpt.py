@@ -30,7 +30,8 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              paged_attention, paged_attention_q8,
                              paged_cache_write, paged_cache_write_q8,
                              paged_prefill_mask, paged_prefill_write,
-                             paged_prefill_write_q8, quantize_kv)
+                             paged_prefill_write_q8, paged_prefix_attention,
+                             paged_prefix_attention_q8, quantize_kv)
 
 
 @dataclass
@@ -112,17 +113,26 @@ class GPTSelfAttention(nn.Module):
         self.out = nn.Linear(h, h, device=device, dtype=dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None,
-                prefill=False):
+                prefill=False, start=None):
         """Without `pools`: causal self-attention over x (the cache-free
         forward). With `pools` (this layer's paged KV tensors):
+          start given    x is a window of tokens at positions start[b] + i
+                         (suffix prefill after a prefix-cache hit, a
+                         chunked-prefill window, a speculative verify
+                         window; any width, 1 included). K/V are written
+                         at those positions and every row attends the
+                         pool up to its own position through the
+                         multi-token paged kernel;
           prefill=True   x is a right-padded prompt window; `lens` holds
                          the true prompt lengths. K/V are written into
                          the rows' blocks and attention runs over the
                          prompt itself (ragged causal mask);
-          prefill=False  x is one decode token per row; `lens` holds the
+          otherwise      x is one decode token per row; `lens` holds the
                          tokens already cached, so the token is written
                          at position lens[b] and attends lens[b] + 1
-                         rows through the paged decode kernel."""
+                         rows through the paged decode kernel.
+        `start` is checked before the width: a [B, 1] window with a start
+        writes at start[b], not at lens[b]."""
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv(x).view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -130,7 +140,12 @@ class GPTSelfAttention(nn.Module):
             ctx = attention_reference(q, k, v, is_causal=True)
         elif len(pools) == 4:
             kc, ks, vc, vs = pools
-            if prefill:
+            if start is not None:
+                paged_prefill_write_q8(kc, ks, k, tables, start)
+                paged_prefill_write_q8(vc, vs, v, tables, start)
+                ctx = paged_prefix_attention_q8(q.contiguous(), kc, ks, vc,
+                                                vs, tables, start)
+            elif prefill:
                 # writes quantize as they land; attention runs over the
                 # prompt's own codes, the static int8 path's numerics
                 paged_prefill_write_q8(kc, ks, k, tables)
@@ -146,7 +161,12 @@ class GPTSelfAttention(nn.Module):
                                          tables, lens + 1)
         else:
             kp, vp = pools
-            if prefill:
+            if start is not None:
+                paged_prefill_write(kp, k, tables, start)
+                paged_prefill_write(vp, v, tables, start)
+                ctx = paged_prefix_attention(q.contiguous(), kp, vp, tables,
+                                             start, score_dtype=q.dtype)
+            elif prefill:
                 paged_prefill_write(kp, k, tables)
                 paged_prefill_write(vp, v, tables)
                 ctx = attention_reference(q, k, v,
@@ -182,8 +202,9 @@ class GPTBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(h, eps=eps, device=device, dtype=dtype)
         self.mlp = GPTMLP(config, device, dtype)
 
-    def forward(self, x, pools=None, tables=None, lens=None, prefill=False):
-        x = x + self.attn(self.ln_1(x), pools, tables, lens, prefill)
+    def forward(self, x, pools=None, tables=None, lens=None, prefill=False,
+                start=None):
+        x = x + self.attn(self.ln_1(x), pools, tables, lens, prefill, start)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -204,7 +225,7 @@ class GPTModel(nn.Module):
                                  device=device, dtype=dtype)
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
-                lens=None, prefill=False):
+                lens=None, prefill=False, start=None):
         s = input_ids.shape[1]
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
@@ -215,7 +236,7 @@ class GPTModel(nn.Module):
         x = self.wte(input_ids) + self.wpe(position_ids)
         for i, block in enumerate(self.h):
             x = block(x, None if pools is None else pools[i], tables, lens,
-                      prefill)
+                      prefill, start)
         return self.ln_f(x)
 
 
@@ -268,8 +289,9 @@ class GPTForCausalLM(nn.Module):
                 p.normal_(0.0, std, generator=generator)
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
-                lens=None, prefill=False):
-        x = self.gpt(input_ids, position_ids, pools, tables, lens, prefill)
+                lens=None, prefill=False, start=None):
+        x = self.gpt(input_ids, position_ids, pools, tables, lens, prefill,
+                     start)
         if self.config.tie_word_embeddings:
             return x @ self.gpt.wte.weight.t()
         return self.lm_head(x)
@@ -288,8 +310,17 @@ class GPTForCausalLM(nn.Module):
         block_tables [n, MB] int32 rows naming each prompt's blocks (0 =
         trash). Writes every prompt's K/V into its blocks (the pools are
         updated in place) and returns ``(pools, first_token [n] int32)``,
-        the first token sampled from each row's last real position."""
-        _unported(weight_dtype, start)
+        the first token sampled from each row's last real position.
+
+        `start` [n] int32 switches to suffix prefill: input_ids then hold
+        only the not-yet-cached suffix (right-padded; prompt_lens = suffix
+        lengths), row positions run start[b] + i, and attention covers the
+        pool (the cached prefix blocks mapped into the row's table plus
+        the suffix itself) through the multi-token paged kernel. The
+        serving engine passes the same padded [1, P_cap] or [1, chunk]
+        window as the JAX engine; the padding columns are written past the
+        suffix (or into the trash block) and their outputs are dropped."""
+        _unported(weight_dtype)
         dev = self.device
         ids = _on(input_ids, torch.int64, dev)
         b, p_cap = ids.shape
@@ -299,8 +330,17 @@ class GPTForCausalLM(nn.Module):
             raise ValueError(f"prefill_paged: block_tables rows "
                              f"({tables.shape[0]}) != batch ({b})")
         _check_pool_dtype(pools, self.dtype, cache_dtype)
-        logits = self.forward(ids, pools=pools, tables=tables, lens=lens,
-                              prefill=True)
+        if start is None:
+            logits = self.forward(ids, pools=pools, tables=tables, lens=lens,
+                                  prefill=True)
+        else:
+            st = _on(start, torch.int32, dev).reshape(-1)
+            if st.shape[0] != b:
+                raise ValueError(f"prefill_paged: start has {st.shape[0]} "
+                                 f"rows, batch is {b}")
+            pos = st[:, None].long() + torch.arange(p_cap, device=dev)[None]
+            logits = self.forward(ids, pos, pools=pools, tables=tables,
+                                  lens=lens, start=st)
         last = logits[torch.arange(b, device=dev), lens.long() - 1].float()
         gen = _generator(dev, seed, temperature)
         nxt = sample_logits(last, gen, temperature=temperature,
@@ -322,7 +362,7 @@ class GPTForCausalLM(nn.Module):
         the engine edits between chunks. Returns ``(tokens [B,
         max_new_tokens] int64, pools, lens', done')`` with the pools
         updated in place."""
-        _unported(weight_dtype, None)
+        _unported(weight_dtype)
         if max_new_tokens <= 0:
             raise ValueError("decode_paged needs max_new_tokens >= 1")
         dev = self.device
@@ -348,16 +388,67 @@ class GPTForCausalLM(nn.Module):
             cur = new
         return torch.stack(toks, dim=1).to(torch.int64), pools, ln, dn
 
+    @torch.no_grad()
+    def verify_paged(self, pools, block_tables, lens, pending, draft, done,
+                     eos_token_id: int = None, weight_dtype: str = None,
+                     cache_dtype: str = None):
+        """One speculative-decode verify step against the paged pool:
+        score a [B, k] window in one forward pass through the multi-token
+        paged kernel and apply the longest-accepted-prefix rule.
 
-def _unported(weight_dtype, start):
+        The window per row is ``[pending, draft[0], ..., draft[k-2]]``;
+        its K/V are written at positions ``lens[b] + i`` (writes past the
+        row's table land in the trash block) and each position takes the
+        greedy argmax. Draft token i is accepted iff it equals the chain
+        token emitted at window position i - 1; EOS forcing follows
+        decode_paged's per-step rule in cumulative form. Rejected
+        positions leave KV below the next window's start, which that
+        window rewrites before it becomes attendable.
+
+        Returns ``(emitted [B, k] int64, n_accept [B] int32, pools,
+        done')``: row b emitted ``emitted[b, :n_accept[b] + 1]``; its next
+        pending token is ``emitted[b, n_accept[b]]``. Greedy only."""
+        _unported(weight_dtype)
+        dev = self.device
+        tables = _on(block_tables, torch.int32, dev)
+        b = tables.shape[0]
+        ln = _on(lens, torch.int32, dev)
+        pend = _on(pending, torch.int64, dev)
+        dr = _on(draft, torch.int64, dev)
+        if dr.dim() != 2 or dr.shape[0] != b:
+            raise ValueError(f"draft must be [B, k-1]; got "
+                             f"{tuple(dr.shape)} for batch {b}")
+        k = dr.shape[1] + 1
+        dn = _on(done, torch.bool, dev)
+        _check_pool_dtype(pools, self.dtype, cache_dtype)
+        window = torch.cat([pend[:, None], dr], dim=1)
+        pos = ln[:, None].long() + torch.arange(k, device=dev)[None]
+        logits = self.forward(window, pos, pools=pools, tables=tables,
+                              lens=ln, start=ln)
+        raw = torch.argmax(logits.float(), dim=-1)              # [B, k]
+        if eos_token_id is None:
+            e = raw
+            done_out = dn
+        else:
+            # a row is done at window position i iff it was done on entry
+            # or the chain emitted EOS strictly before i
+            hit = (raw == eos_token_id).long()
+            seen_before = torch.cumsum(hit, dim=1) - hit
+            done_i = dn[:, None] | (seen_before > 0)
+            e = torch.where(done_i, torch.full_like(raw, eos_token_id), raw)
+        match = (dr == e[:, :-1]).long()
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+        if eos_token_id is not None:
+            emitted = torch.arange(k, device=dev)[None] <= n_acc[:, None]
+            done_out = dn | ((e == eos_token_id) & emitted).any(dim=1)
+        return e.to(torch.int64), n_acc.to(torch.int32), pools, done_out
+
+
+def _unported(weight_dtype):
     if weight_dtype is not None:
         raise NotImplementedError(
             f"weight_dtype={weight_dtype!r}: the weight-only int8 GEMM "
             f"(int8_matmul) is ported with the static-decode slice")
-    if start is not None:
-        raise NotImplementedError(
-            "start= (suffix prefill) needs the multi-token paged kernel, "
-            "ported with the prefix-cache slice")
 
 
 def _on(x, dtype, device):

@@ -11,10 +11,10 @@ Unlike the JAX functions, the cache writes update the pools IN PLACE (the
 pools are preallocated device tensors, which replaces JAX's buffer
 donation) and return them for convenience.
 
-`paged_attention` and `paged_attention_q8` route by device and by nothing
-else: a CUDA tensor goes to the hand-written kernel
-(ops/cuda/paged_attention.py), which launches or raises; a CPU tensor goes
-to the plain PyTorch version here.
+The routers (`paged_attention`, `paged_prefix_attention` and their int8
+forms) route by device and by nothing else: a CUDA tensor goes to the
+hand-written kernel (ops/cuda/paged_attention.py), which launches or
+raises; a CPU tensor goes to the plain PyTorch version here.
 """
 from __future__ import annotations
 
@@ -22,7 +22,10 @@ import math
 
 import torch
 
-from .cuda.paged_attention import paged_attention_cuda, paged_attention_q8_cuda
+from .cuda.paged_attention import (paged_attention_cuda,
+                                   paged_attention_q8_cuda,
+                                   paged_prefix_attention_cuda,
+                                   paged_prefix_attention_q8_cuda)
 
 _NEG_F32 = -1e30
 _NEG_LOW = -3e38
@@ -139,16 +142,22 @@ def paged_cache_write(pool, new, tables, lens):
     return pool
 
 
-def paged_prefill_write(pool, new, tables):
+def paged_prefill_write(pool, new, tables, start=None):
     """Write a whole right-padded prompt's rows into pool blocks, in place.
 
     new [B, S, ...]; position p of row b goes to block tables[b, p // bs],
-    offset p % bs. Positions past the table width go to the trash block;
-    padding inside the row's reservation is garbage the masks exclude until
-    decode overwrites it."""
+    offset p % bs. Positions past the table width go to the trash block
+    (never clipped into the last entry, where a pad column could share a
+    destination with a real one); padding inside the row's reservation is
+    garbage the masks exclude until decode overwrites it.
+
+    `start` [B] int32 (suffix prefill, chunked prefill, spec verify)
+    offsets row b's positions to start[b] + p, after its cached prefix."""
     nb, bs = pool.shape[0], pool.shape[1]
     b, s = new.shape[0], new.shape[1]
     pos = torch.arange(s, device=pool.device)[None, :].expand(b, s)
+    if start is not None:
+        pos = pos + start.to(device=pool.device, dtype=torch.int64)[:, None]
     slot = pos // bs
     bidx = torch.gather(tables.to(torch.int64), 1,
                         slot.clamp(max=tables.shape[1] - 1))
@@ -168,12 +177,13 @@ def paged_cache_write_q8(codes_pool, scale_pool, new, tables, lens):
     return codes_pool, scale_pool
 
 
-def paged_prefill_write_q8(codes_pool, scale_pool, new, tables):
-    """Quantize a padded prompt projection and write codes and scales in
-    place (the int8 form of paged_prefill_write)."""
+def paged_prefill_write_q8(codes_pool, scale_pool, new, tables,
+                           start=None):
+    """Quantize a padded prompt (or suffix) projection and write codes and
+    scales in place (the int8 form of paged_prefill_write)."""
     codes, scale = quantize_kv(new)
-    paged_prefill_write(codes_pool, codes, tables)
-    paged_prefill_write(scale_pool, scale, tables)
+    paged_prefill_write(codes_pool, codes, tables, start)
+    paged_prefill_write(scale_pool, scale, tables, start)
     return codes_pool, scale_pool
 
 
@@ -258,3 +268,66 @@ def paged_attention_q8(q, kc_pool, ks_pool, vc_pool, vs_pool, tables, lens):
                                        vs_pool, tables, lens)
     return paged_attention_reference_q8(q, kc_pool, ks_pool, vc_pool,
                                         vs_pool, tables, lens)
+
+
+# ------------------------------------ multi-token (prefix) paged attention
+
+def paged_prefix_mask(s, width, start):
+    """[B, 1, S, width] keep-mask for a query window over a paged pool:
+    query row i of batch row b sits at global position start[b] + i and
+    sees pool columns <= its own position (causal over the cached prefix
+    plus the window itself)."""
+    col = torch.arange(width, device=start.device)[None, None, None, :]
+    row = torch.arange(s, device=start.device)[None, None, :, None]
+    return col <= (start.to(torch.int64)[:, None, None, None] + row)
+
+
+def paged_prefix_attention_reference(q, k_pool, v_pool, tables, start, *,
+                                     scale=None, score_dtype=None):
+    """Plain version of the multi-token paged kernel: q [B, S, H, D] holds
+    S query tokens per row at global positions start[b] + i; the pools
+    already hold the cached prefix and the window's own K/V. Gathers the
+    table's blocks and attends under `paged_prefix_mask`. Padded query
+    rows produce garbage the caller drops."""
+    k = _paged_gather(k_pool, tables)
+    v = _paged_gather(v_pool, tables)
+    mask = paged_prefix_mask(q.shape[1], k.shape[1], start)
+    return attention_reference(q, k, v, mask=mask, scale=scale,
+                               score_dtype=score_dtype)
+
+
+def paged_prefix_attention_reference_q8(q, kc_pool, ks_pool, vc_pool,
+                                        vs_pool, tables, start):
+    """Plain version of the int8 multi-token paged kernel (gather codes
+    and scales, then attention_q8_cache under `paged_prefix_mask`)."""
+    kc = _paged_gather(kc_pool, tables)
+    ks = _paged_gather(ks_pool, tables)
+    vc = _paged_gather(vc_pool, tables)
+    vs = _paged_gather(vs_pool, tables)
+    mask = paged_prefix_mask(q.shape[1], kc.shape[1], start)
+    return attention_q8_cache(q, kc, ks, vc, vs, mask)
+
+
+def paged_prefix_attention(q, k_pool, v_pool, tables, start, *, scale=None,
+                           score_dtype=None):
+    """Ragged multi-token paged attention (suffix prefill, chunked
+    prefill, speculative verify; S = 1 with start at the token's own
+    position is decode): the CUDA kernel for CUDA tensors (f32 scores,
+    whatever `score_dtype` says), the plain version for CPU tensors."""
+    if _on_cuda(q):
+        return paged_prefix_attention_cuda(q, k_pool, v_pool, tables, start,
+                                           scale=scale)
+    return paged_prefix_attention_reference(q, k_pool, v_pool, tables,
+                                            start, scale=scale,
+                                            score_dtype=score_dtype)
+
+
+def paged_prefix_attention_q8(q, kc_pool, ks_pool, vc_pool, vs_pool,
+                              tables, start):
+    """int8 multi-token paged attention, routed like
+    paged_prefix_attention."""
+    if _on_cuda(q):
+        return paged_prefix_attention_q8_cuda(q, kc_pool, ks_pool, vc_pool,
+                                              vs_pool, tables, start)
+    return paged_prefix_attention_reference_q8(q, kc_pool, ks_pool, vc_pool,
+                                               vs_pool, tables, start)

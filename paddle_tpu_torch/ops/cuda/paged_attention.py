@@ -1,10 +1,13 @@
-"""Build, bind and launch the hand-written paged decode-attention kernels
-(`csrc/paged_attention.cu`, CUDA C++ for sm_90a).
+"""Build, bind and launch the hand-written paged-attention kernels (CUDA
+C++ for sm_90a): single-token decode (`csrc/paged_attention.cu`, kernels
+#1 and #2 of the port) and the multi-token window over a cached prefix
+(`csrc/paged_prefix_attention.cu`, kernels #3 and #4).
 
-The source is compiled at first use with `nvcc` into a shared library with
-a plain C interface under ``paddle_tpu_torch/_build/`` and loaded with
-ctypes. A source that includes PyTorch's headers takes minutes to build;
-this one takes seconds, so every run can build from the checkout.
+Each `csrc/*.cu` source is compiled at first use with `nvcc` into its own
+shared library with a plain C interface under ``paddle_tpu_torch/_build/``
+and loaded with ctypes; the sources build in parallel, one `nvcc` each. A
+source that includes PyTorch's headers takes minutes to build; these take
+seconds, so every run can build from the checkout.
 
 Each wrapper checks device, dtypes, shapes and contiguity, raises
 ValueError on what the kernel does not take, allocates the output, launches
@@ -22,18 +25,31 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"paged_attention": 0, "paged_attention_q8": 0}
+LAUNCHES = {"paged_attention": 0, "paged_attention_q8": 0,
+            "paged_prefix_attention": 0, "paged_prefix_attention_q8": 0}
 
-_lib = None
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points per library (source stem) and their argument types
+_ENTRY_POINTS = {
+    "paged_attention": {
+        "pt_paged_attention": [_p] * 6 + [_i] * 6 + [_f, _i, _p],
+        "pt_paged_attention_q8": [_p] * 8 + [_i] * 6 + [_f, _i, _p]},
+    "paged_prefix_attention": {
+        "pt_paged_prefix_attention": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
+        "pt_paged_prefix_attention_q8": [_p] * 8 + [_i] * 7 + [_f, _i, _p]},
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,58 +72,91 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernels if this source has not been built yet; returns
-    the library path. The file name carries a hash of the source and flags,
-    and the library is renamed into place only once complete, so a stale
-    or half-written build is never loaded."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libpaged_attention_{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                           f"{SOURCE.name}:\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
+def library_paths() -> Dict[str, Path]:
+    """Where each source's library lives: the file name carries a hash of
+    that source, every header beside it and the flags, so an edit to any
+    of them names a new library and a stale one is never loaded."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    out = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        key = hashlib.sha256(src.read_bytes() + headers
+                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        out[src.stem] = BUILD_DIR / f"lib{src.stem}_{key}.so"
     return out
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    global _lib
+def build() -> Dict[str, Path]:
+    """Compile every source whose library is missing, one `nvcc` per
+    source, all started together; returns {source stem: library path}.
+    Each library is renamed into place only once complete, so a
+    half-written build is never loaded. The compilers' output goes to
+    ``_build/nvcc.log``."""
+    paths = library_paths()
+    todo = [(CSRC / f"{stem}.cu", out) for stem, out in paths.items()
+            if not out.exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    log, failed = [], []
+    for src, out, tmp, cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{src.name}:\n{stderr[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load_library(name: str = "paged_attention") -> ctypes.CDLL:
+    """Build (if needed) and load the library of source `name` once per
+    process."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.pt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                               i, i, f, i, p]
-            lib.pt_paged_attention.restype = i
-            lib.pt_paged_attention_q8.argtypes = [p, p, p, p, p, p, p, p, i,
-                                                  i, i, i, i, i, f, i, p]
-            lib.pt_paged_attention_q8.restype = i
-            lib.pt_error_string.argtypes = [i]
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build()[name]))
+            for fn, argtypes in _ENTRY_POINTS[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _i
+            lib.pt_error_string.argtypes = [_i]
             lib.pt_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
 
 
-def _check_common(q, pools, tables, lens):
-    """Shared argument checks; returns (B, H, D, NB, bs, MB) and the
-    [B, 1, H, D] or [B, H, D] layout flag."""
-    if q.dim() == 4:
+def _check_common(q, pools, tables, lens, *, window=False, what="lens"):
+    """Shared argument checks; returns (B, S, H, D, NB, bs, MB). The decode
+    kernels take q [B, 1, H, D] or [B, H, D] (S = 1); the window kernels
+    (window=True) take q [B, S, H, D] and a [B] int32 `start` vector in
+    place of `lens`."""
+    if window:
+        if q.dim() != 4:
+            raise ValueError(f"q must be [B, S, H, D]; got {tuple(q.shape)}")
+        S = q.shape[1]
+        if not 1 <= S <= 8 * 65535:
+            raise ValueError(f"window length must be in [1, {8 * 65535}]; "
+                             f"got {S}")
+    elif q.dim() == 4:
         if q.shape[1] != 1:
             raise ValueError(f"paged decode kernel serves one token per row;"
                              f" got q seq len {q.shape[1]}")
+        S = 1
     elif q.dim() != 3:
         raise ValueError(f"q must be [B, 1, H, D] or [B, H, D]; got "
                          f"{tuple(q.shape)}")
+    else:
+        S = 1
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"q dtype must be float32 or bfloat16; got "
@@ -115,18 +164,19 @@ def _check_common(q, pools, tables, lens):
     if D % 32 != 0 or not 32 <= D <= 256:
         raise ValueError(f"head_dim must be a multiple of 32 in [32, 256]; "
                          f"got {D}")
-    if not 1 <= B <= 65535:
-        raise ValueError(f"batch must be in [1, 65535]; got {B}")
+    if not 1 <= B <= 65535 or H > 65535:
+        raise ValueError(f"batch and heads must be in [1, 65535]; got B={B},"
+                         f" H={H}")
     NB, bs = pools[0].shape[0], pools[0].shape[1]
     if tables.dim() != 2 or tables.shape[0] != B:
         raise ValueError(f"tables must be [B={B}, MB]; got "
                          f"{tuple(tables.shape)}")
     MB = tables.shape[1]
     if tables.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise ValueError(f"tables and lens must be int32; got "
+        raise ValueError(f"tables and {what} must be int32; got "
                          f"{tables.dtype}, {lens.dtype}")
     if tuple(lens.shape) != (B,):
-        raise ValueError(f"lens must be [B={B}]; got {tuple(lens.shape)}")
+        raise ValueError(f"{what} must be [B={B}]; got {tuple(lens.shape)}")
     # token positions are int32 in the kernel; pool offsets are int64
     if MB < 1 or MB * bs >= 2 ** 31:
         raise ValueError(f"table extent out of int32 range: MB={MB}, "
@@ -143,13 +193,49 @@ def _check_common(q, pools, tables, lens):
         if t.data_ptr() % 16:
             raise ValueError("paged attention operands must be 16-byte "
                              "aligned")
-    return B, H, D, NB, bs, MB
+    return B, S, H, D, NB, bs, MB
 
 
-def _raise_on(rc: int, lib, name: str):
+def _check_pools(q, pools, NB, bs, H, D):
+    """fp pools (k, v) in q's dtype, or int8 pools (k codes, k scales,
+    v codes, v scales)."""
+    if len(pools) == 2:
+        for p in pools:
+            if p.dtype != q.dtype or tuple(p.shape) != (NB, bs, H, D):
+                raise ValueError(f"pools must be [NB, bs, H={H}, D={D}] in "
+                                 f"{q.dtype}; got {tuple(p.shape)} "
+                                 f"{p.dtype}")
+        return
+    for p in pools[0::2]:
+        if p.dtype != torch.int8 or tuple(p.shape) != (NB, bs, H, D):
+            raise ValueError(f"code pools must be int8 [NB, bs, H={H}, "
+                             f"D={D}]; got {tuple(p.shape)} {p.dtype}")
+    for p in pools[1::2]:
+        if p.dtype != torch.float32 or tuple(p.shape) != (NB, bs, H):
+            raise ValueError(f"scale pools must be float32 [NB, bs, H={H}]"
+                             f"; got {tuple(p.shape)} {p.dtype}")
+
+
+def _launch(lib_name, fn, counter, q, pools, tables, vec, scale, window):
+    """Check, launch `fn` of library `lib_name` over (q, *pools, tables,
+    vec, out, shapes), count the launch; returns out."""
+    B, S, H, D, NB, bs, MB = _check_common(
+        q, pools, tables, vec, window=window,
+        what="start" if window else "lens")
+    _check_pools(q, pools, NB, bs, H, D)
+    lib = load_library(lib_name)
+    out = torch.empty_like(q)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    shapes = (B, S, H, D, NB, bs, MB) if window else (B, H, D, NB, bs, MB)
+    rc = getattr(lib, fn)(
+        q.data_ptr(), *(p.data_ptr() for p in pools), tables.data_ptr(),
+        vec.data_ptr(), out.data_ptr(), *shapes, scale,
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         msg = lib.pt_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"{counter} kernel launch failed: {msg} ({rc})")
+    LAUNCHES[counter] += 1
+    return out
 
 
 def paged_attention_cuda(q, k_pool, v_pool, tables, lens, *, scale=None):
@@ -157,22 +243,9 @@ def paged_attention_cuda(q, k_pool, v_pool, tables, lens, *, scale=None):
     (or [B, H, D]) fp32/bf16; pools [NB, bs, H, D] in q's dtype; tables
     [B, MB] int32; lens [B] int32 attendable rows. Returns q's layout and
     dtype; rows with lens == 0 are zeros."""
-    B, H, D, NB, bs, MB = _check_common(q, (k_pool, v_pool), tables, lens)
-    for p in (k_pool, v_pool):
-        if p.dtype != q.dtype or tuple(p.shape) != (NB, bs, H, D):
-            raise ValueError(f"pools must be [NB, bs, H={H}, D={D}] in "
-                             f"{q.dtype}; got {tuple(p.shape)} {p.dtype}")
-    lib = load_library()
-    out = torch.empty_like(q)
-    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    rc = lib.pt_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, D, NB, bs, MB, scale, _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, lib, "paged_attention")
-    LAUNCHES["paged_attention"] += 1
-    return out
+    return _launch("paged_attention", "pt_paged_attention",
+                   "paged_attention", q, (k_pool, v_pool), tables, lens,
+                   scale, window=False)
 
 
 def paged_attention_q8_cuda(q, kc_pool, ks_pool, vc_pool, vs_pool, tables,
@@ -180,25 +253,30 @@ def paged_attention_q8_cuda(q, kc_pool, ks_pool, vc_pool, vs_pool, tables,
     """Kernel route of `ops.attention.paged_attention_q8`: code pools int8
     [NB, bs, H, D], scale pools f32 [NB, bs, H]; otherwise as
     `paged_attention_cuda`."""
-    pools = (kc_pool, ks_pool, vc_pool, vs_pool)
-    B, H, D, NB, bs, MB = _check_common(q, pools, tables, lens)
-    for p in (kc_pool, vc_pool):
-        if p.dtype != torch.int8 or tuple(p.shape) != (NB, bs, H, D):
-            raise ValueError(f"code pools must be int8 [NB, bs, H={H}, "
-                             f"D={D}]; got {tuple(p.shape)} {p.dtype}")
-    for p in (ks_pool, vs_pool):
-        if p.dtype != torch.float32 or tuple(p.shape) != (NB, bs, H):
-            raise ValueError(f"scale pools must be float32 [NB, bs, H={H}]"
-                             f"; got {tuple(p.shape)} {p.dtype}")
-    lib = load_library()
-    out = torch.empty_like(q)
-    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    rc = lib.pt_paged_attention_q8(
-        q.data_ptr(), kc_pool.data_ptr(), ks_pool.data_ptr(),
-        vc_pool.data_ptr(), vs_pool.data_ptr(), tables.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, H, D, NB, bs, MB, scale,
-        _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, lib, "paged_attention_q8")
-    LAUNCHES["paged_attention_q8"] += 1
-    return out
+    return _launch("paged_attention", "pt_paged_attention_q8",
+                   "paged_attention_q8", q,
+                   (kc_pool, ks_pool, vc_pool, vs_pool), tables, lens, scale,
+                   window=False)
+
+
+def paged_prefix_attention_cuda(q, k_pool, v_pool, tables, start, *,
+                                scale=None):
+    """Kernel route of `ops.attention.paged_prefix_attention`: q
+    [B, S, H, D] fp32/bf16, query row i of batch row b at global position
+    start[b] + i (start >= 0); pools [NB, bs, H, D] in q's dtype; tables
+    [B, MB] int32; start [B] int32. Row i attends pool columns
+    <= start[b] + i below MB * bs. Returns [B, S, H, D] in q's dtype."""
+    return _launch("paged_prefix_attention", "pt_paged_prefix_attention",
+                   "paged_prefix_attention", q, (k_pool, v_pool), tables,
+                   start, scale, window=True)
+
+
+def paged_prefix_attention_q8_cuda(q, kc_pool, ks_pool, vc_pool, vs_pool,
+                                   tables, start, *, scale=None):
+    """Kernel route of `ops.attention.paged_prefix_attention_q8`: code
+    pools int8 [NB, bs, H, D], scale pools f32 [NB, bs, H]; otherwise as
+    `paged_prefix_attention_cuda`."""
+    return _launch("paged_prefix_attention", "pt_paged_prefix_attention_q8",
+                   "paged_prefix_attention_q8", q,
+                   (kc_pool, ks_pool, vc_pool, vs_pool), tables, start,
+                   scale, window=True)

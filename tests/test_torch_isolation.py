@@ -110,3 +110,48 @@ def test_cuda_wrapper_rejects_bad_tables_and_lens():
     with pytest.raises(ValueError, match="one token"):
         cuda_pa.paged_attention_q8_cuda(q.expand(2, 3, 2, 64), kp, None, vp,
                                         None, tables, lens)
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(q_shape=(2, 2, 64)), r"\[B, S, H, D\]"),
+    (dict(start_dtype=torch.int64), "tables and start must be int32"),
+    (dict(start_len=1), "start must be"),
+    (dict(D=96 + 8), "multiple of 32"),
+    ({}, "needs CUDA tensors"),
+])
+def test_prefix_wrapper_rejects_what_the_kernel_does_not_take(change,
+                                                              match):
+    D = change.get("D", 64)
+    q = torch.zeros(change.get("q_shape", (2, 3, 2, D)))
+    pool = torch.zeros(5, 4, 2, D)
+    tables = torch.zeros(2, 2, dtype=torch.int32)
+    start = torch.zeros(change.get("start_len", 2),
+                        dtype=change.get("start_dtype", torch.int32))
+    with pytest.raises(ValueError, match=match):
+        cuda_pa.paged_prefix_attention_cuda(q, pool, pool.clone(), tables,
+                                            start)
+    with pytest.raises(ValueError, match=match):
+        cuda_pa.paged_prefix_attention_q8_cuda(
+            q, pool.to(torch.int8), pool[..., 0], pool.to(torch.int8),
+            pool[..., 0], tables, start)
+    assert cuda_pa.LAUNCHES["paged_prefix_attention"] == 0
+    assert cuda_pa.LAUNCHES["paged_prefix_attention_q8"] == 0
+
+
+def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
+    """Each csrc/*.cu gets its own library, named by a hash of that source,
+    the headers and the flags: editing one source renames its library
+    only."""
+    for src in cuda_pa.CSRC.glob("*.cu"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda_pa, "CSRC", tmp_path)
+    before = cuda_pa.library_paths()
+    assert set(before) == {"paged_attention", "paged_prefix_attention"}
+    assert set(before) == set(cuda_pa._ENTRY_POINTS)
+    src = tmp_path / "paged_prefix_attention.cu"
+    src.write_text(src.read_text() + "\n// edit\n")
+    after = cuda_pa.library_paths()
+    assert after["paged_prefix_attention"] != before["paged_prefix_attention"]
+    assert after["paged_attention"] == before["paged_attention"]
+    (tmp_path / "common.cuh").write_text("// shared header\n")
+    assert set(cuda_pa.library_paths().values()).isdisjoint(after.values())

@@ -135,12 +135,13 @@ def test_engine_eos_early_exit(models):
         r.n_out for r in got.values())
 
 
-@pytest.mark.parametrize("field, value", [
-    ("prefix_cache", True), ("spec_decode", True), ("prefill_chunk", 4),
-    ("shards", 2), ("weight_dtype", "int8")])
-def test_later_slice_options_raise(field, value):
+@pytest.mark.parametrize("field, extra", [
+    ("spill_host_bytes", dict(spill_host_bytes=1 << 20, prefix_cache=True)),
+    ("lint", dict(lint=True)), ("shards", dict(shards=2)),
+    ("weight_dtype", dict(weight_dtype="int8"))])
+def test_later_slice_options_raise(field, extra):
     with pytest.raises(NotImplementedError, match=field):
-        pt.ServingConfig(**_config(**{field: value}))
+        pt.ServingConfig(**_config(**extra))
 
 
 def test_padded_engine_is_not_ported(models):
