@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the hand-written paged-attention
-kernels from the checkout's sources (one nvcc per source, in parallel),
-holds each against its plain PyTorch version (phase 2), checks engine
-parity between the kernel route and the plain route on the card, for the
-plain paged engine and for the prefix-cache + chunked-prefill +
-speculative engine (phase 3), serves gpt3-1.3b (24 layers, bf16, seeded
-random weights) through the paged ServingEngine with an fp and an int8 KV
-pool (phase 4), then through the prefix-cache, speculative-decode and
-chunked-prefill paths (phase 5). Each phase prints one JSON line; any
-failure exits non-zero. The line before the last is the card's name and
+Run from the root of a checkout. It builds the hand-written kernels from
+the checkout's sources (one nvcc per source, in parallel): the
+paged-attention kernels #1-#4 and the weight-only int8 GEMM #5. It holds
+each against its plain PyTorch version (phase 2), checks parity between
+the kernel route and the plain route on the card for the paged engine, the
+prefix-cache + chunked-prefill + speculative engine, static decode, the
+padded engine, the paged engine with int8 weights and the model-drafted
+spec engine (phase 3), serves gpt3-1.3b (24 layers, bf16, seeded random
+weights) through the paged ServingEngine with an fp and an int8 KV pool
+(phase 4), then through the prefix-cache, speculative-decode and
+chunked-prefill paths (phase 5), then through static decode (bf16, int8
+weights, int8 weights + int8 KV), the padded engine, the paged engine with
+int8 weights and a spec engine drafted by gpt3-125m (phase 6). Each phase
+prints one JSON line; any failure exits non-zero. The line before the last is the card's name and
 power limit from nvidia-smi; the last line is {"ok": true, "device":
 {...}} with the number of devices the smoke used. Without a CUDA device,
 or without the package beside it, it exits 2 and prints no result.
@@ -38,6 +42,7 @@ KERNEL_SOURCE = {
     "paged_attention_q8": CSRC + "paged_attention.cu",
     "paged_prefix_attention": CSRC + "paged_prefix_attention.cu",
     "paged_prefix_attention_q8": CSRC + "paged_prefix_attention.cu",
+    "int8_matmul": CSRC + "int8_matmul.cu",
 }
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:383",
@@ -45,7 +50,21 @@ REPLACES = {
     "paged_prefix_attention": "paddle_tpu/ops/pallas/paged_attention.py:306",
     "paged_prefix_attention_q8":
         "paddle_tpu/ops/pallas/paged_attention.py:344",
+    "int8_matmul": "paddle_tpu/ops/pallas/int8_matmul.py:62",
 }
+# kernel #5 at gpt3-1.3b widths: (K, N) of each projection, layout "nk"
+# (the port's [out, in] payloads), at M = a decode step (8), a spec_k=8
+# verify window (72), one paged prefill (128) and a static prefill of
+# 8 x 128 (1024); the LM head at a decode step and a paged prefill; the
+# "kn" layout at the decode qkv shape; a ragged shape
+GEMM_WIDTHS = {"qkv": (2048, 6144), "out": (2048, 2048), "up": (2048, 8192),
+               "down": (8192, 2048)}
+GEMM_CASES = ([(m, name, k, n, "nk") for m in (8, 72, 128, 1024)
+               for name, (k, n) in GEMM_WIDTHS.items()]
+              + [(m, "lm_head", 2048, 50304, "nk") for m in (8, 128)]
+              + [(8, "qkv_kn", 2048, 6144, "kn"), (3, "ragged", 48, 100,
+                                                    "nk")])
+GEMM_LINE = (8, "qkv")             # the case the kernels line reports
 # the main path's decode shapes: gpt3-1.3b heads, ServingConfig(max_batch=8,
 # prompt_cap=128, max_new_tokens=128, kv_block=16) -> 16-block table rows
 # and 8 * 16 + 1 pool blocks
@@ -149,13 +168,13 @@ def gathered(torch, q, pools, tables, q8):
     """q, K and V as [B, H, *, D] for scaled_dot_product_attention: the
     table gathered into contiguous K and V (int8 pools dequantized into
     q's dtype first)."""
-    from paddle_tpu_torch.ops.attention import _paged_gather
+    from paddle_tpu_torch.ops.attention import _paged_gather, dequantize_kv
     if q8:
         kc, ks, vc, vs = pools
-        k = (_paged_gather(kc, tables).float()
-             * _paged_gather(ks, tables)[..., None]).to(q.dtype)
-        v = (_paged_gather(vc, tables).float()
-             * _paged_gather(vs, tables)[..., None]).to(q.dtype)
+        k = dequantize_kv(_paged_gather(kc, tables),
+                          _paged_gather(ks, tables), q.dtype)
+        v = dequantize_kv(_paged_gather(vc, tables),
+                          _paged_gather(vs, tables), q.dtype)
     else:
         k, v = _paged_gather(pools[0], tables), _paged_gather(pools[1],
                                                               tables)
@@ -385,13 +404,87 @@ def phase_prefix_kernels(torch, device, card):
     return results
 
 
+# --------------------------------------- phase 2: the int8 GEMM (#5)
+def gemm_inputs(torch, device, m, k, n, layout, dtype):
+    """x [m, k] at the scale of tests/test_int8_matmul.py (x*0.3, w*0.1),
+    w quantized per output channel as the model's payload is."""
+    g = torch.Generator(device=device).manual_seed(m * 7 + n)
+    x = (torch.randn(m, k, generator=g, device=device) * 0.3).to(dtype)
+    w = torch.randn(n, k, generator=g, device=device) * 0.1
+    s = (w.abs().amax(dim=1, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+    if layout == "kn":
+        q = q.t().contiguous()
+    return x, q, s.reshape(-1).contiguous()
+
+
+def gemm_bound(m, k, n, dtype):
+    """x, the int8 weight, the scales and y each moved once, against 2MKN
+    operations at the peak for x's type (bf16 tensor cores, f32 CUDA
+    cores)."""
+    item = 2 if str(dtype).endswith("bfloat16") else 4
+    by_bytes = (item * m * k + k * n + 4 * n + item * m * n) \
+        / HBM_BYTES_PER_S * 1e3
+    peak = TENSOR_FLOPS_PER_S if item == 2 else F32_FLOPS_PER_S
+    by_ops = 2 * m * k * n / peak * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def phase_int8_matmul(torch, device, card):
+    """Kernel #5 against its plain version at every GEMM shape of the
+    slice's paths, bf16 and f32; times of kernel, plain version and the
+    yardstick (one torch.matmul on the weight dequantized into x's dtype
+    beforehand, so it reads twice the weight bytes)."""
+    from paddle_tpu_torch.ops.cuda import int8_matmul as KM
+    from paddle_tpu_torch.ops.int8_matmul import int8_matmul_reference
+    run = timer(torch, device)
+    rows, line = [], None
+    for m, name, k, n, layout in GEMM_CASES:
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+            x, q, s = gemm_inputs(torch, device, m, k, n, layout, dtype)
+
+            def kern():
+                return KM.int8_matmul_cuda(x, q, s, w_layout=layout)
+
+            def plain():
+                return int8_matmul_reference(x, q, s, layout)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            close = torch.allclose(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+            row = {"shape": name, "M": m, "K": k, "N": n, "layout": layout,
+                   "dtype": str(dtype).split(".")[-1], "tol": tol,
+                   "max_abs_err": err, "allclose": close}
+            check(close and bool(torch.isfinite(got.float()).all()),
+                  f"int8_matmul {row}: kernel disagrees with its plain "
+                  f"version")
+            wq = q.float() if layout == "kn" else q.float().t()
+            wd = (wq * s).to(dtype)           # dequantized, outside timing
+            bms, by = gemm_bound(m, k, n, dtype)
+            row.update(ms=run(kern), plain_ms=run(plain),
+                       library_ms=run(lambda: torch.matmul(x, wd)),
+                       bound_ms=bms, bound_by=by)
+            del wd
+            rows.append(row)
+            if (m, name) == GEMM_LINE and dtype == torch.bfloat16:
+                line = row
+    emit({"phase": "int8_matmul_vs_plain", "ok": True, "card": card,
+          "timing": "median of 50 launches, CUDA events, L2 flushed",
+          "cases": rows})
+    return {"int8_matmul": line}
+
+
 # ------------------------------------------- phase 3: engine parity
 @contextlib.contextmanager
 def plain_route():
-    """Test-only, this phase only: the model's attention calls the plain
-    PyTorch versions on the card instead of the kernels. It swaps the names
-    gpt.py imported; nothing in the package offers this."""
+    """Test-only, this phase only: the model's attention and int8 GEMM
+    calls run the plain PyTorch versions on the card instead of the
+    kernels. It swaps the names gpt.py and ops/int8_matmul.py look up;
+    nothing in the package offers this."""
     import paddle_tpu_torch.models.gpt as G
+    import paddle_tpu_torch.ops.int8_matmul as M
     from paddle_tpu_torch.ops import attention as A
     names = ("paged_attention", "paged_attention_q8",
              "paged_prefix_attention", "paged_prefix_attention_q8")
@@ -400,11 +493,15 @@ def plain_route():
         setattr(G, n, getattr(A, n + "_reference")
                 if not n.endswith("q8")
                 else getattr(A, n[:-3] + "_reference_q8"))
+    mm = M.int8_matmul
+    M.int8_matmul = lambda x, q, s, *, w_layout="kn": \
+        M.int8_matmul_reference(x, q, s, w_layout)
     try:
         yield
     finally:
         for n, fn in saved.items():
             setattr(G, n, fn)
+        M.int8_matmul = mm
 
 
 def serve(torch, model, cfg_kw, prompts, warm=False):
@@ -420,10 +517,12 @@ def serve(torch, model, cfg_kw, prompts, warm=False):
     return [r.tokens for r in reqs], eng
 
 
-def divergences(torch, model, device, prompts, chains_a, chains_b):
+def divergences(torch, model, device, prompts, chains_a, chains_b,
+                weight_dtype=None):
     """For each request whose chains differ: the first differing position
     and the argmax margin there, from a cache-free forward of the prompt
-    plus the common prefix (a margin near 0 is a near-tie)."""
+    plus the common prefix (a margin near 0 is a near-tie), with the
+    weights the chains were served with."""
     import numpy as np
     out = []
     for i, (a, b) in enumerate(zip(chains_a, chains_b)):
@@ -432,7 +531,8 @@ def divergences(torch, model, device, prompts, chains_a, chains_b):
         j = int(np.nonzero(a != b)[0][0])
         seq = np.concatenate([prompts[i], a[:j]])[None]
         with torch.no_grad():
-            logits = model(torch.from_numpy(seq).to(device))[0, -1]
+            logits = model(torch.from_numpy(seq).to(device),
+                           q8=model._q8(weight_dtype))[0, -1]
         out.append({"request": i, "position": j,
                     "argmax_margin": abs(float(logits[int(a[j])]
                                                - logits[int(b[j])]))})
@@ -448,7 +548,7 @@ def phase_engine_parity(torch, device, card):
     divergence below 1e-3."""
     from paddle_tpu_torch import GPTForCausalLM, gpt_config, \
         repeated_traffic, synthetic_traffic
-    from paddle_tpu_torch.ops.cuda import paged_attention as K
+    from paddle_tpu_torch.ops.cuda import build as KB
     cfg = gpt_config("gpt3-1.3b", num_layers=2)
     model = GPTForCausalLM(cfg, device=device, dtype=torch.float32, seed=1)
     out = {"phase": "engine_parity", "card": card,
@@ -468,13 +568,13 @@ def phase_engine_parity(torch, device, card):
             kw = dict(max_batch=8, prompt_cap=128, max_new_tokens=32,
                       decode_chunk=8, paged=True, cache_dtype=cache_dtype,
                       **extra)
-            K.reset_launch_counts()
+            KB.reset_launch_counts()
             kern, eng = serve(torch, model, kw, prompts, warm)
-            launches = dict(K.LAUNCHES)
-            K.reset_launch_counts()
+            launches = dict(KB.LAUNCHES)
+            KB.reset_launch_counts()
             with plain_route():
                 plain, _ = serve(torch, model, kw, prompts, warm)
-            check(sum(K.LAUNCHES.values()) == 0,
+            check(sum(KB.LAUNCHES.values()) == 0,
                   "plain route launched a kernel")
             q8 = "_q8" if cache_dtype else ""
             names = ["paged_attention" + q8]
@@ -513,8 +613,84 @@ def phase_engine_parity(torch, device, card):
                     "equal_chains": len(prompts) - len(tdiv),
                     "diverged": tdiv}
             out[leg][str(cache_dtype)] = res
+    out["ok"] = True
+    emit(out)
+    phase_slice3_parity(torch, model, device, card, legs[0][1])
     del model
     torch.cuda.empty_cache()
+
+
+def phase_slice3_parity(torch, model, device, card, prompts):
+    """Kernel route against plain route for the slice-3 paths on phase 3's
+    model and its 8 longtail prompts, weights quantized by the default
+    rule: generate_static_ragged and the padded engine with int8 weights
+    (fp and int8 KV), the paged engine with int8 weights (fp and int8
+    KV), and a spec engine drafted by the target itself. Chains must be
+    equal, or the argmax margin at the first divergence below 1e-3; #5
+    must launch in every leg."""
+    import numpy as np
+    from paddle_tpu_torch import model_draft_fn
+    from paddle_tpu_torch.ops.cuda import build as KB
+    cap, new = 128, 32
+    ids = np.zeros((len(prompts), cap), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    lens = [len(p) for p in prompts]
+    base = dict(max_batch=8, prompt_cap=cap, max_new_tokens=new,
+                decode_chunk=8, weight_dtype="int8")
+
+    def static(cache_dtype):
+        out = model.generate_static_ragged(
+            ids, lens, max_new_tokens=new, weight_dtype="int8",
+            cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        return list(out[:, cap:].cpu().numpy()), None
+
+    legs = []
+    for cd in (None, "int8"):
+        q8 = "_q8" if cd else ""
+        legs += [
+            (f"static_{cd}", lambda cd=cd: static(cd), ["int8_matmul"]),
+            (f"padded_{cd}", lambda cd=cd: serve(
+                torch, model, dict(base, cache_dtype=cd), prompts),
+             ["int8_matmul"]),
+            (f"paged_{cd}", lambda cd=cd: serve(
+                torch, model, dict(base, paged=True, cache_dtype=cd),
+                prompts), ["int8_matmul", "paged_attention" + q8])]
+    legs.append(("model_draft", lambda: serve(
+        torch, model, dict(base, paged=True, spec_decode=True, spec_k=4,
+                           spec_draft=model_draft_fn(model, window=32)),
+        prompts), ["int8_matmul", "paged_prefix_attention"]))
+    out = {"phase": "engine_parity_slice3", "card": card,
+           "model": cfg_line(model.config, "float32"),
+           "requests": len(prompts), "tokens_each": new}
+    for leg, run, expect in legs:
+        KB.reset_launch_counts()
+        kern, eng = run()
+        launches = dict(KB.LAUNCHES)
+        KB.reset_launch_counts()
+        with plain_route():
+            plain, _ = run()
+        check(sum(KB.LAUNCHES.values()) == 0,
+              f"{leg}: the plain route launched a kernel")
+        for name in expect:
+            check(launches[name] > 0,
+                  f"{leg}: the kernel route never launched {name}")
+        diverged = divergences(torch, model, device, prompts, kern, plain,
+                               "int8")
+        for d in diverged:
+            check(d["argmax_margin"] < 1e-3,
+                  f"{leg}: greedy chains diverge: {d}")
+        res = {"equal_chains": len(prompts) - len(diverged),
+               "diverged": diverged, "kernel_launches": launches}
+        if leg == "model_draft":
+            c = eng.metrics.counters
+            check(c["spec_drafts_model"] > 0,
+                  f"model_draft: no window was drafted: {c}")
+            res.update(spec_windows=c["spec_windows"],
+                       spec_accepted=c["spec_accepted"],
+                       spec_proposed=c["spec_proposed"])
+        out[leg] = res
     out["ok"] = True
     emit(out)
 
@@ -525,28 +701,34 @@ def cfg_line(cfg, dtype):
 
 
 # -------------------------------------------- phase 4: the main path
-def run_traffic(torch, eng, prompts, *, expect=(), want=128):
+def run_traffic(torch, eng, prompts, *, expect=(), want=128, occ=None):
     """The measured run: launch counts and peak memory reset just before
     it, every prompt submitted with the queue kept below max_batch, the
     engine stepped until idle. Checks every request finished `done` with
     `want` tokens in range and every kernel in `expect` launched. Returns
-    (requests, seconds, launches, peak bytes)."""
-    from paddle_tpu_torch.ops.cuda import paged_attention as K
+    (requests, seconds, launches, peak bytes); `occ`, a list, receives
+    the kv_occupancy gauge after every step."""
+    from paddle_tpu_torch.ops.cuda import build as KB
     vocab = eng.model.config.vocab_size
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
+    KB.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = []
+    def step():
+        eng.step()
+        if occ is not None and eng.metrics.gauges["kv_occupancy"] \
+                is not None:
+            occ.append(eng.metrics.gauges["kv_occupancy"])
     for p in prompts:
         reqs.append(eng.submit(p))
         while eng.queue_depth >= eng.config.max_batch:
-            eng.step()
+            step()
     while eng.busy:
-        eng.step()
+        step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(K.LAUNCHES)
+    counts = dict(KB.LAUNCHES)
     for name in expect:
         check(counts[name] > 0, f"the run never launched {name}")
     check(all(r.status == "done" for r in reqs),
@@ -591,11 +773,14 @@ def phase_serving(torch, model, card, launches):
         eng.drain()
         eng.metrics = ServingMetrics()
         name = "paged_attention_q8" if cache_dtype else "paged_attention"
+        occ = []
         reqs, dt, counts, peak = run_traffic(
-            torch, eng, [t["prompt"] for t in traffic], expect=[name])
+            torch, eng, [t["prompt"] for t in traffic], expect=[name],
+            occ=occ)
         add_launches(launches, counts)
         runs[str(cache_dtype)] = {
             "requests": len(reqs), **latency_line(eng.summary(), dt),
+            "kv_occupancy_mean": sum(occ) / len(occ),
             "e2e_p50_s": eng.summary()["e2e_seconds"]["p50"],
             "peak_mem_bytes": peak, "kernel_launches": counts,
             "attention_launches_per_decode_step": cfg.num_layers,
@@ -611,24 +796,33 @@ def phase_serving(torch, model, card, launches):
     prof = profile_decode(torch, model, traffic)
     emit({"phase": "profile_decode_chunk", "ok": True, "card": card,
           **prof})
+    return runs
 
 
 def profile_decode(torch, model, traffic):
     """Device busy share and the largest kernels over one engine step of
     the main path (8 admissions plus one 32-step decode chunk)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import ServingConfig, ServingEngine
     eng = ServingEngine(model, ServingConfig(
         max_batch=8, prompt_cap=128, max_new_tokens=128, decode_chunk=32,
         paged=True))
     for item in traffic[:8]:
         eng.submit(item["prompt"])
+    out = profile_call(torch, eng.step)
+    eng.drain()
+    return out
+
+
+def profile_call(torch, fn):
+    """Wall time, device busy time and share, and the largest kernels of
+    one call of fn under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -643,10 +837,11 @@ def profile_decode(torch, model, traffic):
               if e.device_type == DeviceType.CUDA]
     busy_us = sum(t for _, t, _ in events)
     top = sorted(events, key=lambda x: -x[1])[:8]
-    eng.drain()
     return {"wall_s": wall,
             "device_busy_s": busy_us / 1e6 if busy_us else None,
             "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
+            "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us
+            else None,
             "top_device_ops": [{"op": k, "device_ms": t / 1e3, "count": c}
                                for k, t, c in top]}
 
@@ -764,6 +959,133 @@ def phase_prefix_spec(torch, model, card, launches):
     emit(out)
 
 
+# ------------------------------------ phase 6: slice 3 at full width
+def phase_slice3(torch, model, card, launches, paged_runs):
+    """gpt3-1.3b bf16 through the slice-3 paths: bench_decode's static
+    configuration (B=8, prompt 128, 128 new tokens, generate_static) with
+    bf16 weights, int8 weights, and int8 weights + int8 KV, each one warm
+    call then the best of 2, and one decode step of the first two under
+    the profiler; phase 4's traffic through the padded engine and through
+    the paged engine with int8 weights; a spec engine drafted by a seeded
+    gpt3-125m on 8 repeated requests."""
+    import numpy as np
+    from paddle_tpu_torch import (GPTForCausalLM, ServingConfig,
+                                  ServingEngine, ServingMetrics, gpt_config,
+                                  model_draft_fn, repeated_traffic,
+                                  synthetic_traffic)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    cfg = model.config
+    vocab = cfg.vocab_size
+    out = {"phase": "slice3_gpt3_1.3b", "card": card,
+           "model": cfg_line(cfg, "bfloat16")}
+
+    # -- static_gpt3_1.3b
+    B, P, NEW = 8, 128, 128
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (B, P)).astype(np.int64)).to(model.device)
+    legs = {}
+    for leg, kw in (("bf16", {}), ("w8", dict(weight_dtype="int8")),
+                    ("w8_kv8", dict(weight_dtype="int8",
+                                    cache_dtype="int8"))):
+        model.generate_static(ids, max_new_tokens=NEW, **kw)   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launch_counts()
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            toks = model.generate_static(ids, max_new_tokens=NEW, **kw)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        counts = dict(KB.LAUNCHES)
+        add_launches(launches, counts)
+        check(toks.shape == (B, P + NEW) and int(toks.min()) >= 0
+              and int(toks.max()) < vocab, f"static {leg}: bad tokens")
+        if kw:
+            # a forward runs 4 GEMMs per layer and the LM head on #5
+            check(counts["int8_matmul"] == 2 * NEW * (4 * cfg.num_layers
+                                                      + 1),
+                  f"static {leg}: int8_matmul launched "
+                  f"{counts['int8_matmul']} times")
+        legs[leg] = {"tokens_per_s": B * NEW / best, "seconds": best,
+                     "ms_per_step": best / NEW * 1e3,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "kernel_launches": counts}
+    for leg, kw in (("bf16", {}), ("w8", dict(weight_dtype="int8"))):
+        st = model.prefill_static(ids, P + NEW, **kw)
+        _, st = model.decode_static(st, 1, return_state=True,
+                                    donate_cache=True)
+        legs[leg]["profile_decode_step"] = profile_call(
+            torch, lambda: model.decode_static(st, 1, return_state=True,
+                                               donate_cache=True))
+        del st
+    out["static"] = {"config": {"B": B, "prompt": P, "new": NEW,
+                                "prompts": "np.random.RandomState(0)",
+                                "timing": "one warm call, best of 2"},
+                     "legs": legs}
+
+    # -- padded_gpt3_1.3b and paged_w8_gpt3_1.3b: phase 4's traffic
+    traffic = [t["prompt"] for t in synthetic_traffic(
+        24, prompt_cap=128, vocab_size=vocab, rate=1e9, seed=3,
+        length_dist="longtail")]
+    base = dict(max_batch=8, prompt_cap=128, max_new_tokens=128,
+                decode_chunk=32)
+    for leg, kw, expect in (
+            ("padded", dict(paged=False), []),
+            ("paged_w8", dict(paged=True, weight_dtype="int8"),
+             ["int8_matmul", "paged_attention"])):
+        eng = ServingEngine(model, ServingConfig(**base, **kw))
+        for p in traffic[:2]:
+            eng.submit(p, max_new_tokens=33)
+        eng.drain()
+        eng.metrics = ServingMetrics()
+        occ = []
+        reqs, dt, counts, peak = run_traffic(torch, eng, traffic,
+                                             expect=expect, occ=occ)
+        add_launches(launches, counts)
+        out[leg] = {"config": {**base, **kw, "requests": 24,
+                               "traffic": "synthetic_traffic longtail "
+                                          "seed=3"},
+                    "run": {"requests": len(reqs),
+                            **latency_line(eng.summary(), dt),
+                            "kv_occupancy_mean": sum(occ) / len(occ),
+                            "peak_mem_bytes": peak,
+                            "kernel_launches": counts}}
+    out["padded"]["kv_occupancy_mean_paged_phase4"] = \
+        paged_runs["None"]["kv_occupancy_mean"]
+
+    # -- spec_draft_gpt3_1.3b: drafts from a seeded gpt3-125m
+    drafter = GPTForCausalLM(gpt_config("gpt3-125m"), device=model.device,
+                             dtype=torch.bfloat16, seed=7)
+    repeat = [t["prompt"] for t in repeated_traffic(
+        8, n_prompts=4, prompt_len=128, vocab_size=vocab, rate=1e9, seed=3)]
+    eng = ServingEngine(model, ServingConfig(
+        **base, paged=True, spec_decode=True, spec_k=4,
+        spec_draft=model_draft_fn(drafter, window=32)))
+    eng.submit(repeat[0], max_new_tokens=9)
+    eng.drain()
+    eng.metrics = ServingMetrics()
+    reqs, dt, counts, peak = run_traffic(
+        torch, eng, repeat, expect=["paged_prefix_attention"])
+    add_launches(launches, counts)
+    c = eng.metrics.counters
+    check(c["spec_drafts_model"] > 0, f"spec_draft: no drafted window: {c}")
+    out["spec_draft"] = {
+        "config": {**base, "paged": True, "spec_k": 4,
+                   "drafter": "gpt3-125m bf16 seed 7, window 32",
+                   "requests": 8, "traffic": "repeated_traffic 4x128 "
+                                             "seed=3"},
+        "run": {"requests": len(reqs), **latency_line(eng.summary(), dt),
+                "spec_windows": c["spec_windows"],
+                "accept_rate": c["spec_accepted"] / c["spec_proposed"]
+                if c["spec_proposed"] else None,
+                "peak_mem_bytes": peak, "kernel_launches": counts}}
+    del drafter
+    torch.cuda.empty_cache()
+    out["ok"] = True
+    emit(out)
+
+
 def main() -> int:
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: paddle_tpu_torch/ not found beside this "
@@ -781,13 +1103,13 @@ def main() -> int:
     card = card_line()
     t_start = time.perf_counter()
 
-    from paddle_tpu_torch.ops.cuda import paged_attention as K
+    from paddle_tpu_torch.ops.cuda import build as KB
     t0 = time.perf_counter()
-    libs = K.build()
+    libs = KB.build()
     for name in libs:
-        K.load_library(name)
-    log = (K.BUILD_DIR / "nvcc.log").read_text() if \
-        (K.BUILD_DIR / "nvcc.log").exists() else ""
+        KB.load_library(name)
+    log = (KB.BUILD_DIR / "nvcc.log").read_text() if \
+        (KB.BUILD_DIR / "nvcc.log").exists() else ""
     emit({"phase": "build", "ok": True, "card": card,
           "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libs.values()],
@@ -798,17 +1120,20 @@ def main() -> int:
 
     kern = phase_kernels(torch, device, card)
     kern.update(phase_prefix_kernels(torch, device, card))
+    kern.update(phase_int8_matmul(torch, device, card))
     phase_engine_parity(torch, device, card)
     from paddle_tpu_torch import GPTForCausalLM, gpt_config
     model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=device,
                            dtype=torch.bfloat16, seed=0)
     launches = {}
-    phase_serving(torch, model, card, launches)
+    paged_runs = phase_serving(torch, model, card, launches)
     phase_prefix_spec(torch, model, card, launches)
+    phase_slice3(torch, model, card, launches, paged_runs)
 
     rows = []
     for name in ("paged_attention", "paged_attention_q8",
-                 "paged_prefix_attention", "paged_prefix_attention_q8"):
+                 "paged_prefix_attention", "paged_prefix_attention_q8",
+                 "int8_matmul"):
         r = kern[name]
         check(launches.get(name, 0) > 0,
               f"{name} never launched on the full-width paths")

@@ -1,7 +1,14 @@
-"""Paged continuous-batching GPT serving (the port of the paged path of
-paddle_tpu/inference/serving.py).
+"""Continuous-batching GPT serving (the port of
+paddle_tpu/inference/serving.py's padded and paged engines).
 
-  ServingEngine   admits prompts into a bounded queue and serves them with
+  ServingEngine   admits prompts into a bounded queue and serves them.
+                  paged=False (the default) runs the static decode stack:
+                  each step takes up to max_batch queued requests as one
+                  fixed [max_batch, prompt_cap] right-padded batch,
+                  prefills it (`prefill_static`) and decodes it in a
+                  [1, c, c, ...] chunk schedule (`decode_static`), each row
+                  finishing at chunk granularity.
+                  paged=True serves with
                   slot-level continuous batching over a paged KV block pool
                   (inference/kv_cache.py): each batch slot runs its own
                   request, a finished row frees its blocks at once, and a
@@ -37,17 +44,19 @@ paddle_tpu/inference/serving.py).
                   the speculative accept-length histogram, queue and KV
                   gauges, request, token, prefix and spec counters.
 
+  model_draft_fn  turns a (small) GPT into a `spec_draft` callable that
+                  drafts through its `generate_static_ragged`.
+
 Greedy engine output equals the JAX engine's and the JAX
 `generate_static_ragged`'s token chains per request (tests). On a CUDA
-model every attention call of the serving path runs a hand-written
-paged-attention kernel.
+model every attention call of the paged serving path runs a hand-written
+paged-attention kernel, and under weight_dtype="int8" every projection and
+the LM head of either engine run the hand-written int8 GEMM.
 
-Not ported yet: the padded engine (paged=False) and weight_dtype="int8"
-(static-decode slice), the host spill tier (spill_host_bytes) and
-`model_draft_fn` (after the static-decode slice), shards > 1 (multi-GPU
-slice), and the graph-lint, recompile accounting, per-request JSONL rows,
-Prometheus text, telemetry server, memz, chaos, probe and fleet-router
-hooks.
+Not ported yet: the host spill tier (spill_host_bytes; its own item of
+queue A in ROADMAP.md), shards > 1 (multi-GPU slice), and the graph-lint,
+recompile accounting, per-request JSONL rows, Prometheus text, telemetry
+server, memz, chaos, probe and fleet-router hooks.
 """
 from __future__ import annotations
 
@@ -291,9 +300,9 @@ class ServingConfig:
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
-    weight_dtype: Optional[str] = None   # "int8": static-decode slice
-    cache_dtype: Optional[str] = None    # "int8" -> int8 KV pools
-    paged: bool = False             # the only engine this port has is paged
+    weight_dtype: Optional[str] = None   # "int8" -> weight-only int8 GEMMs
+    cache_dtype: Optional[str] = None    # "int8" -> int8 KV caches / pools
+    paged: bool = False             # False: the padded static engine
     kv_block: int = 16              # KV rows per pool block
     kv_blocks: Optional[int] = None  # total pool blocks INCL. trash block;
     #                            default = worst case for max_batch rows
@@ -382,12 +391,13 @@ class ServingConfig:
                 raise ValueError(
                     f"prefill_chunk must be in [1, prompt_cap="
                     f"{self.prompt_cap}], got {self.prefill_chunk}")
+        if self.weight_dtype not in (None, "int8"):
+            raise ValueError(f"weight_dtype must be None or 'int8' (weight-"
+                             f"only int8 GEMMs); got {self.weight_dtype!r}")
         later = (
             ("spill_host_bytes", self.spill_host_bytes is not None,
-             "the host spill tier, after the static-decode slice"),
+             "the host spill tier (its own item of queue A in ROADMAP.md)"),
             ("shards", (self.shards or 1) > 1, "the multi-GPU slice"),
-            ("weight_dtype", self.weight_dtype is not None,
-             "the static-decode slice (int8_matmul, kernel #5)"),
             ("lint", self.lint is not None,
              "the observability slice (graph lint)"))
         for name, on, where in later:
@@ -395,15 +405,20 @@ class ServingConfig:
                 raise NotImplementedError(
                     f"ServingConfig.{name} is not ported to PyTorch yet: it "
                     f"comes with {where}")
-        if self.cache_dtype not in (None, "int8"):
-            raise ValueError(f"paged cache_dtype must be None or 'int8'; "
-                             f"got {self.cache_dtype!r}")
-        if self.kv_block < 1:
-            raise ValueError(f"kv_block must be >= 1, got {self.kv_block}")
-        if self.kv_blocks is None:
-            # worst case: every slot holds a cap prompt decoding its full
-            # budget (+1 for the trash block); smaller pools oversubscribe
-            self.kv_blocks = self.max_batch * self.table_width + 1
+        if self.paged:
+            # the padded engine checks cache_dtype (None, the model dtype
+            # or "int8") at its first prefill, as the JAX engine does
+            if self.cache_dtype not in (None, "int8"):
+                raise ValueError(f"paged cache_dtype must be None or "
+                                 f"'int8'; got {self.cache_dtype!r}")
+            if self.kv_block < 1:
+                raise ValueError(f"kv_block must be >= 1, "
+                                 f"got {self.kv_block}")
+            if self.kv_blocks is None:
+                # worst case: every slot holds a cap prompt decoding its
+                # full budget (+1 for the trash block); smaller pools
+                # oversubscribe
+                self.kv_blocks = self.max_batch * self.table_width + 1
 
     @property
     def row_kv_rows(self) -> int:
@@ -416,27 +431,41 @@ class ServingConfig:
         """Block-table columns per batch slot (worst-case blocks/row)."""
         return -(-self.row_kv_rows // self.kv_block)
 
+    @property
+    def chunk_schedule(self) -> List[int]:
+        """Padded engine: decode-call sizes per batch, [1, c, c, ...]
+        covering max_new_tokens (the tail chunk still runs full width and
+        over-generated tokens are truncated per row)."""
+        if self.max_new_tokens == 1:
+            return [1]
+        k = math.ceil((self.max_new_tokens - 1) / self.decode_chunk)
+        return [1] + [self.decode_chunk] * k
+
+    @property
+    def max_len(self) -> int:
+        """Padded engine: KV rows per batch row, the prompt cap plus the
+        chunk schedule's worst-case cache writes (the last sampled token
+        is never written)."""
+        return self.prompt_cap + max(sum(self.chunk_schedule), 2) - 1
+
 
 class ServingEngine:
-    """Paged continuous-batching serving loop.
+    """Continuous-batching serving loop.
 
-    Synchronous: `submit()` enqueues, `step()` splices queued requests
-    into free slots, advances chunked prefills by one window and runs ONE
-    decode chunk (or speculative verify window) over the live slots,
-    `drain()` loops until the queue and the slots are empty. Not
-    internally synchronized: hold one lock around every engine call when
-    several threads drive it. The engine runs on the model's device; the
-    pools are allocated there and updated in place. `clock` is
-    injectable (tests drive deadlines deterministically)."""
+    Synchronous: `submit()` enqueues and `step()` serves; `drain()` loops
+    until the queue (and, paged, the slots) are empty. Padded
+    (paged=False): a step runs ONE fixed-shape micro-batch of up to
+    max_batch queued requests to completion. Paged: a step splices queued
+    requests into free slots, advances chunked prefills by one window and
+    runs ONE decode chunk (or speculative verify window) over the live
+    slots. Not internally synchronized: hold one lock around every engine
+    call when several threads drive it. The engine runs on the model's
+    device; caches and pools are allocated there and updated in place.
+    `clock` is injectable (tests drive deadlines deterministically)."""
 
     def __init__(self, model, config: ServingConfig, *,
                  metrics: Optional[ServingMetrics] = None,
                  clock: Callable[[], float] = time.monotonic):
-        if not config.paged:
-            raise NotImplementedError(
-                "ServingConfig(paged=False): the padded engine runs the "
-                "static decode stack, ported with the static-decode slice; "
-                "use paged=True")
         self.model = model
         self.config = config
         self.metrics = metrics or ServingMetrics()
@@ -444,6 +473,8 @@ class ServingEngine:
         self._queue: deque = deque()
         self._next_id = 0
         self._batch_id = 0
+        if not config.paged:
+            return
         B, MB = config.max_batch, config.table_width
         self._pool = BlockPool.for_model(model, num_blocks=config.kv_blocks,
                                          block_size=config.kv_block,
@@ -480,7 +511,8 @@ class ServingEngine:
     @property
     def busy(self) -> bool:
         """Work remains: queued requests or live slots still decoding."""
-        return bool(self._queue) or bool(self._live())
+        return bool(self._queue) or (self.config.paged
+                                     and bool(self._live()))
 
     def _refusal(self, plen: int, want: int) -> Optional[str]:
         """Why a request is statically unservable, or None."""
@@ -489,7 +521,7 @@ class ServingEngine:
             return "max_new_tokens"
         if plen < 1 or plen > cfg.prompt_cap:
             return "prompt_shape"
-        if not self._pool.fits_ever(plen + want - 1):
+        if cfg.paged and not self._pool.fits_ever(plen + want - 1):
             return "kv_oom"
         return None
 
@@ -497,8 +529,9 @@ class ServingEngine:
                deadline_s: Optional[float] = None) -> Request:
         """Admit one prompt into the bounded queue. Returns the Request:
         status "queued" on success, "rejected" with a reason otherwise
-        (prompt_shape: outside [1, prompt_cap]; kv_oom: the pool could
-        not hold it even drained; overloaded / queue_full: load shed)."""
+        (prompt_shape: outside [1, prompt_cap]; kv_oom: the paged pool
+        could not hold it even drained; overloaded / queue_full: load
+        shed)."""
         cfg = self.config
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         want = cfg.max_new_tokens if max_new_tokens is None \
@@ -527,14 +560,17 @@ class ServingEngine:
         return [i for i, r in enumerate(self._slots) if r is not None]
 
     def step(self) -> List[Request]:
-        """One engine step: splice queued requests into free slots (the
-        prefix cache decides what each must prefill), advance every
-        chunked prefill by one window, then run ONE decode chunk (or
-        speculative verify window) over the decodable slots. Returns every
-        request that reached a terminal status this step (served rows and
-        queue-deadline timeouts). If a device call raises, the in-flight
-        requests are recorded as status "error", the pool and the prefix
-        cache are rebuilt, and the exception propagates."""
+        """One engine step; returns every request that reached a terminal
+        status in it (served rows and queue-deadline timeouts). Padded: the
+        next micro-batch (`_run_batch`). Paged: splice queued requests
+        into free slots (the prefix cache decides what each must prefill),
+        advance every chunked prefill by one window, then run ONE decode
+        chunk (or speculative verify window) over the decodable slots. If
+        a device call raises, the in-flight requests are recorded as
+        status "error" (paged: the pool and the prefix cache are rebuilt)
+        and the exception propagates."""
+        if not self.config.paged:
+            return self._step_padded()
         live = []
         try:
             finished, expired, admitted = self._admit_paged()
@@ -592,6 +628,136 @@ class ServingEngine:
 
     def summary(self) -> dict:
         return self.metrics.summary()
+
+    def _expire(self, req: Request, now: float) -> bool:
+        """Time out a queued request whose wait passed its deadline (a
+        terminal outcome: its queue wait is its life); True if it did."""
+        if req.deadline_s is None or \
+                now - req.trace.t_enqueue <= req.deadline_s:
+            return False
+        req.status, req.reason = "timeout", "queue_deadline"
+        req.trace.t_finish = now
+        self.metrics.record_request(req)
+        return True
+
+    # -- the padded engine ------------------------------------------------
+    def _admit(self):
+        """Pop up to max_batch requests, expiring the deadline-blown.
+        Returns (admitted, expired): both are terminal outcomes the caller
+        surfaces (a timeout is a served SLO miss)."""
+        now = self.clock()
+        admitted: List[Request] = []
+        expired: List[Request] = []
+        while self._queue and len(admitted) < self.config.max_batch:
+            req = self._queue.popleft()
+            if self._expire(req, now):
+                expired.append(req)
+                continue
+            req.status = "active"
+            req.trace.t_admit = now
+            req.trace.batch_id = self._batch_id
+            admitted.append(req)
+        self.metrics.gauges["queue_depth"] = len(self._queue)
+        return admitted, expired
+
+    def _step_padded(self) -> List[Request]:
+        reqs, expired = self._admit()
+        if not reqs:
+            return expired
+        try:
+            return expired + self._run_batch(reqs)
+        except BaseException:
+            now = self.clock()
+            for r in reqs:
+                if r.status == "active":
+                    r.status, r.reason = "error", "engine_exception"
+                    r.trace.t_finish = now
+                    self.metrics.record_request(r)
+            self.metrics.gauges["inflight"] = 0
+            raise
+
+    def _run_batch(self, reqs: List[Request]) -> List[Request]:
+        """Serve one micro-batch to completion: a fixed [max_batch,
+        prompt_cap] right-padded batch (unfilled rows are 1-token pad
+        dummies whose outputs are dropped), one `prefill_static`, then the
+        [1, c, c, ...] chunk schedule through `decode_static` on a donated
+        state. A row finishes at the end of the chunk in which it hit EOS
+        or its budget; the schedule stops early once every row has its
+        budget or every real row hit EOS."""
+        cfg = self.config
+        self.metrics.gauges["inflight"] = len(reqs)
+        batch_id = self._batch_id
+        self._batch_id += 1
+        B, cap = cfg.max_batch, cfg.prompt_cap
+        ids = np.full((B, cap), cfg.pad_token_id, dtype=np.int64)
+        lens = np.ones((B,), dtype=np.int32)
+        for i, r in enumerate(reqs):
+            ids[i, :r.prompt_len] = r.prompt
+            lens[i] = r.prompt_len
+        need = max(r.max_new_tokens for r in reqs)
+        t_pf0 = self.clock()
+        st = self.model.prefill_static(
+            ids, max_len=cfg.max_len, prompt_lens=lens,
+            weight_dtype=cfg.weight_dtype, cache_dtype=cfg.cache_dtype)
+        st["last_logits"].cpu()        # host sync: the prefill has run
+        t_prefill = self.clock()
+        for r in reqs:
+            r.trace.t_prefill_done = t_prefill
+            r.trace.events.append(("prefill", t_pf0, t_prefill))
+        parts: List[np.ndarray] = []
+        schedule = cfg.chunk_schedule
+        for ci, chunk in enumerate(schedule):
+            t_c0 = self.clock()
+            # a fresh seed per (batch, chunk): each decode_static call
+            # starts its own sampling stream
+            toks, st = self.model.decode_static(
+                st, chunk, temperature=cfg.temperature, top_k=cfg.top_k,
+                top_p=cfg.top_p, seed=cfg.seed + batch_id * len(schedule)
+                + ci, eos_token_id=cfg.eos_token_id, return_state=True,
+                donate_cache=True)
+            parts.append(toks.cpu().numpy())       # host sync per chunk
+            t_chunk = self.clock()
+            if ci == 0:
+                for r in reqs:
+                    r.trace.t_first_token = t_chunk
+            # the window rides every row still in flight at chunk entry
+            for r in reqs:
+                if r.trace.t_finish is None:
+                    r.trace.events.append(("decode", t_c0, t_chunk))
+            produced = sum(p.shape[1] for p in parts)
+            so_far = np.concatenate(parts, axis=1)
+            for i, r in enumerate(reqs):
+                if r.trace.t_finish is None and \
+                        (produced >= r.max_new_tokens or
+                         _hit_eos(so_far[i, :r.max_new_tokens],
+                                  cfg.eos_token_id)):
+                    r.trace.t_finish = t_chunk
+            if produced >= need:
+                break
+            if cfg.eos_token_id is not None and \
+                    bool(st["done"][:len(reqs)].all()):
+                break               # every real row hit EOS: stop early
+        gen = np.concatenate(parts, axis=1)
+        for i, r in enumerate(reqs):
+            row = gen[i, :r.max_new_tokens]
+            r.tokens = row
+            r.n_out = _n_out(row, cfg.eos_token_id)
+            r.status = "done"
+            if r.trace.t_finish is None:
+                r.trace.t_finish = t_chunk
+            self.metrics.record_request(r)
+        # live tokens: real prompt rows plus the decode rows written (the
+        # last sampled token is returned but never written); every
+        # admitted row pins a full max_len slab, which is the gap the
+        # paged engine closes
+        kv_tokens = int(lens[:len(reqs)].sum()) + \
+            int((gen.shape[1] - 1) * len(reqs))
+        self.metrics.record_batch(
+            n_real=len(reqs), capacity=B, kv_tokens=kv_tokens,
+            kv_slots=len(reqs) * cfg.max_len,
+            kv_capacity=B * cfg.max_len, queue_depth=len(self._queue))
+        self.metrics.gauges["inflight"] = 0
+        return reqs
 
     def _clear_slot(self, slot: int):
         self._tables[slot] = 0         # trash block: writes go nowhere
@@ -734,12 +900,8 @@ class ServingEngine:
         while self._queue and free:
             now = self.clock()
             req = self._queue[0]
-            if req.deadline_s is not None and \
-                    now - req.trace.t_enqueue > req.deadline_s:
+            if self._expire(req, now):
                 self._queue.popleft()
-                req.status, req.reason = "timeout", "queue_deadline"
-                req.trace.t_finish = now
-                self.metrics.record_request(req)
                 expired.append(req)
                 continue
             plen = req.prompt_len
@@ -814,7 +976,9 @@ class ServingEngine:
                     ids, np.asarray([suffix], np.int32), self._pools,
                     table_row[None], temperature=cfg.temperature,
                     top_k=cfg.top_k, top_p=cfg.top_p,
-                    seed=cfg.seed + self._calls, cache_dtype=cfg.cache_dtype,
+                    seed=cfg.seed + self._calls,
+                    weight_dtype=cfg.weight_dtype,
+                    cache_dtype=cfg.cache_dtype,
                     start=None if t == 0 else np.asarray([t], np.int32))
                 tok = int(first.cpu()[0])         # host sync: TTFT is known
                 self._calls += 1
@@ -858,7 +1022,8 @@ class ServingEngine:
                 ids, np.asarray([clen], np.int32), self._pools,
                 self._tables[slot][None], temperature=cfg.temperature,
                 top_k=cfg.top_k, top_p=cfg.top_p,
-                seed=cfg.seed + self._calls, cache_dtype=cfg.cache_dtype,
+                seed=cfg.seed + self._calls, weight_dtype=cfg.weight_dtype,
+                cache_dtype=cfg.cache_dtype,
                 start=np.asarray([off], np.int32))
             # only the final window's token is used: syncing the others
             # would put a host round trip on every window
@@ -910,7 +1075,7 @@ class ServingEngine:
             self._pools, tables, lens, pending, done, c,
             temperature=cfg.temperature, top_k=cfg.top_k, top_p=cfg.top_p,
             seed=cfg.seed + self._calls, eos_token_id=cfg.eos_token_id,
-            cache_dtype=cfg.cache_dtype)
+            weight_dtype=cfg.weight_dtype, cache_dtype=cfg.cache_dtype)
         arr = toks.cpu().numpy()                     # host sync per chunk
         self._calls += 1
         t = self.clock()
@@ -992,7 +1157,8 @@ class ServingEngine:
         t_c0 = self.clock()
         toks, n_acc, self._pools, done_d = self.model.verify_paged(
             self._pools, tables, lens, pending, drafts, done,
-            eos_token_id=cfg.eos_token_id, cache_dtype=cfg.cache_dtype)
+            eos_token_id=cfg.eos_token_id, weight_dtype=cfg.weight_dtype,
+            cache_dtype=cfg.cache_dtype)
         arr = toks.cpu().numpy()                    # host sync per window
         acc = n_acc.cpu().numpy()
         done_new = done_d.cpu().numpy()
@@ -1152,7 +1318,26 @@ def repeated_traffic(n_requests: int, *, n_prompts: int, prompt_len: int,
     return out
 
 
+def model_draft_fn(draft_model, *, window: int = 32):
+    """A speculative draft source for ``ServingConfig(spec_draft=...)``
+    from a (small) GPTForCausalLM: the returned callable greedily
+    continues the last `window` context tokens through
+    ``draft_model.generate_static_ragged`` on a fixed [1, window] batch,
+    the length riding as data. Each call pays a full window prefill in the
+    draft model, which is cheap when the drafter is much smaller than the
+    target."""
+    def fn(context, k):
+        ctx = np.asarray(context, dtype=np.int64)[-window:]
+        ln = int(ctx.shape[0])
+        ids = np.zeros((1, window), np.int64)
+        ids[0, :ln] = ctx
+        out = draft_model.generate_static_ragged(ids, [ln],
+                                                 max_new_tokens=int(k))
+        return out[0, window:window + int(k)].cpu().numpy()
+    return fn
+
+
 __all__: Sequence[str] = ["RequestTrace", "Request", "ServingMetrics",
                           "ServingConfig", "ServingEngine",
                           "synthetic_traffic", "shared_prefix_traffic",
-                          "repeated_traffic"]
+                          "repeated_traffic", "model_draft_fn"]

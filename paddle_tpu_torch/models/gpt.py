@@ -1,5 +1,5 @@
-"""GPT for paged serving in PyTorch (the port of paddle_tpu/models/gpt.py's
-config, forward and paged-pool serving entry points).
+"""GPT serving in PyTorch (the port of paddle_tpu/models/gpt.py's config,
+forward, static-cache decode stack and paged-pool serving entry points).
 
 Module and parameter names mirror the JAX package (``gpt.wte.weight``,
 ``gpt.h.{i}.attn.qkv.weight``, ...), so `paddle_tpu_torch.convert` maps a
@@ -8,17 +8,26 @@ plain single-device modules: VocabParallelEmbedding -> nn.Embedding,
 Column/RowParallelLinear -> nn.Linear (weights stored ``[out, in]``, the
 transpose of the JAX ``[in, out]`` layout). The LM head is tied to wte.
 
-Serving state is explicit: every layer owns one entry of ``pools`` (the
-per-layer (k, v) or int8 (k_codes, k_scale, v_codes, v_scale) tensors from
-`inference.kv_cache.BlockPool.make_pools`), the pools are updated IN PLACE
-(this replaces JAX buffer donation), and the JAX ``lax.scan`` over a decode
-chunk is a Python loop over its steps.
+Serving state is explicit and updated IN PLACE (this replaces JAX buffer
+donation); the JAX ``lax.scan`` over decode steps is a Python loop:
+  paged    every layer owns one entry of ``pools`` (the per-layer (k, v)
+           or int8 (k_codes, k_scale, v_codes, v_scale) tensors from
+           `inference.kv_cache.BlockPool.make_pools`);
+  static   every layer owns one entry of ``caches``: fixed [B, L, H, D]
+           buffers and a row cursor, (k, v, pos[, (lens, cap)]) or int8
+           (k_codes, k_scale, v_codes, v_scale, pos[, (lens, cap)]); a
+           growing (k, v) pair serves `generate`.
+Under ``weight_dtype="int8"`` every projection and the LM head run the
+weight-only int8 GEMM (`ops.int8_matmul`) on a payload quantized once per
+set of weights (`quantized_params`), passed down as ``q8``.
 """
 from __future__ import annotations
 
 import math
+import os
+import secrets
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +40,10 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              paged_cache_write, paged_cache_write_q8,
                              paged_prefill_mask, paged_prefill_write,
                              paged_prefill_write_q8, paged_prefix_attention,
-                             paged_prefix_attention_q8, quantize_kv)
+                             paged_prefix_attention_q8, quantize_kv,
+                             static_cache_mask, static_cache_update,
+                             static_cache_update_q8)
+from ..ops.int8_matmul import int8_linear_nd
 
 
 @dataclass
@@ -113,9 +125,21 @@ class GPTSelfAttention(nn.Module):
         self.out = nn.Linear(h, h, device=device, dtype=dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None,
-                prefill=False, start=None):
-        """Without `pools`: causal self-attention over x (the cache-free
-        forward). With `pools` (this layer's paged KV tensors):
+                prefill=False, start=None, cache=None, q8=None):
+        """Without `pools` or `cache`: causal self-attention over x (the
+        cache-free forward). With `cache` (this layer's static or growing
+        KV cache), returns (out, new cache):
+          (k, v, pos[, (lens, cap)])   fixed buffers [B, L, H, D]: x's
+                         K/V are written at rows pos.. in place and x
+                         attends the whole buffer under static_cache_mask
+                         (ragged form: columns in [lens[b], cap) of row b
+                         are padding and masked);
+          (k_codes, k_scale, v_codes, v_scale, pos[, (lens, cap)])
+                         the int8 form: K/V quantize as they are written,
+                         attention_q8_cache reads the codes;
+          (k, v)         a growing cache (`generate`): K/V are appended and
+                         x attends causally over the whole cache.
+        With `pools` (this layer's paged KV tensors):
           start given    x is a window of tokens at positions start[b] + i
                          (suffix prefill after a prefix-cache hit, a
                          chunked-prefill window, a speculative verify
@@ -132,11 +156,18 @@ class GPTSelfAttention(nn.Module):
                          at position lens[b] and attends lens[b] + 1
                          rows through the paged decode kernel.
         `start` is checked before the width: a [B, 1] window with a start
-        writes at start[b], not at lens[b]."""
+        writes at start[b], not at lens[b]. `q8` holds this layer's int8
+        payloads ({"attn.qkv": (codes, scale) or None, ...}) under
+        weight_dtype="int8"."""
         b, s = x.shape[0], x.shape[1]
-        qkv = self.qkv(x).view(b, s, 3, self.num_heads, self.head_dim)
+        q8 = q8 or {}
+        qkv = _linear(self.qkv, x, q8.get("attn.qkv"))
+        qkv = qkv.view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if pools is None:
+        new_cache = None
+        if cache is not None:
+            ctx, new_cache = _attend_cache(q, k, v, cache)
+        elif pools is None:
             ctx = attention_reference(q, k, v, is_causal=True)
         elif len(pools) == 4:
             kc, ks, vc, vs = pools
@@ -177,7 +208,68 @@ class GPTSelfAttention(nn.Module):
                 paged_cache_write(vp, v, tables, lens)
                 ctx = paged_attention(q.contiguous(), kp, vp, tables,
                                       lens + 1, score_dtype=q.dtype)
-        return self.out(ctx.reshape(b, s, self.num_heads * self.head_dim))
+        out = _linear(self.out,
+                      ctx.reshape(b, s, self.num_heads * self.head_dim),
+                      q8.get("attn.out"))
+        return out if cache is None else (out, new_cache)
+
+
+def _linear(mod: nn.Linear, x, pay):
+    """`mod`, or under weight_dtype="int8" its payload (codes [out, in],
+    scale [out]) through the weight-only int8 GEMM, bias added after."""
+    if pay is None:
+        return mod(x)
+    return int8_linear_nd(x, pay[0], pay[1], mod.bias, w_layout="nk")
+
+
+def _is_q8_cache(cache) -> bool:
+    """True iff a static-cache tuple is the int8 form. The length alone is
+    not a safe tag, the codes' dtype is: a malformed tuple raises instead
+    of reading a scale buffer as the position cursor."""
+    if len(cache) >= 5:
+        if cache[0].dtype != torch.int8:
+            raise ValueError(
+                f"static KV-cache tuple of length {len(cache)} must carry "
+                f"int8 codes first (got {cache[0].dtype}); fp caches are "
+                f"(k, v, pos[, ragged])")
+        return True
+    return False
+
+
+def _attend_cache(q, k, v, cache):
+    """Write this step's K/V into a static or growing cache and attend;
+    returns (ctx, new cache). Static buffers update in place and the
+    returned tuple carries the advanced cursor."""
+    s = q.shape[1]
+    if len(cache) == 2:
+        k = torch.cat([cache[0], k.to(cache[0].dtype)], dim=1)
+        v = torch.cat([cache[1], v.to(cache[1].dtype)], dim=1)
+        return attention_reference(q, k, v, is_causal=True), (k, v)
+    if _is_q8_cache(cache):
+        kc, ks, vc, vs, pos = cache[:5]
+        ragged = cache[5] if len(cache) >= 6 else None
+        static_cache_update_q8(kc, ks, k, pos)
+        static_cache_update_q8(vc, vs, v, pos)
+        ctx = attention_q8_cache(q, kc, ks, vc, vs,
+                                 _static_mask(kc, s, pos, ragged))
+        tail = (kc, ks, vc, vs, pos + s)
+    else:
+        kb, vb, pos = cache[:3]
+        ragged = cache[3] if len(cache) >= 4 else None
+        static_cache_update(kb, k, pos)
+        static_cache_update(vb, v, pos)
+        ctx = attention_reference(q, kb, vb,
+                                  mask=_static_mask(kb, s, pos, ragged),
+                                  score_dtype=q.dtype)
+        tail = (kb, vb, pos + s)
+    return ctx, tail + (() if ragged is None else (ragged,))
+
+
+def _static_mask(buf, s, pos, ragged):
+    if ragged is None:
+        return static_cache_mask(buf.shape[1], s, pos, device=buf.device)
+    return static_cache_mask(buf.shape[1], s, pos, prompt_lens=ragged[0],
+                             prefill_cap=ragged[1])
 
 
 class GPTMLP(nn.Module):
@@ -187,8 +279,10 @@ class GPTMLP(nn.Module):
         self.up = nn.Linear(h, m, device=device, dtype=dtype)
         self.down = nn.Linear(m, h, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+    def forward(self, x, q8=None):
+        q8 = q8 or {}
+        u = F.gelu(_linear(self.up, x, q8.get("mlp.up")), approximate="tanh")
+        return _linear(self.down, u, q8.get("mlp.down"))
 
 
 class GPTBlock(nn.Module):
@@ -203,9 +297,14 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(config, device, dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None, prefill=False,
-                start=None):
-        x = x + self.attn(self.ln_1(x), pools, tables, lens, prefill, start)
-        return x + self.mlp(self.ln_2(x))
+                start=None, cache=None, q8=None):
+        """Returns x, or (x, new cache) when `cache` is given."""
+        a = self.attn(self.ln_1(x), pools, tables, lens, prefill, start,
+                      cache, q8)
+        a, new_cache = a if cache is not None else (a, None)
+        x = x + a
+        x = x + self.mlp(self.ln_2(x), q8)
+        return x if cache is None else (x, new_cache)
 
 
 class GPTModel(nn.Module):
@@ -225,19 +324,49 @@ class GPTModel(nn.Module):
                                  device=device, dtype=dtype)
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
-                lens=None, prefill=False, start=None):
+                lens=None, prefill=False, start=None, caches=None, q8=None):
+        """Returns the final hidden states, or (hidden, new caches) when
+        per-layer `caches` are given. Default positions: a static cache's
+        cursor onward, a growing cache's length onward, else 0..s-1."""
         s = input_ids.shape[1]
+        dev = input_ids.device
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)[None]
+            past = 0
+            if caches is not None:
+                c0 = caches[0]
+                past = c0[0].shape[1] if len(c0) == 2 else \
+                    c0[4] if _is_q8_cache(c0) else c0[2]
+            position_ids = torch.arange(past, past + s, device=dev)[None]
         # positions past the table only occur on discarded columns (dummy
         # slots, a chunk's overshoot past a row's budget); clamping keeps
         # their lookup in bounds instead of faulting the device
         position_ids = position_ids.clamp(0, self.wpe.num_embeddings - 1)
-        x = self.wte(input_ids) + self.wpe(position_ids)
+        q8 = q8 or {}
+        wte = q8.get("wte")
+        if wte is None:
+            tok = self.wte(input_ids)
+        else:
+            # int8 row gather times the row scale: a row of the
+            # dequantized table, which is never built whole
+            codes, scale = wte
+            tok = (codes[input_ids].float()
+                   * scale[input_ids][..., None]).to(self.wte.weight.dtype)
+        # wpe has no int8 consumer: it reads the dequantized copy
+        wpe = q8.get("wpe")
+        x = tok + F.embedding(position_ids,
+                              self.wpe.weight if wpe is None else wpe)
+        layers = q8.get("h")
+        new_caches = [] if caches is not None else None
         for i, block in enumerate(self.h):
             x = block(x, None if pools is None else pools[i], tables, lens,
-                      prefill, start)
-        return self.ln_f(x)
+                      prefill, start,
+                      None if caches is None else caches[i],
+                      None if layers is None else layers[i])
+            if caches is not None:
+                x, c = x
+                new_caches.append(c)
+        x = self.ln_f(x)
+        return x if caches is None else (x, new_caches)
 
 
 class GPTForCausalLM(nn.Module):
@@ -289,12 +418,346 @@ class GPTForCausalLM(nn.Module):
                 p.normal_(0.0, std, generator=generator)
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
-                lens=None, prefill=False, start=None):
+                lens=None, prefill=False, start=None, caches=None, q8=None):
+        """Logits, or (logits, new caches) when per-layer `caches` are
+        given (see GPTSelfAttention.forward for pools and caches). `q8` is
+        the int8 payload of `_q8(weight_dtype="int8")`."""
         x = self.gpt(input_ids, position_ids, pools, tables, lens, prefill,
-                     start)
-        if self.config.tie_word_embeddings:
-            return x @ self.gpt.wte.weight.t()
-        return self.lm_head(x)
+                     start, caches, q8)
+        x, new_caches = x if caches is not None else (x, None)
+        head = (q8 or {}).get(
+            "wte" if self.config.tie_word_embeddings else "lm_head")
+        if head is not None:
+            logits = int8_linear_nd(x, head[0], head[1], w_layout="nk")
+        elif self.config.tie_word_embeddings:
+            logits = x @ self.gpt.wte.weight.t()
+        else:
+            logits = self.lm_head(x)
+        return logits if caches is None else (logits, new_caches)
+
+    # --------------------------------------------- weight-only int8 payload
+    @torch.no_grad()
+    def quantized_params(self) -> Dict[str, Tuple[torch.Tensor,
+                                                  torch.Tensor]]:
+        """The weight-only int8 form of every 2-D parameter with at least
+        ``PADDLE_TPU_Q8_DECODE_MIN`` elements (default 1 << 20): {name:
+        (codes int8, scale f32)}, the scale kept with a size-1 dim, s =
+        max|w| / 127 floored at 1e-12 and codes = clip(round(w / s), -127,
+        127) in f32, rounding half to even. The reduction axis is the JAX
+        package's, in the port's layouts: per row for the [out, in]
+        projections, the untied LM head and wte (its lookup and the tied
+        head both contract over H); per column for wpe."""
+        min_size = int(os.environ.get("PADDLE_TPU_Q8_DECODE_MIN",
+                                      str(1 << 20)))
+        out = {}
+        for name, p in self.named_parameters():
+            if p.dim() != 2 or p.numel() < min_size:
+                continue
+            w = p.float()
+            dim = 0 if name == "gpt.wpe.weight" else 1
+            s = (w.abs().amax(dim=dim, keepdim=True) / 127.0).clamp_min(1e-12)
+            q = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+            out[name] = (q, s)
+        return out
+
+    def _param_snapshot(self) -> tuple:
+        """(data pointer, version) of every parameter: changes when any
+        weight is replaced or updated in place (an optimizer step, a
+        load_state_dict, a .to(dtype))."""
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+
+    def _q8(self, weight_dtype):
+        """The payload a forward consumes under weight_dtype="int8" (None
+        otherwise), quantized once per set of weights: {"wte": (codes,
+        scale [V]), "wpe": the dequantized table, "lm_head": ..., "h":
+        [{"attn.qkv": (codes, scale [out]), ...} per layer]}; an entry is
+        None where the parameter stays unquantized."""
+        if weight_dtype is None:
+            return None
+        if weight_dtype != "int8":
+            raise ValueError(f"weight_dtype must be None or 'int8' (weight-"
+                             f"only int8 GEMMs); got {weight_dtype!r}")
+        snap = self._param_snapshot()
+        cached = getattr(self, "_q8_cache", None)
+        if cached is not None and cached[0] == snap:
+            return cached[1]
+        qp = self.quantized_params()
+
+        def pay(name):
+            e = qp.get(name)
+            return None if e is None else (e[0], e[1].reshape(-1))
+
+        wpe = qp.get("gpt.wpe.weight")
+        tree = {"wte": pay("gpt.wte.weight"),
+                "wpe": None if wpe is None
+                else (wpe[0].float() * wpe[1]).to(self.dtype),
+                "lm_head": pay("lm_head.weight"),
+                "h": [{k: pay(f"gpt.h.{i}.{k}.weight")
+                       for k in ("attn.qkv", "attn.out", "mlp.up",
+                                 "mlp.down")}
+                      for i in range(self.config.num_layers)]}
+        self._q8_cache = (snap, tree)
+        return tree
+
+    # ------------------------------------------------ static-cache decode
+    def _make_static_caches(self, c8, b, L, ragged=None):
+        """Per-layer static caches: (k, v, 0) in the model dtype, or int8
+        (k_codes, k_scale, v_codes, v_scale, 0) with f32 scales per (row,
+        head); `ragged` = (prompt lens [B], prompt cap) rides last."""
+        cfg, dev = self.config, self.device
+        shape = (b, L, cfg.num_heads, cfg.head_dim)
+        tail = () if ragged is None else (ragged,)
+        out = []
+        for _ in range(cfg.num_layers):
+            if c8:
+                base = (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.zeros(shape[:3], device=dev),
+                        torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.zeros(shape[:3], device=dev), 0)
+            else:
+                base = (torch.zeros(shape, dtype=self.dtype, device=dev),
+                        torch.zeros(shape, dtype=self.dtype, device=dev), 0)
+            out.append(base + tail)
+        return out
+
+    @torch.no_grad()
+    def prefill_static(self, input_ids, max_len: int,
+                       weight_dtype: str = None, cache_dtype: str = None,
+                       prompt_lens=None):
+        """Run the prompt once and return a prefill state that
+        `decode_static` continues from.
+
+        input_ids [B, P]; max_len > P is the cache rows per row. With
+        `prompt_lens` ([B] host ints) the prompts are RIGHT-padded to P:
+        rows in [len, P) hold garbage K/V that the ragged mask excludes,
+        and each row continues from its true length. The state holds the
+        keys of the JAX package's ("caches", "last_logits", "prompt",
+        "max_len", "q8", "c8", "payload", "cdt", "param_ids", "lens").
+        One state fans out to any number of decode_static continuations
+        (each copies the caches first) unless one of them donates it."""
+        dev = self.device
+        ids = _on(input_ids, torch.int64, dev)
+        b, p_len = ids.shape
+        if max_len <= p_len:
+            raise ValueError(f"max_len ({max_len}) must exceed the prompt "
+                             f"length ({p_len}) to leave room for decode")
+        q8 = self._q8(weight_dtype)
+        c8 = _validate_cache_dtype(cache_dtype, self.dtype)
+        lens = None
+        if prompt_lens is not None:
+            lens = _coerce_prompt_lens(prompt_lens, p_len, "prefill_static",
+                                       dev)
+        caches = self._make_static_caches(
+            c8, b, int(max_len), None if lens is None else (lens, p_len))
+        if lens is None:
+            logits, caches = self.forward(ids, caches=caches, q8=q8)
+            last = logits[:, -1].float()
+        else:
+            pos = torch.arange(p_len, device=dev)[None].expand(b, p_len)
+            logits, caches = self.forward(ids, pos, caches=caches, q8=q8)
+            last = logits[torch.arange(b, device=dev),
+                          lens.long() - 1].float()
+        return {"caches": caches, "last_logits": last, "prompt": ids,
+                "max_len": int(max_len), "q8": q8 is not None, "c8": c8,
+                "payload": q8, "cdt": str(self.dtype),
+                "param_ids": self._param_snapshot(), "lens": lens}
+
+    @torch.no_grad()
+    def decode_static(self, state, max_new_tokens: int,
+                      temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0, seed: int = 0,
+                      eos_token_id: int = None, return_state: bool = False,
+                      donate_cache: bool = False):
+        """Continue from a `prefill_static` state for `max_new_tokens`
+        steps; returns tokens [B, max_new_tokens] int64 (greedy: the tail
+        of generate_static on the same prompt).
+
+        return_state=True also returns a resumable state: the next call
+        feeds the unwritten last token (`pending`) first, keeps the EOS
+        mask (`done`) and offsets ragged positions by `generated`, so a
+        [1, c, c, ...] chunked greedy decode equals one decode of the
+        summed length. donate_cache=True (needs return_state) writes into
+        the state's buffers and consumes it: its "caches" become None and
+        reusing it raises. Otherwise the buffers are copied first, so one
+        prefill fans out to many continuations. Sampling (temperature > 0)
+        draws from a torch.Generator seeded with `seed`."""
+        if donate_cache and not return_state:
+            raise ValueError("donate_cache=True needs return_state=True: "
+                             "without the returned state the donated "
+                             "buffers would simply be destroyed")
+        if max_new_tokens <= 0:
+            raise ValueError("decode_static needs max_new_tokens >= 1 "
+                             "(the state already holds the prompt)")
+        if state["caches"] is None:
+            raise ValueError("decode_static: this state's caches were "
+                             "consumed by a donate_cache=True decode; "
+                             "continue from the state that call returned")
+        b, p_len = state["prompt"].shape
+        L = state["max_len"]
+        resume = state.get("pending") is not None
+        gen0 = int(state.get("generated", 0))
+        # the last sampled token is returned but never written, so a state
+        # of L rows admits p_len + generated + max_new_tokens - 1 writes
+        if p_len + gen0 + max_new_tokens - 1 > L:
+            raise ValueError(
+                f"decode_static: prompt ({p_len}) + generated ({gen0}) + "
+                f"max_new_tokens ({max_new_tokens}) needs "
+                f"{p_len + gen0 + max_new_tokens - 1} cache rows, "
+                f"exceeding the prefill state's max_len ({L})")
+        if str(self.dtype) != state["cdt"]:
+            raise ValueError(
+                f"decode_static: the model's dtype changed since prefill "
+                f"({state['cdt']} -> {self.dtype}); re-run prefill_static")
+        # PyTorch updates parameters in place, so identity proves nothing:
+        # the snapshot holds each parameter's (data pointer, version)
+        if state.get("param_ids") is not None and \
+                self._param_snapshot() != state["param_ids"]:
+            raise ValueError(
+                "decode_static: the model's parameters changed since "
+                "prefill_static; the prefill state was computed with the "
+                "old weights. Re-run prefill_static after mutating weights "
+                "(or decode before updating them).")
+        caches = state["caches"]
+        if not donate_cache:
+            caches = [tuple(e.clone() if torch.is_tensor(e) else e
+                            for e in c) for c in caches]
+        dev = self.device
+        gen = _generator(dev, seed, temperature)
+        pick = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+        done = state.get("done")
+        if done is None:
+            done = torch.zeros(b, dtype=torch.bool, device=dev)
+        if resume:
+            toks, caches, done = self._static_steps(
+                caches, state["pending"], done, range(gen0, gen0 +
+                                                      max_new_tokens),
+                state["payload"], gen, pick, eos_token_id, state["lens"])
+        else:
+            nxt = sample_logits(state["last_logits"], gen, **pick)
+            if eos_token_id is not None:
+                done = done | (nxt == eos_token_id)
+            toks, caches, done = self._static_steps(
+                caches, nxt, done, range(1, max_new_tokens),
+                state["payload"], gen, pick, eos_token_id, state["lens"])
+            toks = [nxt] + toks
+        out = torch.stack(toks, dim=1).to(torch.int64)
+        if not return_state:
+            return out
+        new_state = dict(state)
+        new_state.update(caches=caches, pending=out[:, -1], done=done,
+                         generated=gen0 + int(max_new_tokens),
+                         last_logits=None)
+        if donate_cache:
+            state["caches"] = None
+        return out, new_state
+
+    def _static_steps(self, caches, cur, done, steps, q8, gen, pick, eos,
+                      lens):
+        """One static-cache decode step per entry of `steps`, feeding
+        `cur` first. A step number counts generated tokens from 1: the
+        token fed at step k sits at position lens[b] + k - 1 of a ragged
+        row (an unragged row's position is the cache cursor). Returns
+        (sampled tokens, caches, done)."""
+        toks = []
+        for step in steps:
+            pos = None if lens is None else (lens.long() + step - 1)[:, None]
+            logits, caches = self.forward(cur[:, None], pos, caches=caches,
+                                          q8=q8)
+            new = sample_logits(logits[:, -1].float(), gen, **pick)
+            if eos is not None:
+                new = torch.where(done, torch.full_like(new, eos), new)
+                done = done | (new == eos)
+            toks.append(new)
+            cur = new
+        return toks, caches, done
+
+    @torch.no_grad()
+    def generate_static(self, input_ids, max_new_tokens: int = 16,
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 1.0, max_len: int = None,
+                        seed: int = 0, eos_token_id: int = None,
+                        weight_dtype: str = None, cache_dtype: str = None):
+        """Generation over fixed KV buffers of max_len (default prompt +
+        new) rows: prefill, then one decode step per token; rows that
+        emitted EOS keep emitting it. Returns [B, P + max_new_tokens]
+        int64 (the prompt as given when max_new_tokens <= 0)."""
+        return self._generate_static(
+            input_ids, None, max_new_tokens, max_len, weight_dtype,
+            cache_dtype, temperature=temperature, top_k=top_k, top_p=top_p,
+            seed=seed, eos_token_id=eos_token_id)
+
+    @torch.no_grad()
+    def generate_static_ragged(self, input_ids, prompt_lens,
+                               max_new_tokens: int = 16,
+                               temperature: float = 0.0, top_k: int = 0,
+                               top_p: float = 1.0, max_len: int = None,
+                               seed: int = 0, eos_token_id: int = None,
+                               weight_dtype: str = None,
+                               cache_dtype: str = None):
+        """generate_static for prompts RIGHT-padded to a cap: only columns
+        < prompt_lens[b] of row b are real. Padded K/V rows are masked per
+        row, and decode positions continue from each row's true length, so
+        every row equals its unpadded run. Returns [B, P_cap +
+        max_new_tokens]: each padded prompt followed by its
+        continuation."""
+        return self._generate_static(
+            input_ids, prompt_lens, max_new_tokens, max_len, weight_dtype,
+            cache_dtype, temperature=temperature, top_k=top_k, top_p=top_p,
+            seed=seed, eos_token_id=eos_token_id)
+
+    def _generate_static(self, input_ids, prompt_lens, max_new_tokens,
+                         max_len, weight_dtype, cache_dtype, **sampling):
+        ids = _on(input_ids, torch.int64, self.device)
+        if max_new_tokens <= 0:
+            return ids
+        p_len = ids.shape[1]
+        L = int(max_len or (p_len + max_new_tokens))
+        if L < p_len + max_new_tokens:
+            raise ValueError(f"max_len ({L}) is below prompt + "
+                             f"max_new_tokens ({p_len} + {max_new_tokens})")
+        st = self.prefill_static(ids, L, weight_dtype=weight_dtype,
+                                 cache_dtype=cache_dtype,
+                                 prompt_lens=prompt_lens)
+        toks, _ = self.decode_static(st, max_new_tokens, return_state=True,
+                                     donate_cache=True, **sampling)
+        return torch.cat([ids, toks], dim=1)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 16,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, seed: int = None,
+                 eos_token_id: int = None):
+        """Eager generation over a growing KV cache (K/V concatenated each
+        step). Greedy output equals generate_static's. Sampling draws from
+        a torch.Generator seeded with `seed`; seed=None draws a fresh seed
+        from the OS, so repeat calls sample fresh continuations. With
+        `eos_token_id`, finished rows keep emitting EOS and the loop stops
+        once every row finished, so the output can be shorter than
+        P + max_new_tokens."""
+        cfg, dev = self.config, self.device
+        ids = _on(input_ids, torch.int64, dev)
+        b = ids.shape[0]
+        empty = torch.zeros((b, 0, cfg.num_heads, cfg.head_dim),
+                            dtype=self.dtype, device=dev)
+        caches = [(empty, empty) for _ in range(cfg.num_layers)]
+        gen = _generator(dev, secrets.randbits(62) if seed is None else seed,
+                         temperature)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        out, cur = [ids], ids
+        for _ in range(int(max_new_tokens)):
+            logits, caches = self.forward(cur, caches=caches)
+            nxt = sample_logits(logits[:, -1].float(), gen,
+                                temperature=temperature, top_k=top_k,
+                                top_p=top_p)[:, None]
+            if eos_token_id is not None:
+                nxt = torch.where(done[:, None],
+                                  torch.full_like(nxt, eos_token_id), nxt)
+                done = done | (nxt[:, 0] == eos_token_id)
+            out.append(nxt)
+            cur = nxt
+            if eos_token_id is not None and bool(done.all()):
+                break
+        return torch.cat(out, dim=1)
 
     # ------------------------------------------------ paged-pool serving
     @torch.no_grad()
@@ -320,7 +783,7 @@ class GPTForCausalLM(nn.Module):
         serving engine passes the same padded [1, P_cap] or [1, chunk]
         window as the JAX engine; the padding columns are written past the
         suffix (or into the trash block) and their outputs are dropped."""
-        _unported(weight_dtype)
+        q8 = self._q8(weight_dtype)
         dev = self.device
         ids = _on(input_ids, torch.int64, dev)
         b, p_cap = ids.shape
@@ -332,7 +795,7 @@ class GPTForCausalLM(nn.Module):
         _check_pool_dtype(pools, self.dtype, cache_dtype)
         if start is None:
             logits = self.forward(ids, pools=pools, tables=tables, lens=lens,
-                                  prefill=True)
+                                  prefill=True, q8=q8)
         else:
             st = _on(start, torch.int32, dev).reshape(-1)
             if st.shape[0] != b:
@@ -340,7 +803,7 @@ class GPTForCausalLM(nn.Module):
                                  f"rows, batch is {b}")
             pos = st[:, None].long() + torch.arange(p_cap, device=dev)[None]
             logits = self.forward(ids, pos, pools=pools, tables=tables,
-                                  lens=lens, start=st)
+                                  lens=lens, start=st, q8=q8)
         last = logits[torch.arange(b, device=dev), lens.long() - 1].float()
         gen = _generator(dev, seed, temperature)
         nxt = sample_logits(last, gen, temperature=temperature,
@@ -362,7 +825,7 @@ class GPTForCausalLM(nn.Module):
         the engine edits between chunks. Returns ``(tokens [B,
         max_new_tokens] int64, pools, lens', done')`` with the pools
         updated in place."""
-        _unported(weight_dtype)
+        q8 = self._q8(weight_dtype)
         if max_new_tokens <= 0:
             raise ValueError("decode_paged needs max_new_tokens >= 1")
         dev = self.device
@@ -375,7 +838,7 @@ class GPTForCausalLM(nn.Module):
         toks = []
         for _ in range(int(max_new_tokens)):
             logits = self.forward(cur[:, None], ln[:, None].long(),
-                                  pools=pools, tables=tables, lens=ln)
+                                  pools=pools, tables=tables, lens=ln, q8=q8)
             ln = ln + 1
             new = sample_logits(logits[:, -1].float(), gen,
                                 temperature=temperature, top_k=top_k,
@@ -408,7 +871,7 @@ class GPTForCausalLM(nn.Module):
         Returns ``(emitted [B, k] int64, n_accept [B] int32, pools,
         done')``: row b emitted ``emitted[b, :n_accept[b] + 1]``; its next
         pending token is ``emitted[b, n_accept[b]]``. Greedy only."""
-        _unported(weight_dtype)
+        q8 = self._q8(weight_dtype)
         dev = self.device
         tables = _on(block_tables, torch.int32, dev)
         b = tables.shape[0]
@@ -424,7 +887,7 @@ class GPTForCausalLM(nn.Module):
         window = torch.cat([pend[:, None], dr], dim=1)
         pos = ln[:, None].long() + torch.arange(k, device=dev)[None]
         logits = self.forward(window, pos, pools=pools, tables=tables,
-                              lens=ln, start=ln)
+                              lens=ln, start=ln, q8=q8)
         raw = torch.argmax(logits.float(), dim=-1)              # [B, k]
         if eos_token_id is None:
             e = raw
@@ -444,11 +907,17 @@ class GPTForCausalLM(nn.Module):
         return e.to(torch.int64), n_acc.to(torch.int32), pools, done_out
 
 
-def _unported(weight_dtype):
-    if weight_dtype is not None:
-        raise NotImplementedError(
-            f"weight_dtype={weight_dtype!r}: the weight-only int8 GEMM "
-            f"(int8_matmul) is ported with the static-decode slice")
+def _validate_cache_dtype(cache_dtype, dtype) -> bool:
+    """Static-cache dtype check: None, the model dtype, or 'int8'.
+    Returns True when the int8 KV-cache path is requested."""
+    if cache_dtype == "int8":
+        return True
+    if cache_dtype is not None and not (
+            cache_dtype == dtype or getattr(torch, str(cache_dtype), None)
+            == dtype):
+        raise ValueError(f"cache_dtype must be None, the model dtype, "
+                         f"or 'int8'; got {cache_dtype!r}")
+    return False
 
 
 def _on(x, dtype, device):

@@ -91,6 +91,35 @@ def paged_prefill_mask(s, lens):
     return static_cache_mask(s, s, 0, prompt_lens=lens, prefill_cap=s)
 
 
+# ----------------------------------------------------- static KV-cache ops
+
+def static_cache_update(buf, new, pos):
+    """Write `new` [B, s, ...] into the fixed buffer [B, L_max, ...] at row
+    cursor `pos`, in place, and return the buffer. Any rank >= 2 with the
+    row cursor on axis 1 (the int8 cache keeps its scales in [B, L_max,
+    H]). `pos` is always concrete here, so overflow raises, as the eager
+    JAX path does."""
+    p = int(pos)
+    if p + new.shape[1] > buf.shape[1]:
+        raise ValueError(f"static KV cache overflow: pos {p} + "
+                         f"{new.shape[1]} new rows > L_max {buf.shape[1]}")
+    buf[:, p:p + new.shape[1]] = new.to(buf.dtype)
+    return buf
+
+
+def static_cache_update_q8(codes_buf, scale_buf, new, pos):
+    """Quantize `new` K/V rows to int8 and write codes and scales at `pos`,
+    in place."""
+    codes, scale = quantize_kv(new)
+    return (static_cache_update(codes_buf, codes, pos),
+            static_cache_update(scale_buf, scale, pos))
+
+
+def dequantize_kv(codes, scale, dtype):
+    """codes int8 [B, L, H, D] * scale [B, L, H] -> [B, L, H, D] `dtype`."""
+    return (codes.float() * scale[..., None].float()).to(dtype)
+
+
 # ------------------------------------------------ int8 KV quantization
 
 def quantize_kv(new):
@@ -245,7 +274,7 @@ def _on_cuda(q) -> bool:
         return True
     if q.device.type == "cpu":
         return False
-    raise ValueError(f"paged attention runs on CUDA or CPU tensors; got "
+    raise ValueError(f"the port's kernels run on CUDA or CPU tensors; got "
                      f"{q.device}")
 
 

@@ -1,13 +1,8 @@
-"""Build, bind and launch the hand-written paged-attention kernels (CUDA
-C++ for sm_90a): single-token decode (`csrc/paged_attention.cu`, kernels
-#1 and #2 of the port) and the multi-token window over a cached prefix
-(`csrc/paged_prefix_attention.cu`, kernels #3 and #4).
-
-Each `csrc/*.cu` source is compiled at first use with `nvcc` into its own
-shared library with a plain C interface under ``paddle_tpu_torch/_build/``
-and loaded with ctypes; the sources build in parallel, one `nvcc` each. A
-source that includes PyTorch's headers takes minutes to build; these take
-seconds, so every run can build from the checkout.
+"""Bind and launch the hand-written paged-attention kernels (CUDA C++ for
+sm_90a): single-token decode (`csrc/paged_attention.cu`, kernels #1 and #2
+of the port) and the multi-token window over a cached prefix
+(`csrc/paged_prefix_attention.cu`, kernels #3 and #4). The libraries are
+built and loaded by `build.py`.
 
 Each wrapper checks device, dtypes, shapes and contiguity, raises
 ValueError on what the kernel does not take, allocates the output, launches
@@ -17,122 +12,13 @@ launch adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+from .build import LAUNCHES, load_library
 
-# launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"paged_attention": 0, "paged_attention_q8": 0,
-            "paged_prefix_attention": 0, "paged_prefix_attention_q8": 0}
-
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points per library (source stem) and their argument types
-_ENTRY_POINTS = {
-    "paged_attention": {
-        "pt_paged_attention": [_p] * 6 + [_i] * 6 + [_f, _i, _p],
-        "pt_paged_attention_q8": [_p] * 8 + [_i] * 6 + [_f, _i, _p]},
-    "paged_prefix_attention": {
-        "pt_paged_prefix_attention": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
-        "pt_paged_prefix_attention_q8": [_p] * 8 + [_i] * 7 + [_f, _i, _p]},
-}
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the paged "
-                           "attention kernels are built from source")
-    return found
-
-
-def library_paths() -> Dict[str, Path]:
-    """Where each source's library lives: the file name carries a hash of
-    that source, every header beside it and the flags, so an edit to any
-    of them names a new library and a stale one is never loaded."""
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    out = {}
-    for src in sorted(CSRC.glob("*.cu")):
-        key = hashlib.sha256(src.read_bytes() + headers
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        out[src.stem] = BUILD_DIR / f"lib{src.stem}_{key}.so"
-    return out
-
-
-def build() -> Dict[str, Path]:
-    """Compile every source whose library is missing, one `nvcc` per
-    source, all started together; returns {source stem: library path}.
-    Each library is renamed into place only once complete, so a
-    half-written build is never loaded. The compilers' output goes to
-    ``_build/nvcc.log``."""
-    paths = library_paths()
-    todo = [(CSRC / f"{stem}.cu", out) for stem, out in paths.items()
-            if not out.exists()]
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = []
-    for src, out in todo:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs.append((src, out, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)))
-    log, failed = [], []
-    for src, out, tmp, cmd, proc in jobs:
-        stdout, stderr = proc.communicate()
-        log.append(" ".join(cmd) + "\n" + stdout + stderr)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) building "
-                          f"{src.name}:\n{stderr[-4000:]}")
-        else:
-            os.replace(tmp, out)
-    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
-
-
-def load_library(name: str = "paged_attention") -> ctypes.CDLL:
-    """Build (if needed) and load the library of source `name` once per
-    process."""
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build()[name]))
-            for fn, argtypes in _ENTRY_POINTS[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _i
-            lib.pt_error_string.argtypes = [_i]
-            lib.pt_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
 
 
 def _check_common(q, pools, tables, lens, *, window=False, what="lens"):

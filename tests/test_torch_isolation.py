@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.ops.cuda import build as cuda_build
 from paddle_tpu_torch.ops.cuda import paged_attention as cuda_pa
 
 REPO = Path(__file__).resolve().parents[1]
@@ -24,6 +25,7 @@ def _foreign(name):
 def test_package_imports_no_jax_and_no_paddle_tpu():
     code = ("import sys, json, paddle_tpu_torch\n"
             "import paddle_tpu_torch.ops.cuda.paged_attention\n"
+            "import paddle_tpu_torch.ops.cuda.int8_matmul\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -142,16 +144,19 @@ def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
     """Each csrc/*.cu gets its own library, named by a hash of that source,
     the headers and the flags: editing one source renames its library
     only."""
-    for src in cuda_pa.CSRC.glob("*.cu"):
+    for src in cuda_build.CSRC.glob("*.cu"):
         (tmp_path / src.name).write_bytes(src.read_bytes())
-    monkeypatch.setattr(cuda_pa, "CSRC", tmp_path)
-    before = cuda_pa.library_paths()
-    assert set(before) == {"paged_attention", "paged_prefix_attention"}
-    assert set(before) == set(cuda_pa._ENTRY_POINTS)
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = cuda_build.library_paths()
+    assert set(before) == {"paged_attention", "paged_prefix_attention",
+                           "int8_matmul"}
+    assert set(before) == set(cuda_build._ENTRY_POINTS)
     src = tmp_path / "paged_prefix_attention.cu"
     src.write_text(src.read_text() + "\n// edit\n")
-    after = cuda_pa.library_paths()
+    after = cuda_build.library_paths()
     assert after["paged_prefix_attention"] != before["paged_prefix_attention"]
     assert after["paged_attention"] == before["paged_attention"]
+    assert after["int8_matmul"] == before["int8_matmul"]
     (tmp_path / "common.cuh").write_text("// shared header\n")
-    assert set(cuda_pa.library_paths().values()).isdisjoint(after.values())
+    assert set(cuda_build.library_paths().values()).isdisjoint(
+        after.values())

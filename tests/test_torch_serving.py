@@ -137,17 +137,10 @@ def test_engine_eos_early_exit(models):
 
 @pytest.mark.parametrize("field, extra", [
     ("spill_host_bytes", dict(spill_host_bytes=1 << 20, prefix_cache=True)),
-    ("lint", dict(lint=True)), ("shards", dict(shards=2)),
-    ("weight_dtype", dict(weight_dtype="int8"))])
+    ("lint", dict(lint=True)), ("shards", dict(shards=2))])
 def test_later_slice_options_raise(field, extra):
     with pytest.raises(NotImplementedError, match=field):
         pt.ServingConfig(**_config(**extra))
-
-
-def test_padded_engine_is_not_ported(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="paged=True"):
-        pt.ServingEngine(tm, pt.ServingConfig(max_batch=2, prompt_cap=CAP))
 
 
 def test_synthetic_traffic_matches_jax():
