@@ -1,4 +1,5 @@
-"""Carry GPT weights from the JAX package's state dict into the port.
+"""Carry GPT weights, and a whole training state, from the JAX package
+into the port.
 
 The JAX package names its GPT parameters exactly as the port does
 (``gpt.wte.weight``, ``gpt.h.{i}.attn.qkv.weight``, ``gpt.ln_f.bias``, ...)
@@ -39,7 +40,52 @@ def state_dict_from_paddle(np_state: Dict[str, np.ndarray],
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} after "
                              f"transpose, config gives {shape}")
-        out[name] = torch.from_numpy(np.array(arr))   # a writable copy
+        out[name] = _to_torch(arr)
+    return out
+
+
+def _to_torch(arr) -> torch.Tensor:
+    """A writable tensor copy of a numpy array; bf16 arrays (ml_dtypes,
+    which torch.from_numpy does not take) pass through f32 exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def train_state_from_paddle(jax_state: Dict, cfg) -> Dict:
+    """Map a JAX-package ``TrainStep.state_dict()`` (step, params, AdamW
+    ``moment1``/``moment2`` per parameter, optimizer scalars, scaler) onto
+    the port's ``TrainStep.set_state_dict`` layout. Parameters go through
+    `state_dict_from_paddle`; every moment takes its parameter's
+    ``[in, out]`` -> ``[out, in]`` transpose, so a port run resumes a JAX
+    run on the same trajectory."""
+    params = state_dict_from_paddle(jax_state["params"], cfg)
+    out = {"step": int(jax_state.get("step", 0)), "params": params,
+           "opt_extra": dict(jax_state.get("opt_extra", {}))}
+    if "opt" in jax_state:
+        opt = {}
+        for name, st in jax_state["opt"].items():
+            if name not in params:
+                raise KeyError(f"optimizer state for unknown parameter "
+                               f"{name}")
+            flip = name.endswith(_PROJECTIONS) or name == "lm_head.weight"
+            entry = {}
+            for k, v in st.items():
+                if k not in ("moment1", "moment2"):
+                    raise NotImplementedError(
+                        f"{name}: optimizer state {k!r} is not ported "
+                        f"(blockwise int8 moments are a later item)")
+                t = _to_torch(np.asarray(v).T if flip else v)
+                if tuple(t.shape) != tuple(params[name].shape):
+                    raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} "
+                                     f"!= parameter "
+                                     f"{tuple(params[name].shape)}")
+                entry[k] = t
+            opt[name] = entry
+        out["opt"] = opt
+    if "scaler" in jax_state:
+        out["scaler"] = dict(jax_state["scaler"])
     return out
 
 

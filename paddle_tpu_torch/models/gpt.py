@@ -1,5 +1,6 @@
-"""GPT serving in PyTorch (the port of paddle_tpu/models/gpt.py's config,
-forward, static-cache decode stack and paged-pool serving entry points).
+"""GPT in PyTorch (the port of paddle_tpu/models/gpt.py's config, forward,
+training loss, static-cache decode stack and paged-pool serving entry
+points).
 
 Module and parameter names mirror the JAX package (``gpt.wte.weight``,
 ``gpt.h.{i}.attn.qkv.weight``, ...), so `paddle_tpu_torch.convert` maps a
@@ -7,6 +8,14 @@ JAX state dict across by name. The mpu layers of the JAX package become
 plain single-device modules: VocabParallelEmbedding -> nn.Embedding,
 Column/RowParallelLinear -> nn.Linear (weights stored ``[out, in]``, the
 transpose of the JAX ``[in, out]`` layout). The LM head is tied to wte.
+
+Training: the cache-free forward attends through
+`ops.attention.functional_attention` (flash attention, kernel #6 on CUDA),
+`GPTForCausalLM.loss` feeds the hidden states straight into the fused
+LM-head cross-entropy (kernel #11 on CUDA), and in `train()` mode
+`hidden_dropout` drops after the embedding sum, after attn.out and after
+mlp.down with masks drawn from the model's `dropout_generator`. Serving
+(any call with pools or caches) never drops.
 
 Serving state is explicit and updated IN PLACE (this replaces JAX buffer
 donation); the JAX ``lax.scan`` over decode steps is a Python loop:
@@ -36,6 +45,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import (attention_q8_cache, attention_reference,
+                             functional_attention,
                              paged_attention, paged_attention_q8,
                              paged_cache_write, paged_cache_write_q8,
                              paged_prefill_mask, paged_prefill_write,
@@ -43,22 +53,24 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              paged_prefix_attention_q8, quantize_kv,
                              static_cache_mask, static_cache_update,
                              static_cache_update_q8)
+from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..ops.int8_matmul import int8_linear_nd
 
 
 @dataclass
 class GPTConfig:
-    """The fields of the JAX GPTConfig that serving uses. MoE, recompute
-    and sequence-parallel fields are accepted for config compatibility
-    but only at their defaults: this port has no MoE block, no training
-    remat and no sequence-parallel mesh."""
+    """The fields of the JAX GPTConfig. MoE, recompute and
+    sequence-parallel fields are accepted for config compatibility but
+    only at their defaults: this port has no MoE block, no training remat
+    and no sequence-parallel mesh. `attention_dropout` is accepted and,
+    as in the JAX GPT, unused."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_layers: int = 12
     num_heads: int = 12
     intermediate_size: Optional[int] = None
     max_position_embeddings: int = 1024
-    hidden_dropout: float = 0.0          # training only; serving runs eval
+    hidden_dropout: float = 0.0          # train() mode, cache-free only
     attention_dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
@@ -89,7 +101,7 @@ class GPTConfig:
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={getattr(self, name)!r}: the PyTorch "
-                    f"port serves dense single-device GPT only (MoE, "
+                    f"port runs dense single-device GPT only (MoE, "
                     f"recompute and sequence parallelism are later slices)")
 
     @property
@@ -125,9 +137,10 @@ class GPTSelfAttention(nn.Module):
         self.out = nn.Linear(h, h, device=device, dtype=dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None,
-                prefill=False, start=None, cache=None, q8=None):
+                prefill=False, start=None, cache=None, q8=None, drop=None):
         """Without `pools` or `cache`: causal self-attention over x (the
-        cache-free forward). With `cache` (this layer's static or growing
+        cache-free forward, through `functional_attention`); `drop`, when
+        given, is applied to the output projection. With `cache` (this layer's static or growing
         KV cache), returns (out, new cache):
           (k, v, pos[, (lens, cap)])   fixed buffers [B, L, H, D]: x's
                          K/V are written at rows pos.. in place and x
@@ -168,7 +181,7 @@ class GPTSelfAttention(nn.Module):
         if cache is not None:
             ctx, new_cache = _attend_cache(q, k, v, cache)
         elif pools is None:
-            ctx = attention_reference(q, k, v, is_causal=True)
+            ctx = functional_attention(q, k, v, is_causal=True)
         elif len(pools) == 4:
             kc, ks, vc, vs = pools
             if start is not None:
@@ -211,6 +224,8 @@ class GPTSelfAttention(nn.Module):
         out = _linear(self.out,
                       ctx.reshape(b, s, self.num_heads * self.head_dim),
                       q8.get("attn.out"))
+        if drop is not None:
+            out = drop(out)
         return out if cache is None else (out, new_cache)
 
 
@@ -279,10 +294,11 @@ class GPTMLP(nn.Module):
         self.up = nn.Linear(h, m, device=device, dtype=dtype)
         self.down = nn.Linear(m, h, device=device, dtype=dtype)
 
-    def forward(self, x, q8=None):
+    def forward(self, x, q8=None, drop=None):
         q8 = q8 or {}
         u = F.gelu(_linear(self.up, x, q8.get("mlp.up")), approximate="tanh")
-        return _linear(self.down, u, q8.get("mlp.down"))
+        y = _linear(self.down, u, q8.get("mlp.down"))
+        return y if drop is None else drop(y)
 
 
 class GPTBlock(nn.Module):
@@ -297,13 +313,13 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(config, device, dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None, prefill=False,
-                start=None, cache=None, q8=None):
+                start=None, cache=None, q8=None, drop=None):
         """Returns x, or (x, new cache) when `cache` is given."""
         a = self.attn(self.ln_1(x), pools, tables, lens, prefill, start,
-                      cache, q8)
+                      cache, q8, drop)
         a, new_cache = a if cache is not None else (a, None)
         x = x + a
-        x = x + self.mlp(self.ln_2(x), q8)
+        x = x + self.mlp(self.ln_2(x), q8, drop)
         return x if cache is None else (x, new_cache)
 
 
@@ -322,12 +338,25 @@ class GPTModel(nn.Module):
                                 for _ in range(config.num_layers)])
         self.ln_f = nn.LayerNorm(h, eps=config.layer_norm_epsilon,
                                  device=device, dtype=dtype)
+        # hidden dropout's masks; GPTForCausalLM seeds it
+        self.dropout_generator = torch.Generator(
+            device="cpu" if device is None else device)
+
+    def _drop(self, x):
+        """Inverted dropout at hidden_dropout: keep with probability 1 - p
+        (a draw from `dropout_generator`), scale kept entries by 1/(1-p)."""
+        p = self.config.hidden_dropout
+        keep = torch.rand(x.shape, generator=self.dropout_generator,
+                          device=x.device) < 1.0 - p
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
                 lens=None, prefill=False, start=None, caches=None, q8=None):
         """Returns the final hidden states, or (hidden, new caches) when
         per-layer `caches` are given. Default positions: a static cache's
-        cursor onward, a growing cache's length onward, else 0..s-1."""
+        cursor onward, a growing cache's length onward, else 0..s-1.
+        Hidden dropout runs in train() mode on the cache-free forward
+        only."""
         s = input_ids.shape[1]
         dev = input_ids.device
         if position_ids is None:
@@ -355,13 +384,18 @@ class GPTModel(nn.Module):
         wpe = q8.get("wpe")
         x = tok + F.embedding(position_ids,
                               self.wpe.weight if wpe is None else wpe)
+        drop = None
+        if (self.training and self.config.hidden_dropout
+                and pools is None and caches is None):
+            drop = self._drop
+            x = drop(x)
         layers = q8.get("h")
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.h):
             x = block(x, None if pools is None else pools[i], tables, lens,
                       prefill, start,
                       None if caches is None else caches[i],
-                      None if layers is None else layers[i])
+                      None if layers is None else layers[i], drop)
             if caches is not None:
                 x, c = x
                 new_caches.append(c)
@@ -377,7 +411,9 @@ class GPTForCausalLM(nn.Module):
     ``torch.Generator`` seeded with ``seed`` using the JAX package's init:
     Normal(initializer_range) for wte and the qkv/up projections, the
     same scaled by 1/sqrt(2 * num_layers) for the out/down projections,
-    Normal(0, 1) for wpe, zeros for biases and ones for LayerNorm gains."""
+    Normal(0, 1) for wpe, zeros for biases and ones for LayerNorm gains.
+    The model starts in eval() mode; call train() for hidden dropout,
+    whose masks come from ``dropout_generator`` (seeded with ``seed``)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None,
                  seed: int = 0):
@@ -390,7 +426,12 @@ class GPTForCausalLM(nn.Module):
             self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                      bias=False, device=dev, dtype=dtype)
         self.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+        self.gpt.dropout_generator.manual_seed(seed)
         self.eval()
+
+    @property
+    def dropout_generator(self) -> torch.Generator:
+        return self.gpt.dropout_generator
 
     @property
     def device(self) -> torch.device:
@@ -434,6 +475,21 @@ class GPTForCausalLM(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits if caches is None else (logits, new_caches)
+
+    def loss(self, input_ids, labels, loss_mask=None, position_ids=None,
+             chunk_size: int = 128):
+        """Training loss with the fused LM head: the hidden states go
+        straight into `fused_linear_cross_entropy` (the kernel route where
+        `use_linear_ce` holds), so the [B, S, vocab] logits never exist.
+        Equals `GPTPretrainingCriterion()(model(ids), labels, loss_mask)`
+        for in-range labels."""
+        x = self.gpt(input_ids, position_ids)
+        tied = self.config.tie_word_embeddings
+        w = self.gpt.wte.weight if tied else self.lm_head.weight
+        # an untied head is nn.Linear [V, H]: the "vh" layout as it is
+        per_tok = fused_linear_cross_entropy(x, w, labels,
+                                             chunk_size=chunk_size)
+        return _masked_mean(per_tok, loss_mask)
 
     # --------------------------------------------- weight-only int8 payload
     @torch.no_grad()
@@ -907,6 +963,39 @@ class GPTForCausalLM(nn.Module):
         return e.to(torch.int64), n_acc.to(torch.int32), pools, done_out
 
 
+def _masked_mean(per_tok, loss_mask):
+    """Mean of per-token losses, or their loss_mask-weighted sum over
+    max(sum(mask), 1e-8): the one reduction both loss paths share."""
+    if loss_mask is None:
+        return per_tok.mean()
+    per_tok = per_tok * loss_mask
+    return per_tok.sum() / torch.clamp(loss_mask.sum(), min=1e-8)
+
+
+def cross_entropy_per_token(logits, labels, ignore_index: int = -100):
+    """Per-token softmax cross-entropy over materialised logits [..., V]
+    in f32 (the role of the JAX package's ParallelCrossEntropy on one
+    device); tokens labelled `ignore_index` get 0."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return torch.where(labels == ignore_index, torch.zeros_like(lse),
+                       lse - picked)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Masked mean cross-entropy over materialised logits (PaddleNLP's
+    GPTPretrainingCriterion)."""
+
+    def __init__(self, config: Optional[GPTConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None, aux_loss=None):
+        loss = _masked_mean(cross_entropy_per_token(logits, labels),
+                            loss_mask)
+        return loss if aux_loss is None else loss + aux_loss
+
+
 def _validate_cache_dtype(cache_dtype, dtype) -> bool:
     """Static-cache dtype check: None, the model dtype, or 'int8'.
     Returns True when the int8 KV-cache path is requested."""
@@ -1004,4 +1093,5 @@ def sample_logits(last, generator: Optional[torch.Generator] = None,
 
 __all__: List[str] = ["GPTConfig", "PRESETS", "gpt_config",
                       "GPTSelfAttention", "GPTMLP", "GPTBlock", "GPTModel",
-                      "GPTForCausalLM", "sample_logits"]
+                      "GPTForCausalLM", "GPTPretrainingCriterion",
+                      "cross_entropy_per_token", "sample_logits"]

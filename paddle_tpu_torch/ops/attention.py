@@ -1,5 +1,6 @@
-"""Attention ops for paged GPT serving (the port of
-paddle_tpu/ops/attention.py's serving half).
+"""Attention ops (the port of paddle_tpu/ops/attention.py): the plain
+reference, the training entry points `functional_attention` and
+`scaled_dot_product_attention`, and the paged GPT serving ops.
 
 Layout follows the JAX package: [batch, seq, num_heads, head_dim]. The
 paged KV cache is one [num_blocks, block, H, D] pool per layer (int8 pools:
@@ -32,13 +33,16 @@ _NEG_LOW = -3e38
 
 
 def attention_reference(q, k, v, mask=None, is_causal=False, scale=None,
-                        score_dtype=None):
+                        score_dtype=None, dropout_p=0.0, generator=None):
     """Plain attention on [B, S, H, D] with f32 accumulation.
 
     score_dtype: dtype the [B, H, Sq, Sk] logits/probabilities are rounded
     to (the JAX package stores them in the model dtype on the serving
     path); the max, sum and both contractions stay f32. `mask` is a bool
-    keep-mask or an additive float mask broadcastable to [B, H, Sq, Sk]."""
+    keep-mask or an additive float mask broadcastable to [B, H, Sq, Sk].
+    The causal mask is aligned bottom-right (query i of s_q sees keys <=
+    i + s_k - s_q). dropout_p > 0 drops probabilities with a mask drawn
+    from `generator` and rescales the kept ones by 1 / (1 - p)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     dt = q.dtype
@@ -64,8 +68,67 @@ def attention_reference(q, k, v, mask=None, is_causal=False, scale=None,
         p = torch.exp(logits.float() - m).to(sdt)
         denom = p.float().sum(dim=-1, keepdim=True)
         probs = (p.float() / denom).to(sdt)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device))
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt).float(),
                         v.float()).to(dt)
+
+
+def _use_flash(q_shape, head_dim) -> bool:
+    """The JAX routing predicate minus its platform test: head dims in
+    whole sublanes and the sequence in 128-row blocks. On a CUDA tensor the
+    routed call launches the kernel or raises."""
+    return head_dim % 8 == 0 and q_shape[1] % 128 == 0
+
+
+def functional_attention(q, k, v, *, is_causal=False, scale=None, mask=None,
+                         score_dtype=None):
+    """Differentiable attention on [B, S, H, D] for model code: flash
+    attention (`ops.flash_attention`) where the routing predicate holds and
+    no mask is given; non-causal self-attention with s >= 512 and s % 128
+    != 0 pads q, k and v to the next 128 rows and masks the padded keys
+    (kv_len), slicing the padded query rows off; otherwise the plain
+    reference. Note the reference aligns a causal mask bottom-right and
+    the flash route top-left; they agree when s_q == s_k."""
+    from . import flash_attention as FA
+    if mask is None and _use_flash(tuple(q.shape), q.shape[-1]):
+        return FA.flash_attention(q, k, v, causal=is_causal, scale=scale)
+    s = q.shape[1]
+    pad = (-s) % 128
+    if (mask is None and not is_causal and pad and s >= 512
+            and q.shape[1] == k.shape[1]
+            and _use_flash((q.shape[0], s + pad), q.shape[-1])):
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+        out = FA.flash_attention(q, k, v, causal=False, scale=scale,
+                                 kv_len=s)
+        return out[:, :s]
+    return attention_reference(q, k, v, mask=mask, is_causal=is_causal,
+                               scale=scale, score_dtype=score_dtype)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None, score_dtype=None,
+                                 generator=None):
+    """Tensor-level entry point: flash attention when there is no mask,
+    no live dropout and the routing predicate holds; otherwise the
+    reference, which applies attention dropout (in training) with masks
+    drawn from `generator`."""
+    from . import flash_attention as FA
+    if (attn_mask is None and (dropout_p == 0.0 or not training)
+            and _use_flash(tuple(query.shape), query.shape[-1])):
+        return FA.flash_attention(query, key, value, causal=is_causal,
+                                  scale=scale)
+    return attention_reference(query, key, value, mask=attn_mask,
+                               is_causal=is_causal, scale=scale,
+                               score_dtype=score_dtype,
+                               dropout_p=dropout_p if training else 0.0,
+                               generator=generator)
 
 
 def static_cache_mask(kv_capacity, s, pos, prompt_lens=None,

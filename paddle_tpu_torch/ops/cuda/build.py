@@ -23,13 +23,18 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+# "-cudart shared": the libraries use the CUDA runtime PyTorch has already
+# loaded (the same soname), so the kernels and PyTorch share one runtime,
+# one module registry and one error state, as PyTorch's own extensions do
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-cudart",
+              "shared")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"paged_attention": 0, "paged_attention_q8": 0,
             "paged_prefix_attention": 0, "paged_prefix_attention_q8": 0,
-            "int8_matmul": 0}
+            "int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "linear_ce_fwd": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points per library (source stem) and their argument types
@@ -42,6 +47,13 @@ _ENTRY_POINTS = {
         "pt_paged_prefix_attention_q8": [_p] * 8 + [_i] * 7 + [_f, _i, _p]},
     "int8_matmul": {
         "pt_int8_matmul": [_p] * 4 + [_i] * 5 + [_p]},
+    "flash_attention": {
+        "pt_flash_fwd": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
+        "pt_flash_bwd_dq": [_p] * 8 + [_i] * 7 + [_f, _i, _p],
+        "pt_flash_bwd_dkv": [_p] * 9 + [_i] * 7 + [_f, _i, _p]},
+    "linear_ce": {
+        "pt_linear_ce_partial": [_p] * 4 + [_i] * 8 + [_p],
+        "pt_linear_ce_merge": [_p] * 3 + [_i] * 2 + [_p]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -92,10 +104,12 @@ def build() -> Dict[str, Path]:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    # where the toolkit's runtime is, should none be loaded yet
+    rpath = f"-Xlinker=-rpath,{Path(nvcc).resolve().parents[1] / 'lib64'}"
     jobs = []
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, rpath, "-o", str(tmp), str(src)]
         jobs.append((src, out, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)))

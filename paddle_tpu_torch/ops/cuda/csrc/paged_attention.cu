@@ -261,6 +261,7 @@ int pt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                        const int* tables, const int* lens, void* out, int B,
                        int H, int D, int NB, int bs, int MB, float scale,
                        int dtype, void* stream) {
+  cudaGetLastError();  // drop an error an earlier runtime call left behind
   if (bad_shape(B, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -282,6 +283,7 @@ int pt_paged_attention_q8(const void* q, const void* k_codes,
                           const int* lens, void* out, int B, int H, int D,
                           int NB, int bs, int MB, float scale, int qdtype,
                           void* stream) {
+  cudaGetLastError();  // drop an error an earlier runtime call left behind
   if (bad_shape(B, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);

@@ -26,6 +26,16 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
     code = ("import sys, json, paddle_tpu_torch\n"
             "import paddle_tpu_torch.ops.cuda.paged_attention\n"
             "import paddle_tpu_torch.ops.cuda.int8_matmul\n"
+            "import paddle_tpu_torch.ops.cuda.flash_attention\n"
+            "import paddle_tpu_torch.ops.cuda.linear_ce\n"
+            "import paddle_tpu_torch.ops.flash_attention\n"
+            "import paddle_tpu_torch.ops.linear_ce\n"
+            "import paddle_tpu_torch.incubate.nn.functional\n"
+            "import paddle_tpu_torch.optimizer.optimizer\n"
+            "import paddle_tpu_torch.optimizer.lr\n"
+            "import paddle_tpu_torch.amp.grad_scaler\n"
+            "import paddle_tpu_torch.jit.train_step\n"
+            "import paddle_tpu_torch.nn.clip\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -65,6 +75,27 @@ def test_default_device_raises_without_cuda(monkeypatch):
         pt.GPTForCausalLM(cfg, device="cuda")
     m = pt.GPTForCausalLM(cfg, device="cpu")
     assert m.device.type == "cpu"
+    # the training entry points default to CUDA too
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.AdamW(1e-3, parameters=m.named_parameters())
+    opt = pt.AdamW(1e-3, parameters=m.named_parameters(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.TrainStep(m, opt, lambda a, b: m.loss(a, b))
+    assert pt.TrainStep(m, opt, lambda a, b: m.loss(a, b),
+                        device="cpu").device.type == "cpu"
+
+
+def test_training_modules_are_covered_by_the_source_check():
+    """The training slice's modules are among the sources the no-JAX
+    check above reads."""
+    files = {f.relative_to(REPO / "paddle_tpu_torch").as_posix()
+             for f in (REPO / "paddle_tpu_torch").rglob("*.py")}
+    for f in ("ops/flash_attention.py", "ops/linear_ce.py",
+              "ops/cuda/flash_attention.py", "ops/cuda/linear_ce.py",
+              "incubate/nn/functional.py", "optimizer/optimizer.py",
+              "optimizer/lr.py", "amp/grad_scaler.py", "jit/train_step.py",
+              "nn/clip.py"):
+        assert f in files, f
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -149,7 +180,7 @@ def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     before = cuda_build.library_paths()
     assert set(before) == {"paged_attention", "paged_prefix_attention",
-                           "int8_matmul"}
+                           "int8_matmul", "flash_attention", "linear_ce"}
     assert set(before) == set(cuda_build._ENTRY_POINTS)
     src = tmp_path / "paged_prefix_attention.cu"
     src.write_text(src.read_text() + "\n// edit\n")
