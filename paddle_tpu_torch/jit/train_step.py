@@ -23,7 +23,9 @@ in the JAX step's order:
 state, optimizer scalars and the scaler, in the JAX layout (`params` and
 `opt` keyed by parameter name). The JAX step's compilation, meshes,
 monitors, numerics, lint, preemption, chaos, timeline, HBM ledger and
-gradient-sync options are later slices; asking for one raises.
+gradient-sync options are later slices; asking for one raises. Options
+that only tune those (data axes, donation, the gradient-sync chunking) are
+not accepted at all.
 """
 from __future__ import annotations
 
@@ -60,13 +62,10 @@ class TrainStep:
     without a card); the model must live on it."""
 
     def __init__(self, model, optimizer, loss_fn: Callable, mesh=None,
-                 data_axes=("dp",), donate: bool = True,
                  grad_accum_steps: int = 1, monitor=None, numerics=None,
                  scaler: GradScaler = None, lint=None, preemption=None,
                  chaos=None, timeline=None, memz=None, grad_comm=None,
-                 grad_comm_chunk: int = 256,
-                 grad_comm_stochastic: bool = False,
-                 grad_comm_f32_fallback=None, device=None):
+                 device=None):
         asked = dict(mesh=mesh, monitor=monitor, numerics=numerics,
                      lint=lint, preemption=preemption, chaos=chaos,
                      timeline=timeline, memz=memz, grad_comm=grad_comm)

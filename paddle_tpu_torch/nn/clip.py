@@ -12,7 +12,7 @@ class ClipGradByGlobalNorm:
     norm taken in f32 over all gradients together. An optimizer or
     TrainStep applies it; the object only carries `clip_norm`."""
 
-    def __init__(self, clip_norm, group_name="default_group"):
+    def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
     def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -65,6 +65,16 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
+def raise_on_error(lib: ctypes.CDLL, rc: int, what: str, detail: str = ""):
+    """Raise RuntimeError for a nonzero code from a C entry point: an error
+    of its own launch, or one an earlier CUDA call left pending (each entry
+    point reports that first rather than clear it unseen)."""
+    if rc != 0:
+        msg = lib.pt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {msg} ({rc}) at the launch "
+                           f"or left pending before it{detail}")
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"

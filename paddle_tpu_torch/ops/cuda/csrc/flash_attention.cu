@@ -803,7 +803,9 @@ cudaError_t launch_f32(int kind, const Params& p, cudaStream_t st) {
 cudaError_t run(int kind, Params& p, const long long* strides, int B, int H,
                 int Sq, int Sk, int D, int kv_len, int causal, float scale,
                 int dtype, void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 16 || D > 256 || D % 16 ||
       B > 65535 || H > 65535 || kv_len < 1)
     return cudaErrorInvalidValue;

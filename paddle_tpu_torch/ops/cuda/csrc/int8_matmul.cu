@@ -334,7 +334,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x and y share it)
 int pt_int8_matmul(const void* x, const void* q, const float* s, void* y,
                    int M, int N, int K, int layout, int dtype, void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || M > 65535 * 16)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);

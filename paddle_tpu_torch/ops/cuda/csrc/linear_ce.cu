@@ -358,7 +358,9 @@ int pt_linear_ce_partial(const void* x, const void* w, const int* labels,
                          float* part, int T, int H, int V, int ldw,
                          int layout, int dtype, int nsplit, int tps,
                          void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (T < 1 || H < 1 || V < 1 || nsplit < 1 || nsplit > 65535 || tps < 1 ||
       (layout != 0 && layout != 1) || (layout == 0 && ldw < V))
     return cudaErrorInvalidValue;
@@ -393,7 +395,9 @@ int pt_linear_ce_partial(const void* x, const void* w, const int* labels,
 // loss and lse [T] f32 from the [3, nsplit, T] partial triples
 int pt_linear_ce_merge(const float* part, float* loss, float* lse, int T,
                        int nsplit, void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (T < 1 || nsplit < 1) return cudaErrorInvalidValue;
   lce_merge<<<(T + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       part, loss, lse, T, nsplit);

@@ -261,7 +261,9 @@ int pt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                        const int* tables, const int* lens, void* out, int B,
                        int H, int D, int NB, int bs, int MB, float scale,
                        int dtype, void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (bad_shape(B, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -283,7 +285,9 @@ int pt_paged_attention_q8(const void* q, const void* k_codes,
                           const int* lens, void* out, int B, int H, int D,
                           int NB, int bs, int MB, float scale, int qdtype,
                           void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (bad_shape(B, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);

@@ -309,7 +309,9 @@ int pt_paged_prefix_attention(const void* q, const void* k_pool,
                               const int* start, void* out, int B, int S,
                               int H, int D, int NB, int bs, int MB,
                               float scale, int dtype, void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (bad_shape(B, S, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -331,7 +333,9 @@ int pt_paged_prefix_attention_q8(const void* q, const void* k_codes,
                                  const int* start, void* out, int B, int S,
                                  int H, int D, int NB, int bs, int MB,
                                  float scale, int qdtype, void* stream) {
-  cudaGetLastError();  // drop an error an earlier runtime call left behind
+  // an error an earlier runtime call left pending is returned (and so
+  // cleared), never dropped: the wrapper raises it
+  if (cudaError_t pending = cudaGetLastError()) return pending;
   if (bad_shape(B, S, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from .build import LAUNCHES, load_library
+from .build import LAUNCHES, load_library, raise_on_error
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,12 +68,6 @@ def _strides(q, k, v):
     return (ctypes.c_longlong * 9)(*vals)
 
 
-def _raise(lib, rc, what):
-    if rc != 0:
-        msg = lib.pt_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
-
-
 def flash_fwd_cuda(q, k, v, *, causal, scale, kv_len=None):
     """Forward: returns (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
     f32)."""
@@ -87,7 +81,7 @@ def flash_fwd_cuda(q, k, v, *, causal, scale, kv_len=None):
         lse.data_ptr(), ctypes.addressof(st), B, H, Sq, Sk, D, kv,
         int(bool(causal)), float(scale), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise(lib, rc, "flash_fwd")
+    raise_on_error(lib, rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
 
@@ -125,7 +119,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal, scale,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), ctypes.addressof(st),
         B, H, Sq, Sk, D, kv, int(bool(causal)), float(scale),
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _raise(lib, rc, "flash_bwd_dq")
+    raise_on_error(lib, rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
@@ -144,7 +138,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal, scale,
         ctypes.addressof(st), B, H, Sq, Sk, D, kv, int(bool(causal)),
         float(scale), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise(lib, rc, "flash_bwd_dkv")
+    raise_on_error(lib, rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import LAUNCHES, load_library
+from .build import LAUNCHES, load_library, raise_on_error
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUT_CODE = {"kn": 0, "nk": 1}
@@ -69,8 +69,6 @@ def int8_matmul_cuda(x, q, s, *, w_layout="kn"):
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N, K,
         _LAYOUT_CODE[w_layout], _DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        msg = lib.pt_error_string(rc).decode()
-        raise RuntimeError(f"int8_matmul kernel launch failed: {msg} ({rc})")
+    raise_on_error(lib, rc, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1
     return y

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .build import LAUNCHES, load_library
+from .build import LAUNCHES, load_library, raise_on_error
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUT_CODE = {"hv": 0, "vh": 1}
@@ -94,11 +94,8 @@ def linear_ce_fwd_cuda(x, w, labels, *, w_layout="vh"):
         stage = "merge"
     else:
         stage = "tile"
-    if rc != 0:
-        msg = lib.pt_error_string(rc).decode()
-        raise RuntimeError(
-            f"linear_ce_fwd {stage} kernel launch failed: {msg} ({rc}); "
-            f"T={T} H={H} V={V} layout={w_layout} dtype={x.dtype} "
-            f"nsplit={nsplit} tiles/split={tps}")
+    raise_on_error(lib, rc, f"linear_ce_fwd {stage}",
+                   f"; T={T} H={H} V={V} layout={w_layout} dtype={x.dtype} "
+                   f"nsplit={nsplit} tiles/split={tps}")
     LAUNCHES["linear_ce_fwd"] += 1
     return loss, lse

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from .build import LAUNCHES, load_library
+from .build import LAUNCHES, load_library, raise_on_error
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -117,9 +117,7 @@ def _launch(lib_name, fn, counter, q, pools, tables, vec, scale, window):
         q.data_ptr(), *(p.data_ptr() for p in pools), tables.data_ptr(),
         vec.data_ptr(), out.data_ptr(), *shapes, scale,
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        msg = lib.pt_error_string(rc).decode()
-        raise RuntimeError(f"{counter} kernel launch failed: {msg} ({rc})")
+    raise_on_error(lib, rc, counter)
     LAUNCHES[counter] += 1
     return out
 

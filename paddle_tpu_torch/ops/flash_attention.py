@@ -42,21 +42,55 @@ def _score_mask(s_q, s_k, causal, kv_len, device):
     return keep
 
 
-def flash_attention_reference(q, k, v, causal=False, scale=None,
-                              kv_len=None):
-    """The plain version of the kernels' function: f32 scores and softmax,
-    masked scores -1e30, probabilities rounded to the input dtype before
-    the product with v (as the kernel rounds P), the output cast back.
-    Differentiable through autograd."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _scores(q, k, causal, scale, kv_len):
+    """f32 scores [B, H, Sq, Sk], masked ones -1e30."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     keep = _score_mask(q.shape[1], k.shape[1], causal, kv_len, q.device)
-    if keep is not None:
-        s = s.masked_fill(~keep, _NEG)
+    return s if keep is None else s.masked_fill(~keep, _NEG)
+
+
+def flash_forward_reference(q, k, v, causal=False, scale=None, kv_len=None):
+    """The plain version of the forward kernel: (out in q's dtype, lse
+    [B, H, Sq] f32). f32 scores and softmax, masked scores -1e30,
+    probabilities rounded to the input dtype before the product with v (as
+    the kernel rounds P). Differentiable through autograd."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, causal, scale, kv_len)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
-                        v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
+                       v.float()).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_reference(q, k, v, causal=False, scale=None,
+                              kv_len=None):
+    """The plain version of the kernels' function (the output of
+    `flash_forward_reference`), differentiable through autograd."""
+    return flash_forward_reference(q, k, v, causal, scale, kv_len)[0]
+
+
+def flash_bwd_reference(q, k, v, out, lse, dout, causal=False, scale=None,
+                        kv_len=None):
+    """The plain version of the backward kernels on their inputs (the
+    FlashAttention-2 backward, as the JAX kernels compute it): delta =
+    rowsum(dout * out) in f32 from `out` as given, P = exp(s - lse) from the
+    saved lse, dS = P * (dout v^T - delta); P and dS rounded to the input
+    dtype before their products; dv = P^T dout, dq = scale dS k, dk =
+    scale dS^T q. Returns (dq, dk, dv) in q's dtype. Delta comes from the
+    rounded output, so where the true dq of a row is near zero (a causal
+    row over two keys) it differs from autograd's, as the kernels do."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal, scale, kv_len) - lse[..., None])
+    do = dout.float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v.float()) - delta)
+    p, ds = (t.to(q.dtype).float() for t in (p, ds))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):

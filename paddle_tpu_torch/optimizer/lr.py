@@ -8,11 +8,10 @@ import math
 
 
 class LRScheduler:
-    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+    def __init__(self, learning_rate=0.1, last_epoch=-1):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
         self.last_lr = self.base_lr
-        self.verbose = verbose
         self.step()
 
     def get_lr(self) -> float:
@@ -41,14 +40,14 @@ class LinearWarmup(LRScheduler):
     `learning_rate` (a float, or a scheduler continued from step 0)."""
 
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
-                 last_epoch=-1, verbose=False):
+                 last_epoch=-1):
         self.lr_sched = learning_rate if isinstance(
             learning_rate, LRScheduler) else None
         self.final_lr = learning_rate if not isinstance(
             learning_rate, LRScheduler) else None
         self.warmup_steps, self.start_lr, self.end_lr = \
             warmup_steps, start_lr, end_lr
-        super().__init__(start_lr, last_epoch, verbose)
+        super().__init__(start_lr, last_epoch)
 
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
@@ -73,10 +72,9 @@ class LinearWarmup(LRScheduler):
 
 
 class CosineAnnealingDecay(LRScheduler):
-    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
-                 verbose=False):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1):
         self.T_max, self.eta_min = T_max, eta_min
-        super().__init__(learning_rate, last_epoch, verbose)
+        super().__init__(learning_rate, last_epoch)
 
     def get_lr(self):
         return (self.eta_min + (self.base_lr - self.eta_min)

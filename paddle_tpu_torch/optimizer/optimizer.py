@@ -43,7 +43,7 @@ class Optimizer:
     parameter must live on it."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, name=None, device=None):
+                 weight_decay=None, grad_clip=None, device=None):
         self._lr = learning_rate
         self._device = resolve_device(device)
         self._parameters = _named(parameters) if parameters is not None \
@@ -153,8 +153,7 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, lazy_mode=False, multi_precision=True,
-                 moment_dtype="float32", q8_param_fun=None, name=None,
+                 grad_clip=None, moment_dtype="float32", q8_param_fun=None,
                  device=None):
         if str(moment_dtype) in ("int8", "uint8") or q8_param_fun is not None:
             raise NotImplementedError(
@@ -164,7 +163,7 @@ class Adam(Optimizer):
             raise ValueError(f"moment_dtype must be 'float32' or "
                              f"'bfloat16'; got {moment_dtype!r}")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         name, device)
+                         device)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._moment_dtype = _MOMENT_DTYPES[str(moment_dtype)]
 
@@ -210,14 +209,13 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=True, moment_dtype="float32",
-                 q8_param_fun=None, name=None, device=None):
+                 moment_dtype="float32", q8_param_fun=None, device=None):
         if lr_ratio is not None:
             raise NotImplementedError("AdamW(lr_ratio=...) is a later item "
                                       "of the port")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, moment_dtype=moment_dtype,
-                         q8_param_fun=q8_param_fun, name=name, device=device)
+                         q8_param_fun=q8_param_fun, device=device)
         self._wd_coeff = weight_decay
         self._apply_decay_param_fun = apply_decay_param_fun
 

@@ -18,6 +18,8 @@ import jax.numpy as jnp
 from paddle_tpu.ops.attention import attention_reference as jax_reference
 from paddle_tpu.ops.pallas.flash_attention import \
     flash_attention as jax_flash
+from paddle_tpu.ops.pallas.flash_attention import \
+    _flash_vjp_bwd as jax_flash_bwd, _flash_vjp_fwd as jax_flash_fwd
 from paddle_tpu_torch.ops import attention as A
 from paddle_tpu_torch.ops import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import flash_attention as KF
@@ -87,6 +89,70 @@ def test_flash_cross_lengths_match_jax_kernel():
     _compare(lambda a, b, c: jax_flash(a, b, c, block_q=128, block_k=128,
                                        interpret=True),
              lambda a, b, c: FA.flash_attention(a, b, c), q, k, v)
+
+
+def _np32(x):
+    return np.asarray(x).astype(np.float32)
+
+
+# the plain FA-2 backward against the JAX backward kernels on the same
+# inputs (q, k, v, the JAX forward's out and lse, dout): f32 to the
+# module's tolerances; bf16 to 2e-2 relative plus 2e-2 of the largest
+# |value|, for the f32 sums of two orders landing on either side of a
+# bf16 rounding boundary (the formulas are the same)
+@pytest.mark.parametrize("dtype, causal, kv_len, s_q", [
+    ("float32", True, None, 256), ("bfloat16", True, None, 256),
+    ("bfloat16", False, 197, 256), ("float32", False, None, 128)])
+def test_flash_bwd_reference_matches_jax_backward_kernels(dtype, causal,
+                                                          kv_len, s_q):
+    q = _rand(1, s_q, 1, 64, 20)
+    k, v = _rand(1, 256, 1, 64, 21), _rand(1, 256, 1, 64, 22)
+    g = np.random.RandomState(23).randn(*q.shape).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jdt) for a in (q, k, v, g))
+    scale = 64 ** -0.5
+    jo, res = jax_flash_fwd(jq, jk, jv, scale, causal, 128, 128, True,
+                            kv_len)
+    jgrads = jax_flash_bwd(scale, causal, 128, 128, True, kv_len, False,
+                           res, jg)
+    lse = _np32(res[4])[:, 0, :].reshape(1, 1, s_q)        # [B, H, Sq]
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg, to = (torch.from_numpy(_np32(a)).to(tdt)
+                          for a in (jq, jk, jv, jg, jo))
+    grads = FA.flash_bwd_reference(tq, tk, tv, to, torch.from_numpy(lse),
+                                   tg, causal=causal, kv_len=kv_len)
+    tout, tlse = FA.flash_forward_reference(tq, tk, tv, causal=causal,
+                                            kv_len=kv_len)
+    np.testing.assert_allclose(tlse.numpy(), lse, atol=1e-5, rtol=1e-5)
+    for name, a, b in zip("qkv", grads, jgrads):
+        a, b = a.float().numpy(), _np32(b)
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                       err_msg=f"d{name}")
+        else:
+            np.testing.assert_allclose(a, b, rtol=2e-2,
+                                       atol=2e-2 * np.abs(b).max(),
+                                       err_msg=f"d{name}")
+    if kv_len is not None:
+        assert float(grads[1][:, kv_len:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_reference_is_autograd_in_f32(causal):
+    """In f32 the FA-2 backward is the gradient of the plain forward: the
+    delta identity holds up to summation order."""
+    q, k, v = (torch.from_numpy(_rand(2, 256, 2, 64, s)) for s in (30, 31,
+                                                                   32))
+    dout = torch.from_numpy(np.random.RandomState(33).randn(
+        2, 256, 2, 64).astype(np.float32))
+    ls = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(FA.flash_attention_reference(
+        *ls, causal=causal), ls, dout)
+    out, lse = FA.flash_forward_reference(q, k, v, causal=causal)
+    fa2 = FA.flash_bwd_reference(q, k, v, out, lse, dout, causal=causal)
+    for name, a, b in zip("qkv", fa2, auto):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=f"d{name}")
 
 
 def test_causal_mask_is_top_left_like_the_kernel():
