@@ -6,13 +6,16 @@
 Run from the root of a checkout. It builds the hand-written kernels from
 the checkout's sources (one nvcc per source, in parallel): the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
-attention #6 (forward, dQ and dK/dV passes) and the fused linear
-cross-entropy forward #11. It holds
-each against its plain PyTorch version (phase 2), checks parity between
-the kernel route and the plain route on the card for the paged engine, the
-prefix-cache + chunked-prefill + speculative engine, static decode, the
-padded engine, the paged engine with int8 weights and the model-drafted
-spec engine (phase 3), serves gpt3-1.3b (24 layers, bf16, seeded random
+attention #6 (forward, dQ and dK/dV passes), the fused linear
+cross-entropy forward #11 and the fused short-sequence MHA #9 (forward and
+backward). It holds each against its plain PyTorch version (phase 2; #1-#4
+also at head dim 80, #11 also at bert-base's MLM head, #9 at bert-base and
+vit-l16 shapes with dropout, lengths and causal, its kept sets read back),
+checks parity between the kernel route and the plain route on the card for
+the paged engine, the prefix-cache + chunked-prefill + speculative engine
+(at gpt3-1.3b and at gpt3-2.7b's head dim 80), static decode, the padded
+engine, the paged engine with int8 weights and the model-drafted spec
+engine (phase 3), serves gpt3-1.3b (24 layers, bf16, seeded random
 weights) through the paged ServingEngine with an fp and an int8 KV pool
 (phase 4), then through the prefix-cache, speculative-decode and
 chunked-prefill paths (phase 5), then through static decode (bf16, int8
@@ -20,9 +23,12 @@ weights, int8 weights + int8 KV), the padded engine, the paged engine with
 int8 weights and a spec engine drafted by gpt3-125m (phase 6). Phase 7 is
 training: the kernel route against the plain route for the loss, every
 gradient and 5-step AdamW trajectories at gpt3-1.3b widths cut to 2
-layers, then bench_gpt's configuration at full width (gpt3-1.3b, bf16, B=3,
-S=2048, AdamW with bf16 moments) timed and profiled. Each phase
-prints one JSON line; any failure exits non-zero. The line before the last is the card's name and
+layers, and for BERT MLM and ViT at bert-base and vit-l16 widths cut to 2
+layers; then bench_gpt's configuration at full width (gpt3-1.3b, bf16,
+B=3, S=2048, AdamW with bf16 moments), bench_bert's (bert-base, bf16,
+B=32, S=512, dropout) and bench_vit's (vit-l16 at 224^2, bf16, B=64),
+each timed and profiled. Each phase prints one JSON line; any failure
+exits non-zero. The line before the last is the card's name and
 power limit from nvidia-smi; the last line is {"ok": true, "device":
 {...}} with the number of devices the smoke used. Without a CUDA device,
 or without the package beside it, it exits 2 and prints no result.
@@ -53,6 +59,8 @@ KERNEL_SOURCE = {
     "flash_bwd_dq": CSRC + "flash_attention.cu",
     "flash_bwd_dkv": CSRC + "flash_attention.cu",
     "linear_ce_fwd": CSRC + "linear_ce.cu",
+    "fused_mha_fwd": CSRC + "fused_mha.cu",
+    "fused_mha_bwd": CSRC + "fused_mha.cu",
 }
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:383",
@@ -67,6 +75,9 @@ REPLACES = {
     "flash_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:238",
     # linear_cross_entropy (def :232): the forward pallas_call
     "linear_ce_fwd": "paddle_tpu/ops/pallas/linear_ce.py:111",
+    # fused_mha (def :355): the forward and the backward pallas_calls
+    "fused_mha_fwd": "paddle_tpu/ops/pallas/fused_mha.py:249",
+    "fused_mha_bwd": "paddle_tpu/ops/pallas/fused_mha.py:295",
 }
 # kernel #6 cases: (name, B, Sq, Sk, H, D, causal, kv_len). The first two
 # are the training shapes of gpt3-1.3b (bench_gpt) and gpt3-125m, taken as
@@ -87,14 +98,18 @@ FLASH_TOL = {"bfloat16": (0.1, 0.1, 1e-5), "float32": (1e-4, 1e-4, 1e-5)}
 # whole function; causal, the error sits in the last 64 rows only
 FLASH_CONTROLS = ("gpt3-1.3b", "cross")
 # kernel #11 cases: (name, T, H, V, layout, dtype); the first is the
-# gpt3-1.3b bench_gpt LM head (T = 3 x 2048), the others an untied head,
-# ragged vocabularies (V % 128 != 0, and V % 8 != 0 in "hv") and f32
+# gpt3-1.3b bench_gpt LM head (T = 3 x 2048), the second bench_bert's tied
+# MLM head (T = 32 x 512, V = 30522: not a multiple of the 128-wide vocab
+# tile), the others an untied head, ragged vocabularies (V % 128 != 0,
+# and V % 8 != 0 in "hv") and f32
 CE_CASES = [("gpt3-1.3b", 6144, 2048, 50304, "vh", "bfloat16"),
+            ("bert-base", 16384, 768, 30522, "vh", "bfloat16"),
             ("gpt3-1.3b_hv", 6144, 2048, 50304, "hv", "bfloat16"),
             ("ragged", 512, 256, 1000, "vh", "bfloat16"),
             ("ragged_hv", 512, 256, 1001, "hv", "bfloat16"),
             ("f32", 512, 256, 1000, "vh", "float32"),
             ("f32_hv", 512, 256, 1000, "hv", "float32")]
+CE_TIMED = ("gpt3-1.3b", "bert-base")   # the first one is the line's
 # (max abs loss error, max |kernel - plain| / max |plain| on dx and dW)
 CE_TOL = {"bfloat16": (2e-3, 3e-2), "float32": (1e-4, 1e-4)}
 # kernel #5 at gpt3-1.3b widths: (K, N) of each projection, layout "nk"
@@ -173,9 +188,10 @@ def timer(torch, device):
 
 
 # ------------------------------------------------- phase 2 inputs
-def kernel_inputs(torch, device, dtype, q8):
+def kernel_inputs(torch, device, dtype, q8, d=D):
     """Pools holding each row's lens[b] positions in blocks scattered
-    through the pool; table entries past ceil(lens/bs) are trash block 0."""
+    through the pool; table entries past ceil(lens/bs) are trash block 0.
+    `d`: the head dim (the main path's D, or gpt3-2.7b's 80)."""
     from paddle_tpu_torch.ops.attention import quantize_kv
     g = torch.Generator(device=device).manual_seed(11)
     perm = torch.randperm(NB - 1, generator=g, device=device) + 1
@@ -183,9 +199,9 @@ def kernel_inputs(torch, device, dtype, q8):
     lens = torch.tensor(LENS, dtype=torch.int32, device=device)
     used = (torch.arange(MB, device=device)[None] * BS) < lens[:, None]
     tables = torch.where(used, tables, torch.zeros_like(tables)).contiguous()
-    q = torch.randn(B, 1, H, D, generator=g, device=device).to(dtype)
-    k = torch.randn(NB, BS, H, D, generator=g, device=device)
-    v = torch.randn(NB, BS, H, D, generator=g, device=device)
+    q = torch.randn(B, 1, H, d, generator=g, device=device).to(dtype)
+    k = torch.randn(NB, BS, H, d, generator=g, device=device)
+    v = torch.randn(NB, BS, H, d, generator=g, device=device)
     if q8:
         kc, ks = quantize_kv(k)
         vc, vs = quantize_kv(v)
@@ -199,12 +215,13 @@ def bound(q, pools, lens, q8):
     positions (plus scales for int8), q, out, tables and lens, each moved
     once, against 4 f32 flops per cached element read on the CUDA cores."""
     n = int(lens.sum())
+    d = q.shape[-1]
     kv_item = 1 if q8 else pools[0].element_size()
-    kv_bytes = 2 * n * H * D * kv_item + (2 * n * H * 4 if q8 else 0)
+    kv_bytes = 2 * n * H * d * kv_item + (2 * n * H * 4 if q8 else 0)
     qo_bytes = 2 * q.numel() * q.element_size()
     meta = B * MB * 4 + B * 4
     by_bytes = (kv_bytes + qo_bytes + meta) / HBM_BYTES_PER_S * 1e3
-    by_ops = 4 * n * H * D / F32_FLOPS_PER_S * 1e3
+    by_ops = 4 * n * H * d / F32_FLOPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -238,18 +255,21 @@ def sdpa_call(torch, q, pools, tables, lens, q8):
 
 def phase_kernels(torch, device, card):
     """Each kernel against its plain version at the main path's decode
-    shapes; times of kernel, plain version and the SDPA yardstick."""
+    shapes, and at gpt3-2.7b's head dim 80 (not a multiple of 32: the
+    kernels' masked lanes); times of kernel, plain version and the SDPA
+    yardstick in bf16."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops.cuda import paged_attention as K
     run = timer(torch, device)
-    cases = [("paged_attention", torch.bfloat16, 2e-2),
-             ("paged_attention", torch.float32, 1e-5),
-             ("paged_attention_q8", torch.bfloat16, 2e-2),
-             ("paged_attention_q8", torch.float32, 1e-5)]
+    cases = [("paged_attention", torch.bfloat16, 2e-2, D),
+             ("paged_attention", torch.float32, 1e-5, D),
+             ("paged_attention_q8", torch.bfloat16, 2e-2, D),
+             ("paged_attention_q8", torch.float32, 1e-5, D)]
+    cases += [(n, dt, tol, 80) for n, dt, tol, _ in cases]
     rows, results = [], {}
-    for name, dtype, tol in cases:
+    for name, dtype, tol, d in cases:
         q8 = name.endswith("q8")
-        q, pools, tables, lens = kernel_inputs(torch, device, dtype, q8)
+        q, pools, tables, lens = kernel_inputs(torch, device, dtype, q8, d)
         if q8:
             def kern():
                 return K.paged_attention_q8_cuda(q, *pools, tables, lens)
@@ -271,24 +291,25 @@ def phase_kernels(torch, device, card):
                                rtol=tol)
         zeros = bool((got[~live] == 0).all())
         finite = bool(torch.isfinite(got.float()).all())
-        row = {"kernel": name, "dtype": str(dtype).split(".")[-1],
+        row = {"kernel": name, "dtype": str(dtype).split(".")[-1], "D": d,
                "tol": tol, "max_abs_err": float(err.max()),
                "allclose": close, "empty_rows_zero": zeros,
                "finite": finite}
         check(close and zeros and finite,
-              f"{name} {row['dtype']}: kernel disagrees with its plain "
-              f"version: {row}")
+              f"{name} {row['dtype']} D={d}: kernel disagrees with its "
+              f"plain version: {row}")
         if dtype == torch.bfloat16:      # the main path's working type
             bms, by = bound(q, pools, lens, q8)
             row.update(ms=run(kern), plain_ms=run(plain),
                        library_ms=run(sdpa_call(torch, q, pools, tables,
                                                 lens, q8)),
                        bound_ms=bms, bound_by=by)
-            results[name] = row
+            if d == D:
+                results[name] = row
         rows.append(row)
     emit({"phase": "kernels_vs_plain", "ok": True, "card": card,
-          "shapes": {"B": B, "H": H, "D": D, "bs": BS, "MB": MB, "NB": NB,
-                     "lens": LENS},
+          "shapes": {"B": B, "H": H, "D": [D, 80], "bs": BS, "MB": MB,
+                     "NB": NB, "lens": LENS},
           "timing": "median of 50 launches, CUDA events, L2 flushed",
           "cases": rows})
     return results
@@ -303,7 +324,7 @@ def window_starts(s):
     return [0, 16, 15, 96, 40, 130, 7, MB * BS - s + 3]
 
 
-def prefix_inputs(torch, device, dtype, q8, s):
+def prefix_inputs(torch, device, dtype, q8, s, d=D):
     """Full tables of distinct scattered blocks, except: row 0 is a dummy
     slot (all-trash table) and every other row's entries past the block of
     start + s // 2 are trash block 0, so padding query rows reach trash
@@ -319,9 +340,9 @@ def prefix_inputs(torch, device, dtype, q8, s):
     keep[0] = False
     keep[-1] = True
     tables = torch.where(keep, tables, torch.zeros_like(tables)).contiguous()
-    q = torch.randn(B, s, H, D, generator=g, device=device).to(dtype)
-    k = torch.randn(NB, BS, H, D, generator=g, device=device)
-    v = torch.randn(NB, BS, H, D, generator=g, device=device)
+    q = torch.randn(B, s, H, d, generator=g, device=device).to(dtype)
+    k = torch.randn(NB, BS, H, d, generator=g, device=device)
+    v = torch.randn(NB, BS, H, d, generator=g, device=device)
     if q8:
         kc, ks = quantize_kv(k)
         vc, vs = quantize_kv(v)
@@ -336,7 +357,7 @@ def prefix_bound(torch, q, pools, tables, start, q8):
     int8), q, out, tables and start, each moved once, against 4 flops per
     attended (query row, column, head, element) at the bf16 tensor-core
     peak."""
-    s = q.shape[1]
+    s, d = q.shape[1], q.shape[-1]
     width = MB * BS
     cols = torch.arange(width, device=q.device)
     n_cols = (start.long() + s).clamp(max=width)
@@ -344,14 +365,14 @@ def prefix_bound(torch, q, pools, tables, start, q8):
     phys = tables.long()[:, cols // BS] * BS + cols % BS
     n_rows = int(torch.unique(phys[live]).numel())
     kv_item = 1 if q8 else pools[0].element_size()
-    kv_bytes = 2 * n_rows * H * D * kv_item + (2 * n_rows * H * 4 if q8
+    kv_bytes = 2 * n_rows * H * d * kv_item + (2 * n_rows * H * 4 if q8
                                                else 0)
     qo_bytes = 2 * q.numel() * q.element_size()
     meta = B * MB * 4 + B * 4
     by_bytes = (kv_bytes + qo_bytes + meta) / HBM_BYTES_PER_S * 1e3
     row = torch.arange(s, device=q.device)
     attended = (start.long()[:, None] + row[None] + 1).clamp(max=width)
-    flops = 4 * int(attended.sum()) * H * D
+    flops = 4 * int(attended.sum()) * H * d
     by_ops = flops / TENSOR_FLOPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
@@ -371,19 +392,20 @@ def prefix_sdpa_call(torch, q, pools, tables, start, q8):
 def phase_prefix_kernels(torch, device, card):
     """Kernels #3 and #4 against their plain versions (f32 scores, the
     kernels' function) over every window size and dtype, every query row
-    compared; times, bound and the SDPA
-    yardstick in bf16; and the S = 1, start = lens - 1 window against the
-    decode kernel #1 in f32."""
+    compared, and at gpt3-2.7b's head dim 80 for S = 1 and 9; times, bound
+    and the SDPA yardstick in bf16; and the S = 1, start = lens - 1 window
+    against the decode kernel #1 in f32."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops.cuda import paged_attention as K
     run = timer(torch, device)
     rows, results = [], {}
+    shapes = [(s, D) for s in WINDOWS] + [(1, 80), (9, 80)]
     for name in ("paged_prefix_attention", "paged_prefix_attention_q8"):
         q8 = name.endswith("q8")
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-            for s in WINDOWS:
+            for s, d in shapes:
                 q, pools, tables, start = prefix_inputs(torch, device, dtype,
-                                                        q8, s)
+                                                        q8, s, d)
                 if q8:
                     def kern():
                         return K.paged_prefix_attention_q8_cuda(
@@ -407,12 +429,12 @@ def phase_prefix_kernels(torch, device, card):
                                        rtol=tol)
                 finite = bool(torch.isfinite(got.float()).all())
                 row = {"kernel": name, "dtype": str(dtype).split(".")[-1],
-                       "S": s, "start": window_starts(s), "tol": tol,
+                       "S": s, "D": d, "start": window_starts(s), "tol": tol,
                        "max_abs_err": float(err.max()), "allclose": close,
                        "finite": finite}
                 check(close and finite,
-                      f"{name} {row['dtype']} S={s}: kernel disagrees with "
-                      f"its plain version: {row}")
+                      f"{name} {row['dtype']} S={s} D={d}: kernel disagrees "
+                      f"with its plain version: {row}")
                 if dtype == torch.bfloat16:     # the main path's type
                     bms, by = prefix_bound(torch, q, pools, tables, start,
                                            q8)
@@ -420,7 +442,7 @@ def phase_prefix_kernels(torch, device, card):
                                library_ms=run(prefix_sdpa_call(
                                    torch, q, pools, tables, start, q8)),
                                bound_ms=bms, bound_by=by)
-                    if s == LINE_WINDOW[name]:
+                    if s == LINE_WINDOW[name] and d == D:
                         results[name] = row
                 rows.append(row)
     # S = 1 at start = lens - 1 is decode: the same inputs through #1
@@ -442,8 +464,8 @@ def phase_prefix_kernels(torch, device, card):
               f"S=1 window at start=lens-1 differs from the decode kernel "
               f"(q8={q8}): max abs err {err}")
     emit({"phase": "prefix_kernels_vs_plain", "ok": True, "card": card,
-          "shapes": {"B": B, "H": H, "D": D, "bs": BS, "MB": MB, "NB": NB,
-                     "S": list(WINDOWS)},
+          "shapes": {"B": B, "H": H, "D": [D, 80], "bs": BS, "MB": MB,
+                     "NB": NB, "S_D": shapes},
           "timing": "median of 50 launches, CUDA events, L2 flushed",
           "cases": rows, "decode_equivalence_f32": decode})
     return results
@@ -525,13 +547,15 @@ def phase_int8_matmul(torch, device, card):
 @contextlib.contextmanager
 def plain_route():
     """Test-only, the parity phases only: the model's attention, int8
-    GEMM, flash-attention and fused cross-entropy calls run the plain
-    PyTorch versions on the card instead of the kernels. It swaps the
-    names gpt.py, ops/int8_matmul.py, ops/attention.py and the fused-loss
-    module look up; nothing in the package offers this."""
+    GEMM, flash-attention, fused-MHA and fused cross-entropy calls run the
+    plain PyTorch versions on the card instead of the kernels. It swaps
+    the names gpt.py, ops/int8_matmul.py, ops/attention.py,
+    ops/fused_mha.py and the fused-loss module look up; nothing in the
+    package offers this."""
     import paddle_tpu_torch.incubate.nn.functional as FF
     import paddle_tpu_torch.models.gpt as G
     import paddle_tpu_torch.ops.flash_attention as FA
+    import paddle_tpu_torch.ops.fused_mha as FM
     import paddle_tpu_torch.ops.int8_matmul as M
     import paddle_tpu_torch.ops.linear_ce as LC
     from paddle_tpu_torch.ops import attention as A
@@ -546,6 +570,9 @@ def plain_route():
     M.int8_matmul = lambda x, q, s, *, w_layout="kn": \
         M.int8_matmul_reference(x, q, s, w_layout)
     fa, ce = FA.flash_attention, FF.linear_cross_entropy
+    mha = FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda
+    FM.fused_mha_fwd_cuda = FM.fused_mha_reference
+    FM.fused_mha_bwd_cuda = FM.fused_mha_bwd_reference
     FA.flash_attention = lambda q, k, v, causal=False, scale=None, \
         kv_len=None: FA.flash_attention_reference(q, k, v, causal, scale,
                                                   kv_len)
@@ -559,6 +586,7 @@ def plain_route():
             setattr(G, n, fn)
         M.int8_matmul = mm
         FA.flash_attention, FF.linear_cross_entropy = fa, ce
+        FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda = mha
 
 
 def serve(torch, model, cfg_kw, prompts, warm=False):
@@ -596,19 +624,23 @@ def divergences(torch, model, device, prompts, chains_a, chains_b,
     return out
 
 
-def phase_engine_parity(torch, device, card):
-    """Kernel route against plain route through the engine at gpt3-1.3b
+def phase_engine_parity(torch, device, card, preset="gpt3-1.3b"):
+    """Kernel route against plain route through the engine at `preset`'s
     widths, 2 layers, f32: the plain paged engine on longtail traffic, and
     the prefix-cache + chunked-prefill + speculative engine on repeated
     traffic after its warmup (with its cache-off twin on the kernel
     route). Chains must be equal, or the argmax margin at the first
-    divergence below 1e-3."""
+    divergence below 1e-3. At gpt3-1.3b the slice-3 paths follow; at
+    gpt3-2.7b (head dim 80) the legs hold kernels #1-#4 at their masked
+    lanes."""
     from paddle_tpu_torch import GPTForCausalLM, gpt_config, \
         repeated_traffic, synthetic_traffic
     from paddle_tpu_torch.ops.cuda import build as KB
-    cfg = gpt_config("gpt3-1.3b", num_layers=2)
+    cfg = gpt_config(preset, num_layers=2)
     model = GPTForCausalLM(cfg, device=device, dtype=torch.float32, seed=1)
-    out = {"phase": "engine_parity", "card": card,
+    name = "engine_parity" if preset == "gpt3-1.3b" else \
+        f"engine_parity_{preset}"
+    out = {"phase": name, "card": card, "head_dim": cfg.head_dim,
            "model": cfg_line(cfg, "float32"), "cache": {}, "prefix_spec": {}}
     legs = [("cache", [t["prompt"] for t in synthetic_traffic(
         8, prompt_cap=128, vocab_size=cfg.vocab_size, rate=1e9, seed=5,
@@ -672,7 +704,8 @@ def phase_engine_parity(torch, device, card):
             out[leg][str(cache_dtype)] = res
     out["ok"] = True
     emit(out)
-    phase_slice3_parity(torch, model, device, card, legs[0][1])
+    if preset == "gpt3-1.3b":
+        phase_slice3_parity(torch, model, device, card, legs[0][1])
     del model
     torch.cuda.empty_cache()
 
@@ -1386,6 +1419,237 @@ def flash_times(torch, F, FA, KF, run, case, leaves, split, dout, row):
     return {"kernels": kernels, "times": t}
 
 
+# kernel #9 cases: (name, B, S, nh, hd, dtype, causal, lens, dropout_p).
+# The first three are the main paths' shapes: bench_bert's bert-base
+# (B=32, S=512) without and with its attention dropout, and bench_vit's
+# vit-l16 at 224^2 (B=64, S=197, ragged); then per-row lengths (one row
+# of 1 key, one of 0: every key masked), causal, head dim 80 (vit-h14)
+# and f32
+FMHA_CASES = [
+    ("bert-base", 32, 512, 12, 64, "bfloat16", False, None, 0.0),
+    ("bert-base_drop", 32, 512, 12, 64, "bfloat16", False, None, 0.1),
+    ("vit-l16", 64, 197, 16, 64, "bfloat16", False, None, 0.0),
+    ("lens", 8, 512, 12, 64, "bfloat16", False,
+     (512, 400, 257, 128, 77, 1, 511, 0), 0.1),
+    ("causal", 4, 512, 12, 64, "bfloat16", True, None, 0.0),
+    ("d80", 8, 257, 16, 80, "bfloat16", False, None, 0.0),
+    ("f32", 4, 197, 16, 64, "float32", False, None, 0.1),
+    ("f32_causal_lens", 4, 256, 2, 64, "float32", True, (256, 100, 1, 0),
+     0.0)]
+# limits on row_err of out, dq, dk and dv each: bf16 rounds P and dS to
+# bf16 before their products and writes bf16 results; f32 differs in
+# summation order and exp only
+FMHA_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+FMHA_LINE = "bert-base_drop"          # the case the kernels line reports
+FMHA_TIMED = ("bert-base_drop", "vit-l16")
+# controls the bf16 limit must reject: the kernel run with its last 64
+# keys masked off, against the plain version of the whole function
+FMHA_CONTROLS = ("bert-base", "vit-l16")
+# dropout cases whose kept set is read back from the kernels
+FMHA_KEPT = ("bert-base_drop", "f32")
+
+
+def fmha_inputs(torch, device, case):
+    _, b, s, nh, hd, dt, _, lens, p = case
+    g = torch.Generator(device=device).manual_seed(23)
+    dtype = getattr(torch, dt)
+    qkv = torch.randn(b, s, 3 * nh * hd, generator=g, device=device)
+    dout = torch.randn(b, s, nh * hd, generator=g, device=device)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=device)
+    seed = torch.tensor([1234], dtype=torch.int32, device=device) \
+        if p else None
+    return qkv.to(dtype), dout.to(dtype), kv, seed
+
+
+def fmha_run(torch, FM, qkv, dout, nh, causal, kv, p, seed):
+    """(out, dqkv) of the router under autograd (the kernels on CUDA)."""
+    x = qkv.detach().clone().requires_grad_()
+    out = FM.fused_mha(x, nh, kv_len=kv, causal=causal, dropout_p=p,
+                       dropout_seed=seed)
+    g, = torch.autograd.grad(out, x, dout)
+    return out.detach(), g
+
+
+def fmha_strided(torch, FM, qkv, dout, nh, causal, kv, p, seed):
+    """(out, dqkv) of the router on a non-contiguous qkv: positions 1..S
+    of a tensor one position longer, as a caller's slice would give."""
+    b, s, f3 = qkv.shape
+    wide = torch.zeros(b, s + 1, f3, dtype=qkv.dtype, device=qkv.device)
+    wide[:, 1:] = qkv
+    wide.requires_grad_()
+    out = FM.fused_mha(wide[:, 1:], nh, kv_len=kv, causal=causal,
+                       dropout_p=p, dropout_seed=seed)
+    g, = torch.autograd.grad(out, wide, dout)
+    return out.detach(), g[:, 1:]
+
+
+def fmha_errs(ko, kg, po, pg, nh, hd):
+    """{tensor: (row_err, max abs error)} for out, dq, dk and dv, rows per
+    (batch, position, head)."""
+    b, s = ko.shape[:2]
+    f = nh * hd
+    ks = [ko] + [kg[..., i * f:(i + 1) * f] for i in range(3)]
+    ps = [po] + [pg[..., i * f:(i + 1) * f] for i in range(3)]
+    return {n: (row_err(a.reshape(b, s, nh, hd), c.reshape(b, s, nh, hd)),
+                float((a.float() - c.float()).abs().max()))
+            for n, a, c in zip(("out", "dq", "dk", "dv"), ks, ps)}
+
+
+def fmha_kept(torch, FM, KM, case, seed):
+    """The kernels' kept sets read back, against the generator's. With
+    q = k = 0 every row's softmax is uniform, so with v one-hot at the keys
+    of one block of hd, out[i, h, d] > 0 iff (i, key) is kept (forward);
+    with dout one-hot at the queries of one block, the dK/dV pass gives
+    dv[key, h, d] > 0 iff (query, key) is kept. Returns the number of
+    (b, h, row, col) where each differs from the generator."""
+    _, b, s, nh, hd, dt, _, _, p = case
+    f = nh * hd
+    dev = seed.device
+    qkv = torch.zeros(b, s, 3 * f, dtype=getattr(torch, dt), device=dev)
+    fwd = torch.zeros(b, nh, s, s, dtype=torch.bool, device=dev)
+    bwd = torch.zeros_like(fwd)
+    for blk in range(-(-s // hd)):
+        j = torch.arange(blk * hd, min(s, (blk + 1) * hd), device=dev)
+        hot = torch.zeros(b, s, nh, hd, dtype=qkv.dtype, device=dev)
+        hot[:, j, :, j - blk * hd] = 1
+        qkv[..., 2 * f:] = hot.reshape(b, s, f)
+        out = KM.fused_mha_fwd_cuda(qkv, nh, dropout_p=p, seed=seed)
+        fwd[:, :, :, j] = (out.view(b, s, nh, hd)[..., :len(j)] > 0) \
+            .permute(0, 2, 1, 3)
+        dq = KM.fused_mha_bwd_cuda(qkv, hot.reshape(b, s, f), nh,
+                                   dropout_p=p, seed=seed)
+        bwd[:, :, j, :] = (dq[..., 2 * f:].view(b, s, nh, hd)[..., :len(j)]
+                           > 0).permute(0, 2, 3, 1)
+    want = FM.dropout_bits(seed, b, nh, s, s) >= FM.keep_threshold(p)
+    return {"forward_mismatches": int((fwd != want).sum()),
+            "backward_mismatches": int((bwd != want).sum()),
+            "entries": want.numel(),
+            "kept_share": float(want.float().mean())}
+
+
+def phase_fused_mha(torch, device, card):
+    """Kernel #9 against its plain version, forward and backward through
+    autograd, per row and per tensor (out, dq, dk, dv) at every case, and
+    the router on a strided view of the same qkv (bitwise equal); the
+    kept sets of the dropout cases read back from the forward and the
+    backward kernels; two controls; at the main paths' shapes the times
+    of the kernels, the plain versions and the yardstick
+    F.scaled_dot_product_attention on the [B, nh, S, hd] views (never on
+    the path), forward and backward."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fused_mha as FM
+    from paddle_tpu_torch.ops.cuda import fused_mha as KM
+    run = timer(torch, device)
+    rows, kernels, times = [], {}, {}
+    for case in FMHA_CASES:
+        name, b, s, nh, hd, dt, causal, lens, p = case
+        qkv, dout, kv, seed = fmha_inputs(torch, device, case)
+        kw = dict(lens=kv, causal=causal, dropout_p=p, seed=seed)
+        ko, kg = fmha_run(torch, FM, qkv, dout, nh, causal, kv, p, seed)
+        po = FM.fused_mha_reference(qkv, nh, **kw)
+        pg = FM.fused_mha_bwd_reference(qkv, dout, nh, **kw)
+        torch.cuda.synchronize()
+        tol = FMHA_TOL[dt]
+        errs = fmha_errs(ko, kg, po, pg, nh, hd)
+        row = {"case": name, "B": b, "S": s, "nh": nh, "hd": hd,
+               "dtype": dt, "causal": causal, "lens": lens,
+               "dropout_p": p, "tol": tol,
+               "row_err": {n: e[0] for n, e in errs.items()},
+               "max_abs_err": {n: e[1] for n, e in errs.items()}}
+        finite = all(bool(torch.isfinite(x.float()).all())
+                     for x in (ko, kg))
+        check(finite and max(e[0] for e in errs.values()) <= tol,
+              f"fused_mha {name}: kernel disagrees with its plain "
+              f"version: {row}")
+        so, sg = fmha_strided(torch, FM, qkv, dout, nh, causal, kv, p,
+                              seed)
+        row["strided_qkv_equal"] = bool(torch.equal(so, ko)
+                                        and torch.equal(sg, kg))
+        check(row["strided_qkv_equal"],
+              f"fused_mha {name}: the router on a strided view of qkv "
+              f"differs from the packed run")
+        del so, sg
+        if name in FMHA_KEPT:
+            kept = fmha_kept(torch, FM, KM, case, seed)
+            row["kept_set"] = kept
+            check(kept["forward_mismatches"] == 0
+                  and kept["backward_mismatches"] == 0,
+                  f"fused_mha {name}: the kernels' kept set differs from "
+                  f"the generator's: {kept}")
+        if name in FMHA_CONTROLS:
+            co, cg = fmha_run(torch, FM, qkv, dout, nh, causal, s - 64, p,
+                              seed)
+            cerr = {n: e[0] for n, e in fmha_errs(co, cg, po, pg, nh,
+                                                  hd).items()}
+            check(min(cerr.values()) > tol,
+                  f"fused_mha {name}: the limit passes a kernel that drops "
+                  f"its last 64 keys: {cerr}")
+            row["control"] = {"what": f"kernel with kv_len={s - 64} (last "
+                                      f"64 keys dropped) vs plain",
+                              "row_err": cerr, "rejected": True}
+            del co, cg
+        if name in FMHA_TIMED:
+            t = fmha_times(torch, F, FM, KM, run, case, qkv, dout, kw)
+            times[name] = t
+            if name == FMHA_LINE:
+                for kname, err in (("fused_mha_fwd", errs["out"][1]),
+                                   ("fused_mha_bwd", max(
+                                       errs[n][1] for n in
+                                       ("dq", "dk", "dv")))):
+                    kernels[kname] = dict(t[kname], max_abs_err=err)
+        rows.append(row)
+        del qkv, dout, ko, kg, po, pg
+        torch.cuda.empty_cache()
+    emit({"phase": "fused_mha_vs_plain", "ok": True, "card": card,
+          "error": "row_err: per row (b, s, h) max |kernel - plain| over "
+                   "the row's rms of plain (floored at 10% of the tensor's "
+                   "rms), worst row; out, dq, dk and dv each on its own; "
+                   "plain: fused_mha_reference and fused_mha_bwd_reference "
+                   "on the same qkv, dout, lens and seed",
+          "timing": "median of 50 launches, CUDA events, L2 flushed",
+          "cases": rows, "times": times})
+    return kernels
+
+
+def fmha_times(torch, F, FM, KM, run, case, qkv, dout, kw):
+    """Times and bounds of the forward and the backward at one case."""
+    name, b, s, nh, hd, dt, causal, lens, p = case
+    f = nh * hd
+    x = qkv.detach().requires_grad_()
+    views = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    lout = F.scaled_dot_product_attention(*views, dropout_p=p,
+                                          is_causal=causal)
+    douth = dout.view(b, s, nh, hd).transpose(1, 2)
+    t = {"fwd_ms": run(lambda: KM.fused_mha_fwd_cuda(qkv, nh, **kw)),
+         "bwd_ms": run(lambda: KM.fused_mha_bwd_cuda(qkv, dout, nh, **kw)),
+         "plain_fwd_ms": run(lambda: FM.fused_mha_reference(qkv, nh, **kw)),
+         "plain_bwd_ms": run(lambda: FM.fused_mha_bwd_reference(
+             qkv, dout, nh, **kw)),
+         "library_fwd_ms": run(lambda: F.scaled_dot_product_attention(
+             *views, dropout_p=p, is_causal=causal)),
+         "library_bwd_ms": run(lambda: torch.autograd.grad(
+             lout, x, douth, retain_graph=True)),
+         "library": "F.scaled_dot_product_attention on the [B, nh, S, hd] "
+                    "views of qkv (dropout_p as the case), forward; its "
+                    "backward into qkv"}
+    half = 0.5 if causal else 1.0
+    mm = 2 * b * nh * s * s * hd * half       # one [S, S] x hd product
+    item = qkv.element_size()
+    # forward: qkv read once, out written once, 2 products; backward:
+    # qkv and dout read, dqkv written, 5 products (S, dP, dV, dQ, dK)
+    fb = bound_of(2 * mm, (3 * f + f) * b * s * item, qkv.dtype)
+    bb = bound_of(5 * mm, (3 * f + f + 3 * f) * b * s * item, qkv.dtype)
+    t["fused_mha_fwd"] = {"ms": t["fwd_ms"], "plain_ms": t["plain_fwd_ms"],
+                          "library_ms": t["library_fwd_ms"],
+                          "bound_ms": fb[0], "bound_by": fb[1]}
+    t["fused_mha_bwd"] = {"ms": t["bwd_ms"], "plain_ms": t["plain_bwd_ms"],
+                          "library_ms": t["library_bwd_ms"],
+                          "bound_ms": bb[0], "bound_by": bb[1]}
+    del lout, views, x
+    return t
+
+
 def ce_inputs(torch, device, t, h, v, layout, dtype, seed=31):
     """x ~ N(0, 1) (an ln_f output), W ~ N(0, 0.02) (the model's init),
     labels uniform, per-token upstream gradients uniform in [0, 1)."""
@@ -1406,10 +1670,11 @@ def ce_run(torch, fn, x, w, labels, coef, layout):
 
 def phase_linear_ce(torch, device, card):
     """Kernel #11 against its plain version, the loss and (through the
-    closed-form backward) dx and dW, at every case; at the gpt3-1.3b head
-    in bf16, the times of the kernel, the plain version, the backward and
-    the yardstick F.cross_entropy(F.linear(x, w).float(), ...): two calls,
-    logits materialised, never on the path."""
+    closed-form backward) dx and dW, at every case; at the gpt3-1.3b and
+    bert-base heads in bf16, the times of the kernel, the plain version,
+    the backward and the yardstick F.cross_entropy(F.linear(x,
+    w).float(), ...): two calls, logits materialised, never on the
+    path."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import linear_ce as LC
     from paddle_tpu_torch.ops.cuda import linear_ce as KL
@@ -1435,7 +1700,7 @@ def phase_linear_ce(torch, device, card):
               and row["err_dx"] <= gtol and row["err_dw"] <= gtol,
               f"linear_ce {name}: kernel disagrees with its plain version: "
               f"{row}")
-        if name == "gpt3-1.3b":
+        if name in CE_TIMED:
             _, lse = KL.linear_ce_fwd_cuda(x, w, labels, w_layout=layout)
             bms, by = bound_of(2 * t * h * v, (t * h + v * h) * 2
                                + t * (8 + 4 + 4), dtype)
@@ -1453,7 +1718,8 @@ def phase_linear_ce(torch, device, card):
                 bound_bwd_ms=bound_of(6 * t * h * v, 0, dtype)[0],
                 library="F.cross_entropy(F.linear(x, w).float(), labels, "
                         "reduction='none'): two calls")
-            line = row
+            if name == "gpt3-1.3b":
+                line = row
         rows.append(row)
         del x, w, kg, pg
         torch.cuda.empty_cache()
@@ -1625,6 +1891,258 @@ def phase_train_full(torch, card, device):
     return counts
 
 
+def phase_encoder_parity(torch, device, card):
+    """BERT and ViT training, kernel route against plain route, at
+    bert-base and vit-l16 widths cut to 2 layers in f32, in train() mode:
+    hidden and attention dropout draw from the model's generator, reseeded
+    before each route, so both routes drop the same entries. The loss and
+    every parameter gradient: BERT's MLM loss (B=4, S=512: #9 with
+    dropout, #11 over V=30522) unpadded and through seq_lens, and ViT's
+    cross-entropy (B=4, 224^2: S=197)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from paddle_tpu_torch import (BertForMaskedLM, VisionTransformer,
+                                  bert_config, vit_config)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    out = {"phase": "encoder_train_parity", "card": card}
+
+    def compare(model, loss_fn, want):
+        def grads(plain):
+            model.zero_grad(set_to_none=True)
+            model.dropout_generator.manual_seed(7)
+            KB.reset_launch_counts()
+            with plain_route() if plain else contextlib.nullcontext():
+                loss = loss_fn()
+                loss.backward()
+            torch.cuda.synchronize()
+            return (float(loss.detach()),
+                    {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}, dict(KB.LAUNCHES))
+        kl, kg, kc = grads(False)
+        pl, pg, pc = grads(True)
+        check(sum(pc.values()) == 0, "the plain route launched a kernel")
+        check(all(kc[k] == n for k, n in want.items()),
+              f"kernel route launches {kc}, want {want}")
+        check(set(kg) == set(pg), "the routes reach different parameters")
+        errs = {n: rel_err(kg[n], pg[n]) for n in kg}
+        worst = max(errs, key=errs.get)
+        res = {"loss": {"kernel": kl, "plain": pl,
+                        "rel_err": abs(kl - pl) / abs(pl), "tol": 1e-5},
+               "grads": {"params": len(errs), "worst_param": worst,
+                         "worst_rel_err": errs[worst], "tol": 1e-3},
+               "launches": {k: kc[k] for k in want}}
+        check(res["loss"]["rel_err"] <= 1e-5 and errs[worst] <= 1e-3,
+              f"encoder parity: loss or grads differ: {res}")
+        return res
+
+    cfg = bert_config("bert-base", num_layers=2)
+    model = BertForMaskedLM(cfg, device=device, dtype=torch.float32, seed=1)
+    model.train()
+    rng = np.random.RandomState(41)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 512))).to(
+        device)
+    lbl = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 512))).to(
+        device)
+    lbl[torch.from_numpy(rng.rand(4, 512) > 0.15).to(device)] = -100
+    lens = torch.tensor([512, 300, 77, 1], device=device)
+    padded = lbl.clone()
+    padded[torch.arange(512, device=device)[None] >= lens[:, None]] = -100
+    want = {"fused_mha_fwd": 2, "fused_mha_bwd": 2, "linear_ce_fwd": 1}
+    out["bert"] = {"model": cfg_line(cfg, "float32"), "B": 4, "S": 512,
+                   "dropout": [cfg.hidden_dropout, cfg.attention_dropout]}
+    out["bert"]["mlm"] = compare(model, lambda: model.loss(ids, lbl), want)
+    out["bert"]["seq_lens"] = compare(
+        model, lambda: model.loss(ids, padded, seq_lens=lens), want)
+    del model
+    vcfg = vit_config("vit-l16", num_layers=2)
+    vit = VisionTransformer(vcfg, device=device, dtype=torch.float32, seed=1)
+    vit.train()
+    g = torch.Generator(device=device).manual_seed(42)
+    img = torch.randn(4, 3, 224, 224, generator=g, device=device)
+    y = torch.randint(0, vcfg.num_classes, (4,), generator=g, device=device)
+    out["vit"] = {"model": cfg_line_vit(vcfg, "float32"), "B": 4,
+                  **compare(vit, lambda: F.cross_entropy(vit(img), y),
+                            {"fused_mha_fwd": 2, "fused_mha_bwd": 2})}
+    del vit
+    out["ok"] = True
+    emit(out)
+    torch.cuda.empty_cache()
+
+
+def cfg_line_vit(cfg, dtype):
+    return {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+            "heads": cfg.num_heads, "image": cfg.image_size,
+            "patch": cfg.patch_size, "seq": cfg.num_patches + 1,
+            "classes": cfg.num_classes, "dtype": dtype}
+
+
+def timed_steps(torch, step, batches, n):
+    """2 warm steps, then the best of 2 windows of n steps on fresh
+    batches (batch i of `batches` for step i); returns (warm losses, the
+    last window's losses, window seconds, launches counted over both
+    windows, peak memory of the windows)."""
+    from paddle_tpu_torch.ops.cuda import build as KB
+    warm = [float(step(*batches(i))) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KB.reset_launch_counts()
+    windows, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ls = [step(*batches(2 + i)) for i in range(n)]
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        losses = [float(x) for x in ls]
+    return (warm, losses, windows, dict(KB.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_train_bert(torch, card, device):
+    """bench_bert's configuration at full width: bert-base (12 layers,
+    H=768, vocab 30522), bf16 parameters, B=32, S=512, hidden and
+    attention dropout 0.1 in train() mode, AdamW(lr=1e-4, bf16 moments),
+    model.loss(ids, labels, chunk_size=256) (#9 with in-kernel dropout in
+    every layer, #11 over the tied MLM head); ids and labels drawn
+    independently from np.random.RandomState(0), as bench_bert draws them.
+    2 warm steps, then the best of 2 windows of 10 (bench: one window of
+    8), then one profiled step. Random labels cannot be learnt in 22
+    steps, so learning is checked on one batch repeated 6 more times with
+    the ids as labels: its loss must fall."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch import AdamW, BertForMaskedLM, TrainStep, \
+        bert_config
+    B_, S_, N = 32, 512, 10
+    cfg = bert_config("bert-base", max_position_embeddings=S_)
+    model = BertForMaskedLM(cfg, device=device, dtype=torch.bfloat16,
+                            seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16", device=device)
+    step = TrainStep(model, opt,
+                     lambda a, b: model.loss(a, b, chunk_size=256),
+                     device=device)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (N + 2, B_, S_))).to(device)
+    lbl = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (N + 2, B_, S_))).to(device)
+    warm, losses, windows, counts, peak = timed_steps(
+        torch, step, lambda i: (ids[i], lbl[i]), N)
+    per_step = {k: counts[k] / (2 * N) for k in
+                ("fused_mha_fwd", "fused_mha_bwd", "linear_ce_fwd")}
+    want = {"fused_mha_fwd": cfg.num_layers,
+            "fused_mha_bwd": cfg.num_layers, "linear_ce_fwd": 1}
+    check(per_step == want, f"bert launches per step {per_step}, want "
+                            f"{want}")
+    best = min(windows)
+    n_params = sum(p.numel() for p in model.parameters())
+    per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * S_
+    tok_s = B_ * S_ * N / best
+    check(all(math.isfinite(x) for x in warm + losses),
+          "a BERT training loss is not finite")
+    check(abs(warm[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first BERT loss {warm[0]} is not near ln(vocab) "
+          f"{math.log(cfg.vocab_size)}")
+    prof = profile_call(torch, lambda: step(ids[2], lbl[2]),
+                        names=("fwd_bf16", "stats_bf16", "dq_bf16",
+                               "dkv_bf16", "lce_bf16", "lce_merge"))
+    same = [float(step(ids[0], ids[0])) for _ in range(6)]
+    check(same[-1] < same[0],
+          f"the BERT loss on a repeated batch did not fall: {same}")
+    emit({"phase": "train_bert-base", "ok": True, "card": card,
+          "model": cfg_line(cfg, "bfloat16"),
+          "config": {"B": B_, "S": S_, "dropout": [cfg.hidden_dropout,
+                                                   cfg.attention_dropout],
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "loss": "model.loss(ids, labels, chunk_size=256)",
+                     "ids": "np.random.RandomState(0): ids, then labels",
+                     "timing": "2 warm steps, best of 2 windows of 10"},
+          "params": n_params, "tokens_per_s": tok_s,
+          "ms_per_step": best / N * 1e3, "window_s": windows,
+          "flops_per_token": per_token,
+          "mfu": per_token * tok_s / TENSOR_FLOPS_PER_S,
+          "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+          "peak_mem_bytes": peak, "first_loss": warm[0],
+          "warm_losses": warm, "last_window_losses": losses,
+          "repeated_batch_losses": same, "launches_per_step": per_step,
+          "profile_step": prof})
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_vit(torch, card, device):
+    """bench_vit's configuration at full width: vit-l16 (24 layers,
+    H=1024, 16 heads) at 224^2 (S=197), 1000 classes, bf16 parameters,
+    B=64, AdamW(lr=1e-4, bf16 moments), cross-entropy of the logits (#9
+    in every layer); images N(0, 1) and labels drawn on the device from a
+    seeded generator (bench: numpy). 2 warm steps, then the best of 2
+    windows of 10 (bench: one window of 8), then one profiled step;
+    learning is checked on one batch repeated 6 more times."""
+    import math
+    import torch.nn.functional as F
+    from paddle_tpu_torch import AdamW, TrainStep, VisionTransformer, \
+        vit_config
+    B_, N = 64, 10
+    cfg = vit_config("vit-l16", image_size=224, num_classes=1000)
+    model = VisionTransformer(cfg, device=device, dtype=torch.bfloat16,
+                              seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16", device=device)
+    step = TrainStep(model, opt,
+                     lambda x, y: F.cross_entropy(model(x).float(), y),
+                     device=device)
+    g = torch.Generator(device=device).manual_seed(0)
+    imgs = torch.randn(N + 2, B_, 3, 224, 224, generator=g,
+                       device=device).to(torch.bfloat16)
+    lbl = torch.randint(0, cfg.num_classes, (N + 2, B_), generator=g,
+                        device=device)
+    warm, losses, windows, counts, peak = timed_steps(
+        torch, step, lambda i: (imgs[i], lbl[i]), N)
+    per_step = {k: counts[k] / (2 * N) for k in
+                ("fused_mha_fwd", "fused_mha_bwd")}
+    want = {"fused_mha_fwd": cfg.num_layers, "fused_mha_bwd": cfg.num_layers}
+    check(per_step == want, f"vit launches per step {per_step}, want {want}")
+    best = min(windows)
+    n_params = sum(p.numel() for p in model.parameters())
+    seq = cfg.num_patches + 1
+    per_image = (6 * n_params * seq
+                 + 12 * cfg.num_layers * cfg.hidden_size * seq * seq)
+    img_s = B_ * N / best
+    check(all(math.isfinite(x) for x in warm + losses),
+          "a ViT training loss is not finite")
+    check(abs(warm[0] - math.log(cfg.num_classes)) < 2.0,
+          f"first ViT loss {warm[0]} is not near ln(classes) "
+          f"{math.log(cfg.num_classes)}")
+    prof = profile_call(torch, lambda: step(imgs[2], lbl[2]),
+                        names=("fwd_bf16", "stats_bf16", "dq_bf16",
+                               "dkv_bf16"))
+    same = [float(step(imgs[0], lbl[0])) for _ in range(6)]
+    check(same[-1] < same[0],
+          f"the ViT loss on a repeated batch did not fall: {same}")
+    emit({"phase": "train_vit-l16", "ok": True, "card": card,
+          "model": cfg_line_vit(cfg, "bfloat16"),
+          "config": {"B": B_, "optimizer": "AdamW(lr=1e-4, "
+                     "moment_dtype=bfloat16)",
+                     "loss": "F.cross_entropy(model(x).float(), y)",
+                     "data": "torch.Generator(seed 0) on the device",
+                     "timing": "2 warm steps, best of 2 windows of 10"},
+          "params": n_params, "images_per_s": img_s,
+          "ms_per_step": best / N * 1e3, "window_s": windows,
+          "flops_per_image": per_image,
+          "mfu": per_image * img_s / TENSOR_FLOPS_PER_S,
+          "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+          "peak_mem_bytes": peak, "first_loss": warm[0],
+          "warm_losses": warm, "last_window_losses": losses,
+          "repeated_batch_losses": same, "launches_per_step": per_step,
+          "profile_step": prof})
+    del step, opt, model, imgs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: paddle_tpu_torch/ not found beside this "
@@ -1666,8 +2184,11 @@ def main() -> int:
     # runtime of its own, and it stays to show the shared runtime fixed it
     kern.update(phase_flash_kernels(torch, device, card))
     kern.update(phase_linear_ce(torch, device, card))
+    kern.update(phase_fused_mha(torch, device, card))
     phase_engine_parity(torch, device, card)
+    phase_engine_parity(torch, device, card, preset="gpt3-2.7b")
     phase_train_parity(torch, device, card)
+    phase_encoder_parity(torch, device, card)
     from paddle_tpu_torch import GPTForCausalLM, gpt_config
     model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=device,
                            dtype=torch.bfloat16, seed=0)
@@ -1678,12 +2199,14 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     add_launches(launches, phase_train_full(torch, card, device))
+    add_launches(launches, phase_train_bert(torch, card, device))
+    add_launches(launches, phase_train_vit(torch, card, device))
 
     rows = []
     for name in ("paged_attention", "paged_attention_q8",
                  "paged_prefix_attention", "paged_prefix_attention_q8",
                  "int8_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "linear_ce_fwd"):
+                 "linear_ce_fwd", "fused_mha_fwd", "fused_mha_bwd"):
         r = kern[name]
         check(launches.get(name, 0) > 0,
               f"{name} never launched on the full-width paths")

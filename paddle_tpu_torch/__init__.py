@@ -1,10 +1,12 @@
-"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu: GPT on an
-NVIDIA H100. It trains (`GPTForCausalLM.loss` or
-`GPTPretrainingCriterion`, `AdamW`, `GradScaler`, `ClipGradByGlobalNorm`,
-`TrainStep`, through the flash-attention and fused linear cross-entropy
-kernels), and it serves through the static decode stack and the padded
-engine or the paged engine with the prefix cache, chunked prefill and
-speculative decoding, with bf16 or weight-only int8 weights.
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu on an NVIDIA
+H100. It trains GPT (`GPTForCausalLM.loss` or `GPTPretrainingCriterion`,
+through the flash-attention and fused linear cross-entropy kernels), BERT
+(`BertForMaskedLM.loss`, through the fused short-sequence MHA and the
+fused linear cross-entropy) and ViT (`VisionTransformer`, through the
+fused MHA) with `AdamW`, `GradScaler`, `ClipGradByGlobalNorm` and
+`TrainStep`, and it serves GPT through the static decode stack and the
+padded engine or the paged engine with the prefix cache, chunked prefill
+and speculative decoding, with bf16 or weight-only int8 weights.
 
 The JAX package `paddle_tpu` is the reference; this package imports
 neither it nor JAX. Entry points run on CUDA unless the caller passes
@@ -13,6 +15,10 @@ neither it nor JAX. Entry points run on CUDA unless the caller passes
 from .device import resolve_device
 from .models.gpt import (GPTConfig, GPTForCausalLM,
                          GPTPretrainingCriterion, PRESETS, gpt_config)
+from .models.bert import (BertConfig, BertForMaskedLM, BertForPretraining,
+                          BertForSequenceClassification, BertModel,
+                          bert_config)
+from .models.vit import ViTConfig, VisionTransformer, vit_config
 from .inference.kv_cache import BlockPool
 from .inference.prefix_cache import PrefixCache
 from .inference.serving import (Request, RequestTrace, ServingConfig,
@@ -20,7 +26,8 @@ from .inference.serving import (Request, RequestTrace, ServingConfig,
                                 model_draft_fn, repeated_traffic,
                                 shared_prefix_traffic, synthetic_traffic)
 from .amp import GradScaler
-from .convert import state_dict_from_paddle, train_state_from_paddle
+from .convert import (model_state_from_paddle, state_dict_from_paddle,
+                      train_state_from_paddle)
 from .jit import TrainStep
 from .nn import ClipGradByGlobalNorm
 from .optimizer import Adam, AdamW
@@ -31,5 +38,9 @@ __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "ServingMetrics", "model_draft_fn", "repeated_traffic",
            "shared_prefix_traffic", "synthetic_traffic",
            "state_dict_from_paddle", "train_state_from_paddle",
+           "model_state_from_paddle", "BertConfig", "BertModel",
+           "BertForMaskedLM", "BertForSequenceClassification",
+           "BertForPretraining", "bert_config", "ViTConfig",
+           "VisionTransformer", "vit_config",
            "GPTPretrainingCriterion", "TrainStep", "Adam", "AdamW",
            "GradScaler", "ClipGradByGlobalNorm"]

@@ -1,13 +1,17 @@
-"""Carry GPT weights, and a whole training state, from the JAX package
+"""Carry model weights, and a whole training state, from the JAX package
 into the port.
 
-The JAX package names its GPT parameters exactly as the port does
-(``gpt.wte.weight``, ``gpt.h.{i}.attn.qkv.weight``, ``gpt.ln_f.bias``, ...)
-but stores every mpu projection weight ``[in, out]`` (qkv ``[H, 3H]``),
-where ``nn.Linear`` stores ``[out, in]``. So the map is by name, with those
-2-D projection weights transposed. The qkv output columns keep their
-``[3, num_heads, head_dim]`` order, and the tied LM head stays tied: it is
-wte itself, so there is no separate head entry to carry.
+The JAX package names its parameters exactly as the port does
+(``gpt.wte.weight``, ``gpt.h.{i}.attn.qkv.weight``,
+``bert.encoder.{i}.attention.qkv.weight``, ``blocks.{i}.up.weight``, ...)
+but stores every Linear and mpu projection weight ``[in, out]`` (qkv
+``[H, 3H]``), where ``nn.Linear`` stores ``[out, in]``. So the map is by
+name, with those 2-D weights transposed; embedding tables, conv weights
+and everything else carry over as they are. The qkv output columns keep
+their ``[3, num_heads, head_dim]`` order, and a tied LM or MLM head stays
+tied: it is the embedding table itself, so there is no separate entry to
+carry. `model_state_from_paddle` maps onto any port model's own state
+dict; `state_dict_from_paddle` maps GPT from its config alone.
 """
 from __future__ import annotations
 
@@ -16,8 +20,40 @@ from typing import Dict
 import numpy as np
 import torch
 
-_PROJECTIONS = ("attn.qkv.weight", "attn.out.weight", "mlp.up.weight",
-                "mlp.down.weight")
+# 2-D ".weight" entries that are tables, not Linear weights
+_TABLES = ("wte.weight", "wpe.weight", "_embeddings.weight")
+
+
+def _is_linear_weight(name: str, ndim: int) -> bool:
+    return ndim == 2 and name.endswith(".weight") and \
+        not name.endswith(_TABLES)
+
+
+def _map(np_state: Dict[str, np.ndarray],
+         expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """Map ``{name: ndarray}`` by name onto the port-side `expected`
+    shapes, Linear weights transposed ``[in, out]`` -> ``[out, in]``.
+    Raises on a missing or unexpected name or a shape that does not
+    match."""
+    missing = sorted(set(expected) - set(np_state))
+    extra = sorted(set(np_state) - set(expected))
+    if missing or extra:
+        raise KeyError(f"state dict does not match the model: missing "
+                       f"{missing[:4]}, unexpected {extra[:4]}")
+    out = {}
+    for name, shape in expected.items():
+        arr = np.asarray(np_state[name])
+        if _is_linear_weight(name, arr.ndim):
+            arr = arr.T
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} after "
+                             f"transpose, the model gives {shape}")
+        out[name] = _to_torch(arr)
+    return out
+
+
+def _model_shapes(model: torch.nn.Module) -> Dict[str, tuple]:
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
 def state_dict_from_paddle(np_state: Dict[str, np.ndarray],
@@ -26,22 +62,16 @@ def state_dict_from_paddle(np_state: Dict[str, np.ndarray],
     (``{k: np.asarray(v) for k, v in m.state_dict().items()}``) to a
     state dict `GPTForCausalLM.load_state_dict` takes. Raises on a missing
     or unexpected name, or a shape the config does not give."""
-    expected = _expected_shapes(cfg)
-    missing = sorted(set(expected) - set(np_state))
-    extra = sorted(set(np_state) - set(expected))
-    if missing or extra:
-        raise KeyError(f"state dict does not match the GPT config: missing "
-                       f"{missing[:4]}, unexpected {extra[:4]}")
-    out = {}
-    for name, shape in expected.items():
-        arr = np.asarray(np_state[name])
-        if name.endswith(_PROJECTIONS) or name == "lm_head.weight":
-            arr = arr.T
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} after "
-                             f"transpose, config gives {shape}")
-        out[name] = _to_torch(arr)
-    return out
+    return _map(np_state, _expected_shapes(cfg))
+
+
+def model_state_from_paddle(np_state: Dict[str, np.ndarray],
+                            model: torch.nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """Map ``{name: ndarray}`` from a JAX-package model (GPT, BERT, ViT,
+    ...) onto the state dict of the port `model` of the same
+    architecture."""
+    return _map(np_state, _model_shapes(model))
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -53,14 +83,15 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def train_state_from_paddle(jax_state: Dict, cfg) -> Dict:
+def train_state_from_paddle(jax_state: Dict,
+                            model: torch.nn.Module) -> Dict:
     """Map a JAX-package ``TrainStep.state_dict()`` (step, params, AdamW
     ``moment1``/``moment2`` per parameter, optimizer scalars, scaler) onto
-    the port's ``TrainStep.set_state_dict`` layout. Parameters go through
-    `state_dict_from_paddle`; every moment takes its parameter's
+    the port's ``TrainStep.set_state_dict`` layout for the port `model`
+    (GPT, BERT, ViT, ...); every moment takes its parameter's
     ``[in, out]`` -> ``[out, in]`` transpose, so a port run resumes a JAX
     run on the same trajectory."""
-    params = state_dict_from_paddle(jax_state["params"], cfg)
+    params = model_state_from_paddle(jax_state["params"], model)
     out = {"step": int(jax_state.get("step", 0)), "params": params,
            "opt_extra": dict(jax_state.get("opt_extra", {}))}
     if "opt" in jax_state:
@@ -69,7 +100,7 @@ def train_state_from_paddle(jax_state: Dict, cfg) -> Dict:
             if name not in params:
                 raise KeyError(f"optimizer state for unknown parameter "
                                f"{name}")
-            flip = name.endswith(_PROJECTIONS) or name == "lm_head.weight"
+            flip = _is_linear_weight(name, params[name].dim())
             entry = {}
             for k, v in st.items():
                 if k not in ("moment1", "moment2"):

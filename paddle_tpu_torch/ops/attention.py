@@ -1,6 +1,7 @@
 """Attention ops (the port of paddle_tpu/ops/attention.py): the plain
 reference, the training entry points `functional_attention` and
-`scaled_dot_product_attention`, and the paged GPT serving ops.
+`scaled_dot_product_attention`, the padding-mask helpers of BERT's
+masked route, and the paged GPT serving ops.
 
 Layout follows the JAX package: [batch, seq, num_heads, head_dim]. The
 paged KV cache is one [num_blocks, block, H, D] pool per layer (int8 pools:
@@ -129,6 +130,25 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                score_dtype=score_dtype,
                                dropout_p=dropout_p if training else 0.0,
                                generator=generator)
+
+
+def key_padding_mask(mask):
+    """A 2-D [B, Sk] padding mask as attention takes it, [B, 1, 1, Sk]: a
+    float mask stays additive, an integer or bool one becomes the bool
+    keep-mask ``mask > 0`` (BERT's masked route). Other ranks pass as
+    they are."""
+    if mask is None or mask.dim() != 2:
+        return mask
+    if mask.is_floating_point():
+        return mask[:, None, None, :]
+    return (mask > 0)[:, None, None, :]
+
+
+def lens_to_mask(lens, s):
+    """Per-row valid lengths [B] of a right-padded batch as a 0/1 int32
+    keep-mask [B, s] (column < lens[b])."""
+    cols = torch.arange(s, device=lens.device)
+    return (cols[None, :] < lens.long()[:, None]).to(torch.int32)
 
 
 def static_cache_mask(kv_capacity, s, pos, prompt_lens=None,

@@ -18,9 +18,9 @@
 //
 // The [T, V] logits never reach device memory: each [64, 128] tile lives in
 // the accumulator registers of the CTA that computed it. Columns past V (the
-// ragged tail, V = 50304 is not a multiple of 128) are masked to -1e30;
-// a label matches exactly one column; a label outside [0, V) adds nothing
-// to the gold logit, as in the TPU kernel.
+// ragged tail: bert's V = 30522 is not a multiple of 128) are masked to
+// -1e30; a label matches exactly one column; a label outside [0, V) adds
+// nothing to the gold logit, as in the TPU kernel.
 //
 // Bound: 2 T H V tensor-core operations (1.27e12 at T = 6144, H = 2048,
 // V = 50304: 1.28 ms at 989 TFLOP/s). Design against that:

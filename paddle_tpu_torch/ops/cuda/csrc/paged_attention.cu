@@ -26,6 +26,11 @@
 //     uses any of them, keeping 2*kUnroll loads in flight per lane;
 //   * scores, softmax and the accumulator stay f32 in registers; warps merge
 //     their (max, sum, acc) states through shared memory once at the end.
+// Head dims: any multiple of 8 up to 256. Each lane owns NV = ceil(D / 32)
+// elements; where D is not a multiple of 32 (gpt3-2.7b's 80) the kernel is
+// instantiated at 32 * NV with the lanes' elements at d >= D masked on
+// every load (read as 0) and every store (skipped), so the pools are read
+// in place, never padded.
 // Rows with lens == 0 produce zeros. The q8 form keeps the TPU kernel's
 // factored scales: the K scale multiplies the score, the V scale the
 // probability, so codes are widened to f32 and never dequantized in memory.
@@ -96,9 +101,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// PART: D < 32 * NV (the head dim Dr is not a multiple of 32): lane slices
+// are read element by element, masked at d >= Dr.
+template <typename T, int NV, bool PART>
+__device__ __forceinline__ void load_lane(const T* __restrict__ p, int d0,
+                                          int Dr, float (&out)[NV]) {
+  if constexpr (PART) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) out[i] = d0 + i < Dr ? to_f32<T>(p[i]) : 0.f;
+  } else {
+    load_slice<T, NV>(p, out);
+  }
+}
+
 // One CTA per (head, batch row): blockIdx.x = h, blockIdx.y = b.
 // Q8 = false: KT = QT, scales unused. Q8 = true: KT = int8_t, scales used.
-template <typename QT, typename KT, bool Q8, int NV>
+template <typename QT, typename KT, bool Q8, int NV, bool PART>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
                         const float* __restrict__ k_scale,
@@ -106,8 +124,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                         const float* __restrict__ v_scale,
                         const int* __restrict__ tables,
                         const int* __restrict__ lens, QT* __restrict__ out,
-                        int H, int NB, int bs, int MB, float scale) {
-  constexpr int D = 32 * NV;
+                        int H, int NB, int bs, int MB, int Dr, float scale) {
+  constexpr int D = 32 * NV;            // the lanes' extent
+  const int Dm = PART ? Dr : D;         // the head dim in memory
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -117,10 +136,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   // reference masks columns >= MB * bs, so clamping is the same function
   const int n = min(max(lens[b], 0), MB * bs);
   const int* trow = tables + static_cast<int64_t>(b) * MB;
-  const int64_t qo = (static_cast<int64_t>(b) * H + h) * D;
+  const int64_t qo = (static_cast<int64_t>(b) * H + h) * Dm;
 
   float qv[NV];
-  load_slice<QT, NV>(q + qo + lane * NV, qv);
+  load_lane<QT, NV, PART>(q + qo + lane * NV, lane * NV, Dm, qv);
 
   float m = kNeg, l = 0.f;
   float acc[NV];
@@ -137,9 +156,9 @@ __global__ void __launch_bounds__(kWarps * 32)
         // clamping keeps the read in bounds (the engine never emits one)
         const int blk = min(max(trow[j / bs], 0), NB - 1);
         const int64_t row = static_cast<int64_t>(blk) * bs + j % bs;
-        const int64_t off = (row * H + h) * D + lane * NV;
-        load_slice<KT, NV>(k_pool + off, kr[u]);
-        load_slice<KT, NV>(v_pool + off, vr[u]);
+        const int64_t off = (row * H + h) * Dm + lane * NV;
+        load_lane<KT, NV, PART>(k_pool + off, lane * NV, Dm, kr[u]);
+        load_lane<KT, NV, PART>(v_pool + off, lane * NV, Dm, vr[u]);
         if constexpr (Q8) {
           ks[u] = k_scale[row * H + h];
           vs[u] = v_scale[row * H + h];
@@ -207,7 +226,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     L += sm_l[w] * w_scale[w];
   }
   L = fmaxf(L, 1e-30f);  // lens == 0 rows: acc is 0, output is 0
-  for (int d = threadIdx.x; d < D; d += kWarps * 32) {
+  for (int d = threadIdx.x; d < Dm; d += kWarps * 32) {
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) o += sm_acc[w][d] * w_scale[w];
@@ -215,11 +234,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename QT, typename KT, bool Q8>
-cudaError_t launch(const void* q, const void* k, const float* ks,
-                   const void* v, const float* vs, const int* tables,
-                   const int* lens, void* out, int B, int H, int D, int NB,
-                   int bs, int MB, float scale, cudaStream_t stream) {
+template <typename QT, typename KT, bool Q8, bool PART>
+cudaError_t launch_d(const void* q, const void* k, const float* ks,
+                     const void* v, const float* vs, const int* tables,
+                     const int* lens, void* out, int B, int H, int D, int NB,
+                     int bs, int MB, float scale, cudaStream_t stream) {
   const dim3 grid(H, B);
   const dim3 block(kWarps * 32);
   const auto* qp = static_cast<const QT*>(q);
@@ -228,10 +247,10 @@ cudaError_t launch(const void* q, const void* k, const float* ks,
   auto* op = static_cast<QT*>(out);
 #define PT_CASE(NV)                                                        \
   case NV:                                                                 \
-    paged_decode_kernel<QT, KT, Q8, NV><<<grid, block, 0, stream>>>(       \
-        qp, kp, ks, vp, vs, tables, lens, op, H, NB, bs, MB, scale);       \
+    paged_decode_kernel<QT, KT, Q8, NV, PART><<<grid, block, 0, stream>>>( \
+        qp, kp, ks, vp, vs, tables, lens, op, H, NB, bs, MB, D, scale);    \
     break;
-  switch (D / 32) {
+  switch ((D + 31) / 32) {
     PT_CASE(1)
     PT_CASE(2)
     PT_CASE(3)
@@ -247,8 +266,21 @@ cudaError_t launch(const void* q, const void* k, const float* ks,
   return cudaGetLastError();
 }
 
+// head dims that are a multiple of 32 take the unmasked instantiation
+template <typename QT, typename KT, bool Q8>
+cudaError_t launch(const void* q, const void* k, const float* ks,
+                   const void* v, const float* vs, const int* tables,
+                   const int* lens, void* out, int B, int H, int D, int NB,
+                   int bs, int MB, float scale, cudaStream_t stream) {
+  if (D % 32 == 0)
+    return launch_d<QT, KT, Q8, false>(q, k, ks, v, vs, tables, lens, out, B,
+                                       H, D, NB, bs, MB, scale, stream);
+  return launch_d<QT, KT, Q8, true>(q, k, ks, v, vs, tables, lens, out, B, H,
+                                    D, NB, bs, MB, scale, stream);
+}
+
 bool bad_shape(int B, int H, int D, int NB, int bs, int MB) {
-  return B < 0 || B > 65535 || H < 1 || D < 32 || D > kMaxD || D % 32 != 0 ||
+  return B < 0 || B > 65535 || H < 1 || D < 8 || D > kMaxD || D % 8 != 0 ||
          NB < 1 || bs < 1 || MB < 1;
 }
 

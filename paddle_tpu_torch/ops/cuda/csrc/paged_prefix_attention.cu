@@ -38,6 +38,11 @@
 //     past its own frontier;
 //   * the q8 form keeps the TPU kernel's factored scales: the K scale
 //     multiplies the score, the V scale the probability.
+// Head dims: any multiple of 8 up to 256. Each lane owns NV = ceil(D / 32)
+// elements; where D is not a multiple of 32 (gpt3-2.7b's 80) the kernel is
+// instantiated at 32 * NV, stages its tiles element by element with the
+// columns d >= D zero-filled, and masks q's loads and the output's stores
+// at d >= D, so the pools are read in place, never padded.
 // `wgmma` on a real [S, kCols] score tile and TMA staging are later work.
 //
 // Plain C interface (loaded with ctypes): each entry point launches on the
@@ -47,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -124,7 +130,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // grid (H, B, ceil(S / kRows)); block kThreads.
 // Q8 = false: KT = QT, scales unused. Q8 = true: KT = int8_t, scales used.
-template <typename QT, typename KT, bool Q8, int NV>
+template <typename QT, typename KT, bool Q8, int NV, bool PART>
 __global__ void __launch_bounds__(kThreads)
     paged_prefix_kernel(const QT* __restrict__ q,
                         const KT* __restrict__ k_pool,
@@ -133,8 +139,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ v_scale,
                         const int* __restrict__ tables,
                         const int* __restrict__ start, QT* __restrict__ out,
-                        int S, int H, int NB, int bs, int MB, float scale) {
-  constexpr int D = 32 * NV;
+                        int S, int H, int NB, int bs, int MB, int Dr,
+                        float scale) {
+  constexpr int D = 32 * NV;            // the lanes' (and tiles') extent
+  const int Dm = PART ? Dr : D;         // the head dim in memory
   constexpr int kVec = 16 / static_cast<int>(sizeof(KT));  // elems / 16 B
   constexpr int kPieces = D / kVec;                // 16-byte pieces per row
   const int h = blockIdx.x;
@@ -160,9 +168,13 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float vs_s[kCols];
 
   const int64_t qo = ((static_cast<int64_t>(b) * S + (active ? i : 0)) * H +
-                      h) * D + lane * NV;
+                      h) * Dm + lane * NV;
   float qv[NV];
-  if (active) {
+  if (active && PART) {
+#pragma unroll
+    for (int e = 0; e < NV; ++e)
+      qv[e] = lane * NV + e < Dm ? to_f32<QT>(q[qo + e]) : 0.f;
+  } else if (active) {
     load_vec<QT, NV>(q + qo, qv);
   } else {
 #pragma unroll
@@ -175,22 +187,48 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int c0 = 0; c0 <= F; c0 += kCols) {
     __syncthreads();  // the previous tile's readers are done with it
-    for (int t = threadIdx.x; t < kCols * kPieces; t += kThreads) {
-      const int cc = t / kPieces;
-      const int piece = t - cc * kPieces;
-      const int c = c0 + cc;
-      uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
-      if (c <= F) {
-        // a table entry outside [0, NB) would read outside the pool;
-        // clamping keeps the read in bounds (the engine never emits one)
-        const int blk = min(max(trow[c / bs], 0), NB - 1);
-        const int64_t row = static_cast<int64_t>(blk) * bs + c % bs;
-        const int64_t off = (row * H + h) * D + piece * kVec;
-        kraw = *reinterpret_cast<const uint4*>(k_pool + off);
-        vraw = *reinterpret_cast<const uint4*>(v_pool + off);
+    if constexpr (PART) {
+      // rows of Dr elements need not be 16-byte aligned: element loads
+      // (moved as raw bits), the lanes' columns past Dr zero-filled
+      using Raw = typename std::conditional<
+          sizeof(KT) == 4, uint32_t,
+          typename std::conditional<sizeof(KT) == 2, uint16_t,
+                                    uint8_t>::type>::type;
+      const Raw* kr = reinterpret_cast<const Raw*>(k_pool);
+      const Raw* vr = reinterpret_cast<const Raw*>(v_pool);
+      for (int t = threadIdx.x; t < kCols * D; t += kThreads) {
+        const int cc = t / D;
+        const int d = t - cc * D;
+        const int c = c0 + cc;
+        Raw kx = 0, vx = 0;
+        if (c <= F && d < Dm) {
+          const int blk = min(max(trow[c / bs], 0), NB - 1);
+          const int64_t row = static_cast<int64_t>(blk) * bs + c % bs;
+          const int64_t off = (row * H + h) * Dm + d;
+          kx = kr[off];
+          vx = vr[off];
+        }
+        reinterpret_cast<Raw*>(&k_s[cc][0])[d] = kx;
+        reinterpret_cast<Raw*>(&v_s[cc][0])[d] = vx;
       }
-      *reinterpret_cast<uint4*>(&k_s[cc][piece * kVec]) = kraw;
-      *reinterpret_cast<uint4*>(&v_s[cc][piece * kVec]) = vraw;
+    } else {
+      for (int t = threadIdx.x; t < kCols * kPieces; t += kThreads) {
+        const int cc = t / kPieces;
+        const int piece = t - cc * kPieces;
+        const int c = c0 + cc;
+        uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
+        if (c <= F) {
+          // a table entry outside [0, NB) would read outside the pool;
+          // clamping keeps the read in bounds (the engine never emits one)
+          const int blk = min(max(trow[c / bs], 0), NB - 1);
+          const int64_t row = static_cast<int64_t>(blk) * bs + c % bs;
+          const int64_t off = (row * H + h) * D + piece * kVec;
+          kraw = *reinterpret_cast<const uint4*>(k_pool + off);
+          vraw = *reinterpret_cast<const uint4*>(v_pool + off);
+        }
+        *reinterpret_cast<uint4*>(&k_s[cc][piece * kVec]) = kraw;
+        *reinterpret_cast<uint4*>(&v_s[cc][piece * kVec]) = vraw;
+      }
     }
     if constexpr (Q8) {
       for (int cc = threadIdx.x; cc < kCols; cc += kThreads) {
@@ -257,15 +295,17 @@ __global__ void __launch_bounds__(kThreads)
   if (active) {
     const float L = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int e = 0; e < NV; ++e) out[qo + e] = from_f32<QT>(acc[e] / L);
+    for (int e = 0; e < NV; ++e)
+      if (!PART || lane * NV + e < Dm) out[qo + e] = from_f32<QT>(acc[e] / L);
   }
 }
 
-template <typename QT, typename KT, bool Q8>
-cudaError_t launch(const void* q, const void* k, const float* ks,
-                   const void* v, const float* vs, const int* tables,
-                   const int* start, void* out, int B, int S, int H, int D,
-                   int NB, int bs, int MB, float scale, cudaStream_t stream) {
+template <typename QT, typename KT, bool Q8, bool PART>
+cudaError_t launch_d(const void* q, const void* k, const float* ks,
+                     const void* v, const float* vs, const int* tables,
+                     const int* start, void* out, int B, int S, int H, int D,
+                     int NB, int bs, int MB, float scale,
+                     cudaStream_t stream) {
   const dim3 grid(H, B, (S + kRows - 1) / kRows);
   const dim3 block(kThreads);
   const auto* qp = static_cast<const QT*>(q);
@@ -274,10 +314,10 @@ cudaError_t launch(const void* q, const void* k, const float* ks,
   auto* op = static_cast<QT*>(out);
 #define PT_CASE(NV)                                                        \
   case NV:                                                                 \
-    paged_prefix_kernel<QT, KT, Q8, NV><<<grid, block, 0, stream>>>(       \
-        qp, kp, ks, vp, vs, tables, start, op, S, H, NB, bs, MB, scale);   \
+    paged_prefix_kernel<QT, KT, Q8, NV, PART><<<grid, block, 0, stream>>>( \
+        qp, kp, ks, vp, vs, tables, start, op, S, H, NB, bs, MB, D, scale); \
     break;
-  switch (D / 32) {
+  switch ((D + 31) / 32) {
     PT_CASE(1)
     PT_CASE(2)
     PT_CASE(3)
@@ -293,9 +333,22 @@ cudaError_t launch(const void* q, const void* k, const float* ks,
   return cudaGetLastError();
 }
 
+// head dims that are a multiple of 32 take the unmasked instantiation
+template <typename QT, typename KT, bool Q8>
+cudaError_t launch(const void* q, const void* k, const float* ks,
+                   const void* v, const float* vs, const int* tables,
+                   const int* start, void* out, int B, int S, int H, int D,
+                   int NB, int bs, int MB, float scale, cudaStream_t stream) {
+  if (D % 32 == 0)
+    return launch_d<QT, KT, Q8, false>(q, k, ks, v, vs, tables, start, out, B,
+                                       S, H, D, NB, bs, MB, scale, stream);
+  return launch_d<QT, KT, Q8, true>(q, k, ks, v, vs, tables, start, out, B, S,
+                                    H, D, NB, bs, MB, scale, stream);
+}
+
 bool bad_shape(int B, int S, int H, int D, int NB, int bs, int MB) {
   return B < 0 || B > 65535 || S < 1 || S > 65535 * kRows || H < 1 ||
-         H > 65535 || D < 32 || D > kMaxD || D % 32 != 0 || NB < 1 ||
+         H > 65535 || D < 8 || D > kMaxD || D % 8 != 0 || NB < 1 ||
          bs < 1 || MB < 1;
 }
 

@@ -47,8 +47,8 @@ def _check_common(q, pools, tables, lens, *, window=False, what="lens"):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"q dtype must be float32 or bfloat16; got "
                          f"{q.dtype}")
-    if D % 32 != 0 or not 32 <= D <= 256:
-        raise ValueError(f"head_dim must be a multiple of 32 in [32, 256]; "
+    if D % 8 != 0 or not 8 <= D <= 256:
+        raise ValueError(f"head_dim must be a multiple of 8 in [8, 256]; "
                          f"got {D}")
     if not 1 <= B <= 65535 or H > 65535:
         raise ValueError(f"batch and heads must be in [1, 65535]; got B={B},"

@@ -155,3 +155,6 @@ def pytest_configure(config):
         "`-m 'not slow and not heavy'` — ~5 min on an unshared core, "
         "~10 min on a time-shared container core "
         "(reference testslist.csv RUN_TYPE labels)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch/CUDA port's "
+        "hand-written kernels); skips without one")

@@ -12,6 +12,7 @@ import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.ops.cuda import build as cuda_build
+from paddle_tpu_torch.ops.cuda import fused_mha as cuda_fm
 from paddle_tpu_torch.ops.cuda import paged_attention as cuda_pa
 
 REPO = Path(__file__).resolve().parents[1]
@@ -28,6 +29,10 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.ops.cuda.int8_matmul\n"
             "import paddle_tpu_torch.ops.cuda.flash_attention\n"
             "import paddle_tpu_torch.ops.cuda.linear_ce\n"
+            "import paddle_tpu_torch.ops.cuda.fused_mha\n"
+            "import paddle_tpu_torch.ops.fused_mha\n"
+            "import paddle_tpu_torch.models.bert\n"
+            "import paddle_tpu_torch.models.vit\n"
             "import paddle_tpu_torch.ops.flash_attention\n"
             "import paddle_tpu_torch.ops.linear_ce\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
@@ -94,7 +99,8 @@ def test_training_modules_are_covered_by_the_source_check():
               "ops/cuda/flash_attention.py", "ops/cuda/linear_ce.py",
               "incubate/nn/functional.py", "optimizer/optimizer.py",
               "optimizer/lr.py", "amp/grad_scaler.py", "jit/train_step.py",
-              "nn/clip.py"):
+              "nn/clip.py", "ops/fused_mha.py", "ops/cuda/fused_mha.py",
+              "models/bert.py", "models/vit.py"):
         assert f in files, f
 
 
@@ -122,8 +128,8 @@ def _kernel_args(B=2, H=2, D=64, NB=5, bs=4, MB=2, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(D=48), "multiple of 32"),
-    (dict(D=288), "multiple of 32"),
+    (dict(D=44), "multiple of 8"),
+    (dict(D=288), "multiple of 8"),
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     ({}, "needs CUDA tensors"),
 ])
@@ -132,6 +138,73 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(change, match):
     with pytest.raises(ValueError, match=match):
         cuda_pa.paged_attention_cuda(q, kp, vp, tables, lens)
     assert cuda_pa.LAUNCHES["paged_attention"] == 0
+
+
+@pytest.mark.parametrize("D", [80, 48, 8, 256])
+def test_paged_wrappers_take_any_head_dim_multiple_of_8(D):
+    """Head dims that are not a multiple of 32 (gpt3-2.7b's 80) pass the
+    head-dim check of all four paged kernels; on a CPU tensor the wrapper
+    then stops at the device check, before any launch."""
+    q, kp, vp, tables, lens = _kernel_args(D=D)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        cuda_pa.paged_attention_cuda(q, kp, vp, tables, lens)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        cuda_pa.paged_attention_q8_cuda(q, kp.to(torch.int8), kp[..., 0],
+                                        vp.to(torch.int8), vp[..., 0],
+                                        tables, lens)
+    qw = torch.zeros(2, 3, 2, D)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        cuda_pa.paged_prefix_attention_cuda(qw, kp, vp, tables, lens)
+    assert cuda_pa.LAUNCHES["paged_attention"] == 0
+    assert cuda_pa.LAUNCHES["paged_prefix_attention"] == 0
+
+
+def _fmha_args(B=2, S=8, nh=2, D=64, dtype=torch.float32):
+    return torch.zeros(B, S, 3 * nh * D, dtype=dtype)
+
+
+@pytest.mark.parametrize("change, kw, match", [
+    (dict(D=60), {}, "not 3 \\* num_heads"),
+    (dict(D=68, nh=2), {}, "multiple of 8"),
+    (dict(D=264, nh=16), {}, "multiple of 8 in \\[8, 256\\]"),
+    (dict(D=64, nh=1), {}, "multiple of 128"),
+    (dict(dtype=torch.float16), {}, "float32 or bfloat16"),
+    ({}, dict(kv_len=0), "kv_len must be positive"),
+    ({}, dict(kv_len=4, lens=torch.ones(2, dtype=torch.int32)),
+     "not both"),
+    ({}, dict(dropout_p=1.0), "dropout_p must be in"),
+    ({}, {}, "need CUDA tensors"),
+])
+def test_fused_mha_wrapper_rejects_what_the_kernel_does_not_take(
+        change, kw, match):
+    """The #9 wrappers (forward and backward) raise ValueError before any
+    launch on what the kernels cannot take."""
+    nh = change.pop("nh", 2)
+    qkv = _fmha_args(nh=nh, **change)
+    if match.startswith("not 3"):
+        qkv = qkv[..., :-3]
+    with pytest.raises(ValueError, match=match):
+        cuda_fm.fused_mha_fwd_cuda(qkv, nh, **kw)
+    dout = torch.zeros(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3,
+                       dtype=qkv.dtype)
+    with pytest.raises(ValueError, match=match):
+        cuda_fm.fused_mha_bwd_cuda(qkv, dout, nh, **kw)
+    assert cuda_fm.LAUNCHES["fused_mha_fwd"] == 0
+    assert cuda_fm.LAUNCHES["fused_mha_bwd"] == 0
+
+
+def test_fused_mha_wrapper_checks_lens_and_seed():
+    """lens and the seed are int32 device tensors of shape [B] and [1]; a
+    dropout without a seed is refused (checked before the device)."""
+    qkv = _fmha_args()
+    with pytest.raises(ValueError, match="lens must be"):
+        cuda_fm.fused_mha_fwd_cuda(qkv, 2, lens=torch.ones(3,
+                                                           dtype=torch.int32))
+    with pytest.raises(ValueError, match="seed must be"):
+        cuda_fm.fused_mha_fwd_cuda(qkv, 2, dropout_p=0.1,
+                                   seed=torch.ones(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="requires a seed"):
+        cuda_fm.fused_mha_fwd_cuda(qkv, 2, dropout_p=0.1)
 
 
 def test_cuda_wrapper_rejects_bad_tables_and_lens():
@@ -149,7 +222,7 @@ def test_cuda_wrapper_rejects_bad_tables_and_lens():
     (dict(q_shape=(2, 2, 64)), r"\[B, S, H, D\]"),
     (dict(start_dtype=torch.int64), "tables and start must be int32"),
     (dict(start_len=1), "start must be"),
-    (dict(D=96 + 8), "multiple of 32"),
+    (dict(D=96 + 4), "multiple of 8"),
     ({}, "needs CUDA tensors"),
 ])
 def test_prefix_wrapper_rejects_what_the_kernel_does_not_take(change,
@@ -180,7 +253,8 @@ def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     before = cuda_build.library_paths()
     assert set(before) == {"paged_attention", "paged_prefix_attention",
-                           "int8_matmul", "flash_attention", "linear_ce"}
+                           "int8_matmul", "flash_attention", "linear_ce",
+                           "fused_mha"}
     assert set(before) == set(cuda_build._ENTRY_POINTS)
     src = tmp_path / "paged_prefix_attention.cu"
     src.write_text(src.read_text() + "\n// edit\n")

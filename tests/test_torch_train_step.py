@@ -38,8 +38,7 @@ def test_train_step_trajectory_and_resume_match_jax(accum):
     # resume: a fresh port model and step, fed the JAX state after step 3
     _, tm2 = _pair(CFG_T, seed=5)
     ts2 = _port_step(tm2, accum)
-    ts2.set_state_dict(pt.train_state_from_paddle(saved,
-                                                  pt.GPTConfig(**CFG_T)))
+    ts2.set_state_dict(pt.train_state_from_paddle(saved, tm2))
     assert ts2._step_i == 3
     for a, b in batches[3:]:
         ts2(torch.from_numpy(a), torch.from_numpy(b))
