@@ -7,27 +7,31 @@ Run from the root of a checkout. It builds the hand-written kernels from
 the checkout's sources (one nvcc per source, in parallel): the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
 attention #6 (forward, dQ and dK/dV passes), the fused linear
-cross-entropy forward #11 and the fused short-sequence MHA #9 (forward and
-backward). It holds each against its plain PyTorch version (phase 2; #1-#4
-also at head dim 80, #11 also at bert-base's MLM head, #9 at bert-base and
-vit-l16 shapes with dropout, lengths and causal, its kept sets read back),
-checks parity between the kernel route and the plain route on the card for
-the paged engine, the prefix-cache + chunked-prefill + speculative engine
-(at gpt3-1.3b and at gpt3-2.7b's head dim 80), static decode, the padded
-engine, the paged engine with int8 weights and the model-drafted spec
-engine (phase 3), serves gpt3-1.3b (24 layers, bf16, seeded random
-weights) through the paged ServingEngine with an fp and an int8 KV pool
-(phase 4), then through the prefix-cache, speculative-decode and
-chunked-prefill paths (phase 5), then through static decode (bf16, int8
-weights, int8 weights + int8 KV), the padded engine, the paged engine with
-int8 weights and a spec engine drafted by gpt3-125m (phase 6). Phase 7 is
-training: the kernel route against the plain route for the loss, every
-gradient and 5-step AdamW trajectories at gpt3-1.3b widths cut to 2
-layers, and for BERT MLM and ViT at bert-base and vit-l16 widths cut to 2
-layers; then bench_gpt's configuration at full width (gpt3-1.3b, bf16,
-B=3, S=2048, AdamW with bf16 moments), bench_bert's (bert-base, bf16,
-B=32, S=512, dropout) and bench_vit's (vit-l16 at 224^2, bf16, B=64),
-each timed and profiled. Each phase prints one JSON line; any failure
+cross-entropy forward #11, the fused short-sequence MHA #9 (forward and
+backward) and the window-batched fused MHA with bias #10 (forward, and
+backward with d(bias)). It holds each against its plain PyTorch version
+(phase 2; #1-#4 also at head dim 80, #11 also at bert-base's MLM head, #9
+at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
+sets read back, #10 at swin-t's four stages and swin-b's last with the
+model's own bias, bitwise repeatable, and in f32), checks parity between
+the kernel route and the plain route on the card for the paged engine,
+the prefix-cache + chunked-prefill + speculative engine (at gpt3-1.3b and
+at gpt3-2.7b's head dim 80), static decode, the padded engine, the paged
+engine with int8 weights and the model-drafted spec engine (phase 3),
+serves gpt3-1.3b (24 layers, bf16, seeded random weights) through the
+paged ServingEngine with an fp and an int8 KV pool (phase 4), then through
+the prefix-cache, speculative-decode and chunked-prefill paths (phase 5),
+then through static decode (bf16, int8 weights, int8 weights + int8 KV),
+the padded engine, the paged engine with int8 weights and a spec engine
+drafted by gpt3-125m (phase 6). Phase 7 is training: the kernel route
+against the plain route for the loss, every gradient and 5-step AdamW
+trajectories at gpt3-1.3b widths cut to 2 layers, for BERT MLM and ViT at
+bert-base and vit-l16 widths cut to 2 layers, and for Swin at swin-t's
+width cut to depths 2/2/2/2; then bench_gpt's configuration at full width
+(gpt3-1.3b, bf16, B=3, S=2048, AdamW with bf16 moments), bench_bert's
+(bert-base, bf16, B=32, S=512, dropout), bench_vit's (vit-l16 at 224^2,
+bf16, B=64) and bench_swin's (swin-t at 224^2, bf16, B=32), each timed
+and profiled. Each phase prints one JSON line; any failure
 exits non-zero. The line before the last is the card's name and
 power limit from nvidia-smi; the last line is {"ok": true, "device":
 {...}} with the number of devices the smoke used. Without a CUDA device,
@@ -61,6 +65,8 @@ KERNEL_SOURCE = {
     "linear_ce_fwd": CSRC + "linear_ce.cu",
     "fused_mha_fwd": CSRC + "fused_mha.cu",
     "fused_mha_bwd": CSRC + "fused_mha.cu",
+    "fused_mha_bias_fwd": CSRC + "fused_mha_bias.cu",
+    "fused_mha_bias_bwd": CSRC + "fused_mha_bias.cu",
 }
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:383",
@@ -78,6 +84,9 @@ REPLACES = {
     # fused_mha (def :355): the forward and the backward pallas_calls
     "fused_mha_fwd": "paddle_tpu/ops/pallas/fused_mha.py:249",
     "fused_mha_bwd": "paddle_tpu/ops/pallas/fused_mha.py:295",
+    # fused_mha_bias (def :161): the forward and the backward pallas_calls
+    "fused_mha_bias_fwd": "paddle_tpu/ops/pallas/fused_mha_bias.py:108",
+    "fused_mha_bias_bwd": "paddle_tpu/ops/pallas/fused_mha_bias.py:136",
 }
 # kernel #6 cases: (name, B, Sq, Sk, H, D, causal, kv_len). The first two
 # are the training shapes of gpt3-1.3b (bench_gpt) and gpt3-125m, taken as
@@ -547,15 +556,16 @@ def phase_int8_matmul(torch, device, card):
 @contextlib.contextmanager
 def plain_route():
     """Test-only, the parity phases only: the model's attention, int8
-    GEMM, flash-attention, fused-MHA and fused cross-entropy calls run the
-    plain PyTorch versions on the card instead of the kernels. It swaps
-    the names gpt.py, ops/int8_matmul.py, ops/attention.py,
-    ops/fused_mha.py and the fused-loss module look up; nothing in the
-    package offers this."""
+    GEMM, flash-attention, fused-MHA (with and without bias) and fused
+    cross-entropy calls run the plain PyTorch versions on the card instead
+    of the kernels. It swaps the names gpt.py, ops/int8_matmul.py,
+    ops/attention.py, ops/fused_mha.py, ops/fused_mha_bias.py and the
+    fused-loss module look up; nothing in the package offers this."""
     import paddle_tpu_torch.incubate.nn.functional as FF
     import paddle_tpu_torch.models.gpt as G
     import paddle_tpu_torch.ops.flash_attention as FA
     import paddle_tpu_torch.ops.fused_mha as FM
+    import paddle_tpu_torch.ops.fused_mha_bias as FMB
     import paddle_tpu_torch.ops.int8_matmul as M
     import paddle_tpu_torch.ops.linear_ce as LC
     from paddle_tpu_torch.ops import attention as A
@@ -573,6 +583,9 @@ def plain_route():
     mha = FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda
     FM.fused_mha_fwd_cuda = FM.fused_mha_reference
     FM.fused_mha_bwd_cuda = FM.fused_mha_bwd_reference
+    mhab = FMB.fused_mha_bias_fwd_cuda, FMB.fused_mha_bias_bwd_cuda
+    FMB.fused_mha_bias_fwd_cuda = FMB.fused_mha_bias_reference
+    FMB.fused_mha_bias_bwd_cuda = FMB.fused_mha_bias_bwd_reference
     FA.flash_attention = lambda q, k, v, causal=False, scale=None, \
         kv_len=None: FA.flash_attention_reference(q, k, v, causal, scale,
                                                   kv_len)
@@ -587,6 +600,7 @@ def plain_route():
         M.int8_matmul = mm
         FA.flash_attention, FF.linear_cross_entropy = fa, ce
         FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda = mha
+        FMB.fused_mha_bias_fwd_cuda, FMB.fused_mha_bias_bwd_cuda = mhab
 
 
 def serve(torch, model, cfg_kw, prompts, warm=False):
@@ -2143,6 +2157,351 @@ def phase_train_vit(torch, card, device):
     return counts
 
 
+# kernel #10 cases: (name, sequences, S, nh, hd, R, dtype, stage map). The
+# first four are swin-t's four stages at bench_swin's B=32, 224^2 (the
+# grouped sequences of one block, with the model's own bias: the static
+# block-diagonal plan with the shifted-window masks plus a tiled random
+# relative-position table); then swin-b's stage 4 (nh=32) and f32 cases at
+# the JAX tests' shapes with a dense random bias, one at head dim 8
+FMB_CASES = [
+    ("swin-t_s1", 256, 392, 3, 32, 8, "bfloat16", 56),
+    ("swin-t_s2", 64, 392, 6, 32, 2, "bfloat16", 28),
+    ("swin-t_s3", 32, 196, 12, 32, 1, "bfloat16", 14),
+    ("swin-t_s4", 8, 196, 24, 32, 1, "bfloat16", 7),
+    ("swin-b_s4", 8, 196, 32, 32, 1, "bfloat16", 7),
+    ("f32_a", 4, 96, 4, 32, 2, "float32", None),
+    ("f32_b", 4, 96, 3, 32, 1, "float32", None),
+    ("f32_c", 4, 64, 2, 64, 4, "float32", None),
+    ("f32_hd8", 4, 64, 2, 8, 2, "float32", None),
+    ("f32_s1", 16, 392, 3, 32, 8, "float32", 56)]
+# limits on row_err of out, dq, dk, dv and d(bias) each, as for #6 and #9
+FMB_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+FMB_LINE = "swin-t_s1"                 # the case the kernels line reports
+FMB_TIMED = ("swin-t_s1", "swin-t_s2", "swin-t_s3", "swin-t_s4")
+# the control: the bias with one off-diagonal window block (query window
+# 0, key window 1 of period 0) zeroed, so two windows see each other
+FMB_CONTROL = "swin-t_s1"
+
+
+def fmb_inputs(torch, device, case):
+    """qkv, dout, and the bias: for a swin stage the model's own bias (the
+    static plan of a shifted block, or of the unshifted whole-map window at
+    stage 4, plus a random table tiled), else N(0, 0.25) dense."""
+    from paddle_tpu_torch.vision.models import swin as TS
+    name, b, s, nh, hd, r_n, dt, hw = case
+    g = torch.Generator(device=device).manual_seed(25)
+    dtype = getattr(torch, dt)
+    qkv = torch.randn(b, s, 3 * nh * hd, generator=g, device=device)
+    dout = torch.randn(b, s, nh * hd, generator=g, device=device)
+    if hw is None:
+        bias = torch.randn(r_n, nh, s, s, generator=g, device=device) * 0.5
+    else:
+        attn = TS.WindowAttention(nh * hd, nh, 7, device=device)
+        with torch.no_grad():
+            attn.rel_bias_table.normal_(0.0, 0.5, generator=g)
+        shift = 3 if hw > 7 else 0
+        mask = TS._shift_mask(hw, hw, 7, shift) if shift else None
+        nw = (hw // 7) ** 2
+        wg, static = attn._bias_plan(b * s // 49, nw, mask, device)
+        check((wg * 49, static.shape[0]) == (s, r_n),
+              f"fused_mha_bias {name}: the plan gives W_g={wg}, "
+              f"R={static.shape[0]}")
+        with torch.no_grad():
+            bias = (static[:, None] + attn._rel_bias().repeat(1, wg, wg))
+    return qkv.to(dtype), dout.to(dtype), bias.contiguous()
+
+
+def fmb_errs(out, dqkv, dbias, po, pg, pb, nh, hd):
+    """{tensor: (row_err, max abs error)} for out, dq, dk, dv (rows per
+    (sequence, position, head)) and d(bias) (rows of [R, nh, S, S])."""
+    b, s = out.shape[:2]
+    f = nh * hd
+    ks = [out] + [dqkv[..., i * f:(i + 1) * f] for i in range(3)]
+    ps = [po] + [pg[..., i * f:(i + 1) * f] for i in range(3)]
+    errs = {n: (row_err(a.reshape(b, s, nh, hd), c.reshape(b, s, nh, hd)),
+                float((a.float() - c.float()).abs().max()))
+            for n, a, c in zip(("out", "dq", "dk", "dv"), ks, ps)}
+    errs["dbias"] = (row_err(dbias, pb),
+                     float((dbias - pb).abs().max()))
+    return errs
+
+
+def phase_fused_mha_bias(torch, device, card):
+    """Kernel #10 against its plain versions, forward and backward with
+    d(bias), per row and per tensor (out, dq, dk, dv, d(bias)) at every
+    case; two launches of each entry point bitwise equal; two controls
+    that the limits must reject (the forward and the backward given a bias
+    with one off-diagonal window block zeroed); at swin-t's four stages
+    the times of the kernels, the plain versions, the yardstick
+    F.scaled_dot_product_attention with the bias as its float mask on the
+    [B, nh, S, hd] views (never on the path), forward and backward, and
+    SDPA per window ([B * W_g, nh, 49, hd], the same result at 1 / W_g of
+    the work)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fused_mha_bias as FMB
+    from paddle_tpu_torch.ops.cuda import fused_mha_bias as KMB
+    run = timer(torch, device)
+    rows, kernels, times = [], {}, {}
+    for case in FMB_CASES:
+        name, b, s, nh, hd, r_n, dt, hw = case
+        qkv, dout, bias = fmb_inputs(torch, device, case)
+        out = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
+        dqkv, dbias = KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout, nh)
+        out2 = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
+        dqkv2, dbias2 = KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout, nh)
+        po = FMB.fused_mha_bias_reference(qkv, bias, nh)
+        pg, pb = FMB.fused_mha_bias_bwd_reference(qkv, bias, dout, nh)
+        torch.cuda.synchronize()
+        tol = FMB_TOL[dt]
+        errs = fmb_errs(out, dqkv, dbias, po, pg, pb, nh, hd)
+        row = {"case": name, "sequences": b, "S": s, "nh": nh, "hd": hd,
+               "R": r_n, "dtype": dt, "bias": "swin plan, stage map "
+               f"{hw}x{hw}" if hw else "dense N(0, 0.25)", "tol": tol,
+               "row_err": {n: e[0] for n, e in errs.items()},
+               "max_abs_err": {n: e[1] for n, e in errs.items()}}
+        finite = all(bool(torch.isfinite(x.float()).all())
+                     for x in (out, dqkv, dbias))
+        check(finite and max(e[0] for e in errs.values()) <= tol,
+              f"fused_mha_bias {name}: kernel disagrees with its plain "
+              f"version: {row}")
+        row["bitwise_repeat"] = bool(
+            torch.equal(out, out2) and torch.equal(dqkv, dqkv2)
+            and torch.equal(dbias, dbias2))
+        check(row["bitwise_repeat"],
+              f"fused_mha_bias {name}: two launches differ")
+        del out2, dqkv2, dbias2
+        if name == FMB_CONTROL:
+            bad = bias.clone()
+            bad[0, :, :49, 49:98] = 0.0
+            co = KMB.fused_mha_bias_fwd_cuda(qkv, bad, nh)
+            cg, cb = KMB.fused_mha_bias_bwd_cuda(qkv, bad, dout, nh)
+            cerr = fmb_errs(co, cg, cb, po, pg, pb, nh, hd)
+            ctl = {"what": "kernel given the bias with the block (query "
+                           "window 0, key window 1) of period 0 zeroed, vs "
+                           "plain on the true bias",
+                   "forward_row_err": cerr["out"][0],
+                   "backward_dbias_row_err": cerr["dbias"][0]}
+            check(ctl["forward_row_err"] > tol
+                  and ctl["backward_dbias_row_err"] > tol,
+                  f"fused_mha_bias {name}: the limit passes a kernel whose "
+                  f"windows see each other: {ctl}")
+            row["control"] = dict(ctl, rejected=True)
+            del bad, co, cg, cb
+        if name in FMB_TIMED:
+            t = fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias)
+            times[name] = t
+            if name == FMB_LINE:
+                for kname, err in (("fused_mha_bias_fwd", errs["out"][1]),
+                                   ("fused_mha_bias_bwd", max(
+                                       errs[n][1] for n in
+                                       ("dq", "dk", "dv", "dbias")))):
+                    kernels[kname] = dict(t[kname], max_abs_err=err)
+        rows.append(row)
+        del qkv, dout, bias, out, dqkv, dbias, po, pg, pb
+        torch.cuda.empty_cache()
+    emit({"phase": "fused_mha_bias_vs_plain", "ok": True, "card": card,
+          "error": "row_err: per row max |kernel - plain| over the row's "
+                   "rms of plain (floored at 10% of the tensor's rms), "
+                   "worst row; rows of out, dq, dk, dv per (sequence, "
+                   "position, head), of d(bias) per (r, head, query); "
+                   "plain: fused_mha_bias_reference and "
+                   "fused_mha_bias_bwd_reference on the same inputs",
+          "timing": "median of 50 launches, CUDA events, L2 flushed",
+          "cases": rows, "times": times})
+    return kernels
+
+
+def fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias):
+    """Times and bounds of the forward and the backward at one case, and
+    the two SDPA yardsticks."""
+    name, b, s, nh, hd, r_n, dt, hw = case
+    f, n, wg = nh * hd, 49, s // 49
+    x = qkv.detach().requires_grad_()
+    views = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    mask = bias.repeat(b // r_n, 1, 1, 1).to(qkv.dtype).requires_grad_()
+    lout = F.scaled_dot_product_attention(*views, attn_mask=mask)
+    douth = dout.view(b, s, nh, hd).transpose(1, 2)
+    try:
+        torch.autograd.grad(lout, (x, mask), douth, retain_graph=True)
+        lib_grads, into = (x, mask), "qkv and the mask"
+    except RuntimeError:
+        lib_grads, into = (x,), "qkv (no gradient into a float mask here)"
+    # per window: the diagonal blocks of the bias as [B * W_g, nh, 49, 49]
+    blocks = torch.stack([bias[:, :, w * n:(w + 1) * n, w * n:(w + 1) * n]
+                          for w in range(wg)], dim=1)   # [R, wg, nh, n, n]
+    wmask = blocks.repeat(b // r_n, 1, 1, 1, 1).reshape(
+        b * wg, nh, n, n).to(qkv.dtype)
+    wviews = x.view(b * wg, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    wout = F.scaled_dot_product_attention(*wviews, attn_mask=wmask)
+    wdout = dout.view(b * wg, n, nh, hd).transpose(1, 2)
+    t = {"fwd_ms": run(lambda: KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)),
+         "bwd_ms": run(lambda: KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout,
+                                                           nh)),
+         "plain_fwd_ms": run(lambda: FMB.fused_mha_bias_reference(
+             qkv, bias, nh)),
+         "plain_bwd_ms": run(lambda: FMB.fused_mha_bias_bwd_reference(
+             qkv, bias, dout, nh)),
+         "library_fwd_ms": run(lambda: F.scaled_dot_product_attention(
+             *views, attn_mask=mask)),
+         "library_bwd_ms": run(lambda: torch.autograd.grad(
+             lout, lib_grads, douth, retain_graph=True)),
+         "library": "F.scaled_dot_product_attention on the [B, nh, S, hd] "
+                    "views of qkv with the bias repeated to [B, nh, S, S] "
+                    "as its float mask (qkv's dtype), forward; its backward "
+                    f"into {into}",
+         "per_window_fwd_ms": run(lambda: F.scaled_dot_product_attention(
+             *wviews, attn_mask=wmask)),
+         "per_window_bwd_ms": run(lambda: torch.autograd.grad(
+             wout, x, wdout, retain_graph=True)),
+         "per_window": f"SDPA on [B * W_g = {b * wg}, nh, 49, hd] with the "
+                       f"diagonal bias blocks as the mask: the same result "
+                       f"at 1/{wg} of the work (no d(bias))"}
+    mm = 2 * b * nh * s * s * hd              # one [S, S] x hd product
+    item = qkv.element_size()
+    bias_b = bias.numel() * 4
+    # forward: qkv and the bias read once, out written once, 2 products;
+    # backward: qkv, dout and the bias read, dqkv and d(bias) written, 5
+    # products (S, dP, dV, dQ, dK); the full S x S, as the kernel computes
+    fb = bound_of(2 * mm, (3 * f + f) * b * s * item + bias_b, qkv.dtype)
+    bb = bound_of(5 * mm, (3 * f + f + 3 * f) * b * s * item + 2 * bias_b,
+                  qkv.dtype)
+    t["fused_mha_bias_fwd"] = {"ms": t["fwd_ms"],
+                               "plain_ms": t["plain_fwd_ms"],
+                               "library_ms": t["library_fwd_ms"],
+                               "bound_ms": fb[0], "bound_by": fb[1]}
+    t["fused_mha_bias_bwd"] = {"ms": t["bwd_ms"],
+                               "plain_ms": t["plain_bwd_ms"],
+                               "library_ms": t["library_bwd_ms"],
+                               "bound_ms": bb[0], "bound_by": bb[1]}
+    del lout, views, x, mask, wout, wviews, wmask
+    return t
+
+
+def phase_swin_parity(torch, device, card):
+    """Swin training, kernel route against plain route, at swin-t's full
+    width (224^2, embed 96, heads 3/6/12/24, window 7) cut to depths
+    (2, 2, 2, 2) in f32, B=4: the cross-entropy loss and every parameter
+    gradient, each relative-position table's included (its gradient flows
+    only through #10's d(bias)); 8 + 8 #10 launches."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch import SwinTransformer
+    from paddle_tpu_torch.ops.cuda import build as KB
+    model = SwinTransformer(depths=(2, 2, 2, 2), num_classes=1000,
+                            device=device, dtype=torch.float32, seed=1)
+    model.train()
+    g = torch.Generator(device=device).manual_seed(43)
+    img = torch.randn(4, 3, 224, 224, generator=g, device=device)
+    y = torch.randint(0, 1000, (4,), generator=g, device=device)
+
+    def grads(plain):
+        model.zero_grad(set_to_none=True)
+        KB.reset_launch_counts()
+        with plain_route() if plain else contextlib.nullcontext():
+            loss = F.cross_entropy(model(img), y)
+            loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()),
+                {n: p.grad.clone() for n, p in model.named_parameters()},
+                dict(KB.LAUNCHES))
+    kl, kg, kc = grads(False)
+    pl, pg, pc = grads(True)
+    check(sum(pc.values()) == 0, "the plain route launched a kernel")
+    want = {"fused_mha_bias_fwd": 8, "fused_mha_bias_bwd": 8}
+    check(all(kc[k] == v for k, v in want.items()),
+          f"swin kernel route launches {kc}, want {want}")
+    check(set(kg) == set(pg), "the routes reach different parameters")
+    errs = {n: rel_err(kg[n], pg[n]) for n in kg}
+    worst = max(errs, key=errs.get)
+    tables = {n: e for n, e in errs.items() if n.endswith("rel_bias_table")}
+    out = {"phase": "swin_train_parity", "card": card,
+           "model": {"image": 224, "embed": 96, "depths": [2, 2, 2, 2],
+                     "heads": [3, 6, 12, 24], "window": 7,
+                     "dtype": "float32"}, "B": 4,
+           "loss": {"kernel": kl, "plain": pl,
+                    "rel_err": abs(kl - pl) / abs(pl), "tol": 1e-5},
+           "grads": {"params": len(errs), "worst_param": worst,
+                     "worst_rel_err": errs[worst], "tol": 1e-3,
+                     "tables": len(tables),
+                     "worst_table_rel_err": max(tables.values())},
+           "launches": {k: kc[k] for k in want}}
+    check(out["loss"]["rel_err"] <= 1e-5 and errs[worst] <= 1e-3
+          and len(tables) == 8,
+          f"swin parity: loss or grads differ: {out}")
+    out["ok"] = True
+    emit(out)
+    del model, kg, pg
+    torch.cuda.empty_cache()
+
+
+def phase_train_swin(torch, card, device):
+    """bench_swin's configuration at full width: swin-t (28.3M parameters,
+    depths 2/2/6/2) at 224^2, 1000 classes, bf16 parameters, B=32,
+    AdamW(lr=1e-4, bf16 moments), cross-entropy of the logits (#10 in
+    every block: 12 + 12 launches a step); images N(0, 1) and labels drawn
+    on the device from a seeded generator (bench: numpy). 2 warm steps,
+    then the best of 2 windows of 10 (bench: one window of 8), then one
+    profiled step; learning is checked on one batch repeated 6 more
+    times. MFU is bench_swin's: 3 x 9.0e9 FLOPs an image over the peak."""
+    import math
+    import torch.nn.functional as F
+    from paddle_tpu_torch import AdamW, TrainStep, swin_t
+    B_, N = 32, 10
+    model = swin_t(num_classes=1000, device=device, dtype=torch.bfloat16,
+                   seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16", device=device)
+    step = TrainStep(model, opt,
+                     lambda x, y: F.cross_entropy(model(x).float(), y),
+                     device=device)
+    g = torch.Generator(device=device).manual_seed(0)
+    imgs = torch.randn(N + 2, B_, 3, 224, 224, generator=g,
+                       device=device).to(torch.bfloat16)
+    lbl = torch.randint(0, 1000, (N + 2, B_), generator=g, device=device)
+    warm, losses, windows, counts, peak = timed_steps(
+        torch, step, lambda i: (imgs[i], lbl[i]), N)
+    per_step = {k: counts[k] / (2 * N) for k in
+                ("fused_mha_bias_fwd", "fused_mha_bias_bwd")}
+    want = {"fused_mha_bias_fwd": 12, "fused_mha_bias_bwd": 12}
+    check(per_step == want, f"swin launches per step {per_step}, want "
+                            f"{want}")
+    best = min(windows)
+    n_params = sum(p.numel() for p in model.parameters())
+    img_s = B_ * N / best
+    check(all(math.isfinite(x) for x in warm + losses),
+          "a Swin training loss is not finite")
+    check(abs(warm[0] - math.log(1000)) < 2.0,
+          f"first Swin loss {warm[0]} is not near ln(1000) "
+          f"{math.log(1000)}")
+    prof = profile_call(torch, lambda: step(imgs[2], lbl[2]),
+                        names=("bias_fwd", "bias_stats", "bias_dq",
+                               "bias_db", "bias_dkv"))
+    same = [float(step(imgs[0], lbl[0])) for _ in range(6)]
+    check(same[-1] < same[0],
+          f"the Swin loss on a repeated batch did not fall: {same}")
+    emit({"phase": "train_swin-t", "ok": True, "card": card,
+          "model": {"preset": "swin-t", "image": 224, "embed": 96,
+                    "depths": [2, 2, 6, 2], "heads": [3, 6, 12, 24],
+                    "window": 7, "classes": 1000, "dtype": "bfloat16"},
+          "config": {"B": B_, "optimizer": "AdamW(lr=1e-4, "
+                     "moment_dtype=bfloat16)",
+                     "loss": "F.cross_entropy(model(x).float(), y)",
+                     "data": "torch.Generator(seed 0) on the device",
+                     "timing": "2 warm steps, best of 2 windows of 10"},
+          "params": n_params, "images_per_s": img_s,
+          "ms_per_step": best / N * 1e3, "window_s": windows,
+          "flops_per_image": 3 * 9.0e9,
+          "mfu": 3 * 9.0e9 * img_s / TENSOR_FLOPS_PER_S,
+          "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+          "peak_mem_bytes": peak, "first_loss": warm[0],
+          "warm_losses": warm, "last_window_losses": losses,
+          "repeated_batch_losses": same, "launches_per_step": per_step,
+          "profile_step": prof})
+    del step, opt, model, imgs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: paddle_tpu_torch/ not found beside this "
@@ -2185,10 +2544,12 @@ def main() -> int:
     kern.update(phase_flash_kernels(torch, device, card))
     kern.update(phase_linear_ce(torch, device, card))
     kern.update(phase_fused_mha(torch, device, card))
+    kern.update(phase_fused_mha_bias(torch, device, card))
     phase_engine_parity(torch, device, card)
     phase_engine_parity(torch, device, card, preset="gpt3-2.7b")
     phase_train_parity(torch, device, card)
     phase_encoder_parity(torch, device, card)
+    phase_swin_parity(torch, device, card)
     from paddle_tpu_torch import GPTForCausalLM, gpt_config
     model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=device,
                            dtype=torch.bfloat16, seed=0)
@@ -2201,12 +2562,14 @@ def main() -> int:
     add_launches(launches, phase_train_full(torch, card, device))
     add_launches(launches, phase_train_bert(torch, card, device))
     add_launches(launches, phase_train_vit(torch, card, device))
+    add_launches(launches, phase_train_swin(torch, card, device))
 
     rows = []
     for name in ("paged_attention", "paged_attention_q8",
                  "paged_prefix_attention", "paged_prefix_attention_q8",
                  "int8_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "linear_ce_fwd", "fused_mha_fwd", "fused_mha_bwd"):
+                 "linear_ce_fwd", "fused_mha_fwd", "fused_mha_bwd",
+                 "fused_mha_bias_fwd", "fused_mha_bias_bwd"):
         r = kern[name]
         check(launches.get(name, 0) > 0,
               f"{name} never launched on the full-width paths")

@@ -2,11 +2,13 @@
 H100. It trains GPT (`GPTForCausalLM.loss` or `GPTPretrainingCriterion`,
 through the flash-attention and fused linear cross-entropy kernels), BERT
 (`BertForMaskedLM.loss`, through the fused short-sequence MHA and the
-fused linear cross-entropy) and ViT (`VisionTransformer`, through the
-fused MHA) with `AdamW`, `GradScaler`, `ClipGradByGlobalNorm` and
-`TrainStep`, and it serves GPT through the static decode stack and the
-padded engine or the paged engine with the prefix cache, chunked prefill
-and speculative decoding, with bf16 or weight-only int8 weights.
+fused linear cross-entropy), ViT (`VisionTransformer`, through the fused
+MHA) and Swin (`swin_t` and the other presets of `vision.models`, through
+the window-batched fused MHA with bias) with `AdamW`, `GradScaler`,
+`ClipGradByGlobalNorm` and `TrainStep`, and it serves GPT through the
+static decode stack and the padded engine or the paged engine with the
+prefix cache, chunked prefill and speculative decoding, with bf16 or
+weight-only int8 weights.
 
 The JAX package `paddle_tpu` is the reference; this package imports
 neither it nor JAX. Entry points run on CUDA unless the caller passes
@@ -19,6 +21,8 @@ from .models.bert import (BertConfig, BertForMaskedLM, BertForPretraining,
                           BertForSequenceClassification, BertModel,
                           bert_config)
 from .models.vit import ViTConfig, VisionTransformer, vit_config
+from . import vision
+from .vision.models import SwinTransformer, swin_b, swin_l, swin_s, swin_t
 from .inference.kv_cache import BlockPool
 from .inference.prefix_cache import PrefixCache
 from .inference.serving import (Request, RequestTrace, ServingConfig,
@@ -41,6 +45,7 @@ __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "model_state_from_paddle", "BertConfig", "BertModel",
            "BertForMaskedLM", "BertForSequenceClassification",
            "BertForPretraining", "bert_config", "ViTConfig",
-           "VisionTransformer", "vit_config",
+           "VisionTransformer", "vit_config", "vision", "SwinTransformer",
+           "swin_t", "swin_s", "swin_b", "swin_l",
            "GPTPretrainingCriterion", "TrainStep", "Adam", "AdamW",
            "GradScaler", "ClipGradByGlobalNorm"]

@@ -6,8 +6,9 @@ The JAX package names its parameters exactly as the port does
 ``bert.encoder.{i}.attention.qkv.weight``, ``blocks.{i}.up.weight``, ...)
 but stores every Linear and mpu projection weight ``[in, out]`` (qkv
 ``[H, 3H]``), where ``nn.Linear`` stores ``[out, in]``. So the map is by
-name, with those 2-D weights transposed; embedding tables, conv weights
-and everything else carry over as they are. The qkv output columns keep
+name, with those 2-D weights transposed; embedding tables, conv weights,
+Swin's relative-position tables (``attn.rel_bias_table``, no ``.weight``
+suffix) and everything else carry over as they are. The qkv output columns keep
 their ``[3, num_heads, head_dim]`` order, and a tied LM or MLM head stays
 tied: it is the embedding table itself, so there is no separate entry to
 carry. `model_state_from_paddle` maps onto any port model's own state
@@ -69,7 +70,7 @@ def model_state_from_paddle(np_state: Dict[str, np.ndarray],
                             model: torch.nn.Module
                             ) -> Dict[str, torch.Tensor]:
     """Map ``{name: ndarray}`` from a JAX-package model (GPT, BERT, ViT,
-    ...) onto the state dict of the port `model` of the same
+    Swin, ...) onto the state dict of the port `model` of the same
     architecture."""
     return _map(np_state, _model_shapes(model))
 
@@ -88,7 +89,7 @@ def train_state_from_paddle(jax_state: Dict,
     """Map a JAX-package ``TrainStep.state_dict()`` (step, params, AdamW
     ``moment1``/``moment2`` per parameter, optimizer scalars, scaler) onto
     the port's ``TrainStep.set_state_dict`` layout for the port `model`
-    (GPT, BERT, ViT, ...); every moment takes its parameter's
+    (GPT, BERT, ViT, Swin, ...); every moment takes its parameter's
     ``[in, out]`` -> ``[out, in]`` transpose, so a port run resumes a JAX
     run on the same trajectory."""
     params = model_state_from_paddle(jax_state["params"], model)

@@ -35,7 +35,8 @@ LAUNCHES = {"paged_attention": 0, "paged_attention_q8": 0,
             "paged_prefix_attention": 0, "paged_prefix_attention_q8": 0,
             "int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "linear_ce_fwd": 0, "fused_mha_fwd": 0,
-            "fused_mha_bwd": 0}
+            "fused_mha_bwd": 0, "fused_mha_bias_fwd": 0,
+            "fused_mha_bias_bwd": 0}
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points per library (source stem) and their argument types
@@ -58,6 +59,9 @@ _ENTRY_POINTS = {
     "fused_mha": {
         "pt_fused_mha_fwd": [_p] * 4 + [_i] * 6 + [_f, _u, _f, _i, _p],
         "pt_fused_mha_bwd": [_p] * 6 + [_i] * 6 + [_f, _u, _f, _i, _p]},
+    "fused_mha_bias": {
+        "pt_fused_mha_bias_fwd": [_p] * 3 + [_i] * 5 + [_f, _i, _p],
+        "pt_fused_mha_bias_bwd": [_p] * 6 + [_i] * 5 + [_f, _i, _p]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

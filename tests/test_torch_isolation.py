@@ -13,6 +13,7 @@ import torch
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.ops.cuda import build as cuda_build
 from paddle_tpu_torch.ops.cuda import fused_mha as cuda_fm
+from paddle_tpu_torch.ops.cuda import fused_mha_bias as cuda_fmb
 from paddle_tpu_torch.ops.cuda import paged_attention as cuda_pa
 
 REPO = Path(__file__).resolve().parents[1]
@@ -31,6 +32,9 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.ops.cuda.linear_ce\n"
             "import paddle_tpu_torch.ops.cuda.fused_mha\n"
             "import paddle_tpu_torch.ops.fused_mha\n"
+            "import paddle_tpu_torch.ops.cuda.fused_mha_bias\n"
+            "import paddle_tpu_torch.ops.fused_mha_bias\n"
+            "import paddle_tpu_torch.vision.models.swin\n"
             "import paddle_tpu_torch.models.bert\n"
             "import paddle_tpu_torch.models.vit\n"
             "import paddle_tpu_torch.ops.flash_attention\n"
@@ -100,7 +104,8 @@ def test_training_modules_are_covered_by_the_source_check():
               "incubate/nn/functional.py", "optimizer/optimizer.py",
               "optimizer/lr.py", "amp/grad_scaler.py", "jit/train_step.py",
               "nn/clip.py", "ops/fused_mha.py", "ops/cuda/fused_mha.py",
-              "models/bert.py", "models/vit.py"):
+              "models/bert.py", "models/vit.py", "ops/fused_mha_bias.py",
+              "ops/cuda/fused_mha_bias.py", "vision/models/swin.py"):
         assert f in files, f
 
 
@@ -207,6 +212,52 @@ def test_fused_mha_wrapper_checks_lens_and_seed():
         cuda_fm.fused_mha_fwd_cuda(qkv, 2, dropout_p=0.1)
 
 
+def _fmb_args(B=4, S=8, nh=2, D=32, R=2, dtype=torch.float32):
+    return (torch.zeros(B, S, 3 * nh * D, dtype=dtype),
+            torch.zeros(R, nh, S, S))
+
+
+@pytest.mark.parametrize("change, bias_fn, match", [
+    (dict(D=36), None, "multiple of 8"),
+    (dict(D=264, nh=1), None, "multiple of 8 in \\[8, 256\\]"),
+    (dict(dtype=torch.float16), None, "float32 or bfloat16"),
+    (dict(R=3), None, "not a multiple of the bias period"),
+    ({}, lambda b: b[:, :1], "bias must be \\[R, 2, 8, 8\\]"),
+    ({}, lambda b: b[..., :7], "bias must be \\[R, 2, 8, 8\\]"),
+    ({}, lambda b: b.double(), "bias must be float32"),
+    ({}, None, "need CUDA tensors"),
+])
+def test_fused_mha_bias_wrapper_rejects_what_the_kernel_does_not_take(
+        change, bias_fn, match):
+    """The #10 wrappers (forward and backward) raise ValueError before any
+    launch on what the kernels cannot take: head dims, dtypes, a bias of
+    the wrong shape or type, a batch that is not a multiple of the bias
+    period, and CPU tensors."""
+    nh = change.pop("nh", 2)
+    qkv, bias = _fmb_args(nh=nh, **change)
+    if bias_fn is not None:
+        bias = bias_fn(bias)
+    dout = torch.zeros(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3,
+                       dtype=qkv.dtype)
+    with pytest.raises(ValueError, match=match):
+        cuda_fmb.fused_mha_bias_fwd_cuda(qkv, bias, nh)
+    with pytest.raises(ValueError, match=match):
+        cuda_fmb.fused_mha_bias_bwd_cuda(qkv, bias, dout, nh)
+    assert cuda_fmb.LAUNCHES["fused_mha_bias_fwd"] == 0
+    assert cuda_fmb.LAUNCHES["fused_mha_bias_bwd"] == 0
+
+
+@pytest.mark.parametrize("D", [8, 32, 40, 256])
+def test_fused_mha_bias_wrapper_takes_every_head_dim_the_gate_admits(D):
+    """Head dims 8 to 256 in steps of 8 pass the checks (swin's nh * hd need
+    not be a multiple of 128, unlike #9's); a CPU tensor then stops at the
+    device check, before any launch."""
+    qkv, bias = _fmb_args(nh=3, D=D)
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        cuda_fmb.fused_mha_bias_fwd_cuda(qkv, bias, 3)
+    assert cuda_fmb.LAUNCHES["fused_mha_bias_fwd"] == 0
+
+
 def test_cuda_wrapper_rejects_bad_tables_and_lens():
     q, kp, vp, tables, lens = _kernel_args()
     with pytest.raises(ValueError, match="int32"):
@@ -254,7 +305,7 @@ def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
     before = cuda_build.library_paths()
     assert set(before) == {"paged_attention", "paged_prefix_attention",
                            "int8_matmul", "flash_attention", "linear_ce",
-                           "fused_mha"}
+                           "fused_mha", "fused_mha_bias"}
     assert set(before) == set(cuda_build._ENTRY_POINTS)
     src = tmp_path / "paged_prefix_attention.cu"
     src.write_text(src.read_text() + "\n// edit\n")
