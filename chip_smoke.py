@@ -8,12 +8,17 @@ the checkout's sources (one nvcc per source, in parallel): the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
 attention #6 (forward, dQ and dK/dV passes), the fused linear
 cross-entropy forward #11, the fused short-sequence MHA #9 (forward and
-backward) and the window-batched fused MHA with bias #10 (forward, and
-backward with d(bias)). It holds each against its plain PyTorch version
+backward), the window-batched fused MHA with bias #10 (forward, and
+backward with d(bias)), the fused LayerNorm #8 (forward, backward) and
+packed flash attention #7 (#6's kernels on the packed [B, S, nh * 128]
+layout, one d(qkv)). It holds each against its plain PyTorch version
 (phase 2; #1-#4 also at head dim 80, #11 also at bert-base's MLM head, #9
 at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
 sets read back, #10 at swin-t's four stages and swin-b's last with the
-model's own bias, bitwise repeatable, and in f32), checks parity between
+model's own bias, bitwise repeatable, and in f32, #8 at gpt3-1.3b's and
+gpt3-2.7b's LayerNorm inputs for the four affine cases, its backward
+bitwise repeatable, #7 at gpt3-1.3b's training shape, equal to #6 on the
+same data), checks parity between
 the kernel route and the plain route on the card for the paged engine,
 the prefix-cache + chunked-prefill + speculative engine (at gpt3-1.3b and
 at gpt3-2.7b's head dim 80), static decode, the padded engine, the paged
@@ -27,8 +32,12 @@ drafted by gpt3-125m (phase 6). Phase 7 is training: the kernel route
 against the plain route for the loss, every gradient and 5-step AdamW
 trajectories at gpt3-1.3b widths cut to 2 layers, for BERT MLM and ViT at
 bert-base and vit-l16 widths cut to 2 layers, and for Swin at swin-t's
-width cut to depths 2/2/2/2; then bench_gpt's configuration at full width
-(gpt3-1.3b, bf16, B=3, S=2048, AdamW with bf16 moments), bench_bert's
+width cut to depths 2/2/2/2, and for GPT under the opt-ins
+PADDLE_TPU_FUSED_LN=1 and PADDLE_TPU_FLASH_PACKED=1 (#8, #7), also with
+save_qkv recompute and int8 moments; then bench_gpt's configuration at
+full width (gpt3-1.3b, bf16, B=3, S=2048, AdamW with bf16 moments), the
+same under both opt-ins, _bench_gpt27's (gpt3-2.7b, bf16, B=6, S=1024,
+save_qkv recompute, int8 moments), bench_bert's
 (bert-base, bf16, B=32, S=512, dropout), bench_vit's (vit-l16 at 224^2,
 bf16, B=64) and bench_swin's (swin-t at 224^2, bf16, B=32), each timed
 and profiled. Each phase prints one JSON line; any failure
@@ -67,6 +76,11 @@ KERNEL_SOURCE = {
     "fused_mha_bwd": CSRC + "fused_mha.cu",
     "fused_mha_bias_fwd": CSRC + "fused_mha_bias.cu",
     "fused_mha_bias_bwd": CSRC + "fused_mha_bias.cu",
+    "layer_norm_fwd": CSRC + "layer_norm.cu",
+    "layer_norm_bwd": CSRC + "layer_norm.cu",
+    "flash_packed_fwd": CSRC + "flash_attention.cu",
+    "flash_packed_bwd_dq": CSRC + "flash_attention.cu",
+    "flash_packed_bwd_dkv": CSRC + "flash_attention.cu",
 }
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:383",
@@ -87,6 +101,14 @@ REPLACES = {
     # fused_mha_bias (def :161): the forward and the backward pallas_calls
     "fused_mha_bias_fwd": "paddle_tpu/ops/pallas/fused_mha_bias.py:108",
     "fused_mha_bias_bwd": "paddle_tpu/ops/pallas/fused_mha_bias.py:136",
+    # fused_layer_norm (def :207): the forward and the backward pallas_calls
+    "layer_norm_fwd": "paddle_tpu/ops/pallas/layer_norm.py:125",
+    "layer_norm_bwd": "paddle_tpu/ops/pallas/layer_norm.py:168",
+    # flash_attention_packed (def :683): the forward, dQ and dK/dV
+    # pallas_calls of the packed layout
+    "flash_packed_fwd": "paddle_tpu/ops/pallas/flash_attention.py:472",
+    "flash_packed_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:610",
+    "flash_packed_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:628",
 }
 # kernel #6 cases: (name, B, Sq, Sk, H, D, causal, kv_len). The first two
 # are the training shapes of gpt3-1.3b (bench_gpt) and gpt3-125m, taken as
@@ -556,17 +578,20 @@ def phase_int8_matmul(torch, device, card):
 @contextlib.contextmanager
 def plain_route():
     """Test-only, the parity phases only: the model's attention, int8
-    GEMM, flash-attention, fused-MHA (with and without bias) and fused
-    cross-entropy calls run the plain PyTorch versions on the card instead
-    of the kernels. It swaps the names gpt.py, ops/int8_matmul.py,
-    ops/attention.py, ops/fused_mha.py, ops/fused_mha_bias.py and the
-    fused-loss module look up; nothing in the package offers this."""
+    GEMM, flash-attention (plain and packed), fused-MHA (with and without
+    bias), fused LayerNorm and fused cross-entropy calls run the plain
+    PyTorch versions on the card instead of the kernels. It swaps the
+    names gpt.py, ops/int8_matmul.py, ops/attention.py,
+    ops/flash_attention.py, ops/fused_mha.py, ops/fused_mha_bias.py,
+    ops/layer_norm.py and the fused-loss module look up; nothing in the
+    package offers this."""
     import paddle_tpu_torch.incubate.nn.functional as FF
     import paddle_tpu_torch.models.gpt as G
     import paddle_tpu_torch.ops.flash_attention as FA
     import paddle_tpu_torch.ops.fused_mha as FM
     import paddle_tpu_torch.ops.fused_mha_bias as FMB
     import paddle_tpu_torch.ops.int8_matmul as M
+    import paddle_tpu_torch.ops.layer_norm as LN
     import paddle_tpu_torch.ops.linear_ce as LC
     from paddle_tpu_torch.ops import attention as A
     names = ("paged_attention", "paged_attention_q8",
@@ -592,15 +617,59 @@ def plain_route():
     FF.linear_cross_entropy = lambda x, w, labels, *, w_layout="vh", \
         bwd_chunks=None: LC.linear_cross_entropy_reference(x, w, labels,
                                                            w_layout)
+    ln = LN.layer_norm_fwd_cuda, LN.layer_norm_bwd_cuda
+    LN.layer_norm_fwd_cuda = LN.fused_layer_norm_reference
+    LN.layer_norm_bwd_cuda = LN.fused_layer_norm_bwd_reference
+    fp = FA.flash_packed_fwd_cuda, FA.flash_packed_bwd_cuda
+    FA.flash_packed_fwd_cuda = lambda q, k, v, nh, *, causal, scale, \
+        kv_len=None: FA.flash_packed_forward_reference(q, k, v, nh, causal,
+                                                       scale, kv_len)
+    FA.flash_packed_bwd_cuda = _plain_packed_bwd
     try:
         yield
     finally:
+        LN.layer_norm_fwd_cuda, LN.layer_norm_bwd_cuda = ln
+        FA.flash_packed_fwd_cuda, FA.flash_packed_bwd_cuda = fp
         for n, fn in saved.items():
             setattr(G, n, fn)
         M.int8_matmul = mm
         FA.flash_attention, FF.linear_cross_entropy = fa, ce
         FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda = mha
         FMB.fused_mha_bias_fwd_cuda, FMB.fused_mha_bias_bwd_cuda = mhab
+
+
+def _plain_packed_bwd(q, k, v, out, lse, dout, nh, *, causal, scale,
+                      kv_len=None, dq=None, dk=None, dv=None):
+    """The plain #7 backward with the kernel wrapper's signature: writes
+    into the dq, dk and dv it is given (the slices of one d(qkv))."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+    grads = FA.flash_packed_bwd_reference(q, k, v, out, lse, dout, nh,
+                                          causal, scale, kv_len)
+    outs = []
+    for dst, g in zip((dq, dk, dv), grads):
+        if dst is not None:
+            dst.copy_(g)
+        outs.append(g if dst is None else dst)
+    return tuple(outs)
+
+
+@contextlib.contextmanager
+def opt_ins():
+    """PADDLE_TPU_FUSED_LN=1 and PADDLE_TPU_FLASH_PACKED=1 (GPT's LayerNorms
+    through #8 and its attention through #7), the environment restored
+    after."""
+    import os
+    keys = ("PADDLE_TPU_FUSED_LN", "PADDLE_TPU_FLASH_PACKED")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: "1" for k in keys})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def serve(torch, model, cfg_kw, prompts, warm=False):
@@ -1826,7 +1895,7 @@ def phase_train_parity(torch, device, card):
     torch.cuda.empty_cache()
 
 
-def phase_train_full(torch, card, device):
+def phase_train_full(torch, card, device, fused=False, default=None):
     """bench_gpt's configuration at full width: gpt3-1.3b with 2048
     positions, bf16 parameters, B=3, S=2048, AdamW(lr=1e-4, bf16 moments),
     model.loss (flash attention #6 in every layer, fused CE #11), no
@@ -1834,7 +1903,11 @@ def phase_train_full(torch, card, device):
     the labels are the ids. 2 warm steps, then the best of 2 windows of 10
     timed steps, then one profiled step. On fresh random batches the loss
     need not fall within 22 steps at lr 1e-4, so learning is checked on
-    one batch repeated for 6 more steps: its loss must fall."""
+    one batch repeated for 6 more steps: its loss must fall. With `fused`
+    the same run under both opt-ins (`opt_ins`): every LayerNorm through
+    #8 (2 L + 1 a forward) and the attention through #7 on the packed
+    qkv, none through #6; `default` is the default route's summary from
+    the same run, reported beside. Returns (launch counts, summary)."""
     import math
     import numpy as np
     from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep, gpt_config
@@ -1849,25 +1922,38 @@ def phase_train_full(torch, card, device):
                      device=device)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (N + 2, B_, S_)).astype(np.int64)).to(device)
-    warm = [float(step(ids[i], ids[i])) for i in range(2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    KB.reset_launch_counts()
-    windows, losses = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        ls = [step(ids[2 + i], ids[2 + i]) for i in range(N)]
+    L = cfg.num_layers
+    flash = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    packed = {"flash_packed_fwd": L, "flash_packed_bwd_dq": L,
+              "flash_packed_bwd_dkv": L}
+    lns = {"layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1}
+    if fused:
+        want = {**{k: 0 for k in flash}, **packed, **lns}
+    else:
+        want = {**flash, **{k: 0 for k in (*packed, *lns)}}
+    want["linear_ce_fwd"] = 1
+    with opt_ins() if fused else contextlib.nullcontext():
+        warm = [float(step(ids[i], ids[i])) for i in range(2)]
         torch.cuda.synchronize()
-        windows.append(time.perf_counter() - t0)
-        losses = [float(x) for x in ls]
-    counts = dict(KB.LAUNCHES)
-    per_step = {k: counts[k] / (2 * N) for k in
-                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "linear_ce_fwd")}
-    want = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
-            "flash_bwd_dkv": cfg.num_layers, "linear_ce_fwd": 1}
-    check(per_step == want, f"launches per step {per_step}, want {want}")
-    peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        KB.reset_launch_counts()
+        windows, losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ls = [step(ids[2 + i], ids[2 + i]) for i in range(N)]
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+            losses = [float(x) for x in ls]
+        counts = dict(KB.LAUNCHES)
+        per_step = {k: counts[k] / (2 * N) for k in want}
+        check(per_step == want,
+              f"launches per step {per_step}, want {want}")
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_call(torch, lambda: step(ids[2], ids[2]),
+                            names=("fwd_bf16", "dq_bf16", "dkv_bf16",
+                                   "lce_bf16", "lce_merge", "ln_fwd",
+                                   "ln_bwd"))
+        same = [float(step(ids[0], ids[0])) for _ in range(6)]
     best = min(windows)
     n_params = sum(p.numel() for p in model.parameters())
     per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * S_
@@ -1877,29 +1963,222 @@ def phase_train_full(torch, card, device):
     check(abs(warm[0] - math.log(cfg.vocab_size)) < 1.0,
           f"first loss {warm[0]} is not near ln(vocab) "
           f"{math.log(cfg.vocab_size)}")
-    prof = profile_call(torch, lambda: step(ids[2], ids[2]),
-                        names=("fwd_bf16", "dq_bf16", "dkv_bf16",
-                               "lce_bf16", "lce_merge"))
-    same = [float(step(ids[0], ids[0])) for _ in range(6)]
     check(same[-1] < same[0],
           f"the loss on a repeated batch did not fall: {same}")
-    emit({"phase": "train_gpt3_1.3b", "ok": True, "card": card,
+    summary = {"ms_per_step": best / N * 1e3, "tokens_per_s": tok_s,
+               "mfu": per_token * tok_s / TENSOR_FLOPS_PER_S,
+               "peak_mem_bytes": peak,
+               "device_busy_s": prof["device_busy_s"]}
+    emit({"phase": "train_gpt3_1.3b_fused" if fused else "train_gpt3_1.3b",
+          "ok": True, "card": card,
           "model": cfg_line(cfg, "bfloat16"),
           "config": {"B": B_, "S": S_, "max_position_embeddings": S_,
                      "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
                      "loss": "model.loss (fused LM head)",
                      "recompute": False, "grad_accum_steps": 1,
+                     "opt_ins": ["PADDLE_TPU_FUSED_LN=1",
+                                 "PADDLE_TPU_FLASH_PACKED=1"] if fused
+                     else [],
                      "ids": "np.random.RandomState(0), labels = ids",
                      "timing": "2 warm steps, best of 2 windows of 10"},
-          "params": n_params, "tokens_per_s": tok_s,
-          "ms_per_step": best / N * 1e3,
+          "params": n_params, **summary,
           "window_s": windows, "flops_per_token": per_token,
-          "mfu": per_token * tok_s / TENSOR_FLOPS_PER_S,
           "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
-          "peak_mem_bytes": peak, "first_loss": warm[0],
+          "first_loss": warm[0],
           "warm_losses": warm, "last_window_losses": losses,
           "repeated_batch_losses": same,
-          "launches_per_step": per_step, "profile_step": prof})
+          "launches_per_step": per_step, "profile_step": prof,
+          **({"default_route": default} if fused else {})})
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def phase_train_parity_fused(torch, device, card):
+    """Slice 7's training path, kernel route against plain route, under
+    both opt-ins (#8 for every LayerNorm, #7 for the attention) at
+    gpt3-1.3b widths cut to 2 layers in f32 (B=2, S=512): the loss and
+    every parameter gradient, and a 5-step AdamW TrainStep trajectory
+    (decay 0.01 with bias and LayerNorm exempt, ClipGradByGlobalNorm(1.0));
+    then once more in train() mode with recompute_policy="save_qkv" and
+    int8 moments. Launch counts as derived from the code: a forward runs
+    #8 2 L + 1 times and #7 L times; under save_qkv each block's two
+    regions rerun ln_1 (with the qkv projection) and ln_2 with the
+    attention in the backward, so #8's forward runs 4 L + 1 times and
+    #7's 2 L times, their backward passes once."""
+    import numpy as np
+    from paddle_tpu_torch import (AdamW, ClipGradByGlobalNorm,
+                                  GPTForCausalLM, TrainStep, gpt_config)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    cfg = gpt_config("gpt3-1.3b", num_layers=2)
+    L, B_, S_ = cfg.num_layers, 2, 512
+    base = GPTForCausalLM(cfg, device=device, dtype=torch.float32, seed=1)
+    init = {k: v.clone() for k, v in base.state_dict().items()}
+    batches = [torch.from_numpy(np.random.RandomState(40 + i).randint(
+        0, cfg.vocab_size, (B_, S_)).astype(np.int64)).to(device)
+        for i in range(5)]
+    out = {"phase": "train_parity_fused", "card": card,
+           "model": cfg_line(cfg, "float32"), "B": B_, "S": S_,
+           "opt_ins": ["PADDLE_TPU_FUSED_LN=1", "PADDLE_TPU_FLASH_PACKED=1"]}
+
+    def grads(plain):
+        base.load_state_dict(init)
+        base.zero_grad(set_to_none=True)
+        KB.reset_launch_counts()
+        with plain_route() if plain else contextlib.nullcontext():
+            loss = base.loss(batches[0], batches[0])
+            loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()), {n: p.grad.clone()
+                              for n, p in base.named_parameters()},
+                dict(KB.LAUNCHES))
+
+    def trajectory(plain, moments):
+        base.load_state_dict(init)
+        opt = AdamW(1e-4, parameters=base.named_parameters(),
+                    weight_decay=0.01, apply_decay_param_fun=decay_fun,
+                    grad_clip=ClipGradByGlobalNorm(1.0),
+                    moment_dtype=moments, device=device)
+        step = TrainStep(base, opt, lambda a, b: base.loss(a, b),
+                         device=device)
+        with plain_route() if plain else contextlib.nullcontext():
+            return [float(step(x, x)) for x in batches]
+
+    legs = {}
+    with opt_ins():
+        for leg, policy, moments in (("default", None, "float32"),
+                                     ("save_qkv_int8", "save_qkv", "int8")):
+            cfg.use_recompute = policy is not None
+            cfg.recompute_policy = policy
+            base.train(policy is not None)
+            kl, kg, kc = grads(False)
+            pl, pg, pc = grads(True)
+            check(sum(pc.values()) == 0, "the plain route launched a kernel")
+            r = 2 if policy else 1
+            want = {"layer_norm_fwd": 2 * L * r + 1,
+                    "layer_norm_bwd": 2 * L + 1,
+                    "flash_packed_fwd": L * r, "flash_packed_bwd_dq": L,
+                    "flash_packed_bwd_dkv": L, "flash_fwd": 0,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "linear_ce_fwd": 1}
+            check(all(kc[k] == n for k, n in want.items()),
+                  f"fused kernel route ({leg}) launches {kc}, want {want}")
+            errs = {n: rel_err(kg[n], pg[n]) for n in kg}
+            worst = max(errs, key=errs.get)
+            del kg, pg
+            kls, pls = trajectory(False, moments), trajectory(True, moments)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(kls, pls))
+            legs[leg] = {"recompute_policy": policy, "moments": moments,
+                         "loss": {"kernel": kl, "plain": pl,
+                                  "rel_err": abs(kl - pl) / abs(pl),
+                                  "tol": 1e-5},
+                         "grads": {"worst_param": worst,
+                                   "worst_rel_err": errs[worst],
+                                   "tol": 1e-3},
+                         "launches": {k: kc[k] for k in want},
+                         "trajectory": {"kernel_losses": kls,
+                                        "plain_losses": pls,
+                                        "max_rel_err": rel, "tol": 1e-4}}
+            check(legs[leg]["loss"]["rel_err"] <= 1e-5
+                  and errs[worst] <= 1e-3 and rel <= 1e-4,
+                  f"fused train parity ({leg}): loss, grads or trajectory "
+                  f"differ: {legs[leg]}")
+    out["legs"] = legs
+    out["ok"] = True
+    emit(out)
+    del base
+    torch.cuda.empty_cache()
+
+
+def phase_train_gpt27(torch, card, device):
+    """_bench_gpt27's configuration (bench.py:1061-1066) at full width:
+    gpt3-2.7b (32 layers, hidden 2560, 32 heads of 80), bf16 parameters,
+    B=6, S=1024, recompute_policy="save_qkv", AdamW(lr=1e-4, int8
+    moments), model.loss, the default routes (head dim 80: #6 in every
+    layer, #11 once); ids from np.random.RandomState(0), labels = ids. 2
+    warm steps, then the best of 2 windows of 6 (bench: iters=6), then
+    one profiled step.
+    Launches per step as derived from the code: #6's forward twice a
+    layer (the forward, and the second region of save_qkv rerunning the
+    attention in the backward), its dQ and dK/dV passes once, #11 once,
+    no #7 or #8. MFU is bench's: 6 N + 12 L H S FLOPs a token, the
+    recomputed forward not counted. Learning is checked on one batch
+    repeated 12 times (at this width and lr its loss overshoots up and
+    down for the first half dozen steps before it falls); then one step
+    of the same model without recompute gives the peak memory recompute
+    saves."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep, gpt_config
+    B_, S_, N = 6, 1024, 6
+    cfg = gpt_config("gpt3-2.7b", max_position_embeddings=S_,
+                     use_recompute=True, recompute_policy="save_qkv")
+    model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="int8", device=device)
+    step = TrainStep(model, opt, lambda a, b: model.loss(a, b),
+                     device=device)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (N + 2, B_, S_)).astype(np.int64)).to(device)
+    warm, losses, windows, counts, peak = timed_steps(
+        torch, step, lambda i: (ids[i], ids[i]), N)
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "linear_ce_fwd": 1, "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+            "flash_packed_fwd": 0, "flash_packed_bwd_dq": 0,
+            "flash_packed_bwd_dkv": 0}
+    per_step = {k: counts[k] / (2 * N) for k in want}
+    check(per_step == want, f"gpt3-2.7b launches per step {per_step}, "
+                            f"want {want}")
+    best = min(windows)
+    n_params = sum(p.numel() for p in model.parameters())
+    per_token = 6 * n_params + 12 * L * cfg.hidden_size * S_
+    tok_s = B_ * S_ * N / best
+    check(all(math.isfinite(x) for x in warm + losses),
+          "a gpt3-2.7b training loss is not finite")
+    check(abs(warm[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first gpt3-2.7b loss {warm[0]} is not near ln(vocab) "
+          f"{math.log(cfg.vocab_size)}")
+    prof = profile_call(torch, lambda: step(ids[2], ids[2]),
+                        names=("fwd_bf16", "dq_bf16", "dkv_bf16",
+                               "lce_bf16"))
+    same = [float(step(ids[0], ids[0])) for _ in range(12)]
+    check(same[-1] < same[0],
+          f"the gpt3-2.7b loss on a repeated batch did not fall: {same}")
+    state = {k: st["moment1_q"].dtype for k, st in
+             zip(step._param_names[:1], step._opt_state[:1])}
+    cfg.use_recompute = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain_loss = float(step(ids[1], ids[1]))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    peak_plain = torch.cuda.max_memory_allocated()
+    check(peak < peak_plain, f"recompute's peak {peak} is not below the "
+                             f"peak without it {peak_plain}")
+    emit({"phase": "train_gpt3_2.7b", "ok": True, "card": card,
+          "model": cfg_line(cfg, "bfloat16"),
+          "config": {"B": B_, "S": S_, "max_position_embeddings": S_,
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=int8)",
+                     "loss": "model.loss (fused LM head)",
+                     "recompute": "save_qkv", "grad_accum_steps": 1,
+                     "ids": "np.random.RandomState(0), labels = ids",
+                     "timing": "2 warm steps, best of 2 windows of 6"},
+          "params": n_params, "tokens_per_s": tok_s,
+          "ms_per_step": best / N * 1e3, "window_s": windows,
+          "flops_per_token": per_token,
+          "mfu": per_token * tok_s / TENSOR_FLOPS_PER_S,
+          "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet); "
+                      "the recomputed forward not counted",
+          "peak_mem_bytes": peak, "first_loss": warm[0],
+          "warm_losses": warm, "last_window_losses": losses,
+          "repeated_batch_losses": same, "launches_per_step": per_step,
+          "profile_step": prof,
+          "moment_state": {k: str(v) for k, v in state.items()},
+          "no_recompute_step": {"peak_mem_bytes": peak_plain,
+                                "seconds": plain_s, "loss": plain_loss}})
     del step, opt, model
     torch.cuda.empty_cache()
     return counts
@@ -2502,6 +2781,388 @@ def phase_train_swin(torch, card, device):
     return counts
 
 
+# ------------------------------------------------ slice 7: kernel #8
+# kernel #8 cases: (name, R, H): every LayerNorm input of bench_gpt's
+# gpt3-1.3b step (B=3 x S=2048 rows) and of _bench_gpt27's gpt3-2.7b
+# (B=6 x S=1024), each in bf16 and f32 and for the four affine cases
+LN_CASES = [("gpt3-1.3b", 6144, 2048), ("gpt3-2.7b", 6144, 2560)]
+LN_AFFINE = ("gb", "g", "b", "none")
+# limits on row_err of out and dx (as for #6, #9 and #10: bf16 rounds the
+# outputs, so a result one bf16 step off at 5 sigma reads ~0.03) and on
+# rel_err of d(gamma), d(beta) (f32 sums over 6144 rows on both sides, in
+# another order) and of mu, rsig
+LN_TOL = {"bfloat16": (0.1, 1e-4), "float32": (1e-4, 1e-4)}
+
+
+def ln_inputs(torch, device, r, h, dtype, seed=51):
+    """x ~ N(0.3, 1) (a nonzero mean, as activations have), gamma ~ 1 +
+    N(0, 0.01), beta ~ N(0, 0.01), dy ~ N(0, 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(r, h, generator=g, device=device) + 0.3
+    gamma = 1 + 0.1 * torch.randn(h, generator=g, device=device)
+    beta = 0.1 * torch.randn(h, generator=g, device=device)
+    dy = torch.randn(r, h, generator=g, device=device)
+    return tuple(t.to(dtype) for t in (x, gamma, beta, dy))
+
+
+def phase_layer_norm(torch, device, card):
+    """Kernel #8 against its plain versions at every case: out, mu and
+    rsig of the forward; dx, d(gamma) and d(beta) of the backward from the
+    kernel's own statistics; the backward bitwise equal over two launches;
+    a control the limits must reject (the backward run without its first
+    row block, so d(gamma) and d(beta) miss one block's partial); at both
+    shapes in bf16 the times of the kernels, the plain versions and
+    F.layer_norm (the yardstick, never on the path), forward, backward and
+    both."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import layer_norm as LN
+    from paddle_tpu_torch.ops.cuda import layer_norm as KL
+    run = timer(torch, device)
+    rows, times, kernels = [], {}, {}
+    for name, r, h in LN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).split(".")[-1]
+            x, gamma, beta, dy = ln_inputs(torch, device, r, h, dtype)
+            rtol, stol = LN_TOL[dt]
+            for aff in LN_AFFINE:
+                g = gamma if "g" in aff else None
+                b = beta if "b" in aff else None
+                out, mu, rs = KL.layer_norm_fwd_cuda(x, g, b, 1e-5)
+                dx, dg, db = KL.layer_norm_bwd_cuda(dy, x, mu, rs, g)
+                dx2, dg2, db2 = KL.layer_norm_bwd_cuda(dy, x, mu, rs, g)
+                po, pmu, prs = LN.fused_layer_norm_reference(x, g, b, 1e-5)
+                pdx, pdg, pdb = LN.fused_layer_norm_bwd_reference(
+                    dy, x, mu, rs, g)
+                torch.cuda.synchronize()
+                row = {"case": name, "R": r, "H": h, "dtype": dt,
+                       "affine": aff, "tol_row": rtol, "tol_sum": stol,
+                       "row_err": {"out": row_err(out, po),
+                                   "dx": row_err(dx, pdx)},
+                       "rel_err": {"mu": rel_err(mu, pmu),
+                                   "rsig": rel_err(rs, prs),
+                                   "dgamma": rel_err(dg, pdg),
+                                   "dbeta": rel_err(db, pdb)},
+                       "max_abs_err": {
+                           "out": float((out.float() - po.float()).abs()
+                                        .max()),
+                           "dx": float((dx.float() - pdx.float()).abs()
+                                       .max()),
+                           "dgamma": float((dg - pdg).abs().max()),
+                           "dbeta": float((db - pdb).abs().max())},
+                       "bwd_repeats_bitwise": bool(
+                           torch.equal(dx, dx2) and torch.equal(dg, dg2)
+                           and torch.equal(db, db2))}
+                finite = all(bool(torch.isfinite(t.float()).all())
+                             for t in (out, mu, rs, dx, dg, db))
+                check(finite and max(row["row_err"].values()) <= rtol
+                      and max(row["rel_err"].values()) <= stol
+                      and row["bwd_repeats_bitwise"],
+                      f"layer_norm {name} {dt} {aff}: kernel disagrees "
+                      f"with its plain version: {row}")
+                if dtype == torch.bfloat16 and aff == "gb":
+                    cut = KL.BWD_ROWS
+                    _, cg, cb = KL.layer_norm_bwd_cuda(
+                        dy[cut:], x[cut:], mu[cut:], rs[cut:], g)
+                    ctl = {"dgamma": rel_err(cg, pdg),
+                           "dbeta": rel_err(cb, pdb)}
+                    check(min(ctl.values()) > stol,
+                          f"layer_norm {name}: the limits pass a backward "
+                          f"that drops its first row block: {ctl}")
+                    row["control"] = {
+                        "what": f"backward on rows {cut}.. (the first "
+                                f"row block's partial dropped) vs plain",
+                        "rel_err": ctl, "rejected": True}
+                    t, k = ln_times(torch, F, LN, KL, run, x, g, b, dy,
+                                    row)
+                    times[name] = t
+                    if name == LN_CASES[0][0]:
+                        kernels = k
+                rows.append(row)
+            del x, gamma, beta, dy
+            torch.cuda.empty_cache()
+    emit({"phase": "layer_norm_vs_plain", "ok": True, "card": card,
+          "error": "row_err: per row max |kernel - plain| over the row's "
+                   "rms of plain (floored at 10% of the tensor's rms), "
+                   "worst row; rel_err: max |kernel - plain| over max "
+                   "|plain|; plain: fused_layer_norm_reference and "
+                   "fused_layer_norm_bwd_reference on the kernel's own "
+                   "mu and rsig",
+          "timing": "median of 50 launches, CUDA events, L2 flushed",
+          "cases": rows, "bf16_gb_times": times})
+    return kernels
+
+
+def ln_times(torch, F, LN, KL, run, x, g, b, dy, row):
+    """Times of #8, its plain versions and F.layer_norm at one shape;
+    returns (the table, the kernels-line rows)."""
+    r, h = x.shape
+    item = x.element_size()
+    out, mu, rs = KL.layer_norm_fwd_cuda(x, g, b, 1e-5)
+    lx, lg, lb = (t.detach().requires_grad_() for t in (x, g, b))
+    lout = F.layer_norm(lx, (h,), lg, lb, 1e-5)
+
+    def kern_fb():
+        xs = [t.detach().requires_grad_() for t in (x, g, b)]
+        return torch.autograd.grad(LN.fused_layer_norm(*xs), xs, dy)
+
+    def lib_fb():
+        xs = [t.detach().requires_grad_() for t in (x, g, b)]
+        return torch.autograd.grad(F.layer_norm(xs[0], (h,), xs[1], xs[2],
+                                                1e-5), xs, dy)
+
+    t = {"fwd_ms": run(lambda: KL.layer_norm_fwd_cuda(x, g, b, 1e-5)),
+         "bwd_ms": run(lambda: KL.layer_norm_bwd_cuda(dy, x, mu, rs, g)),
+         "fwd_bwd_ms": run(kern_fb),
+         "plain_fwd_ms": run(lambda: LN.fused_layer_norm_reference(
+             x, g, b, 1e-5)),
+         "plain_bwd_ms": run(lambda: LN.fused_layer_norm_bwd_reference(
+             dy, x, mu, rs, g)),
+         "library_fwd_ms": run(lambda: F.layer_norm(x, (h,), g, b, 1e-5)),
+         "library_bwd_ms": run(lambda: torch.autograd.grad(
+             lout, (lx, lg, lb), dy, retain_graph=True)),
+         "library_fwd_bwd_ms": run(lib_fb),
+         "library": "F.layer_norm (two-pass variance) and its autograd "
+                    "backward into x, gamma and beta"}
+    # bytes: x read and out written (forward); dy and x read, dx written
+    # (backward); gamma, beta, mu, rsig, d(gamma), d(beta) besides;
+    # operations: ~7 f32 operations an element forward, ~12 backward, on
+    # the CUDA cores
+    fb = 2 * r * h * item + 2 * h * item + 8 * r
+    bb = 3 * r * h * item + h * item + 8 * r + 8 * h
+    specs = {"layer_norm_fwd": (t["fwd_ms"], t["plain_fwd_ms"],
+                                t["library_fwd_ms"], 7 * r * h, fb,
+                                row["max_abs_err"]["out"]),
+             "layer_norm_bwd": (t["bwd_ms"], t["plain_bwd_ms"],
+                                t["library_bwd_ms"], 12 * r * h, bb,
+                                max(row["max_abs_err"][n] for n in
+                                    ("dx", "dgamma", "dbeta")))}
+    kernels = {}
+    for kname, (ms, pms, lms, flops, nbytes, err) in specs.items():
+        bms, by = bound_of(flops, nbytes, torch.float32)
+        t[kname.split("_")[-1] + "_bound_ms"] = bms
+        kernels[kname] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
+                          "bound_ms": bms, "bound_by": by,
+                          "max_abs_err": err}
+    return t, kernels
+
+
+# ------------------------------------------------ slice 7: kernel #7
+# kernel #7 cases: (name, B, S, nh, causal, kv_len), head dim 128 packed
+# as [B, S, nh * 128] column slices of one qkv projection: gpt3-1.3b's
+# training shape (bench_gpt), and a padded non-causal one through kv_len
+FP_CASES = [("gpt3-1.3b", 3, 2048, 16, True, None),
+            ("kv_len", 2, 640, 4, False, 600)]
+
+
+def fp_grads(torch, fn, qkv, dout):
+    """(out, d(qkv)) of fn(leaf qkv) under autograd."""
+    x = qkv.detach().clone().requires_grad_()
+    out = fn(x)
+    return out.detach(), torch.autograd.grad(out, x, dout)[0]
+
+
+def phase_flash_packed(torch, device, card):
+    """Kernel #7 (#6's kernels on the packed layout) against its plain
+    versions, against #6 on the same data (equal: the same arithmetic) and
+    through its two entry points (one packed qkv with one d(qkv), GPT's
+    route; three column slices, whose gradients autograd sums into qkv),
+    in bf16 and f32; the controls of #6's check (the last 64 keys dropped);
+    at gpt3-1.3b's training shape in bf16 the times of the kernels, the
+    plain versions, #6 and F.scaled_dot_product_attention on [B, nh, S,
+    hd] views of the same qkv (the yardstick, never on the path), forward,
+    backward into qkv and both."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops.cuda import flash_attention as KF
+    run = timer(torch, device)
+    rows, timed = [], None
+    for case in FP_CASES:
+        name, b, s, nh, causal, kv_len = case
+        h = nh * 128
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).split(".")[-1]
+            g = torch.Generator(device=device).manual_seed(23)
+            qkv = torch.randn(b, s, 3 * h, generator=g,
+                              device=device).to(dtype)
+            dout = torch.randn(b, s, h, generator=g, device=device).to(dtype)
+
+            def slices(x, cut=kv_len):
+                return FA.flash_attention_packed(*x.chunk(3, -1), nh,
+                                                 causal=causal, kv_len=cut)
+
+            def six(x):
+                q, k, v = x.unflatten(-1, (3, nh, 128)).unbind(2)
+                return FA.flash_attention(q, k, v, causal=causal,
+                                          kv_len=kv_len).flatten(2)
+            if kv_len is None:
+                ko, kg = fp_grads(torch, lambda x: (
+                    FA.flash_attention_packed_qkv(x, nh, causal=causal)),
+                    qkv, dout)
+            else:
+                ko, kg = fp_grads(torch, slices, qkv, dout)
+            so, sg = fp_grads(torch, slices, qkv, dout)
+            xo, xg = fp_grads(torch, six, qkv, dout)
+            q, k, v = qkv.chunk(3, -1)
+            ko2, klse = KF.flash_packed_fwd_cuda(
+                q, k, v, nh, causal=causal, scale=128 ** -0.5, kv_len=kv_len)
+            po, plse = FA.flash_packed_forward_reference(
+                q, k, v, nh, causal, kv_len=kv_len)
+            pg = torch.cat(FA.flash_packed_bwd_reference(
+                q, k, v, ko, klse, dout, nh, causal, kv_len=kv_len), -1)
+            torch.cuda.synchronize()
+            errs = flash_errs(ko.unflatten(-1, (nh, 128)),
+                              [t.unflatten(-1, (nh, 128))
+                               for t in kg.chunk(3, -1)],
+                              po.unflatten(-1, (nh, 128)),
+                              [t.unflatten(-1, (nh, 128))
+                               for t in pg.chunk(3, -1)])
+            otol, gtol, ltol = FLASH_TOL[dt]   # #6's kernels, its limits
+            row = {"case": name, "B": b, "S": s, "nh": nh, "hd": 128,
+                   "causal": causal, "kv_len": kv_len, "dtype": dt,
+                   "entry": "flash_attention_packed_qkv" if kv_len is None
+                            else "flash_attention_packed",
+                   "tol_out": otol, "tol_grad": gtol, "tol_lse": ltol,
+                   "row_err": {n: e[0] for n, e in errs.items()},
+                   "max_abs_err": {n: e[1] for n, e in errs.items()},
+                   "lse_max_abs_err": float((klse - plse).abs().max()),
+                   "forward_repeats_bitwise": bool(torch.equal(ko, ko2)),
+                   "equal_to_slices": bool(torch.equal(ko, so)
+                                           and torch.equal(kg, sg)),
+                   "equal_to_6": bool(torch.equal(ko, xo)
+                                      and torch.equal(kg, xg))}
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in (ko, kg, klse))
+            check(finite and errs["out"][0] <= otol
+                  and max(errs[n][0] for n in ("dq", "dk", "dv")) <= gtol
+                  and row["lse_max_abs_err"] <= ltol
+                  and row["forward_repeats_bitwise"]
+                  and row["equal_to_slices"] and row["equal_to_6"],
+                  f"packed flash attention {name} {dt}: kernel disagrees "
+                  f"with its plain version or with #6: {row}")
+            if dtype == torch.bfloat16:
+                cut = (kv_len or s) - 64
+                co, cg = fp_grads(torch, lambda x: slices(x, cut), qkv, dout)
+                cerr = {n: e[0] for n, e in flash_errs(
+                    co.unflatten(-1, (nh, 128)),
+                    [t.unflatten(-1, (nh, 128)) for t in cg.chunk(3, -1)],
+                    po.unflatten(-1, (nh, 128)),
+                    [t.unflatten(-1, (nh, 128))
+                     for t in pg.chunk(3, -1)]).items()}
+                check(cerr["out"] > otol and min(
+                    cerr[n] for n in ("dq", "dk", "dv")) > gtol,
+                    f"packed flash attention {name}: the limits pass a "
+                    f"kernel that drops its last 64 keys: {cerr}")
+                row["control"] = {"what": f"kernel with kv_len={cut} (last "
+                                          f"64 keys dropped) vs plain",
+                                  "row_err": cerr, "rejected": True}
+            rows.append(row)
+            if name == "gpt3-1.3b" and dtype == torch.bfloat16:
+                timed = (case, qkv, dout, row)
+            del ko, kg, so, sg, xo, xg, po, pg, ko2, klse, plse
+            torch.cuda.empty_cache()
+    line = fp_times(torch, F, FA, KF, run, *timed)
+    del timed
+    emit({"phase": "flash_packed_vs_plain", "ok": True, "card": card,
+          "error": "row_err per (b, s, head) row as for #6; plain: "
+                   "flash_packed_forward_reference and "
+                   "flash_packed_bwd_reference on the kernels' own out and "
+                   "lse; equal_to_6: out and d(qkv) bitwise equal to #6 "
+                   "on the [B, S, 3, nh, 128] views of the same qkv",
+          "timing": "median of 50 launches, CUDA events, L2 flushed",
+          "cases": rows, "gpt3-1.3b_bf16_times": line["times"]})
+    return line["kernels"]
+
+
+def fp_times(torch, F, FA, KF, run, case, qkv, dout, row):
+    """Times at gpt3-1.3b's shape; returns the kernels-line rows and the
+    table."""
+    name, b, s, nh, causal, _ = case
+    dtype = qkv.dtype
+    scale = 128 ** -0.5
+    kw = dict(causal=causal, scale=scale)
+    q, k, v = qkv.chunk(3, -1)
+    q4, k4, v4, dout4 = (t.unflatten(-1, (nh, 128))
+                         for t in (q, k, v, dout))
+    out, lse = KF.flash_packed_fwd_cuda(q, k, v, nh, **kw)
+    delta = KF.flash_delta(out.unflatten(-1, (nh, 128)), dout4)
+    dqkv = torch.empty_like(qkv)
+    dq4, dk4, dv4 = (t.unflatten(-1, (nh, 128)) for t in dqkv.chunk(3, -1))
+    args = (q4, k4, v4, dout4, lse, delta, causal, scale, None)
+
+    def heads_major(x):       # [B, nh, S, hd] views of qkv for SDPA
+        return [t.unflatten(-1, (nh, 128)).transpose(1, 2)
+                for t in x.chunk(3, -1)]
+    lx = qkv.detach().requires_grad_()
+    lout = F.scaled_dot_product_attention(*heads_major(lx),
+                                          is_causal=causal)
+    douth = dout4.transpose(1, 2)
+
+    def fb(fn):
+        def go():
+            x = qkv.detach().requires_grad_()
+            return torch.autograd.grad(fn(x), x, dout)
+        return go
+
+    def six(x):
+        q_, k_, v_ = x.unflatten(-1, (3, nh, 128)).unbind(2)
+        return FA.flash_attention(q_, k_, v_, causal=causal).flatten(2)
+
+    def lib_fb():
+        x = qkv.detach().requires_grad_()
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            *heads_major(x), is_causal=causal), x, douth)
+
+    t = {"fwd_ms": run(lambda: KF.flash_packed_fwd_cuda(q, k, v, nh, **kw)),
+         "dq_ms": run(lambda: KF._bwd_dq(*args, dq4, "flash_packed_bwd_dq")),
+         "dkv_ms": run(lambda: KF._bwd_dkv(*args, dk4, dv4,
+                                           "flash_packed_bwd_dkv")),
+         "bwd_ms": run(lambda: KF.flash_packed_bwd_cuda(
+             q, k, v, out, lse, dout, nh, **kw)),
+         "fwd_bwd_ms": run(fb(lambda x: FA.flash_attention_packed_qkv(
+             x, nh, causal=causal))),
+         "six_fwd_bwd_ms": run(fb(six)),
+         "plain_fwd_ms": run(lambda: FA.flash_packed_forward_reference(
+             q, k, v, nh, causal)),
+         "plain_bwd_ms": run(lambda: FA.flash_packed_bwd_reference(
+             q, k, v, out, lse, dout, nh, causal)),
+         "library_fwd_ms": run(lambda: F.scaled_dot_product_attention(
+             *heads_major(qkv), is_causal=causal)),
+         "library_bwd_ms": run(lambda: torch.autograd.grad(
+             lout, lx, douth, retain_graph=True)),
+         "library_fwd_bwd_ms": run(lib_fb),
+         "library": "F.scaled_dot_product_attention(is_causal=True) on "
+                    "[B, nh, S, hd] views of qkv, backward into qkv",
+         "six": "#6 through flash_attention on the [B, S, 3, nh, hd] "
+                "views of the same qkv, backward into qkv"}
+    half = 0.5 if causal else 1.0
+    mm = 2 * b * nh * s * s * 128 * half
+    item = qkv.element_size()
+    specs = {"flash_packed_fwd": (t["fwd_ms"], t["plain_fwd_ms"],
+                                  t["library_fwd_ms"], 2 * mm,
+                                  4 * b * s * nh * 128 * item
+                                  + b * nh * s * 4,
+                                  row["max_abs_err"]["out"]),
+             "flash_packed_bwd_dq": (t["dq_ms"], t["plain_bwd_ms"],
+                                     t["library_bwd_ms"], 3 * mm,
+                                     5 * b * s * nh * 128 * item
+                                     + 2 * b * nh * s * 4,
+                                     row["max_abs_err"]["dq"]),
+             "flash_packed_bwd_dkv": (t["dkv_ms"], t["plain_bwd_ms"],
+                                      t["library_bwd_ms"], 4 * mm,
+                                      6 * b * s * nh * 128 * item
+                                      + 2 * b * nh * s * 4,
+                                      max(row["max_abs_err"]["dk"],
+                                          row["max_abs_err"]["dv"]))}
+    kernels = {}
+    for kname, (ms, pms, lms, flops, nbytes, err) in specs.items():
+        bms, by = bound_of(flops, nbytes, dtype)
+        t[kname + "_bound_ms"] = bms
+        kernels[kname] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
+                          "bound_ms": bms, "bound_by": by,
+                          "max_abs_err": err}
+    return {"kernels": kernels, "times": t}
+
+
 def main() -> int:
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: paddle_tpu_torch/ not found beside this "
@@ -2545,9 +3206,12 @@ def main() -> int:
     kern.update(phase_linear_ce(torch, device, card))
     kern.update(phase_fused_mha(torch, device, card))
     kern.update(phase_fused_mha_bias(torch, device, card))
+    kern.update(phase_layer_norm(torch, device, card))
+    kern.update(phase_flash_packed(torch, device, card))
     phase_engine_parity(torch, device, card)
     phase_engine_parity(torch, device, card, preset="gpt3-2.7b")
     phase_train_parity(torch, device, card)
+    phase_train_parity_fused(torch, device, card)
     phase_encoder_parity(torch, device, card)
     phase_swin_parity(torch, device, card)
     from paddle_tpu_torch import GPTForCausalLM, gpt_config
@@ -2559,7 +3223,12 @@ def main() -> int:
     phase_slice3(torch, model, card, launches, paged_runs)
     del model
     torch.cuda.empty_cache()
-    add_launches(launches, phase_train_full(torch, card, device))
+    counts, default = phase_train_full(torch, card, device)
+    add_launches(launches, counts)
+    counts, _ = phase_train_full(torch, card, device, fused=True,
+                                 default=default)
+    add_launches(launches, counts)
+    add_launches(launches, phase_train_gpt27(torch, card, device))
     add_launches(launches, phase_train_bert(torch, card, device))
     add_launches(launches, phase_train_vit(torch, card, device))
     add_launches(launches, phase_train_swin(torch, card, device))
@@ -2569,7 +3238,9 @@ def main() -> int:
                  "paged_prefix_attention", "paged_prefix_attention_q8",
                  "int8_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "linear_ce_fwd", "fused_mha_fwd", "fused_mha_bwd",
-                 "fused_mha_bias_fwd", "fused_mha_bias_bwd"):
+                 "fused_mha_bias_fwd", "fused_mha_bias_bwd",
+                 "layer_norm_fwd", "layer_norm_bwd", "flash_packed_fwd",
+                 "flash_packed_bwd_dq", "flash_packed_bwd_dkv"):
         r = kern[name]
         check(launches.get(name, 0) > 0,
               f"{name} never launched on the full-width paths")

@@ -23,6 +23,11 @@ import torch
 
 # 2-D ".weight" entries that are tables, not Linear weights
 _TABLES = ("wte.weight", "wpe.weight", "_embeddings.weight")
+_Q_BLOCK = 2048   # the int8 Adam moments' block (optimizer.py)
+# blockwise int8 moment state: codes [blocks, 2048] and scales [blocks]
+_Q8_KEYS = {"moment1_q": lambda nb: (nb, _Q_BLOCK),
+            "moment2_q": lambda nb: (nb, _Q_BLOCK),
+            "moment1_s": lambda nb: (nb,), "moment2_s": lambda nb: (nb,)}
 
 
 def _is_linear_weight(name: str, ndim: int) -> bool:
@@ -87,11 +92,14 @@ def _to_torch(arr) -> torch.Tensor:
 def train_state_from_paddle(jax_state: Dict,
                             model: torch.nn.Module) -> Dict:
     """Map a JAX-package ``TrainStep.state_dict()`` (step, params, AdamW
-    ``moment1``/``moment2`` per parameter, optimizer scalars, scaler) onto
+    ``moment1``/``moment2`` or blockwise int8 ``moment1_q``/``_s`` and
+    ``moment2_q``/``_s`` per parameter, optimizer scalars, scaler) onto
     the port's ``TrainStep.set_state_dict`` layout for the port `model`
-    (GPT, BERT, ViT, Swin, ...); every moment takes its parameter's
-    ``[in, out]`` -> ``[out, in]`` transpose, so a port run resumes a JAX
-    run on the same trajectory."""
+    (GPT, BERT, ViT, Swin, ...); every f32 or bf16 moment takes its
+    parameter's ``[in, out]`` -> ``[out, in]`` transpose, and int8 codes
+    and scales carry over as they are (the port blocks them in the JAX
+    element order), so a port run resumes a JAX run on the same
+    trajectory."""
     params = model_state_from_paddle(jax_state["params"], model)
     out = {"step": int(jax_state.get("step", 0)), "params": params,
            "opt_extra": dict(jax_state.get("opt_extra", {}))}
@@ -103,15 +111,20 @@ def train_state_from_paddle(jax_state: Dict,
                                f"{name}")
             flip = _is_linear_weight(name, params[name].dim())
             entry = {}
+            nb = -(-params[name].numel() // _Q_BLOCK)
             for k, v in st.items():
-                if k not in ("moment1", "moment2"):
+                if k in ("moment1", "moment2"):
+                    t = _to_torch(np.asarray(v).T if flip else v)
+                    want = tuple(params[name].shape)
+                elif k in _Q8_KEYS:
+                    t = _to_torch(v)
+                    want = _Q8_KEYS[k](nb)
+                else:
                     raise NotImplementedError(
-                        f"{name}: optimizer state {k!r} is not ported "
-                        f"(blockwise int8 moments are a later item)")
-                t = _to_torch(np.asarray(v).T if flip else v)
-                if tuple(t.shape) != tuple(params[name].shape):
+                        f"{name}: optimizer state {k!r} is not ported")
+                if tuple(t.shape) != want:
                     raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} "
-                                     f"!= parameter "
+                                     f"!= {want} for parameter "
                                      f"{tuple(params[name].shape)}")
                 entry[k] = t
             opt[name] = entry

@@ -154,7 +154,8 @@ class TrainStep:
                 opt = self.optimizer
                 for name, p, g, st in zip(self._param_names, self._params,
                                           grads, self._opt_state):
-                    opt.update(p, g, st, lr, step_i, opt._wd_for(name))
+                    opt.update(p, g, st, lr, step_i, opt._wd_for(name),
+                               name=name)
         if self._scaler is not None:
             self._scaler.set_state_arrays(
                 GradScaler._update_rule(*self._scaler.state_arrays(), found,

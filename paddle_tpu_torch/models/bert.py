@@ -23,8 +23,10 @@ attention's output projection, after the MLP, on the pooled output of the
 classifier) and attention-probability dropout run with masks and seeds
 drawn from the model's ``dropout_generator``: the fused route draws one
 int32 seed per call (kept on the device) and the kernel draws the mask
-from it. LayerNorm is ``nn.LayerNorm`` and GELU the tanh form, computed
-outside the kernels as the JAX package computes them outside Pallas.
+from it. LayerNorm is `nn.layers.LayerNorm` (torch's, or the fused
+LayerNorm #8 under PADDLE_TPU_FUSED_LN=1) and GELU the tanh form,
+computed outside the attention kernels as the JAX package computes them
+outside Pallas.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..nn.layers import LayerNorm
 from ..ops.attention import (attention_reference, functional_attention,
                              key_padding_mask, lens_to_mask)
 from ..ops.fused_mha import fused_mha, use_fused_mha
@@ -120,7 +123,7 @@ class BertEmbeddings(nn.Module):
             config.max_position_embeddings, h, **kw)
         self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h,
                                                   **kw)
-        self.layer_norm = nn.LayerNorm(h, eps=config.layer_norm_epsilon, **kw)
+        self.layer_norm = LayerNorm(h, eps=config.layer_norm_epsilon, **kw)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 drop=None):
@@ -192,10 +195,10 @@ class BertLayer(nn.Module):
                      config.layer_norm_epsilon)
         kw = dict(device=device, dtype=dtype)
         self.attention = BertAttention(config, **kw)
-        self.ln_1 = nn.LayerNorm(h, eps=eps, **kw)
+        self.ln_1 = LayerNorm(h, eps=eps, **kw)
         self.up = nn.Linear(h, m, **kw)
         self.down = nn.Linear(m, h, **kw)
-        self.ln_2 = nn.LayerNorm(h, eps=eps, **kw)
+        self.ln_2 = LayerNorm(h, eps=eps, **kw)
 
     def forward(self, x, attention_mask=None, seq_lens=None, drop=None):
         x = self.ln_1(x + self.attention(x, attention_mask, seq_lens, drop))
@@ -314,7 +317,7 @@ class BertForMaskedLM(_BertHead):
         self.bert = BertModel(config, **kw)
         self.transform = nn.Linear(config.hidden_size, config.hidden_size,
                                    **kw)
-        self.ln = nn.LayerNorm(config.hidden_size,
+        self.ln = LayerNorm(config.hidden_size,
                                eps=config.layer_norm_epsilon, **kw)
         self._finish(seed)
 

@@ -10,12 +10,19 @@ Column/RowParallelLinear -> nn.Linear (weights stored ``[out, in]``, the
 transpose of the JAX ``[in, out]`` layout). The LM head is tied to wte.
 
 Training: the cache-free forward attends through
-`ops.attention.functional_attention` (flash attention, kernel #6 on CUDA),
-`GPTForCausalLM.loss` feeds the hidden states straight into the fused
-LM-head cross-entropy (kernel #11 on CUDA), and in `train()` mode
-`hidden_dropout` drops after the embedding sum, after attn.out and after
-mlp.down with masks drawn from the model's `dropout_generator`. Serving
-(any call with pools or caches) never drops.
+`ops.attention.functional_attention` (flash attention, kernel #6 on CUDA)
+or, under the opt-in PADDLE_TPU_FLASH_PACKED=1 with head_dim 128 and S %
+128 == 0, through packed flash attention on the qkv projection itself
+(kernel #7 on CUDA, one d(qkv) in the backward); every LayerNorm routes
+through `nn.layers.LayerNorm` (the fused LayerNorm, kernel #8, under
+PADDLE_TPU_FUSED_LN=1). `GPTForCausalLM.loss` feeds the hidden states
+straight into the fused LM-head cross-entropy (kernel #11 on CUDA), and in
+`train()` mode `hidden_dropout` drops after the embedding sum, after
+attn.out and after mlp.down with masks drawn from the model's
+`dropout_generator`. With `use_recompute`, each block's activations are
+recomputed in the backward under `recompute_policy`
+(`distributed.recompute`). Serving (any call with pools or caches) never
+drops and never recomputes.
 
 Serving state is explicit and updated IN PLACE (this replaces JAX buffer
 donation); the JAX ``lax.scan`` over decode steps is a Python loop:
@@ -32,6 +39,7 @@ set of weights (`quantized_params`), passed down as ``q8``.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import secrets
@@ -53,17 +61,24 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              paged_prefix_attention_q8, quantize_kv,
                              static_cache_mask, static_cache_update,
                              static_cache_update_q8)
+from ..distributed.recompute import (TAGS, checkpoint_segment,
+                                     checkpoint_tag, recompute,
+                                     resolve_policy)
 from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..nn.layers import LayerNorm
+from ..ops.flash_attention import flash_attention_packed_qkv
 from ..ops.int8_matmul import int8_linear_nd
 
 
 @dataclass
 class GPTConfig:
-    """The fields of the JAX GPTConfig. MoE, recompute and
-    sequence-parallel fields are accepted for config compatibility but
-    only at their defaults: this port has no MoE block, no training remat
-    and no sequence-parallel mesh. `attention_dropout` is accepted and,
-    as in the JAX GPT, unused."""
+    """The fields of the JAX GPTConfig. MoE and sequence-parallel fields
+    are accepted for config compatibility but only at their defaults: this
+    port has no MoE block and no sequence-parallel mesh. `use_recompute`
+    recomputes each block in train() mode under `recompute_policy` (None,
+    "save_qkv", "save_attn", "save_big" or "dots"; see
+    `distributed.recompute`). `attention_dropout` is accepted and, as in
+    the JAX GPT, unused."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_layers: int = 12
@@ -92,8 +107,8 @@ class GPTConfig:
         if self.hidden_size % self.num_heads != 0:
             raise ValueError(f"hidden_size {self.hidden_size} is not a "
                              f"multiple of num_heads {self.num_heads}")
-        defaults = {"use_recompute": False, "recompute_policy": None,
-                    "moe_num_experts": 0, "moe_every_n_layers": 2,
+        resolve_policy(self.recompute_policy)
+        defaults = {"moe_num_experts": 0, "moe_every_n_layers": 2,
                     "moe_gate": "gshard", "moe_top_k": None,
                     "moe_aux_weight": 0.01, "moe_capacity_factor": 1.25,
                     "sequence_parallel": "ring"}
@@ -101,8 +116,8 @@ class GPTConfig:
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={getattr(self, name)!r}: the PyTorch "
-                    f"port runs dense single-device GPT only (MoE, "
-                    f"recompute and sequence parallelism are later slices)")
+                    f"port runs dense single-device GPT only (MoE and "
+                    f"sequence parallelism are later slices)")
 
     @property
     def head_dim(self):
@@ -175,13 +190,13 @@ class GPTSelfAttention(nn.Module):
         b, s = x.shape[0], x.shape[1]
         q8 = q8 or {}
         qkv = _linear(self.qkv, x, q8.get("attn.qkv"))
+        if cache is None and pools is None:
+            return self.project(self.attend(qkv), q8, drop)
         qkv = qkv.view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         new_cache = None
         if cache is not None:
             ctx, new_cache = _attend_cache(q, k, v, cache)
-        elif pools is None:
-            ctx = functional_attention(q, k, v, is_causal=True)
         elif len(pools) == 4:
             kc, ks, vc, vs = pools
             if start is not None:
@@ -221,12 +236,40 @@ class GPTSelfAttention(nn.Module):
                 paged_cache_write(vp, v, tables, lens)
                 ctx = paged_attention(q.contiguous(), kp, vp, tables,
                                       lens + 1, score_dtype=q.dtype)
+        out = self.project(ctx, q8, drop)
+        return out if cache is None else (out, new_cache)
+
+    def attend(self, qkv3h):
+        """Causal self-attention of the cache-free forward on the packed
+        projection qkv3h [B, S, 3H] (the counterpart of the JAX
+        `_qkv_attention`): packed flash attention on qkv3h itself where
+        `_use_packed_flash()` holds, head_dim == 128 and S % 128 == 0; else
+        `functional_attention` on its [B, S, 3, nh, hd] views. Returns the
+        context [B, S, nh, hd] (or [B, S, H])."""
+        qkv3h = checkpoint_tag(qkv3h, "qkv_proj")
+        b, s = qkv3h.shape[0], qkv3h.shape[1]
+        nh, hd = self.num_heads, self.head_dim
+        if hd == 128 and s % 128 == 0 and _use_packed_flash():
+            ctx = flash_attention_packed_qkv(qkv3h, nh, causal=True)
+        else:
+            qkv = qkv3h.view(b, s, 3, nh, hd)
+            ctx = functional_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                       qkv[:, :, 2], is_causal=True)
+        return checkpoint_tag(ctx, "attn_ctx")
+
+    def project(self, ctx, q8=None, drop=None):
+        """The output projection of the context (then `drop`, if given)."""
+        b, s = ctx.shape[0], ctx.shape[1]
         out = _linear(self.out,
                       ctx.reshape(b, s, self.num_heads * self.head_dim),
-                      q8.get("attn.out"))
-        if drop is not None:
-            out = drop(out)
-        return out if cache is None else (out, new_cache)
+                      (q8 or {}).get("attn.out"))
+        return out if drop is None else drop(out)
+
+
+def _use_packed_flash() -> bool:
+    """The JAX opt-in minus its platform test: PADDLE_TPU_FLASH_PACKED=1,
+    read at call time."""
+    return os.environ.get("PADDLE_TPU_FLASH_PACKED") == "1"
 
 
 def _linear(mod: nn.Linear, x, pay):
@@ -295,9 +338,15 @@ class GPTMLP(nn.Module):
         self.down = nn.Linear(m, h, device=device, dtype=dtype)
 
     def forward(self, x, q8=None, drop=None):
-        q8 = q8 or {}
-        u = F.gelu(_linear(self.up, x, q8.get("mlp.up")), approximate="tanh")
-        y = _linear(self.down, u, q8.get("mlp.down"))
+        return self.down_proj(self.up_proj(x, q8), q8, drop)
+
+    def up_proj(self, x, q8=None):
+        return checkpoint_tag(_linear(self.up, x, (q8 or {}).get("mlp.up")),
+                              "mlp_up")
+
+    def down_proj(self, u, q8=None, drop=None):
+        y = _linear(self.down, F.gelu(u, approximate="tanh"),
+                    (q8 or {}).get("mlp.down"))
         return y if drop is None else drop(y)
 
 
@@ -307,9 +356,9 @@ class GPTBlock(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_epsilon
-        self.ln_1 = nn.LayerNorm(h, eps=eps, device=device, dtype=dtype)
+        self.ln_1 = LayerNorm(h, eps=eps, device=device, dtype=dtype)
         self.attn = GPTSelfAttention(config, device, dtype)
-        self.ln_2 = nn.LayerNorm(h, eps=eps, device=device, dtype=dtype)
+        self.ln_2 = LayerNorm(h, eps=eps, device=device, dtype=dtype)
         self.mlp = GPTMLP(config, device, dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None, prefill=False,
@@ -321,6 +370,41 @@ class GPTBlock(nn.Module):
         x = x + a
         x = x + self.mlp(self.ln_2(x), q8, drop)
         return x if cache is None else (x, new_cache)
+
+    # the cache-free training forward in stages, cut at the tags
+    def _qkv(self, x):
+        return self.attn.qkv(self.ln_1(x))
+
+    def _attn_out(self, x, ctx, drop):
+        return x + self.attn.project(ctx, drop=drop)
+
+    def _mlp_out(self, x, drop):
+        return x + self.mlp(self.ln_2(x), drop=drop)
+
+    def recompute_segments(self, x, save, generators=(), drop=None):
+        """The training forward as checkpoint regions cut after each tag
+        in `save` (a prefix of qkv_proj, attn_ctx, mlp_up), so each tagged
+        value is kept as the input of the next region, besides x, which
+        every region that adds the residual keeps too (the JAX remat keeps
+        the block input as well). The results equal `forward(x,
+        drop=drop)`."""
+        if not save or tuple(save) != TAGS[:len(save)]:
+            raise ValueError(f"save must be a prefix of {TAGS}; got {save}")
+        seg = functools.partial(checkpoint_segment, generators=generators)
+        qkv = seg(self._qkv, x)
+        if len(save) == 1:
+            return seg(lambda x, qkv: self._mlp_out(self._attn_out(
+                x, self.attn.attend(qkv), drop), drop), x, qkv)
+        ctx = seg(self.attn.attend, qkv)
+        if len(save) == 2:
+            return seg(lambda x, ctx: self._mlp_out(
+                self._attn_out(x, ctx, drop), drop), x, ctx)
+
+        def mid(x, ctx):
+            x = self._attn_out(x, ctx, drop)
+            return x, self.mlp.up_proj(self.ln_2(x))
+        x, u = seg(mid, x, ctx)
+        return x + seg(lambda u: self.mlp.down_proj(u, drop=drop), u)
 
 
 class GPTModel(nn.Module):
@@ -336,8 +420,8 @@ class GPTModel(nn.Module):
                                 device=device, dtype=dtype)
         self.h = nn.ModuleList([GPTBlock(config, device, dtype)
                                 for _ in range(config.num_layers)])
-        self.ln_f = nn.LayerNorm(h, eps=config.layer_norm_epsilon,
-                                 device=device, dtype=dtype)
+        self.ln_f = LayerNorm(h, eps=config.layer_norm_epsilon,
+                              device=device, dtype=dtype)
         # hidden dropout's masks; GPTForCausalLM seeds it
         self.dropout_generator = torch.Generator(
             device="cpu" if device is None else device)
@@ -391,7 +475,14 @@ class GPTModel(nn.Module):
             x = drop(x)
         layers = q8.get("h")
         new_caches = [] if caches is not None else None
+        remat = (self.config.use_recompute and self.training
+                 and pools is None and caches is None and layers is None)
         for i, block in enumerate(self.h):
+            if remat:
+                x = recompute(block, x, policy=self.config.recompute_policy,
+                              generators=(self.dropout_generator,),
+                              drop=drop)
+                continue
             x = block(x, None if pools is None else pools[i], tables, lens,
                       prefill, start,
                       None if caches is None else caches[i],

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import functional_attention
+from ..nn.layers import LayerNorm
 from ..ops.fused_mha import fused_mha, use_fused_mha
 from .bert import _Dropout
 
@@ -89,10 +90,10 @@ class ViTBlock(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.num_heads = config.num_heads
         self.head_dim = config.head_dim
-        self.ln_1 = nn.LayerNorm(h, eps=eps, **kw)
+        self.ln_1 = LayerNorm(h, eps=eps, **kw)
         self.qkv = nn.Linear(h, 3 * h, **kw)
         self.out = nn.Linear(h, h, **kw)
-        self.ln_2 = nn.LayerNorm(h, eps=eps, **kw)
+        self.ln_2 = LayerNorm(h, eps=eps, **kw)
         self.up = nn.Linear(h, m, **kw)
         self.down = nn.Linear(m, h, **kw)
 
@@ -154,7 +155,7 @@ class VisionTransformer(nn.Module):
             torch.empty(1, config.num_patches + 1, h, **kw))
         self.blocks = nn.ModuleList([ViTBlock(config, **kw)
                                      for _ in range(config.num_layers)])
-        self.ln = nn.LayerNorm(h, eps=config.layer_norm_epsilon, **kw)
+        self.ln = LayerNorm(h, eps=config.layer_norm_epsilon, **kw)
         if config.num_classes > 0:
             self.head = nn.Linear(h, config.num_classes, **kw)
         self.dropout_generator = torch.Generator(device=dev)

@@ -1,5 +1,7 @@
 """Layer-level helpers of the port (the port of paddle_tpu/nn's gradient
-clipping)."""
+clipping and its routing LayerNorm)."""
+from . import functional
 from .clip import ClipGradByGlobalNorm
+from .layers import LayerNorm
 
-__all__ = ["ClipGradByGlobalNorm"]
+__all__ = ["ClipGradByGlobalNorm", "LayerNorm", "functional"]

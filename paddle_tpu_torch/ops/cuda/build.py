@@ -36,7 +36,9 @@ LAUNCHES = {"paged_attention": 0, "paged_attention_q8": 0,
             "int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "linear_ce_fwd": 0, "fused_mha_fwd": 0,
             "fused_mha_bwd": 0, "fused_mha_bias_fwd": 0,
-            "fused_mha_bias_bwd": 0}
+            "fused_mha_bias_bwd": 0, "layer_norm_fwd": 0,
+            "layer_norm_bwd": 0, "flash_packed_fwd": 0,
+            "flash_packed_bwd_dq": 0, "flash_packed_bwd_dkv": 0}
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points per library (source stem) and their argument types
@@ -51,8 +53,8 @@ _ENTRY_POINTS = {
         "pt_int8_matmul": [_p] * 4 + [_i] * 5 + [_p]},
     "flash_attention": {
         "pt_flash_fwd": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
-        "pt_flash_bwd_dq": [_p] * 8 + [_i] * 7 + [_f, _i, _p],
-        "pt_flash_bwd_dkv": [_p] * 9 + [_i] * 7 + [_f, _i, _p]},
+        "pt_flash_bwd_dq": [_p] * 9 + [_i] * 7 + [_f, _i, _p],
+        "pt_flash_bwd_dkv": [_p] * 10 + [_i] * 7 + [_f, _i, _p]},
     "linear_ce": {
         "pt_linear_ce_partial": [_p] * 4 + [_i] * 8 + [_p],
         "pt_linear_ce_merge": [_p] * 3 + [_i] * 2 + [_p]},
@@ -62,6 +64,9 @@ _ENTRY_POINTS = {
     "fused_mha_bias": {
         "pt_fused_mha_bias_fwd": [_p] * 3 + [_i] * 5 + [_f, _i, _p],
         "pt_fused_mha_bias_bwd": [_p] * 6 + [_i] * 5 + [_f, _i, _p]},
+    "layer_norm": {
+        "pt_layer_norm_fwd": [_p] * 6 + [_i] * 2 + [_f, _i, _p],
+        "pt_layer_norm_bwd": [_p] * 9 + [_i] * 3 + [_p]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,11 @@
 //   q  [B, Sq, H, D], k and v [B, Sk, H, D], any strides with the last dim
 //      contiguous (the q/k/v views of the fused qkv projection are taken as
 //      they are, without a copy to head-major)
-//   out, dout, dq [B, Sq, H, D] and dk, dv [B, Sk, H, D] contiguous
+//   out, dout [B, Sq, H, D] contiguous; dq [B, Sq, H, D] and dk, dv
+//      [B, Sk, H, D] at the element strides (batch, seq, head) the caller
+//      gives, last dim contiguous (contiguous on the default route; the
+//      column slices of one packed [B, S, 3 H D] gradient on the packed
+//      route, so dq, dk and dv land in the projection's layout)
 //   lse, delta [B, H, Sq] f32
 //
 //   s = (q . k) * scale; s = -1e30 where k_idx >= kv_len or, under causal,
@@ -71,6 +75,7 @@ struct Params {
   long long q_sb, q_ss, q_sh;  // element strides of q, k, v (last dim 1)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;  // element strides of dq, or of dk and dv
   int B, H, Sq, Sk, D, kv_lim, causal;
   float scale;
 };
@@ -273,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(Params p) {
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + r * 8;
     if (row >= p.Sq) continue;
-    bf16* drow = dqb + (((long long)b * p.Sq + row) * p.H + h) * p.D;
+    bf16* drow = dqb + b * p.o_sb + row * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int n = 0; n < DM / 8; ++n) {
       const int col = n * 8 + 2 * t;
@@ -384,7 +389,7 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(Params p) {
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + r0 + r * 8;
     if (key >= p.Sk) continue;
-    const long long off = (((long long)b * p.Sk + key) * p.H + h) * p.D;
+    const long long off = b * p.o_sb + key * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int n = 0; n < DM / 8; ++n) {
       const int col = n * 8 + 2 * t;
@@ -536,7 +541,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
   for (int r = 0; r < RW; ++r) {
     const int row = q0 + warp * RW + r;
     if (row >= p.Sq) continue;
-    float* drow = dqb + (((long long)b * p.Sq + row) * p.H + h) * p.D;
+    float* drow = dqb + b * p.o_sb + row * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
       if (lane + 32 * i < p.D) drow[lane + 32 * i] = acc[r][i] * p.scale;
@@ -610,7 +615,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(Params p) {
   for (int r = 0; r < RW; ++r) {
     const int key = k0 + warp * RW + r;
     if (key >= p.Sk) continue;
-    const long long off = (((long long)b * p.Sk + key) * p.H + h) * p.D;
+    const long long off = b * p.o_sb + key * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
       if (lane + 32 * i < p.D) {
@@ -663,9 +668,10 @@ cudaError_t launch_f32(int kind, const Params& p, cudaStream_t st) {
                 (2 * FROWS * DM + 2 * FT * LD) * F, p, st);
 }
 
-cudaError_t run(int kind, Params& p, const long long* strides, int B, int H,
-                int Sq, int Sk, int D, int kv_len, int causal, float scale,
-                int dtype, void* stream) {
+cudaError_t run(int kind, Params& p, const long long* strides,
+                const long long* ostrides, int B, int H, int Sq, int Sk,
+                int D, int kv_len, int causal, float scale, int dtype,
+                void* stream) {
   // an error an earlier runtime call left pending is returned (and so
   // cleared), never dropped: the wrapper raises it
   if (cudaError_t pending = cudaGetLastError()) return pending;
@@ -675,6 +681,10 @@ cudaError_t run(int kind, Params& p, const long long* strides, int B, int H,
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
+  if (kind != kFwd) {
+    if (!ostrides) return cudaErrorInvalidValue;
+    p.o_sb = ostrides[0]; p.o_ss = ostrides[1]; p.o_sh = ostrides[2];
+  }
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.D = D;
   p.kv_lim = kv_len < Sk ? kv_len : Sk;
   p.causal = causal;
@@ -698,39 +708,42 @@ cudaError_t run(int kind, Params& p, const long long* strides, int B, int H,
 extern "C" {
 
 // strides: the element strides (batch, seq, head) of q, k and v, in that
-// order; dtype: 0 = float32, 1 = bfloat16 (all tensors share it)
+// order; dq_strides / dkv_strides: those of dq, or of dk and dv (which
+// share them); dtype: 0 = float32, 1 = bfloat16 (all tensors share it)
 int pt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  float* lse, const long long* strides, int B, int H, int Sq,
                  int Sk, int D, int kv_len, int causal, float scale, int dtype,
                  void* stream) {
   Params p{};
   p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
-  return run(kFwd, p, strides, B, H, Sq, Sk, D, kv_len, causal, scale, dtype,
-             stream);
+  return run(kFwd, p, strides, nullptr, B, H, Sq, Sk, D, kv_len, causal,
+             scale, dtype, stream);
 }
 
 int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
-                    void* dq, const long long* strides, int B, int H, int Sq,
+                    void* dq, const long long* strides,
+                    const long long* dq_strides, int B, int H, int Sq,
                     int Sk, int D, int kv_len, int causal, float scale,
                     int dtype, void* stream) {
   Params p{};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.out = dq;
   p.lse = const_cast<float*>(lse); p.delta = delta;
-  return run(kDq, p, strides, B, H, Sq, Sk, D, kv_len, causal, scale, dtype,
-             stream);
+  return run(kDq, p, strides, dq_strides, B, H, Sq, Sk, D, kv_len, causal,
+             scale, dtype, stream);
 }
 
 int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
-                     void* dk, void* dv, const long long* strides, int B,
-                     int H, int Sq, int Sk, int D, int kv_len, int causal,
-                     float scale, int dtype, void* stream) {
+                     void* dk, void* dv, const long long* strides,
+                     const long long* dkv_strides, int B, int H, int Sq,
+                     int Sk, int D, int kv_len, int causal, float scale,
+                     int dtype, void* stream) {
   Params p{};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.out = dk; p.out2 = dv;
   p.lse = const_cast<float*>(lse); p.delta = delta;
-  return run(kDkv, p, strides, B, H, Sq, Sk, D, kv_len, causal, scale, dtype,
-             stream);
+  return run(kDkv, p, strides, dkv_strides, B, H, Sq, Sk, D, kv_len, causal,
+             scale, dtype, stream);
 }
 
 const char* pt_error_string(int code) {

@@ -1,14 +1,21 @@
 """Bind and launch the hand-written flash-attention kernels (kernel #6 of
 the port, `csrc/flash_attention.cu`, CUDA C++ for sm_90a): the forward,
 the dQ pass and the dK/dV pass of the FlashAttention-2 backward. The
-library is built and loaded by `build.py`.
+library is built and loaded by `build.py`. The same kernels serve kernel
+#7, flash attention on the packed [B, S, nh * 128] layout (the
+`flash_packed_*` wrappers): they read q, k and v as [B, S, nh, 128] views
+of the packed tensors and write dq, dk and dv at the strides they are
+given, so the gradients land in the packed layout (for GPT, in the column
+slices of one [B, S, 3H] gradient of the qkv projection).
 
 The wrappers check device, dtypes, shapes, strides and alignment, raise
-ValueError on what the kernels do not take, allocate the outputs, launch
-on PyTorch's current stream and raise RuntimeError when a launch reports
-an error. They never fall back to another implementation. Each launch adds
-one to ``LAUNCHES["flash_fwd"]``, ``["flash_bwd_dq"]`` or
-``["flash_bwd_dkv"]``.
+ValueError on what the kernels do not take, allocate the outputs they are
+not given, launch on PyTorch's current stream and raise RuntimeError when
+a launch reports an error. They never fall back to another
+implementation. Each launch adds one to ``LAUNCHES["flash_fwd"]``,
+``["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]``, or on the packed route to
+``["flash_packed_fwd"]``, ``["flash_packed_bwd_dq"]`` or
+``["flash_packed_bwd_dkv"]``.
 """
 from __future__ import annotations
 
@@ -68,9 +75,22 @@ def _strides(q, k, v):
     return (ctypes.c_longlong * 9)(*vals)
 
 
-def flash_fwd_cuda(q, k, v, *, causal, scale, kv_len=None):
-    """Forward: returns (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
-    f32)."""
+def _out(t, shape, q, name):
+    """A gradient output: the given view after checks, or a new
+    contiguous tensor; returns (tensor, its (batch, seq, head) strides)."""
+    if t is None:
+        t = torch.empty(shape, dtype=q.dtype, device=q.device)
+    elif tuple(t.shape) != shape or t.dtype != q.dtype or \
+            t.device != q.device or t.stride(3) != 1 or \
+            t.data_ptr() % 16 or \
+            any(s % (16 // q.element_size()) for s in t.stride()[:3]):
+        raise ValueError(f"{name} must be {shape} in q's dtype and device "
+                         f"with a contiguous last dim and 16-byte aligned "
+                         f"rows")
+    return t, (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def _fwd(q, k, v, causal, scale, kv_len, key):
     B, H, Sq, Sk, D, kv = _check(q, k, v, kv_len)
     lib = load_library("flash_attention")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -81,9 +101,15 @@ def flash_fwd_cuda(q, k, v, *, causal, scale, kv_len=None):
         lse.data_ptr(), ctypes.addressof(st), B, H, Sq, Sk, D, kv,
         int(bool(causal)), float(scale), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on_error(lib, rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    raise_on_error(lib, rc, key)
+    LAUNCHES[key] += 1
     return out, lse
+
+
+def flash_fwd_cuda(q, k, v, *, causal, scale, kv_len=None):
+    """Forward: returns (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
+    f32)."""
+    return _fwd(q, k, v, causal, scale, kv_len, "flash_fwd")
 
 
 def flash_delta(out, dout):
@@ -107,40 +133,54 @@ def _check_bwd(q, k, v, dout, lse, delta, kv_len):
     return dims
 
 
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal, scale,
-                      kv_len=None):
-    """The dQ pass: returns dq [B, Sq, H, D] in q's dtype."""
+def _bwd_dq(q, k, v, dout, lse, delta, causal, scale, kv_len, dq, key):
     B, H, Sq, Sk, D, kv = _check_bwd(q, k, v, dout, lse, delta, kv_len)
+    dq, ost = _out(dq, (B, Sq, H, D), q, "dq")
     lib = load_library("flash_attention")
-    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v)
     rc = lib.pt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), ctypes.addressof(st),
-        B, H, Sq, Sk, D, kv, int(bool(causal)), float(scale),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on_error(lib, rc, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+        ctypes.addressof(ost), B, H, Sq, Sk, D, kv, int(bool(causal)),
+        float(scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on_error(lib, rc, key)
+    LAUNCHES[key] += 1
     return dq
+
+
+def _bwd_dkv(q, k, v, dout, lse, delta, causal, scale, kv_len, dk, dv,
+             key):
+    B, H, Sq, Sk, D, kv = _check_bwd(q, k, v, dout, lse, delta, kv_len)
+    dk, ost = _out(dk, (B, Sk, H, D), q, "dk")
+    dv, vst = _out(dv, (B, Sk, H, D), q, "dv")
+    if tuple(ost) != tuple(vst):
+        raise ValueError("dk and dv must share their strides")
+    lib = load_library("flash_attention")
+    st = _strides(q, k, v)
+    rc = lib.pt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ctypes.addressof(st), ctypes.addressof(ost), B, H, Sq, Sk, D, kv,
+        int(bool(causal)), float(scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on_error(lib, rc, key)
+    LAUNCHES[key] += 1
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *, causal, scale,
+                      kv_len=None):
+    """The dQ pass: returns dq [B, Sq, H, D] in q's dtype."""
+    return _bwd_dq(q, k, v, dout, lse, delta, causal, scale, kv_len, None,
+                   "flash_bwd_dq")
 
 
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *, causal, scale,
                        kv_len=None):
     """The dK/dV pass: returns (dk, dv) [B, Sk, H, D] in q's dtype."""
-    B, H, Sq, Sk, D, kv = _check_bwd(q, k, v, dout, lse, delta, kv_len)
-    lib = load_library("flash_attention")
-    dk = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device)
-    st = _strides(q, k, v)
-    rc = lib.pt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ctypes.addressof(st), B, H, Sq, Sk, D, kv, int(bool(causal)),
-        float(scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on_error(lib, rc, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _bwd_dkv(q, k, v, dout, lse, delta, causal, scale, kv_len, None,
+                    None, "flash_bwd_dkv")
 
 
 def flash_bwd_cuda(q, k, v, out, lse, dout, *, causal, scale, kv_len=None):
@@ -154,3 +194,46 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, *, causal, scale, kv_len=None):
     dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, **kw)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
+
+
+# --------------------------------------------- kernel #7: packed layout
+def _heads(t, num_heads, name):
+    """[B, S, nh * hd] (last dim contiguous) as its [B, S, nh, hd] view."""
+    if t.dim() != 3 or t.shape[2] % num_heads:
+        raise ValueError(f"{name} must be [B, S, num_heads * head_dim]; "
+                         f"got {tuple(t.shape)} with num_heads={num_heads}")
+    if t.stride(2) != 1:
+        raise ValueError(f"{name} needs a contiguous last dim")
+    return t.unflatten(2, (num_heads, t.shape[2] // num_heads))
+
+
+def flash_packed_fwd_cuda(q, k, v, num_heads, *, causal, scale,
+                          kv_len=None):
+    """Forward on packed q [B, Sq, nh * hd], k and v [B, Sk, nh * hd]
+    (column slices of one projection are taken as they are): returns
+    (out [B, Sq, nh * hd] contiguous in q's dtype, lse [B, nh, Sq] f32)."""
+    q4, k4, v4 = (_heads(t, num_heads, n) for t, n in
+                  ((q, "q"), (k, "k"), (v, "v")))
+    out, lse = _fwd(q4, k4, v4, causal, scale, kv_len, "flash_packed_fwd")
+    return out.flatten(2), lse
+
+
+def flash_packed_bwd_cuda(q, k, v, out, lse, dout, num_heads, *, causal,
+                          scale, kv_len=None, dq=None, dk=None, dv=None):
+    """FA-2 backward on the packed layout: delta, then the dQ pass and the
+    dK/dV pass. dq, dk and dv [B, S, nh * hd] are written in place where
+    given (for instance the column slices of one packed gradient), else
+    allocated; returns (dq, dk, dv)."""
+    q4, k4, v4 = (_heads(t, num_heads, n) for t, n in
+                  ((q, "q"), (k, "k"), (v, "v")))
+    dout4 = _heads(dout.to(q.dtype).contiguous(), num_heads, "dout")
+    out4 = _heads(out, num_heads, "out")
+    if tuple(out4.shape) != tuple(dout4.shape):
+        raise ValueError("out and dout must have the same shape")
+    delta = flash_delta(out4, dout4)
+    dq4, dk4, dv4 = (None if t is None else _heads(t, num_heads, n)
+                     for t, n in ((dq, "dq"), (dk, "dk"), (dv, "dv")))
+    args = (q4, k4, v4, dout4, lse, delta, causal, scale, kv_len)
+    dq4 = _bwd_dq(*args, dq4, "flash_packed_bwd_dq")
+    dk4, dv4 = _bwd_dkv(*args, dk4, dv4, "flash_packed_bwd_dkv")
+    return dq4.flatten(2), dk4.flatten(2), dv4.flatten(2)

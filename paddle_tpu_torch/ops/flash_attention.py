@@ -1,6 +1,8 @@
 """Flash attention (the port of paddle_tpu/ops/pallas/flash_attention.py's
-`flash_attention`): differentiable attention on [B, S, H, D] with the
-per-row logsumexp saved for a FlashAttention-2 backward.
+`flash_attention` and `flash_attention_packed`): differentiable attention
+on [B, S, H, D] with the per-row logsumexp saved for a FlashAttention-2
+backward, and the same on the packed [B, S, nh * 128] layout of a qkv
+projection, whose gradients come back in that layout.
 
 `flash_attention` routes by device and by nothing else: for CUDA tensors
 it runs the hand-written kernels (ops/cuda/flash_attention.py, kernel #6:
@@ -24,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from .attention import _on_cuda
-from .cuda.flash_attention import flash_bwd_cuda, flash_fwd_cuda
+from .cuda.flash_attention import (flash_bwd_cuda, flash_fwd_cuda,
+                                   flash_packed_bwd_cuda,
+                                   flash_packed_fwd_cuda)
 
 _NEG = -1e30
 
@@ -140,3 +144,137 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     out = _FlashAttention.apply(q, k, v, bool(causal), float(scale),
                                 None if kv_len is None else int(kv_len))
     return out[..., :d] if pad else out
+
+
+# ------------------------------------------ kernel #7: the packed layout
+def _heads(t, num_heads):
+    return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
+
+
+def flash_packed_forward_reference(q, k, v, num_heads, causal=False,
+                                   scale=None, kv_len=None):
+    """The plain version of the packed forward: `flash_forward_reference`
+    on the [B, S, nh, hd] views; returns (out [B, Sq, nh * hd], lse [B,
+    nh, Sq] f32). Differentiable through autograd."""
+    out, lse = flash_forward_reference(_heads(q, num_heads),
+                                       _heads(k, num_heads),
+                                       _heads(v, num_heads), causal, scale,
+                                       kv_len)
+    return out.flatten(2), lse
+
+
+def flash_packed_bwd_reference(q, k, v, out, lse, dout, num_heads,
+                               causal=False, scale=None, kv_len=None):
+    """The plain version of the packed backward kernels on their inputs
+    (`flash_bwd_reference` on the [B, S, nh, hd] views); returns (dq, dk,
+    dv) [B, S, nh * hd] in q's dtype."""
+    grads = flash_bwd_reference(*(_heads(t, num_heads) for t in
+                                  (q, k, v, out)), lse,
+                                _heads(dout, num_heads), causal, scale,
+                                kv_len)
+    return tuple(g.flatten(2) for g in grads)
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    """#7 on three packed tensors: the forward kernel on their head views;
+    the backward returns dq, dk and dv, each [B, S, nh * hd]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, causal, scale, kv_len):
+        out, lse = flash_packed_fwd_cuda(q, k, v, num_heads, causal=causal,
+                                         scale=scale, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (num_heads, causal, scale, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        nh, causal, scale, kv_len = ctx.args
+        dq, dk, dv = flash_packed_bwd_cuda(q, k, v, out, lse, dout, nh,
+                                           causal=causal, scale=scale,
+                                           kv_len=kv_len)
+        return dq, dk, dv, None, None, None, None
+
+
+class _FlashAttentionPackedQKV(torch.autograd.Function):
+    """#7 on one packed projection qkv [B, S, 3 * nh * hd] (q, k and v its
+    column thirds): the backward writes dq, dk and dv straight into the
+    column slices of one d(qkv), so autograd never zero-fills and sums a
+    full-width gradient per slice."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, causal, scale):
+        q, k, v = qkv.chunk(3, dim=-1)
+        out, lse = flash_packed_fwd_cuda(q, k, v, num_heads, causal=causal,
+                                         scale=scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.args = (num_heads, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        nh, causal, scale = ctx.args
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        flash_packed_bwd_cuda(*qkv.chunk(3, dim=-1), out, lse, dout, nh,
+                              causal=causal, scale=scale,
+                              **dict(zip(("dq", "dk", "dv"),
+                                         dqkv.chunk(3, dim=-1))))
+        return dqkv, None, None, None
+
+
+def _packed_args(q, k, num_heads, scale, kv_len):
+    """(scale, kv_len, whether the packed kernels take the shape): the JAX
+    wrapper's rules. Its row blocks halve from 256 until they divide the
+    sequence, and below 8 rows, or at head_dim != 128, it reshapes onto
+    the [B, S, H, D] kernel."""
+    hd = q.shape[-1] // num_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    s_k = k.shape[1]
+    if kv_len is not None and kv_len <= 0:
+        raise ValueError(f"flash_attention_packed: kv_len must be positive, "
+                         f"got {kv_len}")
+    if kv_len is not None and kv_len >= s_k:
+        kv_len = None
+    packed = hd == 128 and q.shape[1] % 8 == 0 and s_k % 8 == 0
+    return float(scale), kv_len, packed
+
+
+def flash_attention_packed(q, k, v, num_heads: int, causal: bool = False,
+                           scale=None, kv_len: int = None):
+    """Flash attention on packed [B, S, num_heads * head_dim] tensors (q
+    [B, Sq, .], k and v [B, Sk, .]; for instance the column slices of a qkv
+    projection, taken without a copy); returns [B, Sq, num_heads *
+    head_dim] in q's dtype, and dq, dk and dv come back in the same
+    layout. head_dim == 128 only: other shapes are reshaped onto
+    `flash_attention`, as in the JAX wrapper. On CUDA tensors kernel #7
+    (#6's kernels on the packed views) runs; on CPU tensors its plain
+    version, under autograd."""
+    scale, kv_len, packed = _packed_args(q, k, num_heads, scale, kv_len)
+    if not packed:
+        out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
+                              _heads(v, num_heads), causal=causal,
+                              scale=scale, kv_len=kv_len)
+        return out.flatten(2)
+    if not _on_cuda(q):
+        return flash_packed_forward_reference(q, k, v, num_heads, causal,
+                                              scale, kv_len)[0]
+    return _FlashAttentionPacked.apply(
+        q, k, v, int(num_heads), bool(causal), scale,
+        None if kv_len is None else int(kv_len))
+
+
+def flash_attention_packed_qkv(qkv, num_heads: int, causal: bool = False,
+                               scale=None):
+    """`flash_attention_packed` on the column thirds of one projection qkv
+    [B, S, 3 * num_heads * head_dim], differentiated into one d(qkv) (GPT's
+    packed route). Shapes the packed kernels do not take go through
+    `flash_attention_packed` on the three slices."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    scale, _, packed = _packed_args(q, k, num_heads, scale, None)
+    if not packed or not _on_cuda(qkv):
+        return flash_attention_packed(q, k, v, num_heads, causal, scale)
+    return _FlashAttentionPackedQKV.apply(qkv, int(num_heads), bool(causal),
+                                          scale)

@@ -42,6 +42,7 @@ from torch import nn
 from ...device import resolve_device
 from ...models.bert import _Dropout
 from ...models.vit import _patchify_matmul
+from ...nn.layers import LayerNorm
 from ...ops import fused_mha_bias as FMB
 from ...ops.attention import attention_reference
 
@@ -186,10 +187,10 @@ class SwinBlock(nn.Module):
         self.ws = min(window_size, self.H, self.W)
         # a window covering the whole map needs no shifted pass
         self.shift = 0 if self.ws >= min(self.H, self.W) else shift_size
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5, **kw)
+        self.norm1 = LayerNorm(dim, eps=1e-5, **kw)
         self.attn = WindowAttention(dim, num_heads, self.ws,
                                     proj_drop=dropout, **kw)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5, **kw)
+        self.norm2 = LayerNorm(dim, eps=1e-5, **kw)
         hidden = int(dim * mlp_ratio)
         self.fc1 = nn.Linear(dim, hidden, **kw)
         self.fc2 = nn.Linear(hidden, dim, **kw)
@@ -235,7 +236,7 @@ class PatchMerging(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.H, self.W = input_resolution
         self.dim = dim
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5, **kw)
+        self.norm = LayerNorm(4 * dim, eps=1e-5, **kw)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False, **kw)
 
     def forward(self, x):
@@ -290,7 +291,7 @@ class SwinTransformer(nn.Module):
         self.num_classes = num_classes
         self.patch_embed = nn.Conv2d(num_channels, embed_dim, patch_size,
                                      stride=patch_size, **kw)
-        self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5, **kw)
+        self.patch_norm = LayerNorm(embed_dim, eps=1e-5, **kw)
         res = image_size // patch_size
         self.stages = nn.ModuleList()
         self.merges = nn.ModuleList()
@@ -305,7 +306,7 @@ class SwinTransformer(nn.Module):
                 self.merges.append(PatchMerging((res, res), dim, **kw))
                 dim *= 2
                 res //= 2
-        self.norm = nn.LayerNorm(dim, eps=1e-5, **kw)
+        self.norm = LayerNorm(dim, eps=1e-5, **kw)
         if num_classes > 0:
             self.head = nn.Linear(dim, num_classes, **kw)
         self.dropout_generator = torch.Generator(device=dev)

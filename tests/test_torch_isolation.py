@@ -13,7 +13,9 @@ import torch
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.ops.cuda import build as cuda_build
 from paddle_tpu_torch.ops.cuda import fused_mha as cuda_fm
+from paddle_tpu_torch.ops.cuda import flash_attention as cuda_fa
 from paddle_tpu_torch.ops.cuda import fused_mha_bias as cuda_fmb
+from paddle_tpu_torch.ops.cuda import layer_norm as cuda_ln
 from paddle_tpu_torch.ops.cuda import paged_attention as cuda_pa
 
 REPO = Path(__file__).resolve().parents[1]
@@ -45,6 +47,10 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.amp.grad_scaler\n"
             "import paddle_tpu_torch.jit.train_step\n"
             "import paddle_tpu_torch.nn.clip\n"
+            "import paddle_tpu_torch.nn.layers.norm\n"
+            "import paddle_tpu_torch.ops.layer_norm\n"
+            "import paddle_tpu_torch.ops.cuda.layer_norm\n"
+            "import paddle_tpu_torch.distributed.recompute\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -105,7 +111,10 @@ def test_training_modules_are_covered_by_the_source_check():
               "optimizer/lr.py", "amp/grad_scaler.py", "jit/train_step.py",
               "nn/clip.py", "ops/fused_mha.py", "ops/cuda/fused_mha.py",
               "models/bert.py", "models/vit.py", "ops/fused_mha_bias.py",
-              "ops/cuda/fused_mha_bias.py", "vision/models/swin.py"):
+              "ops/cuda/fused_mha_bias.py", "vision/models/swin.py",
+              "ops/layer_norm.py", "ops/cuda/layer_norm.py",
+              "nn/functional.py", "nn/layers/norm.py",
+              "distributed/recompute.py"):
         assert f in files, f
 
 
@@ -305,7 +314,7 @@ def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
     before = cuda_build.library_paths()
     assert set(before) == {"paged_attention", "paged_prefix_attention",
                            "int8_matmul", "flash_attention", "linear_ce",
-                           "fused_mha", "fused_mha_bias"}
+                           "fused_mha", "fused_mha_bias", "layer_norm"}
     assert set(before) == set(cuda_build._ENTRY_POINTS)
     src = tmp_path / "paged_prefix_attention.cu"
     src.write_text(src.read_text() + "\n// edit\n")
@@ -316,3 +325,58 @@ def test_every_kernel_source_is_built_and_hashed(tmp_path, monkeypatch):
     (tmp_path / "common.cuh").write_text("// shared header\n")
     assert set(cuda_build.library_paths().values()).isdisjoint(
         after.values())
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(h=100), "multiple of 8"),
+    (dict(h=32768), "multiple of 8"),
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    ({}, "need CUDA tensors"),
+])
+def test_layer_norm_wrapper_rejects_what_the_kernel_does_not_take(change,
+                                                                  match):
+    """Kernel #8's wrappers check before any launch and count nothing."""
+    h = change.get("h", 256)
+    dtype = change.get("dtype", torch.bfloat16)
+    x = torch.zeros(16, h, dtype=dtype)
+    gamma = torch.ones(h, dtype=dtype)
+    before = dict(cuda_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        cuda_ln.layer_norm_fwd_cuda(x, gamma, None, 1e-5)
+    mu = torch.zeros(16)
+    with pytest.raises(ValueError, match=match):
+        cuda_ln.layer_norm_bwd_cuda(x, x, mu, mu, gamma)
+    assert cuda_build.LAUNCHES == before
+
+
+def test_packed_flash_wrappers_check_shapes_and_gradient_views():
+    """Kernel #7's wrappers: q, k, v must split into num_heads heads with
+    a contiguous last dim; given gradient views must match and keep
+    16-byte rows; nothing launches when a check fails."""
+    before = dict(cuda_build.LAUNCHES)
+    qkv = torch.zeros(1, 128, 3 * 256, dtype=torch.bfloat16)
+    q, k, v = qkv.chunk(3, -1)
+    with pytest.raises(ValueError, match="num_heads"):
+        cuda_fa.flash_packed_fwd_cuda(q[..., :200], k, v, 3, causal=True,
+                                      scale=1.0)
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        cuda_fa.flash_packed_fwd_cuda(q, k, v, 2, causal=True, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        cuda_fa.flash_packed_fwd_cuda(qkv.transpose(1, 2)[:, :256], k, v,
+                                      2, causal=True, scale=1.0)
+    out = torch.zeros(1, 128, 256, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 128)
+    bad = torch.zeros(1, 128, 3 * 256 + 1, dtype=torch.bfloat16)
+    q4, k4, v4, o4 = (t.unflatten(-1, (2, 128)) for t in (q, k, v, out))
+    delta = torch.zeros(1, 2, 128)
+    # a gradient view whose rows are not 16-byte aligned is refused
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_fa._out(bad[..., 1:257].unflatten(-1, (2, 128)),
+                     (1, 128, 2, 128), q4, "dq")
+    with pytest.raises(ValueError, match=r"\(1, 128, 2, 128\)"):
+        cuda_fa._out(torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16),
+                     (1, 128, 2, 128), q4, "dq")
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        cuda_fa._bwd_dq(q4, k4, v4, o4, lse, delta, True, 1.0, None, None,
+                        "flash_packed_bwd_dq")
+    assert cuda_build.LAUNCHES == before

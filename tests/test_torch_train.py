@@ -179,12 +179,21 @@ def test_bf16_moments_and_later_items():
     a = torch.from_numpy(_ids(2, 16, 128, 51))
     ts(a, a)
     assert ts._opt_state[0]["moment1"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="int8"):
-        pt.AdamW(1e-3, parameters=tm.named_parameters(),
-                 moment_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
+    # int8 moments are ported (test_torch_adam_int8 holds them against
+    # JAX); AdamW(lr_ratio=) is still a later item
+    opt8 = pt.AdamW(1e-3, parameters=tm.named_parameters(),
+                    moment_dtype="int8", device="cpu")
+    assert opt8.init_state(tm.gpt.wte.weight, name="gpt.wte.weight")[
+        "moment1_q"].dtype == torch.int8
+    sel = pt.AdamW(1e-3, parameters=tm.named_parameters(), device="cpu",
+                   q8_param_fun=lambda n: "wte" in n)
+    assert "moment2_q" in sel.init_state(tm.gpt.wte.weight,
+                                         name="gpt.wte.weight")
+    assert "moment1" in sel.init_state(tm.gpt.wpe.weight,
+                                       name="gpt.wpe.weight")
+    with pytest.raises(NotImplementedError, match="later item"):
         pt.AdamW(1e-3, parameters=tm.named_parameters(), device="cpu",
-                 q8_param_fun=lambda n: True)
+                 lr_ratio=lambda p: 1.0)
     for kw in (dict(mesh=object()), dict(numerics=True),
                dict(grad_comm="int8"), dict(monitor=object())):
         with pytest.raises(NotImplementedError, match="slice"):
