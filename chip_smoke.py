@@ -4,7 +4,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the hand-written kernels from
-the checkout's sources (one nvcc per source, in parallel): the
+the checkout's sources (one nvcc per source, in parallel) and reads the
+redesigned ones back with cuobjdump: #6's bf16 kernels must contain
+warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), #4's bf16 tile kernel
+tensor-core MMAs, and their instantiations at head dims 64, 80 and 128
+spill nothing (phase 1). The kernels: the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
 attention #6 (forward, dQ and dK/dV passes), the fused linear
 cross-entropy forward #11, the fused short-sequence MHA #9 (forward and
@@ -12,7 +16,9 @@ backward), the window-batched fused MHA with bias #10 (forward, and
 backward with d(bias)), the fused LayerNorm #8 (forward, backward) and
 packed flash attention #7 (#6's kernels on the packed [B, S, nh * 128]
 layout, one d(qkv)). It holds each against its plain PyTorch version
-(phase 2; #1-#4 also at head dim 80, #11 also at bert-base's MLM head, #9
+(phase 2; #1-#4 also at head dim 80, #4 with a control that drops each
+row's last pool block, #6 bitwise repeatable forward and backward and
+also at gpt3-2.7b's head dim 80, #11 also at bert-base's MLM head, #9
 at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
 sets read back, #10 at swin-t's four stages and swin-b's last with the
 model's own bias, bitwise repeatable, and in f32, #8 at gpt3-1.3b's and
@@ -49,7 +55,9 @@ or without the package beside it, it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -116,7 +124,10 @@ REPLACES = {
 FLASH_CASES = [("gpt3-1.3b", 3, 2048, 2048, 16, 128, True, None),
                ("gpt3-125m", 2, 1024, 1024, 12, 64, True, None),
                ("kv_len", 2, 640, 640, 12, 64, False, 600),
-               ("cross", 2, 384, 1024, 16, 128, False, None)]
+               ("cross", 2, 384, 1024, 16, 128, False, None),
+               ("gpt3-2.7b", 6, 1024, 1024, 32, 80, True, None)]
+# the cases whose bf16 times the phase reports; the first is the line's
+FLASH_TIMED = ("gpt3-1.3b", "gpt3-2.7b")
 # limits on row_err (per-row error, see there) of out and of dq, dk and dv
 # each on its own, and on the max abs error of the f32 lse. bf16 rounds P
 # and dS to bf16 before their products and writes bf16 results: the limit
@@ -168,6 +179,19 @@ WINDOWS = (1, 9, 32, 128)
 # launches most often in phase 5 (spec verify for #3, the int8 suffix
 # prefill for #4)
 LINE_WINDOW = {"paged_prefix_attention": 9, "paged_prefix_attention_q8": 128}
+# the build phase's SASS check of the redesigned kernels, per library:
+# (kernel names, instructions every one of them must contain; "A|B" is
+# either): #6's bf16 kernels warpgroup MMAs and TMA loads, #4's bf16 tile
+# kernel tensor-core MMAs
+SASS_CHECKS = {"flash_attention": (("fwd_wg", "dq_wg", "dkv_wg"),
+                                   ("HGMMA", "UTMALDG")),
+               "paged_prefix_attention": (("prefix_q8_tc",),
+                                          ("HMMA|HGMMA",))}
+# ... and the instantiations (by their first template argument: #6's head
+# dim bucket, #4's head dim padded to 16) the main paths launch at head
+# dims 64, 80 and 128, which must spill 0 bytes
+SPILL_FREE = {"fwd_wg": (64, 128), "dq_wg": (64, 128), "dkv_wg": (64, 128),
+              "prefix_q8_tc": (64, 80, 128)}
 
 
 class SmokeFailure(Exception):
@@ -216,6 +240,106 @@ def timer(torch, device):
         return statistics.median(s.elapsed_time(e) for s, e in evs)
 
     return run
+
+
+# ------------------------------------------------------ phase 1: build
+def cuobjdump(nvcc):
+    """cuobjdump from the CUDA toolkit beside nvcc, else Triton's copy."""
+    spec = importlib.util.find_spec("triton")
+    triton_dir = Path(spec.origin).parent if spec and spec.origin else \
+        Path("<triton, not installed>")
+    cands = [Path(nvcc).resolve().parent / "cuobjdump",
+             triton_dir / "backends" / "nvidia" / "bin" / "cuobjdump"]
+    for c in cands:
+        if c.is_file():
+            return c
+    raise SmokeFailure(f"cuobjdump found neither beside nvcc ({cands[0]}) "
+                       f"nor in Triton's package ({cands[1]})")
+
+
+def sass_by_kernel(tool, lib):
+    """{mangled kernel name: its SASS} of a built library."""
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0,
+          f"cuobjdump -sass {lib.name} failed: {out.stderr[-2000:]}")
+    funcs, cur = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(ln)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def spill_bytes(log):
+    """{mangled kernel name: bytes of spill stores plus loads}, from the
+    ptxas -v lines of the build log."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            out[cur] = int(m.group(1)) + int(m.group(2))
+            cur = None
+    return out
+
+
+def redesigned(name):
+    """'kernel<first template argument>' for a redesigned kernel's
+    mangled name, else None."""
+    m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_q8_tc)ILi(\d+)E", name)
+    return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+
+def phase_build(torch, card):
+    """Build every kernel library from the checkout's sources; check the
+    redesigned kernels' SASS (SASS_CHECKS) and that the main paths'
+    instantiations of them spill nothing (SPILL_FREE); print every
+    spill."""
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t0 = time.perf_counter()
+    libs = KB.build()
+    for name in libs:
+        KB.load_library(name)
+    seconds = time.perf_counter() - t0
+    log = (KB.BUILD_DIR / "nvcc.log").read_text() if \
+        (KB.BUILD_DIR / "nvcc.log").exists() else ""
+    tool = cuobjdump(KB._nvcc())
+    sass = {}
+    for lib, (kernels, instrs) in SASS_CHECKS.items():
+        for name, text in sass_by_kernel(tool, libs[lib]).items():
+            tag = redesigned(name)
+            if tag is None or tag.split("<")[0] not in kernels:
+                continue
+            found = {i: any(x in text for x in i.split("|")) for i in instrs}
+            sass[tag] = found
+            missing = [i for i in instrs if not found[i]]
+            check(not missing, f"{tag}: no {missing} in its SASS")
+        for kernel in kernels:
+            check(any(t.startswith(kernel + "<") for t in sass),
+                  f"{kernel} is not in {libs[lib].name}")
+    all_spills = spill_bytes(log)
+    spills = {redesigned(name): n for name, n in all_spills.items()
+              if redesigned(name) is not None}
+    bad = {t: n for t, n in spills.items()
+           if n and int(t.split("<")[1][:-1]) in SPILL_FREE[t.split("<")[0]]}
+    check(not bad, f"the main paths' instantiations spill: {bad}")
+    emit({"phase": "build", "ok": True, "card": card, "seconds": seconds,
+          "libraries": [p.name for p in libs.values()],
+          "cuobjdump": str(tool), "sass": sass,
+          "redesigned_spill_bytes": spills,
+          "spilling": {name: n for name, n in all_spills.items() if n},
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "Compiling entry" in ln or "registers" in ln
+                    or "spill" in ln],
+          "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
 # ------------------------------------------------- phase 2 inputs
@@ -423,14 +547,17 @@ def prefix_sdpa_call(torch, q, pools, tables, start, q8):
 def phase_prefix_kernels(torch, device, card):
     """Kernels #3 and #4 against their plain versions (f32 scores, the
     kernels' function) over every window size and dtype, every query row
-    compared, and at gpt3-2.7b's head dim 80 for S = 1 and 9; times, bound
-    and the SDPA yardstick in bf16; and the S = 1, start = lens - 1 window
-    against the decode kernel #1 in f32."""
+    compared, at the main path's head dim and at gpt3-2.7b's 80; times,
+    bound and the SDPA yardstick in bf16 at every window; #4's control in
+    bf16 (each row whose start is at least 16 run with start - 16, so it
+    loses its last pool block of columns, against the plain version of
+    the true inputs: the limit must reject it); and the S = 1, start =
+    lens - 1 window against the decode kernel #1 in f32."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops.cuda import paged_attention as K
     run = timer(torch, device)
     rows, results = [], {}
-    shapes = [(s, D) for s in WINDOWS] + [(1, 80), (9, 80)]
+    shapes = [(s, d) for s in WINDOWS for d in (D, 80)]
     for name in ("paged_prefix_attention", "paged_prefix_attention_q8"):
         q8 = name.endswith("q8")
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
@@ -466,6 +593,22 @@ def phase_prefix_kernels(torch, device, card):
                 check(close and finite,
                       f"{name} {row['dtype']} S={s} D={d}: kernel disagrees "
                       f"with its plain version: {row}")
+                if q8 and dtype == torch.bfloat16:
+                    cut = torch.where(start >= BS, start - BS, start)
+                    ctl = K.paged_prefix_attention_q8_cuda(q, *pools, tables,
+                                                           cut)
+                    torch.cuda.synchronize()
+                    row["control"] = {
+                        "what": f"start lowered by {BS} where >= {BS} (each "
+                                f"such row's last pool block dropped) vs "
+                                f"plain on the true start",
+                        "max_abs_err": float((ctl.float() - want.float())
+                                             .abs().max()),
+                        "rejected": not torch.allclose(
+                            ctl.float(), want.float(), atol=tol, rtol=tol)}
+                    check(row["control"]["rejected"],
+                          f"{name} S={s} D={d}: the limit passes a kernel "
+                          f"that drops each row's last pool block: {row}")
                 if dtype == torch.bfloat16:     # the main path's type
                     bms, by = prefix_bound(torch, q, pools, tables, start,
                                            q8)
@@ -1332,15 +1475,16 @@ def flash_errs(ko, kg, po, pg):
 
 def phase_flash_kernels(torch, device, card):
     """Kernel #6 against its plain version, forward and backward through
-    autograd, at every case in bf16 and f32; at the gpt3-1.3b shape in
-    bf16, the times of each kernel, the plain version and
+    autograd, at every case in bf16 and f32, each of its three kernels
+    bitwise equal over two launches; at the FLASH_TIMED shapes in bf16,
+    the times of each kernel, the plain version and
     F.scaled_dot_product_attention (the yardstick, never on the path),
     forward, backward and both."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as FA
     from paddle_tpu_torch.ops.cuda import flash_attention as KF
     run = timer(torch, device)
-    rows, timed = [], None
+    rows, timed = [], {}
     for case in FLASH_CASES:
         name, b, sq, sk, h, d, causal, kv_len = case
         for dtype in (torch.bfloat16, torch.float32):
@@ -1354,8 +1498,13 @@ def phase_flash_kernels(torch, device, card):
             ko, kg = flash_run(torch, FA.flash_attention, leaves, split,
                                dout, causal, kv_len)
             q, k, v = split(leaves)
-            ko2, klse = KF.flash_fwd_cuda(q, k, v, causal=causal,
-                                          scale=d ** -0.5, kv_len=kv_len)
+            kw = dict(causal=causal, scale=d ** -0.5, kv_len=kv_len)
+            ko2, klse = KF.flash_fwd_cuda(q, k, v, **kw)
+            # the backward kernels twice on the same inputs
+            delta = KF.flash_delta(ko2, dout)
+            bwd = [[KF.flash_bwd_dq_cuda(q, k, v, dout, klse, delta, **kw),
+                    *KF.flash_bwd_dkv_cuda(q, k, v, dout, klse, delta, **kw)]
+                   for _ in range(2)]
             # the plain versions on the kernels' inputs: the forward on q,
             # k, v; the backward also on the kernel's out and lse
             po, plse = FA.flash_forward_reference(q, k, v, causal=causal,
@@ -1371,28 +1520,31 @@ def phase_flash_kernels(torch, device, card):
                    "row_err": {n: e[0] for n, e in errs.items()},
                    "max_abs_err": {n: e[1] for n, e in errs.items()},
                    "lse_max_abs_err": float((klse - plse).abs().max()),
-                   "forward_repeats_bitwise": bool(torch.equal(ko, ko2))}
+                   "forward_repeats_bitwise": bool(torch.equal(ko, ko2)),
+                   "backward_repeats_bitwise": all(
+                       bool(torch.equal(a, b)) for a, b in zip(*bwd))}
             finite = all(bool(torch.isfinite(x.float()).all())
                          for x in [ko, klse, *kg])
             check(finite and errs["out"][0] <= otol
                   and max(errs[n][0] for n in ("dq", "dk", "dv")) <= gtol
                   and row["lse_max_abs_err"] <= ltol
-                  and row["forward_repeats_bitwise"],
+                  and row["forward_repeats_bitwise"]
+                  and row["backward_repeats_bitwise"],
                   f"flash attention {name} {dt}: kernel disagrees with its "
                   f"plain version: {row}")
-            del q, k, v, ko2, klse, plse
+            del q, k, v, ko2, klse, plse, delta, bwd
             if dtype == torch.bfloat16 and name in FLASH_CONTROLS:
                 row["control"] = flash_control(torch, FA, leaves, split,
                                                dout, case, po, pg, otol,
                                                gtol)
             rows.append(row)
-            if name == "gpt3-1.3b" and dtype == torch.bfloat16:
-                timed = (case, leaves, split, dout, row)
+            if name in FLASH_TIMED and dtype == torch.bfloat16:
+                timed[name] = (case, leaves, split, dout, row)
             del leaves, ko, kg, po, pg
             torch.cuda.empty_cache()
     # timed last, so the phase ends with the yardstick's calls
-    line = flash_times(torch, F, FA, KF, run, *timed)
-    del timed
+    lines = {n: flash_times(torch, F, FA, KF, run, *timed.pop(n))
+             for n in FLASH_TIMED}
     emit({"phase": "flash_attention_vs_plain", "ok": True, "card": card,
           "error": "row_err: per row (b, s, h) max |kernel - plain| over "
                    "the row's rms of plain (floored at 10% of the tensor's "
@@ -1400,8 +1552,9 @@ def phase_flash_kernels(torch, device, card):
                    "plain: flash_forward_reference on q, k, v and "
                    "flash_bwd_reference on the kernels' own out and lse",
           "timing": "median of 50 launches, CUDA events, L2 flushed",
-          "cases": rows, "gpt3-1.3b_bf16_times": line["times"]})
-    return line["kernels"]
+          "cases": rows,
+          **{f"{n}_bf16_times": lines[n]["times"] for n in FLASH_TIMED}})
+    return lines[FLASH_TIMED[0]]["kernels"]
 
 
 def flash_control(torch, FA, leaves, split, dout, case, po, pg, otol,
@@ -1950,7 +2103,7 @@ def phase_train_full(torch, card, device, fused=False, default=None):
               f"launches per step {per_step}, want {want}")
         peak = torch.cuda.max_memory_allocated()
         prof = profile_call(torch, lambda: step(ids[2], ids[2]),
-                            names=("fwd_bf16", "dq_bf16", "dkv_bf16",
+                            names=("fwd_wg", "dq_wg", "dkv_wg",
                                    "lce_bf16", "lce_merge", "ln_fwd",
                                    "ln_bwd"))
         same = [float(step(ids[0], ids[0])) for _ in range(6)]
@@ -2141,8 +2294,7 @@ def phase_train_gpt27(torch, card, device):
           f"first gpt3-2.7b loss {warm[0]} is not near ln(vocab) "
           f"{math.log(cfg.vocab_size)}")
     prof = profile_call(torch, lambda: step(ids[2], ids[2]),
-                        names=("fwd_bf16", "dq_bf16", "dkv_bf16",
-                               "lce_bf16"))
+                        names=("fwd_wg", "dq_wg", "dkv_wg", "lce_bf16"))
     same = [float(step(ids[0], ids[0])) for _ in range(12)]
     check(same[-1] < same[0],
           f"the gpt3-2.7b loss on a repeated batch did not fall: {same}")
@@ -3180,21 +3332,7 @@ def main() -> int:
     card = card_line()
     t_start = time.perf_counter()
 
-    from paddle_tpu_torch.ops.cuda import build as KB
-    t0 = time.perf_counter()
-    libs = KB.build()
-    for name in libs:
-        KB.load_library(name)
-    log = (KB.BUILD_DIR / "nvcc.log").read_text() if \
-        (KB.BUILD_DIR / "nvcc.log").exists() else ""
-    emit({"phase": "build", "ok": True, "card": card,
-          "seconds": time.perf_counter() - t0,
-          "libraries": [p.name for p in libs.values()],
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "Compiling entry" in ln or "registers" in ln
-                    or "spill" in ln],
-          "torch": torch.__version__, "cuda": torch.version.cuda})
-
+    phase_build(torch, card)
     kern = phase_kernels(torch, device, card)
     kern.update(phase_prefix_kernels(torch, device, card))
     kern.update(phase_int8_matmul(torch, device, card))

@@ -27,29 +27,52 @@
 //   delta = rowsum(dout * out) (one elementwise pass before the kernels);
 //   dq = scale * ds k, dk = scale * ds^T q, dv = p^T dout. P and dS are
 //   rounded to the input type before their products, as in the TPU kernel.
-//   Two deterministic passes, no atomics.
+//   Two deterministic passes, no atomics: every output element is summed
+//   by one CTA in a fixed order, so two launches agree bitwise.
 //
 // Bound: at training shapes (S = 1024..2048, D = 64..128) tensor-core
 // operations (4 B H S^2 D forward, halved under causal). Design against
-// that:
-//   * bf16: mma.sync m16n8k16 bf16 x bf16 -> f32 on the tensor cores; each
-//     warp owns 16 rows of the CTA's block, so the row statistics of the
-//     online softmax reduce inside a quad of lanes; P and dS go from the
-//     accumulator layout to the next product's A operand in registers;
-//   * the tiles of the other sequence are double-buffered in shared memory
-//     with cp.async, the next tile in flight while the current one is used;
-//     out-of-range rows and columns are zero-filled as they are staged;
-//   * under causal, tiles wholly above the diagonal are skipped, and so are
-//     tiles wholly past kv_len (they contribute exactly zero);
+// that, bf16 (kernels fwd_wg, dq_wg, dkv_wg):
+//   * warpgroup MMA: wgmma m64nNk16 bf16 x bf16 -> f32, the only way to the
+//     card's full tensor-core rate. Products of two staged tiles read both
+//     from shared memory (K-major, 128-byte swizzle); P and dS go from the
+//     accumulator layout to the next product's A operand in registers (one
+//     bf16 rounding each), against V, K, dout or q read MN-major;
+//   * warp specialisation: a CTA is three warpgroups. One producer warp
+//     keeps TMA loads of the other sequence's tiles in flight into rings
+//     of stages (full / empty mbarriers: the forward's K and V tiles on
+//     rings of 2 of their own, the backward's on one ring of 3); the
+//     producer warpgroup gives its registers to the two consumer
+//     warpgroups (setmaxnreg 24 / 240), each of which owns 64 rows of the
+//     CTA's 128. The threads that do the math compute no copy addresses;
+//   * software pipelining inside each consumer: the forward issues the next
+//     tile's Q K^T and this tile's P V, then runs the next softmax while
+//     P V is on the tensor cores; dQ leaves a tile's dS K in flight over
+//     the next tile's S and dP; dK/dV forms P^T while dP^T runs. No wgmma
+//     is issued under a branch (ptxas would serialise them);
+//   * TMA tensor maps carry the views' strides (built per call on the
+//     host), so the packed q/k/v views and the padded head dims need no
+//     copy: rows past S and columns past D arrive as zeros;
+//   * the online softmax stays in registers in the accumulator layout (a
+//     row's statistics reduce inside a quad of lanes), in base 2: one FFMA
+//     (s * scale * log2 e - m) and one MUFU.EX2 per score; masks are
+//     applied only on tiles that cross the diagonal, kv_len or Sq, behind
+//     one uniform branch per tile; under causal, tiles wholly above the
+//     diagonal are neither loaded nor computed, and a consumer warpgroup
+//     passes over a staged tile none of its rows sees;
 //   * f32: plain FMAs on the CUDA cores (never TF32), one warp per row and
 //     one lane per column of a 32-wide tile of the other sequence; this path
 //     serves parity runs, not speed.
 // Head dims: any multiple of 16 up to 256 (the wrapper pads others); the
-// kernels are built for D buckets of 64, 128 and 256, and columns past D
-// are zero-filled when staged and never stored.
+// kernels are built for D buckets of 64, 128 and 256 (gpt3-2.7b's 80 runs
+// in the 128 bucket: its columns 80..127 arrive as TMA zero fill, so they
+// cost tensor-core work but no memory traffic). At 256 the dK/dV pass
+// splits the output columns over two CTAs, each recomputing S and dP.
 //
 // Plain C interface (loaded with ctypes): each entry point launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// given stream, does not synchronise, and returns cudaGetLastError(); a
+// view TMA cannot take (a stride or base not 16-byte aligned) returns
+// cudaErrorInvalidValue, which the wrapper checks for first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,11 +80,13 @@
 #include <cstdint>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace tiles;
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -80,325 +105,629 @@ struct Params {
   float scale;
 };
 
-// ------------------------------------------------------------ bf16 forward
-// grid (ceil(Sq / 64), H, B); 4 warps x 16 query rows; key tiles of BK
-template <int DM, int BK>
-__global__ void __launch_bounds__(kThreads) fwd_bf16(Params p) {
-  constexpr int BQ = 64, LD = DM + 8, NT = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;       // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+// ------------------------------------------------- bf16: wgmma and TMA
+// Every bf16 kernel: 384 threads, warpgroup 0 the producer (one thread
+// issues the TMA loads; the lse / delta tiles of the dK/dV pass are
+// written by its first warp), warpgroups 1 and 2 the consumers, each
+// owning 64 rows of the CTA's 128.
+constexpr int kWgThreads = 384;
+constexpr int kStages = 2;     // forward: K and V rings of their own
+constexpr int kBwdStages = 3;  // backward: one ring, a tile held over
+constexpr int kEmptyArrivals = 8;  // lane 0 of each consumer warp
 
-  int n_kb = (p.kv_lim + BK - 1) / BK;
-  if (p.causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
 
-  stage<BQ, DM>(Qs, LD, qb, p.q_ss, q0, p.Sq, p.D, tid);
-  stage<BK, DM>(Ks, LD, kb, p.k_ss, 0, p.Sk, p.D, tid);
-  stage<BK, DM>(Vs, LD, vb, p.v_ss, 0, p.Sk, p.D, tid);
-  cp_async_commit();
+using hopper::fence_regs;
+using hopper::kdesc;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_wait;
+using hopper::mma_rs;
+using hopper::mma_ss;
+using hopper::mndesc;
+using hopper::tma_load4;
+using hopper::wg_commit;
+using hopper::wg_fence;
+using hopper::wg_wait0;
 
-  float o[DM / 8][4];
+// the DM / 64 boxes of one [R x DM] tile, rows row0.. of (head h, batch b)
+template <int DM, int R>
+__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int h,
+                                          int b) {
 #pragma unroll
-  for (int n = 0; n < DM / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  const int r0 = warp * 16 + g;  // this lane's rows r0 and r0 + 8
+  for (int a = 0; a < DM / 64; ++a)
+    tma_load4(dst + a * R * 64, map, bar, a * 64, row0, h, b);
+}
 
-  for (int it = 0; it < n_kb; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_kb) {
-      const int nb = buf ^ 1;
-      stage<BK, DM>(Ks + nb * BK * LD, LD, kb, p.k_ss, (it + 1) * BK, p.Sk,
-                    p.D, tid);
-      stage<BK, DM>(Vs + nb * BK * LD, LD, vb, p.v_ss, (it + 1) * BK, p.Sk,
-                    p.D, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* K = Ks + buf * BK * LD;
-    const bf16* V = Vs + buf * BK * LD;
-
-    float s[NT][4];
+// accumulator tiles (64 x 16 c.. of an m64nN f32 accumulator) as the
+// bf16 A operand of the next product, rounded once
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&s)[N / 2]) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mm_abt<NT, DM>(s, Qs, K, LD, r0, g, t);
+  for (int c = 0; c < N / 16; ++c) {
+    a[c][0] = packf(s[8 * c], s[8 * c + 1]);
+    a[c][1] = packf(s[8 * c + 2], s[8 * c + 3]);
+    a[c][2] = packf(s[8 * c + 4], s[8 * c + 5]);
+    a[c][3] = packf(s[8 * c + 6], s[8 * c + 7]);
+  }
+}
 
-    float mx[2] = {kNeg, kNeg};
+// issue S = Q K^T for consumer warpgroup cw's 64 rows of a BM-row Q tile
+// against a BN-row K tile (not committed)
+template <int DM, int BN, int BM>
+__device__ __forceinline__ void scores(float (&sc)[BN / 2], const bf16* Qs,
+                                       const bf16* K, int cw) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int kk = 0; kk < DM / 16; ++kk)
+    mma_ss(sc, kdesc(Qs, BM, 64 * cw, kk), kdesc(K, BN, 0, kk), kk > 0);
+}
+
+// o (the forward's 64 x DM accumulator) times this lane's rows' factors
+template <int DM>
+__device__ __forceinline__ void rescale(float (&o)[DM / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int n = 0; n < DM / 8; ++n) {
+    o[4 * n] *= corr[0];
+    o[4 * n + 1] *= corr[0];
+    o[4 * n + 2] *= corr[1];
+    o[4 * n + 3] *= corr[1];
+  }
+}
+
+// issue o += P V over a BN-row V tile, P the bf16 A operand (not committed)
+template <int DM, int BN>
+__device__ __forceinline__ void pv(float (&o)[DM / 2],
+                                   const uint32_t (&pa)[BN / 16][4],
+                                   const bf16* V) {
+#pragma unroll
+  for (int c = 0; c < BN / 16; ++c) mma_rs(o, pa[c], mndesc(V, BN, c, 0));
+}
+
+// the forward's online-softmax step on the raw scores of the key tile at
+// c0, in base 2 (sl2 = scale * log2(e); m in those units): in place, sc
+// becomes p = 2^(s sl2 - m_new) = exp(s scale - m_new / log2 e),
+// unrounded; updates this lane's rows' m and l and gives the factor corr
+// for the accumulator. Masks (kv_len, the causal diagonal) only on tiles
+// that cross one, behind one warpgroup-uniform branch.
+template <int BN>
+__device__ __forceinline__ void fwd_softmax(float (&sc)[BN / 2], float (&m)[2],
+                                            float (&l)[2], float (&corr)[2],
+                                            const Params& p, float sl2,
+                                            int c0, int r0, int rw, int t) {
+  if (c0 + BN > p.kv_lim || (p.causal && c0 + BN - 1 > rw)) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = q0 + r0 + (e >> 1) * 8;
-        const int col = it * BK + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * p.scale;
-        if (col >= p.kv_lim || (p.causal && row < col)) x = kNeg;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        const int row = r0 + (e >> 1) * 8;
+        const int col = c0 + j * 8 + 2 * t + (e & 1);
+        const bool out = col >= p.kv_lim || (p.causal && row < col);
+        sc[4 * j + e] = out ? kNeg : sc[4 * j + e];
       }
-    float corr[2];
+  }
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+    corr[r] = hopper::ex2(m[r] - mn);
+    m[r] = mn;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = hopper::ex2(fmaf(sc[4 * j + e], sl2, -m[e >> 1]));
+      sc[4 * j + e] = x;
+      sum[e >> 1] += x;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + quad_sum(sum[r]);
+}
+
+// lane 0 of each warp arrives once the warp is done with a stage
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// grid (ceil(Sq / 128), H, B), the last query block first (under causal
+// it has the most key tiles); key tiles of BN. K and V tiles have rings of
+// their own: a K tile is released once S = Q K^T is done, a V tile once
+// P V is, so the producer loads ahead of a consumer that holds the next
+// tile's K and this tile's V at once.
+template <int DM, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wg(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const Params p) {
+  constexpr int BM = 128;
+  constexpr uint32_t QB = DM / 64 * BM * 128, KB = DM / 64 * BN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1k(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + QB);                 // [kStages]
+  bf16* Vs = reinterpret_cast<bf16*>(sm + QB + kStages * KB);  // [kStages]
+  __shared__ __align__(8) uint64_t q_full, k_full[kStages], k_empty[kStages],
+      v_full[kStages], v_empty[kStages];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM, h = blockIdx.y,
+            b = blockIdx.z;
+  int n_kb = (p.kv_lim + BN - 1) / BN;
+  if (p.causal) n_kb = min(n_kb, (q0 + BM + BN - 1) / BN);
+  if (tid == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&k_empty[s], kEmptyArrivals);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&v_empty[s], kEmptyArrivals);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(&q_full, QB);
+      load_tile<DM, BM>(Qs, &tq, &q_full, q0, h, b);
+      // in the order the consumers need them: K 0, then K it+1 and V it
+      for (int j = 0; j <= n_kb; ++j) {
+        for (int kv = 0; kv < 2; ++kv) {
+          const int it = kv ? j - 1 : j;  // K of tile j, V of tile j - 1
+          if (it < 0 || it >= n_kb) continue;
+          const int s = it % kStages, ph = ((it / kStages) & 1) ^ 1;
+          uint64_t* fb = kv ? &v_full[s] : &k_full[s];
+          mbar_wait(kv ? &v_empty[s] : &k_empty[s], ph);
+          mbar_expect_tx(fb, KB);
+          load_tile<DM, BN>((kv ? Vs : Ks) + s * (KB / 2), kv ? &tv : &tk, fb,
+                            it * BN, h, b);
+        }
+      }
+    }
+  } else {  // -------------------------------------------------- consumers
+    hopper::reg_alloc<240>();
+    const int cw = wg - 1, rw = q0 + 64 * cw;  // this warpgroup's rows
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = rw + 16 * warp + g;         // this lane's rows r0, r0 + 8
+    // the tiles some row of ours sees (under causal the block's last tile
+    // may lie wholly above this warpgroup's part of the diagonal)
+    const int n_my = p.causal ? min(n_kb, (rw + 63) / BN + 1) : n_kb;
+    float o[DM / 2], sc[BN / 2], corr[2];
+#pragma unroll
+    for (int i = 0; i < DM / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    const float sl2 = p.scale * kLog2e;
+    mbar_wait(&q_full, 0);
+    // S of tile 0; then per tile: issue S of the next tile and P V of this
+    // one, and run the next tile's softmax while P V is on the tensor cores
+    mbar_wait(&k_full[0], 0);
+    fence_regs(sc);
+    wg_fence();
+    scores<DM, BN, BM>(sc, Qs, Ks, cw);
+    wg_commit();
+    wg_wait0();
+    fence_regs(sc);
+    release(&k_empty[0], lane);
+    fwd_softmax<BN>(sc, m, l, corr, p, sl2, 0, r0, rw, t);
+    // (the last tile is peeled off, so no wgmma is issued under a branch:
+    // ptxas serialises wgmmas on a divergent path)
+    for (int it = 0; it + 1 < n_my; ++it) {
+      const int s = it % kStages, sn = (it + 1) % kStages;
+      uint32_t pa[BN / 16][4];
+      to_a<BN>(pa, sc);
+      rescale<DM>(o, corr);
+      mbar_wait(&k_full[sn], ((it + 1) / kStages) & 1);
+      mbar_wait(&v_full[s], (it / kStages) & 1);
+      fence_regs(o);
+      fence_regs(sc);
+      wg_fence();
+      scores<DM, BN, BM>(sc, Qs, Ks + sn * (KB / 2), cw);
+      wg_commit();
+      pv<DM, BN>(o, pa, Vs + s * (KB / 2));
+      wg_commit();
+      hopper::wg_wait1();  // the next tile's S, not this tile's P V
+      fence_regs(sc);
+      release(&k_empty[sn], lane);
+      fwd_softmax<BN>(sc, m, l, corr, p, sl2, (it + 1) * BN, r0, rw, t);
+      wg_wait0();
+      fence_regs(o);
+      fence_regs(pa);
+      release(&v_empty[s], lane);
+    }
+    {
+      const int it = n_my - 1, s = it % kStages;
+      uint32_t pa[BN / 16][4];
+      to_a<BN>(pa, sc);
+      rescale<DM>(o, corr);
+      mbar_wait(&v_full[s], (it / kStages) & 1);
+      fence_regs(o);
+      wg_fence();
+      pv<DM, BN>(o, pa, Vs + s * (KB / 2));
+      wg_commit();
+      wg_wait0();
+      fence_regs(o);
+      fence_regs(pa);
+      release(&v_empty[s], lane);
+    }
+    for (int it = n_my; it < n_kb; ++it) {  // tiles none of our rows sees
+      const int s = it % kStages, ph = (it / kStages) & 1;
+      mbar_wait(&k_full[s], ph);
+      release(&k_empty[s], lane);
+      mbar_wait(&v_full[s], ph);
+      release(&v_empty[s], lane);
+    }
+
+    bf16* ob = static_cast<bf16*>(p.out);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = __expf(m[r] - mn);
-      m[r] = mn;
-    }
-    float sum[2] = {0.f, 0.f};
+      const int row = r0 + r * 8;
+      if (row >= p.Sq) continue;
+      const float lc = fmaxf(l[r], 1e-30f), inv = 1.f / lc;
+      bf16* orow = ob + (((long long)b * p.Sq + row) * p.H + h) * p.D;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = x;
-        sum[e >> 1] += x;
+      for (int n = 0; n < DM / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[4 * n + 2 * r] * inv,
+                                    o[4 * n + 2 * r + 1] * inv);
       }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int n = 0; n < DM / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-    mm_pb<BK / 16, DM>(o, s, V, LD, g, t);
-    __syncthreads();  // the next iteration overwrites this buffer
-  }
-
-  bf16* ob = static_cast<bf16*>(p.out);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
-    if (row >= p.Sq) continue;
-    const float lc = fmaxf(l[r], 1e-30f), inv = 1.f / lc;
-    bf16* orow = ob + (((long long)b * p.Sq + row) * p.H + h) * p.D;
-#pragma unroll
-    for (int n = 0; n < DM / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    }
-    if (t == 0) p.lse[((long long)b * p.H + h) * p.Sq + row] = m[r] + logf(lc);
-  }
-}
-
-// --------------------------------------------------------------- bf16 dQ
-// grid (ceil(Sq / 64), H, B); 4 warps x 16 query rows; key tiles of BK
-template <int DM, int BK>
-__global__ void __launch_bounds__(kThreads) dq_bf16(Params p) {
-  constexpr int BQ = 64, LD = DM + 8, NT = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + BQ * LD;        // dout rows
-  bf16* Ks = Os + BQ * LD;        // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;    // [2][BK][LD]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const long long o_ss = (long long)p.H * p.D;
-  const bf16* dob = static_cast<const bf16*>(p.dout) +
-                    (long long)b * p.Sq * o_ss + (long long)h * p.D;
-
-  int n_kb = (p.kv_lim + BK - 1) / BK;
-  if (p.causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
-
-  stage<BQ, DM>(Qs, LD, qb, p.q_ss, q0, p.Sq, p.D, tid);
-  stage<BQ, DM>(Os, LD, dob, o_ss, q0, p.Sq, p.D, tid);
-  stage<BK, DM>(Ks, LD, kb, p.k_ss, 0, p.Sk, p.D, tid);
-  stage<BK, DM>(Vs, LD, vb, p.v_ss, 0, p.Sk, p.D, tid);
-  cp_async_commit();
-
-  const int r0 = warp * 16 + g;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
-    const long long i = ((long long)b * p.H + h) * p.Sq + row;
-    lse[r] = row < p.Sq ? p.lse[i] : 0.f;
-    dl[r] = row < p.Sq ? p.delta[i] : 0.f;
-  }
-  float dq[DM / 8][4];
-#pragma unroll
-  for (int n = 0; n < DM / 8; ++n)
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  for (int it = 0; it < n_kb; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_kb) {
-      const int nb = buf ^ 1;
-      stage<BK, DM>(Ks + nb * BK * LD, LD, kb, p.k_ss, (it + 1) * BK, p.Sk,
-                    p.D, tid);
-      stage<BK, DM>(Vs + nb * BK * LD, LD, vb, p.v_ss, (it + 1) * BK, p.Sk,
-                    p.D, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* K = Ks + buf * BK * LD;
-    const bf16* V = Vs + buf * BK * LD;
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mm_abt<NT, DM>(s, Qs, K, LD, r0, g, t);
-    mm_abt<NT, DM>(dp, Os, V, LD, r0, g, t);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + r0 + (e >> 1) * 8;
-        const int col = it * BK + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * p.scale;
-        if (col >= p.kv_lim || (p.causal && row < col)) x = kNeg;
-        const float pr = __expf(x - lse[e >> 1]);
-        s[j][e] = pr * (dp[j][e] - dl[e >> 1]);  // dS, rounded below
-      }
-    mm_pb<BK / 16, DM>(dq, s, K, LD, g, t);
-    __syncthreads();
-  }
-
-  bf16* dqb = static_cast<bf16*>(p.out);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
-    if (row >= p.Sq) continue;
-    bf16* drow = dqb + b * p.o_sb + row * p.o_ss + h * p.o_sh;
-#pragma unroll
-    for (int n = 0; n < DM / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(drow + col) = __floats2bfloat162_rn(
-            dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
+      if (t == 0)  // m is in base-2 units
+        p.lse[((long long)b * p.H + h) * p.Sq + row] = m[r] * kLn2 + logf(lc);
     }
   }
 }
 
-// ------------------------------------------------------------ bf16 dK/dV
-// grid (ceil(Sk / 64), H, B); 4 warps x 16 key rows; query tiles of BQ.
-// The products run transposed: S^T = K Q^T, dP^T = V dout^T, so each
-// warp's rows are keys and the query index runs along the accumulator's
-// columns.
-template <int DM, int BQ>
-__global__ void __launch_bounds__(kThreads) dkv_bf16(Params p) {
-  constexpr int BKR = 64, LD = DM + 8, NT = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BKR * LD;
-  bf16* Qs = Vs + BKR * LD;      // [2][BQ][LD]
-  bf16* Os = Qs + 2 * BQ * LD;   // [2][BQ][LD] dout rows
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * BKR, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const long long o_ss = (long long)p.H * p.D;
-  const bf16* dob = static_cast<const bf16*>(p.dout) +
-                    (long long)b * p.Sq * o_ss + (long long)h * p.D;
-  const float* lseb = p.lse + ((long long)b * p.H + h) * p.Sq;
-  const float* dlb = p.delta + ((long long)b * p.H + h) * p.Sq;
+// grid (ceil(Sq / 128), H, B), the last query block first; key tiles of BN
+// on a ring of ST stages. Pipelined: a tile's dQ += dS K stays in flight
+// while the next tile's S and dP run, and its stage is released at the
+// next tile's first wait.
+template <int DM, int BN, int ST>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_wg(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __grid_constant__ CUtensorMap tdo, const Params p) {
+  constexpr int BM = 128;
+  constexpr uint32_t QB = DM / 64 * BM * 128, KB = DM / 64 * BN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1k(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);
+  bf16* Os = reinterpret_cast<bf16*>(sm + QB);  // dout rows
+  bf16* Ks = reinterpret_cast<bf16*>(sm + 2 * QB);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + 2 * QB + ST * KB);
+  __shared__ __align__(8) uint64_t q_full, full[ST], empty[ST];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM, h = blockIdx.y,
+            b = blockIdx.z;
+  int n_kb = (p.kv_lim + BN - 1) / BN;
+  if (p.causal) n_kb = min(n_kb, (q0 + BM + BN - 1) / BN);
+  if (tid == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kEmptyArrivals);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
+  if (wg == 0) {  // ---------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(&q_full, 2 * QB);
+      load_tile<DM, BM>(Qs, &tq, &q_full, q0, h, b);
+      load_tile<DM, BM>(Os, &tdo, &q_full, q0, h, b);
+      for (int it = 0; it < n_kb; ++it) {
+        const int s = it % ST;
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * KB);
+        load_tile<DM, BN>(Ks + s * (KB / 2), &tk, &full[s], it * BN, h, b);
+        load_tile<DM, BN>(Vs + s * (KB / 2), &tv, &full[s], it * BN, h, b);
+      }
+    }
+  } else {  // -------------------------------------------------- consumers
+    hopper::reg_alloc<240>();
+    const int cw = wg - 1, rw = q0 + 64 * cw;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = rw + 16 * warp + g;
+    const int n_my = p.causal ? min(n_kb, (rw + 63) / BN + 1) : n_kb;
+    const float sl2 = p.scale * kLog2e;
+    float lse2[2], dl[2];  // lse in base-2 units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + r * 8;
+      const long long i = ((long long)b * p.H + h) * p.Sq + row;
+      lse2[r] = row < p.Sq ? p.lse[i] * kLog2e : 0.f;
+      dl[r] = row < p.Sq ? p.delta[i] : 0.f;
+    }
+    float dq[DM / 2], sc[BN / 2], dp[BN / 2];
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DM / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < BN / 16; ++c)
+      da[c][0] = da[c][1] = da[c][2] = da[c][3] = 0u;
+    mbar_wait(&q_full, 0);
+    for (int it = 0; it < n_my; ++it) {
+      const int s = it % ST, c0 = it * BN;
+      const bf16* K = Ks + s * (KB / 2);
+      const bf16* V = Vs + s * (KB / 2);
+      mbar_wait(&full[s], (it / ST) & 1);
+      fence_regs(sc);
+      fence_regs(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        mma_ss(sc, kdesc(Qs, BM, 64 * cw, kk), kdesc(K, BN, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        mma_ss(dp, kdesc(Os, BM, 64 * cw, kk), kdesc(V, BN, 0, kk), kk > 0);
+      wg_commit();
+      hopper::wg_wait1();  // this tile's S and the previous tile's dQ
+      fence_regs(sc);
+      fence_regs(dq);
+      fence_regs(da);
+      if (it > 0) release(&empty[(it - 1) % ST], lane);
+      // p = exp(s scale - lse) = 2^(s sl2 - lse2), 0 where masked
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = hopper::ex2(fmaf(sc[4 * j + e], sl2, -lse2[e >> 1]));
+      if (c0 + BN > p.kv_lim || (p.causal && c0 + BN - 1 > rw)) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + (e >> 1) * 8;
+            const int col = c0 + j * 8 + 2 * t + (e & 1);
+            const bool out = col >= p.kv_lim || (p.causal && row < col);
+            sc[4 * j + e] = out ? 0.f : sc[4 * j + e];
+          }
+      }
+      wg_wait0();  // dP
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] *= dp[4 * j + e] - dl[e >> 1];  // dS
+      to_a<BN>(da, sc);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < BN / 16; ++c) mma_rs(dq, da[c], mndesc(K, BN, c, 0));
+      wg_commit();
+    }
+    wg_wait0();
+    fence_regs(dq);
+    fence_regs(da);
+    if (n_my > 0) release(&empty[(n_my - 1) % ST], lane);
+    for (int it = n_my; it < n_kb; ++it) {  // tiles none of our rows sees
+      mbar_wait(&full[it % ST], (it / ST) & 1);
+      release(&empty[it % ST], lane);
+    }
+
+    bf16* dqb = static_cast<bf16*>(p.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + r * 8;
+      if (row >= p.Sq) continue;
+      bf16* drow = dqb + b * p.o_sb + row * p.o_ss + h * p.o_sh;
+#pragma unroll
+      for (int n = 0; n < DM / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(drow + col) =
+              __floats2bfloat162_rn(dq[4 * n + 2 * r] * p.scale,
+                                    dq[4 * n + 2 * r + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// grid (ceil(Sk / 128) * DM / DC, H, B): 128 key rows and DC of the DM
+// output columns per CTA; query tiles of BQ. The products run transposed:
+// S^T = K Q^T, dP^T = V dout^T, so each consumer's rows are keys and the
+// query index runs along the accumulator's columns; its lse and delta come
+// from shared memory, staged beside each query tile by the producer warp.
+// Query tiles on a ring of ST stages. P^T is formed while dP^T is still
+// on the tensor cores. (Holding a tile's dV and dK products in flight over
+// the next tile's S^T and dP^T needs more than a consumer's 240
+// registers: ptxas then serialises the wgmmas.)
+template <int DM, int DC, int BQ, int ST>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_wg(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap tdo, const Params p) {
+  constexpr int BKR = 128, NCH = DM / DC;
+  constexpr uint32_t KB = DM / 64 * BKR * 128, QB = DM / 64 * BQ * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1k(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + KB);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + 2 * KB);            // [ST]
+  bf16* Os = reinterpret_cast<bf16*>(sm + 2 * KB + ST * QB);  // [ST] dout
+  __shared__ __align__(8) uint64_t kv_full, full[ST], empty[ST];
+  __shared__ float lse_s[ST][BQ], dl_s[ST][BQ];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const int k0 = blockIdx.x / NCH * BKR, chunk = blockIdx.x % NCH;
+  const int h = blockIdx.y, b = blockIdx.z;
   // query tiles that see this key block: under causal (q >= k, top-left)
   // from the tile holding q = k0; none when the block is past kv_len
   const int qt0 = p.causal ? k0 / BQ : 0;
   const int n_qt = k0 < p.kv_lim ? (p.Sq + BQ - 1) / BQ : 0;
-
-  stage<BKR, DM>(Ks, LD, kb, p.k_ss, k0, p.Sk, p.D, tid);
-  stage<BKR, DM>(Vs, LD, vb, p.v_ss, k0, p.Sk, p.D, tid);
-  if (qt0 < n_qt) {
-    stage<BQ, DM>(Qs + (qt0 & 1) * BQ * LD, LD, qb, p.q_ss, qt0 * BQ, p.Sq,
-                  p.D, tid);
-    stage<BQ, DM>(Os + (qt0 & 1) * BQ * LD, LD, dob, o_ss, qt0 * BQ, p.Sq,
-                  p.D, tid);
-  }
-  cp_async_commit();
-
-  const int r0 = warp * 16 + g;
-  float dk[DM / 8][4], dv[DM / 8][4];
-#pragma unroll
-  for (int n = 0; n < DM / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int buf = qt & 1;
-    if (qt + 1 < n_qt) {
-      const int nb = buf ^ 1;
-      stage<BQ, DM>(Qs + nb * BQ * LD, LD, qb, p.q_ss, (qt + 1) * BQ, p.Sq,
-                    p.D, tid);
-      stage<BQ, DM>(Os + nb * BQ * LD, LD, dob, o_ss, (qt + 1) * BQ, p.Sq,
-                    p.D, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], kEmptyArrivals);
     }
-    __syncthreads();
-    const bf16* Q = Qs + buf * BQ * LD;
-    const bf16* O = Os + buf * BQ * LD;
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mm_abt<NT, DM>(s, Ks, Q, LD, r0, g, t);   // S^T  [keys x queries]
-    mm_abt<NT, DM>(dp, Vs, O, LD, r0, g, t);  // dP^T
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qi = qt * BQ + j * 8 + 2 * t + e;
-        const bool qok = qi < p.Sq;
-        const float lq = qok ? lseb[qi] : 0.f, dq = qok ? dlb[qi] : 0.f;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int key = k0 + r0 + r * 8;
-          float x = s[j][2 * r + e] * p.scale;
-          if (!qok || key >= p.kv_lim || (p.causal && qi < key)) x = kNeg;
-          const float pr = __expf(x - lq);
-          s[j][2 * r + e] = pr;                                // P^T
-          dp[j][2 * r + e] = pr * (dp[j][2 * r + e] - dq);     // dS^T
+  if (wg == 0) {  // ---------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (warp == 0) {
+      if (lane == 0 && qt0 < n_qt) {
+        mbar_expect_tx(&kv_full, 2 * KB);
+        load_tile<DM, BKR>(Ks, &tk, &kv_full, k0, h, b);
+        load_tile<DM, BKR>(Vs, &tv, &kv_full, k0, h, b);
+      }
+      const float* lseb = p.lse + ((long long)b * p.H + h) * p.Sq;
+      const float* dlb = p.delta + ((long long)b * p.H + h) * p.Sq;
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        const int i = qt - qt0, s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        for (int j = lane; j < BQ; j += 32) {
+          const int qi = qt * BQ + j;
+          lse_s[s][j] = qi < p.Sq ? lseb[qi] * kLog2e : 0.f;  // base 2
+          dl_s[s][j] = qi < p.Sq ? dlb[qi] : 0.f;
+        }
+        // each lane's arrival releases its own stores; lane 0's also
+        // announces the two tiles' bytes
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * QB);
+          load_tile<DM, BQ>(Qs + s * (QB / 2), &tq, &full[s], qt * BQ, h, b);
+          load_tile<DM, BQ>(Os + s * (QB / 2), &tdo, &full[s], qt * BQ, h,
+                            b);
+        } else {
+          mbar_arrive(&full[s]);
         }
       }
-    mm_pb<BQ / 16, DM>(dv, s, O, LD, g, t);   // dV += P^T dout
-    mm_pb<BQ / 16, DM>(dk, dp, Q, LD, g, t);  // dK += dS^T q
-    __syncthreads();
-  }
-  cp_async_wait<0>();  // a block no query sees still staged K and V
+    }
+  } else {  // -------------------------------------------------- consumers
+    hopper::reg_alloc<240>();
+    const int cw = wg - 1, kr = k0 + 64 * cw;  // this warpgroup's keys
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = kr + 16 * warp + g;         // this lane's keys r0, r0 + 8
+    const int a0 = chunk * DC / 64;            // first atom of the columns
+    const float sl2 = p.scale * kLog2e;
+    // the query tiles where some of our keys are seen: under causal from
+    // the tile holding q = kr (the block's earlier tiles see only the other
+    // warpgroup's keys); none when all our keys are past kv_len
+    const int qa = kr >= p.kv_lim ? n_qt
+                   : p.causal     ? max(qt0, min(n_qt, kr / BQ))
+                                  : qt0;
+    float dk[DC / 2], dv[DC / 2], st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    for (int qt = qt0; qt < qa; ++qt) {  // tiles none of our keys sees
+      const int i = qt - qt0;
+      mbar_wait(&full[i % ST], (i / ST) & 1);
+      release(&empty[i % ST], lane);
+    }
+    if (qa < n_qt) mbar_wait(&kv_full, 0);
+    for (int qt = qa; qt < n_qt; ++qt) {
+      const int i = qt - qt0, s = i % ST;
+      const bf16* Q = Qs + s * (QB / 2);
+      const bf16* O = Os + s * (QB / 2);
+      mbar_wait(&full[s], (i / ST) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        mma_ss(st, kdesc(Ks, BKR, 64 * cw, kk), kdesc(Q, BQ, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        mma_ss(dpt, kdesc(Vs, BKR, 64 * cw, kk), kdesc(O, BQ, 0, kk), kk > 0);
+      wg_commit();
+      hopper::wg_wait1();  // S^T (dP^T may still run)
+      fence_regs(st);
+      // P^T = 2^(s sl2 - lse2), 0 where masked: the masks only on tiles
+      // that cross the diagonal, kv_len or Sq
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t + (e & 1);
+          st[4 * j + e] = hopper::ex2(fmaf(st[4 * j + e], sl2, -lse_s[s][qc]));
+        }
+      if (qt * BQ + BQ > p.Sq || kr + 64 > p.kv_lim ||
+          (p.causal && qt * BQ < kr + 63)) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qt * BQ + j * 8 + 2 * t + (e & 1);
+            const int key = r0 + (e >> 1) * 8;
+            const bool out =
+                qi >= p.Sq || key >= p.kv_lim || (p.causal && qi < key);
+            st[4 * j + e] = out ? 0.f : st[4 * j + e];
+          }
+      }
+      wg_wait0();  // dP^T
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t + (e & 1);
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl_s[s][qc]);
+        }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      to_a<BQ>(pa, st);   // P^T
+      to_a<BQ>(da, dpt);  // dS^T
+      fence_regs(dv);
+      fence_regs(dk);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c) {
+        mma_rs(dv, pa[c], mndesc(O, BQ, c, a0));  // dV += P^T dout
+        mma_rs(dk, da[c], mndesc(Q, BQ, c, a0));  // dK += dS^T q
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      release(&empty[s], lane);
+    }
 
-  bf16* dkb = static_cast<bf16*>(p.out);
-  bf16* dvb = static_cast<bf16*>(p.out2);
+    bf16* dkb = static_cast<bf16*>(p.out);
+    bf16* dvb = static_cast<bf16*>(p.out2);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + r * 8;
-    if (key >= p.Sk) continue;
-    const long long off = b * p.o_sb + key * p.o_ss + h * p.o_sh;
+    for (int r = 0; r < 2; ++r) {
+      const int key = r0 + r * 8;
+      if (key >= p.Sk) continue;
+      const long long off = b * p.o_sb + key * p.o_ss + h * p.o_sh;
 #pragma unroll
-    for (int n = 0; n < DM / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < p.D) {
-        *reinterpret_cast<__nv_bfloat162*>(dkb + off + col) =
-            __floats2bfloat162_rn(dk[n][2 * r] * p.scale,
-                                  dk[n][2 * r + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvb + off + col) =
-            __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+      for (int n = 0; n < DC / 8; ++n) {
+        const int col = chunk * DC + n * 8 + 2 * t;
+        if (col < p.D) {
+          *reinterpret_cast<__nv_bfloat162*>(dkb + off + col) =
+              __floats2bfloat162_rn(dk[4 * n + 2 * r] * p.scale,
+                                    dk[4 * n + 2 * r + 1] * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + off + col) =
+              __floats2bfloat162_rn(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+        }
       }
     }
   }
@@ -628,30 +957,56 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(Params p) {
 // ------------------------------------------------------------- launchers
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename Kern>
-cudaError_t launch(Kern kern, dim3 grid, size_t smem, const Params& p,
-                   cudaStream_t st) {
+template <typename Kern, typename... Args>
+cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
+                   cudaStream_t st, const Args&... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, smem, st>>>(p);
+  kern<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
+// bf16 tiles per head-dim bucket: the forward's key tile FBN, the dQ
+// pass's key tile QBN, the dK/dV pass's query tile BQ and output columns
+// per CTA DC; 128 rows of the CTA's own sequence throughout. Shared memory:
+// a 1 KB alignment margin plus the tiles (at most 161 KB for DM <= 128,
+// 225 KB at 256).
 template <int DM>
 cudaError_t launch_bf16(int kind, const Params& p, cudaStream_t st) {
-  constexpr int LD = DM + 8;
-  // key tiles of the forward: 64 wide, 32 at the widest head dim
-  constexpr int FBK = DM > 128 ? 32 : 64;
-  constexpr size_t E = sizeof(bf16);
+  constexpr int FBN = DM > 128 ? 64 : 128;
+  constexpr int QBN = DM > 128 ? 32 : 64;
+  constexpr int BQ = DM > 128 ? 32 : 64;
+  constexpr int DC = DM > 128 ? 128 : DM;
+  constexpr size_t A = DM / 64 * 128;  // bytes per tile row, all atoms
+  using hopper::tensor_map;
+  const int qrows = kind == kDkv ? BQ : 128;
+  const int krows = kind == kFwd ? FBN : kind == kDq ? QBN : 128;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb, p.q_ss, p.q_sh,
+                  qrows) ||
+      !tensor_map(&tk, p.k, p.B, p.Sk, p.H, p.D, p.k_sb, p.k_ss, p.k_sh,
+                  krows) ||
+      !tensor_map(&tv, p.v, p.B, p.Sk, p.H, p.D, p.v_sb, p.v_ss, p.v_sh,
+                  krows))
+    return cudaErrorInvalidValue;
+  const dim3 qgrid((p.Sq + 127) / 128, p.H, p.B);
   if (kind == kFwd)
-    return launch(fwd_bf16<DM, FBK>, dim3((p.Sq + 63) / 64, p.H, p.B),
-                  (64 + 4 * FBK) * LD * E, p, st);
+    return launch(fwd_wg<DM, FBN>, qgrid, kWgThreads,
+                  1024 + A * (128 + 2 * kStages * FBN), st, tq, tk, tv, p);
+  // dout: contiguous [B, Sq, H, D]
+  const long long o_ss = (long long)p.H * p.D;
+  if (!tensor_map(&tdo, p.dout, p.B, p.Sq, p.H, p.D, p.Sq * o_ss, o_ss, p.D,
+                  qrows))
+    return cudaErrorInvalidValue;
   if (kind == kDq)
-    return launch(dq_bf16<DM, 32>, dim3((p.Sq + 63) / 64, p.H, p.B),
-                  (2 * 64 + 4 * 32) * LD * E, p, st);
-  return launch(dkv_bf16<DM, 32>, dim3((p.Sk + 63) / 64, p.H, p.B),
-                (2 * 64 + 4 * 32) * LD * E, p, st);
+    return launch(dq_wg<DM, QBN, kBwdStages>, qgrid, kWgThreads,
+                  1024 + A * (2 * 128 + 2 * kBwdStages * QBN), st, tq, tk, tv,
+                  tdo, p);
+  return launch(dkv_wg<DM, DC, BQ, kBwdStages>,
+                dim3((p.Sk + 127) / 128 * (DM / DC), p.H, p.B), kWgThreads,
+                1024 + A * (2 * 128 + 2 * kBwdStages * BQ), st, tq, tk, tv,
+                tdo, p);
 }
 
 template <int DM>
@@ -660,12 +1015,12 @@ cudaError_t launch_f32(int kind, const Params& p, cudaStream_t st) {
   constexpr size_t F = sizeof(float);
   if (kind == kFwd)
     return launch(fwd_f32<DM>, dim3((p.Sq + FROWS - 1) / FROWS, p.H, p.B),
-                  (FROWS * DM + FT * LD + FT * DM) * F, p, st);
+                  kThreads, (FROWS * DM + FT * LD + FT * DM) * F, st, p);
   if (kind == kDq)
     return launch(dq_f32<DM>, dim3((p.Sq + FROWS - 1) / FROWS, p.H, p.B),
-                  (2 * FROWS * DM + 2 * FT * LD) * F, p, st);
+                  kThreads, (2 * FROWS * DM + 2 * FT * LD) * F, st, p);
   return launch(dkv_f32<DM>, dim3((p.Sk + FROWS - 1) / FROWS, p.H, p.B),
-                (2 * FROWS * DM + 2 * FT * LD) * F, p, st);
+                kThreads, (2 * FROWS * DM + 2 * FT * LD) * F, st, p);
 }
 
 cudaError_t run(int kind, Params& p, const long long* strides,

@@ -19,31 +19,44 @@
 // c < MB * bs (the table's extent). Same function as the TPU kernel, not its
 // schedule: the TPU grid walks (batch row, table slot) in order and keeps
 // every head's [S, 1] softmax state in VMEM scratch; here one CTA owns one
-// (head, batch row, tile of kRows query rows), one warp per query row.
+// (head, batch row, tile of query rows).
 //
 // Bound: device-memory bytes at the serving shapes (a window of S <= 128
 // rows over <= 256 cached columns does ~2*S flops per K/V element it reads,
 // far below the ~295 flop/byte where the tensor cores would become the
-// limit). Design against that bound, simple first:
-//   * the CTA stages kCols pool columns of K and V (codes, for q8) at a time
-//     into shared memory with 16-byte loads, once for all its warps, so a
-//     K/V row is read from device memory once per tile of kRows query rows,
-//     not once per row; staged data keeps its storage type and is widened in
-//     registers (int8 codes are never dequantized in memory);
-//   * the CTA stops at its largest frontier, min(start + last row, MB*bs-1):
-//     table slots past it are never read, and slot indices never reach MB;
-//   * each warp scores kGroup columns at a time (lanes spread over D, one
-//     warp-wide sum per column, the kGroup sums interleaved), keeps its
-//     row's online softmax (max, sum, acc) in f32 registers and skips tiles
-//     past its own frontier;
-//   * the q8 form keeps the TPU kernel's factored scales: the K scale
-//     multiplies the score, the V scale the probability.
-// Head dims: any multiple of 8 up to 256. Each lane owns NV = ceil(D / 32)
-// elements; where D is not a multiple of 32 (gpt3-2.7b's 80) the kernel is
-// instantiated at 32 * NV, stages its tiles element by element with the
-// columns d >= D zero-filled, and masks q's loads and the output's stores
-// at d >= D, so the pools are read in place, never padded.
-// `wgmma` on a real [S, kCols] score tile and TMA staging are later work.
+// limit). So what a design must buy is reading each K/V byte as few times
+// as it can and keeping the arithmetic off the critical path.
+//
+// bf16 q over int8 codes (kernel prefix_q8_tc, the main path's form):
+//   * a CTA owns 64 query rows, one warp per 16, so each code is read
+//     from device memory once per 64 rows (in a window shorter than 64
+//     rows the warps without rows still stage and widen tiles);
+//   * K and V codes are staged 64 columns at a time (four 16-row pool
+//     blocks) with 16-byte cp.async (8-byte where a row of D codes is not a
+//     multiple of 16 bytes), double-buffered, their scales beside them, and
+//     widened once per tile to bf16 in shared memory (exact: |code| <= 127);
+//   * Q K^T and P V run on the tensor cores, mma.sync m16n8k16 bf16 -> f32
+//     with ldmatrix operands; each column's score is multiplied by
+//     k_scale * scale in f32, and the online softmax stays in f32 in the
+//     accumulator layout (row statistics reduce inside a quad of lanes);
+//   * P * v_scale is formed in f32 and rounded to bf16 once, as the A
+//     operand of (P v_scale) V^c: the JAX kernel forms p * vs in f32
+//     before its dot, and the plain version rounds it to q's dtype too;
+//   * the CTA stops at its largest frontier, min(start + last row,
+//     MB*bs - 1), and a warp skips tiles past its own; head dims D that are
+//     not a multiple of 16 (the mma depth) are zero-padded in shared memory.
+// f32 q, and every form of #3 (kernel paged_prefix_kernel, the parity
+// route): one warp per query row, kRows rows per CTA, kCols pool columns
+// staged at a time in their storage type and widened in registers; each
+// warp scores kGroup columns together (lanes spread over D, one warp-wide
+// sum per column) on the CUDA cores and keeps its row's online softmax in
+// f32 registers; the q8 form keeps the TPU kernel's factored scales.
+// Head dims: any multiple of 8 up to 256. In the warp-per-row kernel each
+// lane owns NV = ceil(D / 32) elements; where D is not a multiple of 32
+// (gpt3-2.7b's 80) it is instantiated at 32 * NV, stages its tiles element
+// by element with the columns d >= D zero-filled, and masks q's loads and
+// the output's stores at d >= D, so the pools are read in place, never
+// padded.
 //
 // Plain C interface (loaded with ctypes): each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -53,6 +66,9 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -300,6 +316,306 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------- bf16 q over int8 codes: tensor cores
+constexpr int kTcRows = 64;  // query rows per CTA, 16 per warp
+constexpr int kTcCols = 64;  // pool columns per staged K/V tile
+constexpr int kTcThreads = 128;
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   hopper::smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+// eight int8 codes as eight bf16 (exact)
+__device__ __forceinline__ uint4 widen8(uint2 raw) {
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  uint4 w;
+  w.x = tiles::packf(static_cast<float>(e[0]), static_cast<float>(e[1]));
+  w.y = tiles::packf(static_cast<float>(e[2]), static_cast<float>(e[3]));
+  w.z = tiles::packf(static_cast<float>(e[4]), static_cast<float>(e[5]));
+  w.w = tiles::packf(static_cast<float>(e[6]), static_cast<float>(e[7]));
+  return w;
+}
+
+// shared memory of prefix_q8_tc<DP>: q, widened K and V tiles (bf16, rows
+// padded by 16 bytes against ldmatrix bank conflicts), two buffers of K and
+// V codes and two of their scales
+constexpr size_t tc_smem(int DP) {
+  return 3 * kTcCols * (DP + 8) * 2 + 4 * kTcCols * DP + 4 * kTcCols * 4;
+}
+
+// grid (H, B, ceil(S / 64)); block kTcThreads. DP: D rounded up to the
+// mma depth (16).
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+    prefix_q8_tc(const __nv_bfloat16* __restrict__ q,
+                 const int8_t* __restrict__ k_codes,
+                 const float* __restrict__ k_scale,
+                 const int8_t* __restrict__ v_codes,
+                 const float* __restrict__ v_scale,
+                 const int* __restrict__ tables, const int* __restrict__ start,
+                 __nv_bfloat16* __restrict__ out, int S, int H, int NB, int bs,
+                 int MB, int D, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = DP + 8;  // bf16 row pitch of the staged tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [64][LD]
+  bf16* Kb = Qs + kTcRows * LD;              // [64][LD] widened K codes
+  bf16* Vb = Kb + kTcCols * LD;              // [64][LD] widened V codes
+  // [2 buffers][K, V][64][DP] codes, then [2][K, V][64] scales
+  int8_t* codes = reinterpret_cast<int8_t*>(Vb + kTcCols * LD);
+  float* scales = reinterpret_cast<float*>(codes + 4 * kTcCols * DP);
+  const int h = blockIdx.x, b = blockIdx.y, row0 = blockIdx.z * kTcRows;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = row0 + 16 * warp;  // this warp's first query row
+
+  // frontiers (last attended column, inclusive) in 64 bits: start + row
+  // may pass the table's extent, which the wrapper keeps below 2^31
+  const int64_t width = static_cast<int64_t>(MB) * bs;
+  const int64_t st = start[b];
+  const int F = static_cast<int>(
+      min64(st + min(row0 + kTcRows, S) - 1, width - 1));  // the CTA's
+  const int fw = wr < S ? static_cast<int>(min64(
+                              st + min(wr + 15, S - 1), width - 1))
+                        : -1;                                 // the warp's
+  int fr[2];                                                  // the rows'
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = wr + g + 8 * r;
+    fr[r] = i < S ? static_cast<int>(min64(st + i, width - 1)) : -1;
+  }
+  const int* trow = tables + static_cast<int64_t>(b) * MB;
+  const int n_tiles = F / kTcCols + 1;
+
+  // q rows (zero past S), columns D..DP zero
+  for (int x = tid; x < kTcRows * (DP / 8); x += kTcThreads) {
+    const int r = x / (DP / 8), d = (x % (DP / 8)) * 8, i = row0 + r;
+    bf16* dst = Qs + r * LD + d;
+    if (d < D)
+      tiles::cp_async16(
+          dst, q + ((static_cast<int64_t>(b) * S + (i < S ? i : 0)) * H + h) *
+                       D + d,
+          i < S);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // codes and scales of pool columns [64 tile, 64 tile + 64) into buffer
+  // buf; columns past F are zero-filled, table entries clamped into the pool
+  auto stage = [&](int tile, int buf) {
+    int8_t* kd = codes + buf * 2 * kTcCols * DP;
+    int8_t* vd = kd + kTcCols * DP;
+    float* ksd = scales + buf * 2 * kTcCols;
+    float* vsd = ksd + kTcCols;
+    const int c0 = tile * kTcCols;
+    const int vec = D % 16 == 0 ? 16 : 8, pieces = D / vec;
+    for (int x = tid; x < kTcCols * pieces; x += kTcThreads) {
+      const int cc = x / pieces, pc = x - cc * pieces, c = c0 + cc;
+      const bool ok = c <= F;
+      int64_t off = 0;
+      if (ok) {
+        // a table entry outside [0, NB) would read outside the pool;
+        // clamping keeps the read in bounds (the engine never emits one)
+        const int blk = min(max(trow[c / bs], 0), NB - 1);
+        off = ((static_cast<int64_t>(blk) * bs + c % bs) * H + h) * D +
+              pc * vec;
+      }
+      if (vec == 16) {
+        tiles::cp_async16(kd + cc * DP + pc * 16, k_codes + off, ok);
+        tiles::cp_async16(vd + cc * DP + pc * 16, v_codes + off, ok);
+      } else {
+        cp_async8(kd + cc * DP + pc * 8, k_codes + off, ok);
+        cp_async8(vd + cc * DP + pc * 8, v_codes + off, ok);
+      }
+    }
+    for (int cc = tid; cc < kTcCols; cc += kTcThreads) {
+      const int c = c0 + cc;
+      const bool ok = c <= F;
+      int64_t idx = 0;
+      if (ok) {
+        const int blk = min(max(trow[c / bs], 0), NB - 1);
+        idx = (static_cast<int64_t>(blk) * bs + c % bs) * H + h;
+      }
+      cp_async4(ksd + cc, k_scale + idx, ok);
+      cp_async4(vsd + cc, v_scale + idx, ok);
+    }
+  };
+
+  stage(0, 0);
+  tiles::cp_async_commit();
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1, c0 = tile * kTcCols;
+    if (tile + 1 < n_tiles) {
+      stage(tile + 1, buf ^ 1);
+      tiles::cp_async_commit();
+      tiles::cp_async_wait<1>();
+    } else {
+      tiles::cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's codes (and q) have landed
+    {
+      const int8_t* kd = codes + buf * 2 * kTcCols * DP;
+      const int8_t* vd = kd + kTcCols * DP;
+      for (int x = tid; x < kTcCols * (DP / 8); x += kTcThreads) {
+        const int cc = x / (DP / 8), d = (x % (DP / 8)) * 8;
+        uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
+        if (d < D) {
+          kw = widen8(*reinterpret_cast<const uint2*>(kd + cc * DP + d));
+          vw = widen8(*reinterpret_cast<const uint2*>(vd + cc * DP + d));
+        }
+        *reinterpret_cast<uint4*>(Kb + cc * LD + d) = kw;
+        *reinterpret_cast<uint4*>(Vb + cc * LD + d) = vw;
+      }
+    }
+    __syncthreads();  // the widened tiles are complete
+    if (c0 <= fw) {   // warp-uniform
+      const float* ksd = scales + buf * 2 * kTcCols;
+      const float* vsd = ksd + kTcCols;
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t a[4];
+        hopper::ldsm_x4(a, Qs + (16 * warp + lane % 16) * LD + kk * 16 +
+                               (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          hopper::ldsm_x4(bb, Kb + (16 * np + (lane / 16) * 8 + lane % 8) * LD +
+                                  kk * 16 + ((lane / 8) & 1) * 8);
+          tiles::mma(s[2 * np], a, bb[0], bb[1]);
+          tiles::mma(s[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = j * 8 + 2 * t + (e & 1);
+          float x = s[j][e] * (ksd[cc] * scale);
+          if (c0 + cc > fr[e >> 1]) x = kNeg;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], tiles::quad_max(mx[r]));
+        corr[r] = expf(m[r] - mn);
+        m[r] = mn;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = j * 8 + 2 * t + (e & 1);
+          const float p =
+              c0 + cc > fr[e >> 1] ? 0.f : expf(s[j][e] - m[e >> 1]);
+          sum[e >> 1] += p;
+          s[j][e] = p * vsd[cc];  // P * v_scale, rounded to bf16 below
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[r] = corr[r] * l[r] + tiles::quad_sum(sum[r]);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t a[4];
+        a[0] = tiles::packf(s[2 * c][0], s[2 * c][1]);
+        a[1] = tiles::packf(s[2 * c][2], s[2 * c][3]);
+        a[2] = tiles::packf(s[2 * c + 1][0], s[2 * c + 1][1]);
+        a[3] = tiles::packf(s[2 * c + 1][2], s[2 * c + 1][3]);
+#pragma unroll
+        for (int np = 0; np < DP / 16; ++np) {
+          uint32_t bb[4];
+          hopper::ldsm_x4_t(bb, Vb + (16 * c + ((lane / 8) & 1) * 8 +
+                                      lane % 8) * LD +
+                                    np * 16 + (lane / 16) * 8);
+          tiles::mma(acc[2 * np], a, bb[0], bb[1]);
+          tiles::mma(acc[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // readers of this tile's buffers are done
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = wr + g + 8 * r;
+    if (i >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    bf16* orow = out + ((static_cast<int64_t>(b) * S + i) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = n * 8 + 2 * t;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_tc(const void* q, const void* k, const float* ks,
+                      const void* v, const float* vs, const int* tables,
+                      const int* start, void* out, int B, int S, int H, int D,
+                      int NB, int bs, int MB, float scale,
+                      cudaStream_t stream) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(prefix_q8_tc<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(tc_smem(DP)));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, B, (S + kTcRows - 1) / kTcRows);
+  prefix_q8_tc<DP><<<grid, kTcThreads, tc_smem(DP), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k), ks,
+      static_cast<const int8_t*>(v), vs, tables, start,
+      static_cast<__nv_bfloat16*>(out), S, H, NB, bs, MB, D, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_q8_tc(const void* q, const void* k, const float* ks,
+                         const void* v, const float* vs, const int* tables,
+                         const int* start, void* out, int B, int S, int H,
+                         int D, int NB, int bs, int MB, float scale,
+                         cudaStream_t stream) {
+#define PT_TC(DP)                                                          \
+  case DP:                                                                 \
+    return launch_tc<DP>(q, k, ks, v, vs, tables, start, out, B, S, H, D, \
+                         NB, bs, MB, scale, stream);
+  switch ((D + 15) / 16 * 16) {
+    PT_TC(16) PT_TC(32) PT_TC(48) PT_TC(64) PT_TC(80) PT_TC(96) PT_TC(112)
+    PT_TC(128) PT_TC(144) PT_TC(160) PT_TC(176) PT_TC(192) PT_TC(208)
+    PT_TC(224) PT_TC(240) PT_TC(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PT_TC
+}
+
 template <typename QT, typename KT, bool Q8, bool PART>
 cudaError_t launch_d(const void* q, const void* k, const float* ks,
                      const void* v, const float* vs, const int* tables,
@@ -397,9 +713,8 @@ int pt_paged_prefix_attention_q8(const void* q, const void* k_codes,
                                        tables, start, out, B, S, H, D, NB, bs,
                                        MB, scale, s);
   if (qdtype == 1)
-    return launch<__nv_bfloat16, int8_t, true>(
-        q, k_codes, k_scale, v_codes, v_scale, tables, start, out, B, S, H, D,
-        NB, bs, MB, scale, s);
+    return launch_q8_tc(q, k_codes, k_scale, v_codes, v_scale, tables, start,
+                        out, B, S, H, D, NB, bs, MB, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -9,10 +9,11 @@ given, so the gradients land in the packed layout (for GPT, in the column
 slices of one [B, S, 3H] gradient of the qkv projection).
 
 The wrappers check device, dtypes, shapes, strides and alignment, raise
-ValueError on what the kernels do not take, allocate the outputs they are
-not given, launch on PyTorch's current stream and raise RuntimeError when
-a launch reports an error. They never fall back to another
-implementation. Each launch adds one to ``LAUNCHES["flash_fwd"]``,
+ValueError on what the kernels do not take (`check_view`: the bf16
+kernels read q, k and v through TMA tensor maps built from their strides
+on every call), allocate the outputs they are not given, launch on
+PyTorch's current stream and raise RuntimeError when a launch reports an
+error. They never fall back to another implementation. Each launch adds one to ``LAUNCHES["flash_fwd"]``,
 ``["flash_bwd_dq"]`` or ``["flash_bwd_dkv"]``, or on the packed route to
 ``["flash_packed_fwd"]``, ``["flash_packed_bwd_dq"]`` or
 ``["flash_packed_bwd_dkv"]``.
@@ -58,16 +59,30 @@ def _check(q, k, v, kv_len):
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA flash-attention kernels need CUDA "
                          f"tensors; q is on {q.device}")
-    vec = 16 // q.element_size()
-    for t in (q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}; found "
                              f"{t.device}")
-        if t.stride(3) != 1:
-            raise ValueError("q, k and v need a contiguous last dim")
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
-            raise ValueError("q, k and v rows must be 16-byte aligned")
+        check_view(t, name)
     return B, H, Sq, Sk, D, min(kv, Sk)
+
+
+def check_view(t, name):
+    """Raise ValueError unless the [B, S, H, D] view `t` (any device) is
+    one the kernels can read: its last dim contiguous, its base and its
+    batch, sequence and head strides 16-byte aligned and the strides below
+    2**40 bytes. The bf16 kernels stage every tile through a TMA tensor
+    map built from these strides, which needs all three."""
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} needs a contiguous last dim")
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(s * es % 16 for s in t.stride()[:3]):
+        raise ValueError(f"{name}: its base and its batch, sequence and "
+                         f"head strides must be 16-byte aligned; got "
+                         f"strides {tuple(t.stride())} of "
+                         f"{es}-byte elements")
+    if any(s * es >= 2 ** 40 for s in t.stride()[:3]):
+        raise ValueError(f"{name}: strides must be below 2**40 bytes")
 
 
 def _strides(q, k, v):

@@ -15,8 +15,9 @@ unpadded head dim; `kv_len` <= 0 raises and `kv_len >= s_k` means none;
 key columns >= kv_len score -1e30; under `causal` the mask is q_idx >=
 k_idx aligned top-left, also when s_q != s_k (the kernel's convention; the
 JAX `attention_reference` aligns bottom-right). Head dims are padded to a
-multiple of 16 here, which is all `mma.sync` needs; the TPU kernel's block
-sizes and autotuning are TPU tiling and have no counterpart.
+multiple of 16 here, the depth of one tensor-core product step; the TPU
+kernel's block sizes and autotuning are TPU tiling and have no
+counterpart.
 """
 from __future__ import annotations
 
