@@ -5,10 +5,11 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 the checkout's sources (one nvcc per source, in parallel) and reads the
-redesigned ones back with cuobjdump: #6's bf16 kernels must contain
-warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), #4's bf16 tile kernel
-tensor-core MMAs, and their instantiations at head dims 64, 80 and 128
-spill nothing (phase 1). The kernels: the
+redesigned ones back with cuobjdump: #6's bf16 kernels and #11's bf16
+"vh" kernel must contain warpgroup MMAs (HGMMA) and TMA loads (UTMALDG),
+the bf16 tile kernel of #3 and #4 tensor-core MMAs, and their
+instantiations at head dims 64, 80 and 128 (#11's only one) spill nothing
+(phase 1). The kernels: the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
 attention #6 (forward, dQ and dK/dV passes), the fused linear
 cross-entropy forward #11, the fused short-sequence MHA #9 (forward and
@@ -16,9 +17,11 @@ backward), the window-batched fused MHA with bias #10 (forward, and
 backward with d(bias)), the fused LayerNorm #8 (forward, backward) and
 packed flash attention #7 (#6's kernels on the packed [B, S, nh * 128]
 layout, one d(qkv)). It holds each against its plain PyTorch version
-(phase 2; #1-#4 also at head dim 80, #4 with a control that drops each
-row's last pool block, #6 bitwise repeatable forward and backward and
-also at gpt3-2.7b's head dim 80, #11 also at bert-base's MLM head, #9
+(phase 2; #1-#4 also at head dim 80, #3 and #4 bitwise repeatable and
+with a control that drops each row's last pool block, #6 bitwise
+repeatable forward and backward and also at gpt3-2.7b's head dim 80, #11
+also at bert-base's MLM head and gpt3-2.7b's, bitwise repeatable, with a
+control that drops the head's last 256 vocabulary rows, #9
 at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
 sets read back, #10 at swin-t's four stages and swin-b's last with the
 model's own bias, bitwise repeatable, and in f32, #8 at gpt3-1.3b's and
@@ -141,17 +144,24 @@ FLASH_TOL = {"bfloat16": (0.1, 0.1, 1e-5), "float32": (1e-4, 1e-4, 1e-5)}
 FLASH_CONTROLS = ("gpt3-1.3b", "cross")
 # kernel #11 cases: (name, T, H, V, layout, dtype); the first is the
 # gpt3-1.3b bench_gpt LM head (T = 3 x 2048), the second bench_bert's tied
-# MLM head (T = 32 x 512, V = 30522: not a multiple of the 128-wide vocab
-# tile), the others an untied head, ragged vocabularies (V % 128 != 0,
-# and V % 8 != 0 in "hv") and f32
+# MLM head (T = 32 x 512, V = 30522: not a multiple of the vocab tile),
+# the third _bench_gpt27's (T = 6 x 1024, H = 2560), the others an untied
+# head, ragged vocabularies (V % 256 != 0, and V % 8 != 0 in "hv") and
+# f32
 CE_CASES = [("gpt3-1.3b", 6144, 2048, 50304, "vh", "bfloat16"),
             ("bert-base", 16384, 768, 30522, "vh", "bfloat16"),
+            ("gpt3-2.7b", 6144, 2560, 50304, "vh", "bfloat16"),
             ("gpt3-1.3b_hv", 6144, 2048, 50304, "hv", "bfloat16"),
             ("ragged", 512, 256, 1000, "vh", "bfloat16"),
             ("ragged_hv", 512, 256, 1001, "hv", "bfloat16"),
             ("f32", 512, 256, 1000, "vh", "float32"),
             ("f32_hv", 512, 256, 1000, "hv", "float32")]
-CE_TIMED = ("gpt3-1.3b", "bert-base")   # the first one is the line's
+CE_TIMED = ("gpt3-1.3b", "bert-base", "gpt3-2.7b")  # the first: the line's
+# the control the loss limit must reject, at every bf16 "vh" case: the
+# kernel run on the head's first V - 256 rows (its last vocabulary tile or
+# more dropped), labels unchanged, against the plain version of the whole
+# head
+CE_CUT = 256
 # (max abs loss error, max |kernel - plain| / max |plain| on dx and dW)
 CE_TOL = {"bfloat16": (2e-3, 3e-2), "float32": (1e-4, 1e-4)}
 # kernel #5 at gpt3-1.3b widths: (K, N) of each projection, layout "nk"
@@ -181,17 +191,19 @@ WINDOWS = (1, 9, 32, 128)
 LINE_WINDOW = {"paged_prefix_attention": 9, "paged_prefix_attention_q8": 128}
 # the build phase's SASS check of the redesigned kernels, per library:
 # (kernel names, instructions every one of them must contain; "A|B" is
-# either): #6's bf16 kernels warpgroup MMAs and TMA loads, #4's bf16 tile
-# kernel tensor-core MMAs
+# either): #6's bf16 kernels and #11's bf16 "vh" kernel warpgroup MMAs and
+# TMA loads, the bf16 tile kernel of #3 (bf16 pools) and #4 (int8 codes)
+# tensor-core MMAs
 SASS_CHECKS = {"flash_attention": (("fwd_wg", "dq_wg", "dkv_wg"),
                                    ("HGMMA", "UTMALDG")),
-               "paged_prefix_attention": (("prefix_q8_tc",),
-                                          ("HMMA|HGMMA",))}
+               "paged_prefix_attention": (("prefix_tc",), ("HMMA|HGMMA",)),
+               "linear_ce": (("lce_wg",), ("HGMMA", "UTMALDG"))}
 # ... and the instantiations (by their first template argument: #6's head
-# dim bucket, #4's head dim padded to 16) the main paths launch at head
-# dims 64, 80 and 128, which must spill 0 bytes
+# dim bucket, the tile kernel's head dim padded to 16, in both pool forms;
+# None: every instantiation) the main paths launch at head dims 64, 80 and
+# 128, which must spill 0 bytes
 SPILL_FREE = {"fwd_wg": (64, 128), "dq_wg": (64, 128), "dkv_wg": (64, 128),
-              "prefix_q8_tc": (64, 80, 128)}
+              "prefix_tc": (64, 80, 128), "lce_wg": None}
 
 
 class SmokeFailure(Exception):
@@ -292,10 +304,23 @@ def spill_bytes(log):
 
 
 def redesigned(name):
-    """'kernel<first template argument>' for a redesigned kernel's
-    mangled name, else None."""
-    m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_q8_tc)ILi(\d+)E", name)
-    return f"{m.group(1)}<{m.group(2)}>" if m else None
+    """A redesigned kernel's tag from its mangled name, else None:
+    'kernel<first template argument>' (the tile kernel's pool form after a
+    comma: 'prefix_tc<128,bf16>', 'prefix_tc<128,int8>'), or the bare name
+    of #11's kernel, which is no template."""
+    m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_tc)ILi(\d+)E(?:Lb([01])E)?",
+                  name)
+    if m:
+        form = {"0": ",bf16", "1": ",int8", None: ""}[m.group(3)]
+        return f"{m.group(1)}<{m.group(2)}{form}>"
+    return "lce_wg" if re.search(r"\dlce_wgE", name) else None
+
+
+def spill_free(tag):
+    """Whether SPILL_FREE holds the instantiation `tag` names."""
+    kernel, _, args = tag.partition("<")
+    dims = SPILL_FREE[kernel]
+    return dims is None or int(args.split(",")[0].rstrip(">")) in dims
 
 
 def phase_build(torch, card):
@@ -316,20 +341,19 @@ def phase_build(torch, card):
     for lib, (kernels, instrs) in SASS_CHECKS.items():
         for name, text in sass_by_kernel(tool, libs[lib]).items():
             tag = redesigned(name)
-            if tag is None or tag.split("<")[0] not in kernels:
+            if tag is None or tag.partition("<")[0] not in kernels:
                 continue
             found = {i: any(x in text for x in i.split("|")) for i in instrs}
             sass[tag] = found
             missing = [i for i in instrs if not found[i]]
             check(not missing, f"{tag}: no {missing} in its SASS")
         for kernel in kernels:
-            check(any(t.startswith(kernel + "<") for t in sass),
+            check(any(t.partition("<")[0] == kernel for t in sass),
                   f"{kernel} is not in {libs[lib].name}")
     all_spills = spill_bytes(log)
     spills = {redesigned(name): n for name, n in all_spills.items()
               if redesigned(name) is not None}
-    bad = {t: n for t, n in spills.items()
-           if n and int(t.split("<")[1][:-1]) in SPILL_FREE[t.split("<")[0]]}
+    bad = {t: n for t, n in spills.items() if n and spill_free(t)}
     check(not bad, f"the main paths' instantiations spill: {bad}")
     emit({"phase": "build", "ok": True, "card": card, "seconds": seconds,
           "libraries": [p.name for p in libs.values()],
@@ -548,11 +572,12 @@ def phase_prefix_kernels(torch, device, card):
     """Kernels #3 and #4 against their plain versions (f32 scores, the
     kernels' function) over every window size and dtype, every query row
     compared, at the main path's head dim and at gpt3-2.7b's 80; times,
-    bound and the SDPA yardstick in bf16 at every window; #4's control in
-    bf16 (each row whose start is at least 16 run with start - 16, so it
-    loses its last pool block of columns, against the plain version of
-    the true inputs: the limit must reject it); and the S = 1, start =
-    lens - 1 window against the decode kernel #1 in f32."""
+    bound and the SDPA yardstick in bf16 at every window; in bf16 (the
+    tile kernel) both kernels bitwise equal over two launches, and each
+    one's control (each row whose start is at least 16 run with start -
+    16, so it loses its last pool block of columns, against the plain
+    version of the true inputs: the limit must reject it); and the S = 1,
+    start = lens - 1 window against the decode kernel #1 in f32."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops.cuda import paged_attention as K
     run = timer(torch, device)
@@ -593,10 +618,14 @@ def phase_prefix_kernels(torch, device, card):
                 check(close and finite,
                       f"{name} {row['dtype']} S={s} D={d}: kernel disagrees "
                       f"with its plain version: {row}")
-                if q8 and dtype == torch.bfloat16:
+                if dtype == torch.bfloat16:
+                    row["bitwise_repeat"] = bool(torch.equal(got, kern()))
+                    check(row["bitwise_repeat"],
+                          f"{name} S={s} D={d}: two launches differ")
                     cut = torch.where(start >= BS, start - BS, start)
-                    ctl = K.paged_prefix_attention_q8_cuda(q, *pools, tables,
-                                                           cut)
+                    ctl = (K.paged_prefix_attention_q8_cuda if q8 else
+                           K.paged_prefix_attention_cuda)(q, *pools, tables,
+                                                          cut)
                     torch.cuda.synchronize()
                     row["control"] = {
                         "what": f"start lowered by {BS} where >= {BS} (each "
@@ -1906,11 +1935,14 @@ def ce_run(torch, fn, x, w, labels, coef, layout):
 
 def phase_linear_ce(torch, device, card):
     """Kernel #11 against its plain version, the loss and (through the
-    closed-form backward) dx and dW, at every case; at the gpt3-1.3b and
-    bert-base heads in bf16, the times of the kernel, the plain version,
-    the backward and the yardstick F.cross_entropy(F.linear(x,
+    closed-form backward) dx and dW, at every case, its loss and lse
+    bitwise equal over two launches; at every bf16 "vh" case the control
+    (the head cut to its first V - CE_CUT rows, labels unchanged, against
+    the plain version of the whole head: the loss limit must reject it);
+    at the CE_TIMED heads in bf16, the times of the kernel, the plain
+    version, the backward and the yardstick F.cross_entropy(F.linear(x,
     w).float(), ...): two calls, logits materialised, never on the
-    path."""
+    path (and its F.linear alone)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import linear_ce as LC
     from paddle_tpu_torch.ops.cuda import linear_ce as KL
@@ -1936,8 +1968,27 @@ def phase_linear_ce(torch, device, card):
               and row["err_dx"] <= gtol and row["err_dw"] <= gtol,
               f"linear_ce {name}: kernel disagrees with its plain version: "
               f"{row}")
+        one = KL.linear_ce_fwd_cuda(x, w, labels, w_layout=layout)
+        two = KL.linear_ce_fwd_cuda(x, w, labels, w_layout=layout)
+        row["bitwise_repeat"] = all(torch.equal(a, b)
+                                    for a, b in zip(one, two))
+        check(row["bitwise_repeat"], f"linear_ce {name}: two launches "
+                                     f"differ")
+        if layout == "vh" and dt == "bfloat16":
+            ctl, _ = KL.linear_ce_fwd_cuda(x, w[:v - CE_CUT], labels)
+            torch.cuda.synchronize()
+            row["control"] = {
+                "what": f"w cut to its first V - {CE_CUT} rows, labels "
+                        f"unchanged, vs plain on the whole head",
+                "max_abs_err": float((ctl - pl).abs().max())}
+            row["control"]["rejected"] = row["control"]["max_abs_err"] > ltol
+            check(row["control"]["rejected"],
+                  f"linear_ce {name}: the loss limit passes a kernel that "
+                  f"drops the head's last {CE_CUT} rows: {row}")
+            del ctl
+        lse = one[1]
+        del one, two
         if name in CE_TIMED:
-            _, lse = KL.linear_ce_fwd_cuda(x, w, labels, w_layout=layout)
             bms, by = bound_of(2 * t * h * v, (t * h + v * h) * 2
                                + t * (8 + 4 + 4), dtype)
             row.update(
@@ -1947,6 +1998,8 @@ def phase_linear_ce(torch, device, card):
                     x, w, labels, layout)),
                 library_ms=run(lambda: F.cross_entropy(
                     F.linear(x, w).float(), labels, reduction="none")),
+                # the yardstick's product alone (cuBLAS), for reference
+                gemm_ms=run(lambda: F.linear(x, w)),
                 bwd_ms=run(lambda: LC._linear_ce_bwd(x, w, labels, lse,
                                                      coef, layout, 2)),
                 bound_ms=bms, bound_by=by,
@@ -2104,7 +2157,7 @@ def phase_train_full(torch, card, device, fused=False, default=None):
         peak = torch.cuda.max_memory_allocated()
         prof = profile_call(torch, lambda: step(ids[2], ids[2]),
                             names=("fwd_wg", "dq_wg", "dkv_wg",
-                                   "lce_bf16", "lce_merge", "ln_fwd",
+                                   "lce_wg", "lce_merge", "ln_fwd",
                                    "ln_bwd"))
         same = [float(step(ids[0], ids[0])) for _ in range(6)]
     best = min(windows)
@@ -2294,7 +2347,8 @@ def phase_train_gpt27(torch, card, device):
           f"first gpt3-2.7b loss {warm[0]} is not near ln(vocab) "
           f"{math.log(cfg.vocab_size)}")
     prof = profile_call(torch, lambda: step(ids[2], ids[2]),
-                        names=("fwd_wg", "dq_wg", "dkv_wg", "lce_bf16"))
+                        names=("fwd_wg", "dq_wg", "dkv_wg", "lce_wg",
+                               "lce_merge"))
     same = [float(step(ids[0], ids[0])) for _ in range(12)]
     check(same[-1] < same[0],
           f"the gpt3-2.7b loss on a repeated batch did not fall: {same}")
@@ -2491,7 +2545,7 @@ def phase_train_bert(torch, card, device):
           f"{math.log(cfg.vocab_size)}")
     prof = profile_call(torch, lambda: step(ids[2], lbl[2]),
                         names=("fwd_bf16", "stats_bf16", "dq_bf16",
-                               "dkv_bf16", "lce_bf16", "lce_merge"))
+                               "dkv_bf16", "lce_wg", "lce_merge"))
     same = [float(step(ids[0], ids[0])) for _ in range(6)]
     check(same[-1] < same[0],
           f"the BERT loss on a repeated batch did not fall: {same}")

@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels (flash_attention.cu,
-// fused_mha.cu, fused_mha_bias.cu), each built into a library of its own:
+// fused_mha.cu, fused_mha_bias.cu, paged_prefix_attention.cu) and the
+// mma.sync kernel of linear_ce.cu, each built into a library of its own:
 // cp.async staging of bf16 tiles into shared memory, mma.sync m16n8k16
 // products of such tiles with f32 accumulators, quad and warp reductions,
 // and the f32 path's tile loads. Every kernel that uses them runs kThreads

@@ -115,11 +115,7 @@ constexpr int kStages = 2;     // forward: K and V rings of their own
 constexpr int kBwdStages = 3;  // backward: one ring, a tile held over
 constexpr int kEmptyArrivals = 8;  // lane 0 of each consumer warp
 
-__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
+using hopper::align1k;
 using hopper::fence_regs;
 using hopper::kdesc;
 using hopper::mbar_arrive;
@@ -128,6 +124,7 @@ using hopper::mbar_wait;
 using hopper::mma_rs;
 using hopper::mma_ss;
 using hopper::mndesc;
+using hopper::release;
 using hopper::tma_load4;
 using hopper::wg_commit;
 using hopper::wg_fence;
@@ -233,12 +230,6 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[BN / 2], float (&m)[2],
     }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + quad_sum(sum[r]);
-}
-
-// lane 0 of each warp arrives once the warp is done with a stage
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
 }
 
 // grid (ceil(Sq / 128), H, B), the last query block first (under causal

@@ -5,10 +5,11 @@
 // matmuls in the JAX package and in the port). Same function, not the same
 // tiling: the TPU kernel walks the vocabulary sequentially for one token
 // block, carrying the running max, sum-exp and gold logit in VMEM scratch;
-// here the vocabulary of a token tile is split over several CTAs so that
-// T = 6144 tokens fill the SMs, each CTA walks its share in 128-wide tiles
-// keeping the running triple in registers, and a second small kernel merges
-// the partial triples.
+// here the (token tile, vocabulary tile) pairs are spread over the SMs,
+// each tile's (max, sum-exp, gold) triple of every token goes to a
+// [3, nsplit, T] f32 scratch, and a second small kernel merges the nsplit
+// partial triples of each token in a fixed order (no atomics: two launches
+// agree bitwise).
 //
 //   x       [T, H] bf16 or f32, row-major, contiguous
 //   w       [V, H] ("vh", the tied embedding) or [H, V] ("hv", an untied
@@ -16,23 +17,45 @@
 //   labels  [T] int32
 //   loss    [T] f32 = lse - logit[label];  lse [T] f32
 //
-// The [T, V] logits never reach device memory: each [64, 128] tile lives in
-// the accumulator registers of the CTA that computed it. Columns past V (the
-// ragged tail: bert's V = 30522 is not a multiple of 128) are masked to
-// -1e30; a label matches exactly one column; a label outside [0, V) adds
+// The [T, V] logits never reach device memory: each tile lives in the
+// accumulator registers of the warps that computed it. Columns past V (the
+// ragged tail: bert's V = 30522 is not a multiple of the tile) are masked
+// to -1e30; a label matches exactly one column; a label outside [0, V) adds
 // nothing to the gold logit, as in the TPU kernel.
 //
 // Bound: 2 T H V tensor-core operations (1.27e12 at T = 6144, H = 2048,
-// V = 50304: 1.28 ms at 989 TFLOP/s). Design against that:
-//   * bf16: mma.sync m16n8k16 bf16 x bf16 -> f32; 4 warps, each owning 16
-//     token rows and all 128 columns of the tile, so the row statistics
-//     reduce inside a quad of lanes;
-//   * the H contraction runs in 32-wide chunks of x and w double-buffered in
-//     shared memory with cp.async ("hv" tiles are staged as they lie and
-//     read transposed from shared memory);
-//   * x tiles are re-read once per vocabulary tile (from L2; 64 x H bf16);
-//   * f32: plain FMAs on the CUDA cores (never TF32), a 64 x 64 tile per
-//     256-thread CTA, each thread a 4 x 4 register tile; parity runs only.
+// V = 50304: 1.28 ms at 989 TFLOP/s). Design against that, bf16 "vh" (the
+// main path; kernel lce_wg):
+//   * a 128-token x 256-vocabulary tile per step, on warpgroup MMAs:
+//     wgmma m64n256k16 bf16 x bf16 -> f32 with both operands K-major in
+//     shared memory; two consumer warpgroups each own 64 token rows and
+//     hold their 64 x 256 f32 logits in registers (128 a thread);
+//   * one producer warp issues TMA loads of 64-deep chunks of x (16 KB)
+//     and w (32 KB) along H into a ring of 4 stages (full / empty
+//     mbarriers, 128-byte swizzle); the producer warpgroup gives its
+//     registers to the consumers (setmaxnreg 24 / 240). Rows past T or V
+//     and columns past H arrive as TMA zero fill;
+//   * a persistent grid, one CTA per SM, walks the tiles in the order
+//     tile = token tile + n_tt * vocabulary tile, CTA c taking tiles c,
+//     c + grid, ...: the CTAs resident at one time work on two or three
+//     vocabulary tiles of every token tile, so each 1 MB w tile comes from
+//     device memory about once and is then read from L2 by every token
+//     tile, while x (25 MB at gpt3-1.3b) stays resident in L2. A tile
+//     moves 128 x H + 256 x H bf16 (1.5 MB at H = 2048) from L2 into
+//     shared memory: 85 operations per byte, against 42.7 for the 64 x
+//     128 tiles of the kernel it replaced;
+//   * the producer runs ahead across tile boundaries, so the next tile's
+//     first chunks load while the consumers run this tile's epilogue: the
+//     triple of the tile's 256 columns in f32 (row statistics reduce inside
+//     a quad of lanes, exponentials in base 2 on MUFU.EX2), written once
+//     per (token, vocabulary tile): nsplit = ceil(V / 256);
+//   * no wgmma is issued under a branch (ptxas would serialise them).
+// The other forms serve no main path: bf16 "hv" (kernel lce_bf16_hv)
+// runs a 64 x 128 tile on 4 warps of mma.sync, the H contraction in 32-wide
+// chunks of x and w double-buffered with cp.async and w read transposed
+// from shared memory, each CTA walking a share of the vocabulary; f32
+// (parity runs only) runs plain FMAs on the CUDA cores (never TF32), a 64 x
+// 64 tile per 256-thread CTA, each thread a 4 x 4 register tile.
 //
 // Plain C interface (loaded with ctypes): two entry points, the tile kernel
 // and the merge, each launching on the given stream without synchronising
@@ -44,57 +67,34 @@
 
 #include <cstdint>
 
+#include "attention_tiles.cuh"
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using tiles::cp_async16;
+using tiles::cp_async_commit;
+using tiles::cp_async_wait;
+using tiles::ld32;
+using tiles::mma;
+using tiles::pack2;
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---------------------------------------------------------------- bf16
+// --------------------------------------------------------- bf16 "hv"
 constexpr int kThreads = 128;
 constexpr int BT = 64, BV = 128, BK = 32;
 constexpr int XLD = BK + 8;    // x chunk [BT][XLD]
-constexpr int WLD = BK + 8;    // "vh" chunk [BV][WLD]
-constexpr int HLD = BV + 8;    // "hv" chunk [BK][HLD]
+constexpr int HLD = BV + 8;    // w chunk [BK][HLD]
 
 // grid (ceil(T / BT), nsplit): CTA (i, s) takes token rows i*BT.. and the
 // vocabulary tiles [s * tps, min((s + 1) * tps, n_vt))
-template <bool VH>
 __global__ void __launch_bounds__(kThreads)
-    lce_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+    lce_bf16_hv(const bf16* __restrict__ x, const bf16* __restrict__ w,
              const int* __restrict__ labels, float* __restrict__ part, int T,
              int H, int V, int ldw, int tps) {
   __shared__ __align__(16) bf16 Xs[2][BT * XLD];
-  __shared__ __align__(16) bf16 Ws[2][VH ? BV * WLD : BK * HLD];
+  __shared__ __align__(16) bf16 Ws[2][BK * HLD];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int t0 = blockIdx.x * BT, split = blockIdx.y;
@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = t0 + r0 + 8 * r;
-    lab[r] = row < T ? labels[row] : -1;
+    lab[r] = row < T && labels[row] < V ? labels[row] : -1;
   }
 
   auto stage = [&](int buf, int v0, int k0) {
@@ -119,20 +119,11 @@ __global__ void __launch_bounds__(kThreads)
       cp_async16(&Xs[buf][r * XLD + (c % (BK / 8)) * 8],
                  ok ? x + (size_t)(t0 + r) * H + k : x, ok);
     }
-    if constexpr (VH) {  // BV rows of w [V, H]
-      for (int c = tid; c < BV * (BK / 8); c += kThreads) {
-        const int r = c / (BK / 8), k = k0 + (c % (BK / 8)) * 8;
-        const bool ok = v0 + r < V && k < H;
-        cp_async16(&Ws[buf][r * WLD + (c % (BK / 8)) * 8],
-                   ok ? w + (size_t)(v0 + r) * H + k : w, ok);
-      }
-    } else {  // BK rows of w [H, V], BV columns each
-      for (int c = tid; c < BK * (BV / 8); c += kThreads) {
-        const int r = c / (BV / 8), v = v0 + (c % (BV / 8)) * 8;
-        const bool ok = k0 + r < H && v < V;
-        cp_async16(&Ws[buf][r * HLD + (c % (BV / 8)) * 8],
-                   ok ? w + (size_t)(k0 + r) * ldw + v : w, ok);
-      }
+    for (int c = tid; c < BK * (BV / 8); c += kThreads) {  // BK rows of w
+      const int r = c / (BV / 8), v = v0 + (c % (BV / 8)) * 8;
+      const bool ok = k0 + r < H && v < V;
+      cp_async16(&Ws[buf][r * HLD + (c % (BV / 8)) * 8],
+                 ok ? w + (size_t)(k0 + r) * ldw + v : w, ok);
     }
     cp_async_commit();
   };
@@ -164,14 +155,8 @@ __global__ void __launch_bounds__(kThreads)
         a[3] = ld32(X + (r0 + 8) * XLD + kk + 2 * t + 8);
 #pragma unroll
         for (int n = 0; n < BV / 8; ++n) {
-          if constexpr (VH) {
-            const bf16* b = W + (n * 8 + g) * WLD + kk + 2 * t;
-            mma(acc[n], a, ld32(b), ld32(b + 8));
-          } else {
-            const bf16* b = W + (kk + 2 * t) * HLD + n * 8 + g;
-            mma(acc[n], a, pack2(b, b + HLD),
-                pack2(b + 8 * HLD, b + 9 * HLD));
-          }
+          const bf16* b = W + (kk + 2 * t) * HLD + n * 8 + g;
+          mma(acc[n], a, pack2(b, b + HLD), pack2(b + 8 * HLD, b + 9 * HLD));
         }
       }
       __syncthreads();  // the next stage overwrites this buffer
@@ -226,6 +211,162 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------ bf16 "vh": wgmma and TMA
+constexpr int kWgThreads = 384;   // warpgroup 0 the producer, 1-2 consumers
+constexpr int WBM = 128, WBN = 256, WBK = 64, WST = 4;
+constexpr uint32_t XB = WBM * WBK * 2;  // bytes of an x chunk (16 KB)
+constexpr uint32_t WB = WBN * WBK * 2;  // bytes of a w chunk (32 KB)
+constexpr int kEmptyArrivals = 8;       // lane 0 of each consumer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// issue acc (+)= x chunk rows [64 cw, 64 cw + 64) . w chunk^T over the 64
+// columns of one stage (not committed); acc_in = 0 starts the sum
+__device__ __forceinline__ void chunk_mma(float (&acc)[128], const bf16* Xs,
+                                          const bf16* Ws, int cw,
+                                          int acc_in) {
+#pragma unroll
+  for (int kk = 0; kk < WBK / 16; ++kk)
+    hopper::mma_ss(acc, hopper::kdesc(Xs, WBM, 64 * cw, kk),
+                   hopper::kdesc(Ws, WBN, 0, kk), acc_in | (kk > 0));
+}
+
+// grid: min(SMs, tiles) CTAs, each walking tiles blockIdx.x + k gridDim.x;
+// tile = token tile + n_tt * vocabulary tile. part: [3, n_vt, T].
+__global__ void __launch_bounds__(kWgThreads, 1)
+    lce_wg(const __grid_constant__ CUtensorMap tx,
+           const __grid_constant__ CUtensorMap tw,
+           const int* __restrict__ labels, float* __restrict__ part, int T,
+           int H, int V) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1k(smem_raw);  // [WST] stages: x, w
+  __shared__ __align__(8) uint64_t full[WST], empty[WST];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const int n_tt = (T + WBM - 1) / WBM, n_vt = (V + WBN - 1) / WBN;
+  const int n_tiles = n_tt * n_vt, nk = (H + WBK - 1) / WBK;
+  if (tid == 0) {
+    for (int s = 0; s < WST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kEmptyArrivals);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (tid == 0) {
+      int it = 0;  // chunks issued, over every tile of this CTA
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int t0 = tile % n_tt * WBM, v0 = tile / n_tt * WBN;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % WST;
+          hopper::mbar_wait(&empty[s], ((it / WST) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], XB + WB);
+          unsigned char* st = sm + s * (XB + WB);
+          hopper::tma_load2(st, &tx, &full[s], kc * WBK, t0);
+          hopper::tma_load2(st + XB, &tw, &full[s], kc * WBK, v0);
+        }
+      }
+    }
+  } else {  // -------------------------------------------------- consumers
+    hopper::reg_alloc<240>();
+    const int cw = wg - 1, g = lane / 4, t = lane % 4;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int it = 0;  // chunks consumed, over every tile of this CTA
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int tt = tile % n_tt, vt = tile / n_tt;
+      const int r0 = tt * WBM + 64 * cw + 16 * warp + g;  // rows r0, r0 + 8
+      const int v0 = vt * WBN;
+      // chunk 0 starts the sum; each later chunk is issued before the
+      // previous one is waited for, then the previous stage is released
+      {
+        const int s = it % WST;
+        hopper::mbar_wait(&full[s], (it / WST) & 1);
+        const bf16* st = reinterpret_cast<const bf16*>(sm + s * (XB + WB));
+        hopper::fence_regs(acc);
+        hopper::wg_fence();
+        chunk_mma(acc, st, st + XB / 2, cw, 0);
+        hopper::wg_commit();
+      }
+      for (int kc = 1; kc < nk; ++kc) {
+        const int i = it + kc, s = i % WST;
+        hopper::mbar_wait(&full[s], (i / WST) & 1);
+        const bf16* st = reinterpret_cast<const bf16*>(sm + s * (XB + WB));
+        hopper::wg_fence();
+        chunk_mma(acc, st, st + XB / 2, cw, 1);
+        hopper::wg_commit();
+        hopper::wg_wait1();
+        hopper::fence_regs(acc);
+        hopper::release(&empty[(i - 1) % WST], lane);
+      }
+      hopper::wg_wait0();
+      hopper::fence_regs(acc);
+      hopper::release(&empty[(it + nk - 1) % WST], lane);
+      it += nk;
+
+      // epilogue: this tile's (max, sum-exp, gold) of rows r0 and r0 + 8;
+      // acc[4 j + e] is row r0 + 8 (e >> 1), column v0 + 8 j + 2 t + (e & 1)
+      if (v0 + WBN > V) {  // uniform: only the last vocabulary tile
+#pragma unroll
+        for (int j = 0; j < WBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (v0 + 8 * j + 2 * t + (e & 1) >= V) acc[4 * j + e] = kNeg;
+      }
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < WBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], acc[4 * j + e]);
+      float ml[2], sum[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
+      int rel[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = tiles::quad_max(mx[r]);
+        ml[r] = mx[r] * kLog2e;
+        const int row = r0 + 8 * r;
+        const int lab = row < T ? labels[row] : -1;
+        // the label's column in this tile, or -1 (a label outside [0, V)
+        // matches no column)
+        rel[r] = lab >= v0 && lab < V && lab < v0 + WBN ? lab - v0 : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < WBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sum[e >> 1] += hopper::ex2(fmaf(acc[4 * j + e], kLog2e,
+                                          -ml[e >> 1]));
+      // rare: a label among this lane's columns (8 j + 2 t, 8 j + 2 t + 1)
+      if ((rel[0] >= 0 && (rel[0] >> 1 & 3) == t) ||
+          (rel[1] >= 0 && (rel[1] >> 1 & 3) == t)) {
+#pragma unroll
+        for (int j = 0; j < WBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * t + (e & 1) == rel[e >> 1])
+              gold[e >> 1] = acc[4 * j + e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float sr = tiles::quad_sum(sum[r]);
+        const float gr = tiles::quad_sum(gold[r]);  // one lane holds it
+        const int row = r0 + 8 * r;
+        if (t == 0 && row < T) {
+          const size_t i = (size_t)vt * T + row;
+          const size_t plane = (size_t)n_vt * T;
+          part[i] = mx[r];
+          part[plane + i] = sr;
+          part[2 * plane + i] = gr;
+        }
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------------- f32
 constexpr int kF32Threads = 256;
 constexpr int FB = 64, FK = 16;  // 64 x 64 tile, 16-deep chunks
@@ -247,7 +388,7 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = t0 + ty + 16 * i;
-    lab[i] = row < T ? labels[row] : -1;
+    lab[i] = row < T && labels[row] < V ? labels[row] : -1;
     m[i] = kNeg;
     s[i] = gold[i] = 0.f;
   }
@@ -346,14 +487,42 @@ __global__ void lce_merge(const float* __restrict__ part, float* __restrict__ lo
   loss[row] = l - g;
 }
 
+// the persistent wgmma kernel; nsplit must be its ceil(V / 256) tiles
+cudaError_t launch_wg(const bf16* x, const bf16* w, const int* labels,
+                      float* part, int T, int H, int V, int nsplit,
+                      cudaStream_t st) {
+  const int n_vt = (V + WBN - 1) / WBN;
+  if (nsplit != n_vt) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!hopper::tensor_map_2d(&tx, x, T, H, H, WBM) ||
+      !hopper::tensor_map_2d(&tw, w, V, H, H, WBN))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)((T + WBM - 1) / WBM) * n_vt;
+  if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  const size_t smem = 1024 + WST * (XB + WB);
+  e = cudaFuncSetAttribute(lce_wg, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  lce_wg<<<grid, kWgThreads, smem, st>>>(tx, tw, labels, part, T, H, V);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // layout: 0 = "hv" (w [H, V]), 1 = "vh" (w [V, H]); dtype: 0 = float32,
 // 1 = bfloat16; ldw: the row stride of an [H, V] head (>= V; ignored for
-// "vh"); tps vocabulary tiles (128 wide for bf16, 64 for f32) per split;
-// part: [3, nsplit, T] f32 scratch the partial triples go to
+// "vh"); part: [3, nsplit, T] f32 scratch the partial triples go to.
+// bf16 "vh" (lce_wg): nsplit = ceil(V / 256), one triple per vocabulary
+// tile, tps = 1, a persistent grid of one CTA per SM; the other forms:
+// tps vocabulary tiles (128 wide for bf16, 64 for f32) per split
 int pt_linear_ce_partial(const void* x, const void* w, const int* labels,
                          float* part, int T, int H, int V, int ldw,
                          int layout, int dtype, int nsplit, int tps,
@@ -367,15 +536,15 @@ int pt_linear_ce_partial(const void* x, const void* w, const int* labels,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (H % 8 || (layout == 0 && ldw % 8)) return cudaErrorInvalidValue;
-    const dim3 grid((T + BT - 1) / BT, nsplit);
     const bf16* xb = static_cast<const bf16*>(x);
     const bf16* wb = static_cast<const bf16*>(w);
-    if (layout == 1)
-      lce_bf16<true><<<grid, kThreads, 0, st>>>(xb, wb, labels, part, T, H, V,
-                                                ldw, tps);
-    else
-      lce_bf16<false><<<grid, kThreads, 0, st>>>(xb, wb, labels, part, T, H,
-                                                 V, ldw, tps);
+    if (layout == 1) {
+      if (tps != 1) return cudaErrorInvalidValue;
+      return launch_wg(xb, wb, labels, part, T, H, V, nsplit, st);
+    }
+    const dim3 grid((T + BT - 1) / BT, nsplit);
+    lce_bf16_hv<<<grid, kThreads, 0, st>>>(xb, wb, labels, part, T, H, V,
+                                           ldw, tps);
   } else if (dtype == 0) {
     const dim3 grid((T + FB - 1) / FB, nsplit);
     const float* xf = static_cast<const float*>(x);

@@ -27,32 +27,42 @@
 // limit). So what a design must buy is reading each K/V byte as few times
 // as it can and keeping the arithmetic off the critical path.
 //
-// bf16 q over int8 codes (kernel prefix_q8_tc, the main path's form):
-//   * a CTA owns 64 query rows, one warp per 16, so each code is read
+// bf16 q (kernel prefix_tc, the main path's form) over bf16 pools (#3) or
+// int8 codes (#4), one template with the pool form as its parameter:
+//   * a CTA owns 64 query rows, one warp per 16, so each K/V byte is read
 //     from device memory once per 64 rows (in a window shorter than 64
-//     rows the warps without rows still stage and widen tiles);
-//   * K and V codes are staged 64 columns at a time (four 16-row pool
-//     blocks) with 16-byte cp.async (8-byte where a row of D codes is not a
-//     multiple of 16 bytes), double-buffered, their scales beside them, and
-//     widened once per tile to bf16 in shared memory (exact: |code| <= 127);
+//     rows the warps without rows still stage tiles);
+//   * K and V are staged 64 pool columns at a time (four 16-row pool
+//     blocks) with 16-byte cp.async, double-buffered: bf16 rows straight
+//     into the padded tiles the products read (a row of D bf16 values, D a
+//     multiple of 8, is a whole number of 16-byte pieces; there is no
+//     widening pass); int8 codes (8-byte pieces where a row of D codes is
+//     not a multiple of 16 bytes) into buffers of their own, their scales
+//     beside them, widened once per tile to bf16 in shared memory (exact:
+//     |code| <= 127);
 //   * Q K^T and P V run on the tensor cores, mma.sync m16n8k16 bf16 -> f32
-//     with ldmatrix operands; each column's score is multiplied by
-//     k_scale * scale in f32, and the online softmax stays in f32 in the
-//     accumulator layout (row statistics reduce inside a quad of lanes);
-//   * P * v_scale is formed in f32 and rounded to bf16 once, as the A
-//     operand of (P v_scale) V^c: the JAX kernel forms p * vs in f32
-//     before its dot, and the plain version rounds it to q's dtype too;
+//     with ldmatrix operands (.trans for V); each column's score is
+//     multiplied by scale (times k_scale for codes) in f32, and the online
+//     softmax stays in f32 in the accumulator layout (row statistics reduce
+//     inside a quad of lanes);
+//   * P (P * v_scale for codes) is formed in f32 and rounded to bf16 once,
+//     as the A operand of its product with V. For codes the JAX kernel
+//     forms p * vs in f32 before its dot and the plain version rounds it to
+//     q's dtype too; for bf16 pools the JAX kernel keeps p in f32 and the
+//     plain version rounds the normalised probabilities, so this one
+//     rounding is the tile kernel's own (sized in
+//     tests/test_torch_prefix_tiles.py);
 //   * the CTA stops at its largest frontier, min(start + last row,
 //     MB*bs - 1), and a warp skips tiles past its own; head dims D that are
 //     not a multiple of 16 (the mma depth) are zero-padded in shared memory.
-// f32 q, and every form of #3 (kernel paged_prefix_kernel, the parity
-// route): one warp per query row, kRows rows per CTA, kCols pool columns
-// staged at a time in their storage type and widened in registers; each
-// warp scores kGroup columns together (lanes spread over D, one warp-wide
-// sum per column) on the CUDA cores and keeps its row's online softmax in
-// f32 registers; the q8 form keeps the TPU kernel's factored scales.
-// Head dims: any multiple of 8 up to 256. In the warp-per-row kernel each
-// lane owns NV = ceil(D / 32) elements; where D is not a multiple of 32
+// f32 q (kernel paged_prefix_kernel, the parity route of both forms): one
+// warp per query row, kRows rows per CTA, kCols pool columns staged at a
+// time in their storage type and widened in registers; each warp scores
+// kGroup columns together (lanes spread over D, one warp-wide sum per
+// column) on the CUDA cores and keeps its row's online softmax in f32
+// registers; the q8 form keeps the TPU kernel's factored scales. Head
+// dims: any multiple of 8 up to 256. In the warp-per-row kernel each lane
+// owns NV = ceil(D / 32) elements; where D is not a multiple of 32
 // (gpt3-2.7b's 80) it is instantiated at 32 * NV, stages its tiles element
 // by element with the columns d >= D zero-filled, and masks q's loads and
 // the output's stores at d >= D, so the pools are read in place, never
@@ -84,10 +94,6 @@ __device__ __forceinline__ float to_f32(T x);
 template <>
 __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
 __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
   return static_cast<float>(x);
 }
@@ -96,10 +102,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // NV contiguous elements at p (global or shared), widened to f32: 16-byte
 // pieces when the slice is a multiple of 16 bytes, one 8- or 4-byte load
@@ -316,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ----------------------------------- bf16 q over int8 codes: tensor cores
+// ------------------------------------------- bf16 q: tensor-core tiles
 constexpr int kTcRows = 64;  // query rows per CTA, 16 per warp
 constexpr int kTcCols = 64;  // pool columns per staged K/V tile
 constexpr int kTcThreads = 128;
@@ -345,33 +347,38 @@ __device__ __forceinline__ uint4 widen8(uint2 raw) {
   return w;
 }
 
-// shared memory of prefix_q8_tc<DP>: q, widened K and V tiles (bf16, rows
-// padded by 16 bytes against ldmatrix bank conflicts), two buffers of K and
+// shared memory of prefix_tc<DP, Q8>, tiles' bf16 rows padded by 16 bytes
+// against ldmatrix bank conflicts: q, then for bf16 pools two buffers of
+// K and V tiles; for codes the widened K and V tiles, two buffers of K and
 // V codes and two of their scales
-constexpr size_t tc_smem(int DP) {
-  return 3 * kTcCols * (DP + 8) * 2 + 4 * kTcCols * DP + 4 * kTcCols * 4;
+constexpr size_t tc_smem(int DP, bool q8) {
+  return q8 ? 3 * kTcCols * (DP + 8) * 2 + 4 * kTcCols * DP + 4 * kTcCols * 4
+            : 5 * kTcCols * (DP + 8) * 2;
 }
 
 // grid (H, B, ceil(S / 64)); block kTcThreads. DP: D rounded up to the
-// mma depth (16).
-template <int DP>
+// mma depth (16). Q8 = false: k_pool and v_pool are bf16 [NB, bs, H, D],
+// the scales unused; Q8 = true: int8 codes and their f32 scales.
+template <int DP, bool Q8>
 __global__ void __launch_bounds__(kTcThreads)
-    prefix_q8_tc(const __nv_bfloat16* __restrict__ q,
-                 const int8_t* __restrict__ k_codes,
-                 const float* __restrict__ k_scale,
-                 const int8_t* __restrict__ v_codes,
-                 const float* __restrict__ v_scale,
-                 const int* __restrict__ tables, const int* __restrict__ start,
-                 __nv_bfloat16* __restrict__ out, int S, int H, int NB, int bs,
-                 int MB, int D, float scale) {
+    prefix_tc(const __nv_bfloat16* __restrict__ q,
+              const void* __restrict__ k_pool,
+              const float* __restrict__ k_scale,
+              const void* __restrict__ v_pool,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables, const int* __restrict__ start,
+              __nv_bfloat16* __restrict__ out, int S, int H, int NB, int bs,
+              int MB, int D, float scale) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = DP + 8;  // bf16 row pitch of the staged tiles
+  constexpr int TILE = kTcCols * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [64][LD]
-  bf16* Kb = Qs + kTcRows * LD;              // [64][LD] widened K codes
-  bf16* Vb = Kb + kTcCols * LD;              // [64][LD] widened V codes
-  // [2 buffers][K, V][64][DP] codes, then [2][K, V][64] scales
-  int8_t* codes = reinterpret_cast<int8_t*>(Vb + kTcCols * LD);
+  // bf16 pools: [2 buffers][K, V][64][LD]; codes: the widened K and V
+  // tiles [64][LD] each, then [2 buffers][K, V][64][DP] codes, then
+  // [2][K, V][64] scales
+  bf16* tiles_s = Qs + kTcRows * LD;
+  int8_t* codes = reinterpret_cast<int8_t*>(tiles_s + 2 * TILE);
   float* scales = reinterpret_cast<float*>(codes + 4 * kTcCols * DP);
   const int h = blockIdx.x, b = blockIdx.y, row0 = blockIdx.z * kTcRows;
   const int tid = threadIdx.x;
@@ -395,6 +402,13 @@ __global__ void __launch_bounds__(kTcThreads)
   }
   const int* trow = tables + static_cast<int64_t>(b) * MB;
   const int n_tiles = F / kTcCols + 1;
+  // the pool row of column c (c <= F); a table entry outside [0, NB) would
+  // read outside the pool, so it is clamped into it (the engine never
+  // emits one)
+  auto pool_row = [&](int c) {
+    const int blk = min(max(trow[c / bs], 0), NB - 1);
+    return (static_cast<int64_t>(blk) * bs + c % bs) * H + h;
+  };
 
   // q rows (zero past S), columns D..DP zero
   for (int x = tid; x < kTcRows * (DP / 8); x += kTcThreads) {
@@ -408,44 +422,49 @@ __global__ void __launch_bounds__(kTcThreads)
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
-  // codes and scales of pool columns [64 tile, 64 tile + 64) into buffer
-  // buf; columns past F are zero-filled, table entries clamped into the pool
+  // pool columns [64 tile, 64 tile + 64) into buffer buf; columns past F
+  // (and a bf16 tile's columns D..DP) are zero-filled
   auto stage = [&](int tile, int buf) {
-    int8_t* kd = codes + buf * 2 * kTcCols * DP;
-    int8_t* vd = kd + kTcCols * DP;
-    float* ksd = scales + buf * 2 * kTcCols;
-    float* vsd = ksd + kTcCols;
     const int c0 = tile * kTcCols;
-    const int vec = D % 16 == 0 ? 16 : 8, pieces = D / vec;
-    for (int x = tid; x < kTcCols * pieces; x += kTcThreads) {
-      const int cc = x / pieces, pc = x - cc * pieces, c = c0 + cc;
-      const bool ok = c <= F;
-      int64_t off = 0;
-      if (ok) {
-        // a table entry outside [0, NB) would read outside the pool;
-        // clamping keeps the read in bounds (the engine never emits one)
-        const int blk = min(max(trow[c / bs], 0), NB - 1);
-        off = ((static_cast<int64_t>(blk) * bs + c % bs) * H + h) * D +
-              pc * vec;
+    if constexpr (Q8) {
+      int8_t* kd = codes + buf * 2 * kTcCols * DP;
+      int8_t* vd = kd + kTcCols * DP;
+      float* ksd = scales + buf * 2 * kTcCols;
+      float* vsd = ksd + kTcCols;
+      const int8_t* kp = static_cast<const int8_t*>(k_pool);
+      const int8_t* vp = static_cast<const int8_t*>(v_pool);
+      const int vec = D % 16 == 0 ? 16 : 8, pieces = D / vec;
+      for (int x = tid; x < kTcCols * pieces; x += kTcThreads) {
+        const int cc = x / pieces, pc = x - cc * pieces, c = c0 + cc;
+        const bool ok = c <= F;
+        const int64_t off = ok ? pool_row(c) * D + pc * vec : 0;
+        if (vec == 16) {
+          tiles::cp_async16(kd + cc * DP + pc * 16, kp + off, ok);
+          tiles::cp_async16(vd + cc * DP + pc * 16, vp + off, ok);
+        } else {
+          cp_async8(kd + cc * DP + pc * 8, kp + off, ok);
+          cp_async8(vd + cc * DP + pc * 8, vp + off, ok);
+        }
       }
-      if (vec == 16) {
-        tiles::cp_async16(kd + cc * DP + pc * 16, k_codes + off, ok);
-        tiles::cp_async16(vd + cc * DP + pc * 16, v_codes + off, ok);
-      } else {
-        cp_async8(kd + cc * DP + pc * 8, k_codes + off, ok);
-        cp_async8(vd + cc * DP + pc * 8, v_codes + off, ok);
+      for (int cc = tid; cc < kTcCols; cc += kTcThreads) {
+        const int c = c0 + cc;
+        const bool ok = c <= F;
+        const int64_t idx = ok ? pool_row(c) : 0;
+        cp_async4(ksd + cc, k_scale + idx, ok);
+        cp_async4(vsd + cc, v_scale + idx, ok);
       }
-    }
-    for (int cc = tid; cc < kTcCols; cc += kTcThreads) {
-      const int c = c0 + cc;
-      const bool ok = c <= F;
-      int64_t idx = 0;
-      if (ok) {
-        const int blk = min(max(trow[c / bs], 0), NB - 1);
-        idx = (static_cast<int64_t>(blk) * bs + c % bs) * H + h;
+    } else {
+      bf16* kd = tiles_s + buf * 2 * TILE;
+      bf16* vd = kd + TILE;
+      const bf16* kp = static_cast<const bf16*>(k_pool);
+      const bf16* vp = static_cast<const bf16*>(v_pool);
+      for (int x = tid; x < kTcCols * (DP / 8); x += kTcThreads) {
+        const int cc = x / (DP / 8), d = (x % (DP / 8)) * 8, c = c0 + cc;
+        const bool ok = c <= F && d < D;
+        const int64_t off = ok ? pool_row(c) * D + d : 0;
+        tiles::cp_async16(kd + cc * LD + d, kp + off, ok);
+        tiles::cp_async16(vd + cc * LD + d, vp + off, ok);
       }
-      cp_async4(ksd + cc, k_scale + idx, ok);
-      cp_async4(vsd + cc, v_scale + idx, ok);
     }
   };
 
@@ -466,8 +485,10 @@ __global__ void __launch_bounds__(kTcThreads)
     } else {
       tiles::cp_async_wait<0>();
     }
-    __syncthreads();  // this tile's codes (and q) have landed
-    {
+    __syncthreads();  // this tile (and q) has landed
+    const bf16* Kb = Q8 ? tiles_s : tiles_s + buf * 2 * TILE;
+    const bf16* Vb = Kb + TILE;
+    if constexpr (Q8) {
       const int8_t* kd = codes + buf * 2 * kTcCols * DP;
       const int8_t* vd = kd + kTcCols * DP;
       for (int x = tid; x < kTcCols * (DP / 8); x += kTcThreads) {
@@ -477,11 +498,11 @@ __global__ void __launch_bounds__(kTcThreads)
           kw = widen8(*reinterpret_cast<const uint2*>(kd + cc * DP + d));
           vw = widen8(*reinterpret_cast<const uint2*>(vd + cc * DP + d));
         }
-        *reinterpret_cast<uint4*>(Kb + cc * LD + d) = kw;
-        *reinterpret_cast<uint4*>(Vb + cc * LD + d) = vw;
+        *reinterpret_cast<uint4*>(tiles_s + cc * LD + d) = kw;
+        *reinterpret_cast<uint4*>(tiles_s + TILE + cc * LD + d) = vw;
       }
+      __syncthreads();  // the widened tiles are complete
     }
-    __syncthreads();  // the widened tiles are complete
     if (c0 <= fw) {   // warp-uniform
       const float* ksd = scales + buf * 2 * kTcCols;
       const float* vsd = ksd + kTcCols;
@@ -508,7 +529,7 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int cc = j * 8 + 2 * t + (e & 1);
-          float x = s[j][e] * (ksd[cc] * scale);
+          float x = s[j][e] * (Q8 ? ksd[cc] * scale : scale);
           if (c0 + cc > fr[e >> 1]) x = kNeg;
           s[j][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -529,7 +550,8 @@ __global__ void __launch_bounds__(kTcThreads)
           const float p =
               c0 + cc > fr[e >> 1] ? 0.f : expf(s[j][e] - m[e >> 1]);
           sum[e >> 1] += p;
-          s[j][e] = p * vsd[cc];  // P * v_scale, rounded to bf16 below
+          // P (P * v_scale for codes), rounded to bf16 below
+          s[j][e] = Q8 ? p * vsd[cc] : p;
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -578,34 +600,35 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-template <int DP>
+template <int DP, bool Q8>
 cudaError_t launch_tc(const void* q, const void* k, const float* ks,
                       const void* v, const float* vs, const int* tables,
                       const int* start, void* out, int B, int S, int H, int D,
                       int NB, int bs, int MB, float scale,
                       cudaStream_t stream) {
   const cudaError_t e =
-      cudaFuncSetAttribute(prefix_q8_tc<DP>,
+      cudaFuncSetAttribute(prefix_tc<DP, Q8>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(tc_smem(DP)));
+                           static_cast<int>(tc_smem(DP, Q8)));
   if (e != cudaSuccess) return e;
   const dim3 grid(H, B, (S + kTcRows - 1) / kTcRows);
-  prefix_q8_tc<DP><<<grid, kTcThreads, tc_smem(DP), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k), ks,
-      static_cast<const int8_t*>(v), vs, tables, start,
+  prefix_tc<DP, Q8><<<grid, kTcThreads, tc_smem(DP, Q8), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, ks, v, vs, tables, start,
       static_cast<__nv_bfloat16*>(out), S, H, NB, bs, MB, D, scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_q8_tc(const void* q, const void* k, const float* ks,
-                         const void* v, const float* vs, const int* tables,
-                         const int* start, void* out, int B, int S, int H,
-                         int D, int NB, int bs, int MB, float scale,
-                         cudaStream_t stream) {
-#define PT_TC(DP)                                                          \
-  case DP:                                                                 \
-    return launch_tc<DP>(q, k, ks, v, vs, tables, start, out, B, S, H, D, \
-                         NB, bs, MB, scale, stream);
+// bf16 q over bf16 pools (Q8 = false) or int8 codes (Q8 = true)
+template <bool Q8>
+cudaError_t launch_tc_d(const void* q, const void* k, const float* ks,
+                        const void* v, const float* vs, const int* tables,
+                        const int* start, void* out, int B, int S, int H,
+                        int D, int NB, int bs, int MB, float scale,
+                        cudaStream_t stream) {
+#define PT_TC(DP)                                                        \
+  case DP:                                                               \
+    return launch_tc<DP, Q8>(q, k, ks, v, vs, tables, start, out, B, S, \
+                             H, D, NB, bs, MB, scale, stream);
   switch ((D + 15) / 16 * 16) {
     PT_TC(16) PT_TC(32) PT_TC(48) PT_TC(64) PT_TC(80) PT_TC(96) PT_TC(112)
     PT_TC(128) PT_TC(144) PT_TC(160) PT_TC(176) PT_TC(192) PT_TC(208)
@@ -689,9 +712,8 @@ int pt_paged_prefix_attention(const void* q, const void* k_pool,
                                        tables, start, out, B, S, H, D, NB, bs,
                                        MB, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(
-        q, k_pool, nullptr, v_pool, nullptr, tables, start, out, B, S, H, D,
-        NB, bs, MB, scale, s);
+    return launch_tc_d<false>(q, k_pool, nullptr, v_pool, nullptr, tables,
+                              start, out, B, S, H, D, NB, bs, MB, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -713,8 +735,8 @@ int pt_paged_prefix_attention_q8(const void* q, const void* k_codes,
                                        tables, start, out, B, S, H, D, NB, bs,
                                        MB, scale, s);
   if (qdtype == 1)
-    return launch_q8_tc(q, k_codes, k_scale, v_codes, v_scale, tables, start,
-                        out, B, S, H, D, NB, bs, MB, scale, s);
+    return launch_tc_d<true>(q, k_codes, k_scale, v_codes, v_scale, tables,
+                             start, out, B, S, H, D, NB, bs, MB, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -68,20 +68,21 @@ def _check(q, k, v, kv_len):
 
 
 def check_view(t, name):
-    """Raise ValueError unless the [B, S, H, D] view `t` (any device) is
-    one the kernels can read: its last dim contiguous, its base and its
-    batch, sequence and head strides 16-byte aligned and the strides below
-    2**40 bytes. The bf16 kernels stage every tile through a TMA tensor
-    map built from these strides, which needs all three."""
-    if t.stride(3) != 1:
+    """Raise ValueError unless the view `t` (any device) is one a TMA
+    tensor map can take: its last dim contiguous, its base and every other
+    stride 16-byte aligned and those strides below 2**40 bytes. The bf16
+    kernels stage every tile through a TMA tensor map built from these
+    strides, which needs all three: the flash kernels' [B, S, H, D] views
+    here, #11's [rows, H] matrices in `linear_ce.py`."""
+    if t.stride(-1) != 1:
         raise ValueError(f"{name} needs a contiguous last dim")
     es = t.element_size()
-    if t.data_ptr() % 16 or any(s * es % 16 for s in t.stride()[:3]):
-        raise ValueError(f"{name}: its base and its batch, sequence and "
-                         f"head strides must be 16-byte aligned; got "
-                         f"strides {tuple(t.stride())} of "
-                         f"{es}-byte elements")
-    if any(s * es >= 2 ** 40 for s in t.stride()[:3]):
+    outer = t.stride()[:-1]
+    if t.data_ptr() % 16 or any(s * es % 16 for s in outer):
+        raise ValueError(f"{name}: its base and its outer strides must be "
+                         f"16-byte aligned; got strides "
+                         f"{tuple(t.stride())} of {es}-byte elements")
+    if any(s * es >= 2 ** 40 for s in outer):
         raise ValueError(f"{name}: strides must be below 2**40 bytes")
 
 

@@ -3,11 +3,12 @@
 library is built and loaded by `build.py`.
 
 The wrapper checks device, dtypes, shapes, contiguity and alignment,
-raises ValueError on what the kernel does not take, allocates the outputs
-and the split-vocabulary scratch, launches on PyTorch's current stream and
-raises RuntimeError when the launch reports an error. It never falls back
-to another implementation. Each launch adds one to
-``LAUNCHES["linear_ce_fwd"]``.
+raises ValueError on what the kernel does not take (bf16 "vh", the main
+path, reads x and w through TMA tensor maps: `check_view`'s rules),
+allocates the outputs and the partial-triple scratch, launches on
+PyTorch's current stream and raises RuntimeError when the launch reports
+an error. It never falls back to another implementation. Each launch adds
+one to ``LAUNCHES["linear_ce_fwd"]``.
 """
 from __future__ import annotations
 
@@ -15,18 +16,36 @@ import torch
 import torch.nn.functional as F
 
 from .build import LAUNCHES, load_library, raise_on_error
+from .flash_attention import check_view
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUT_CODE = {"hv": 0, "vh": 1}
-_TILE = {torch.bfloat16: (64, 128), torch.float32: (64, 64)}  # (tokens, V)
+# (tokens, vocabulary) per tile: bf16 "vh" (the wgmma kernel lce_wg),
+# bf16 "hv" (lce_bf16_hv) and f32
+WG_TILE = (128, 256)
+_TILE = {torch.bfloat16: (64, 128), torch.float32: (64, 64)}
 
 
-def _splits(t, v, dtype, device):
-    """(nsplit, tiles per split): split the vocabulary walk of each token
-    tile over enough CTAs for about four of them per SM."""
+def wg_schedule(t, v, sms):
+    """The persistent bf16 "vh" kernel's walk, as `lce_wg` computes it:
+    tile = token tile + n_tt * vocabulary tile, CTA c of `grid` taking
+    tiles c, c + grid, ...; returns (n_tt, n_vt, grid). Its partial
+    triples are one per (token, vocabulary tile): nsplit = n_vt."""
+    n_tt, n_vt = -(-t // WG_TILE[0]), -(-v // WG_TILE[1])
+    return n_tt, n_vt, min(n_tt * n_vt, sms)
+
+
+def splits(t, v, dtype, layout, sms):
+    """(nsplit, vocabulary tiles per split) of the [3, nsplit, T] partial
+    triples. bf16 "vh": one split per 256-wide vocabulary tile (the
+    persistent kernel writes each tile's triple). The other forms split
+    the vocabulary walk of each token tile over enough CTAs for about four
+    of them per SM; split s takes tiles [s * tps, min((s + 1) * tps,
+    n_vt))."""
+    if dtype == torch.bfloat16 and layout == "vh":
+        return wg_schedule(t, v, sms)[1], 1
     bt, bv = _TILE[dtype]
     n_tt, n_vt = -(-t // bt), -(-v // bv)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, min(n_vt, -(-4 * sms // n_tt), 65535))
     tps = -(-n_vt // want)
     return -(-n_vt // tps), tps
@@ -76,7 +95,11 @@ def linear_ce_fwd_cuda(x, w, labels, *, w_layout="vh"):
             w = F.pad(w, (0, (-V) % 8))
     if any(t.data_ptr() % 16 for t in (x, w)):
         x, w = x.clone(), w.clone()     # fresh allocations are aligned
-    nsplit, tps = _splits(T, V, x.dtype, x.device)
+    if x.dtype == torch.bfloat16 and w_layout == "vh":
+        check_view(x, "x")
+        check_view(w, "w")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit, tps = splits(T, V, x.dtype, w_layout, sms)
     lib = load_library("linear_ce")
     loss = torch.empty(T, dtype=torch.float32, device=x.device)
     lse = torch.empty(T, dtype=torch.float32, device=x.device)

@@ -176,3 +176,125 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(change, match):
         KL.linear_ce_fwd_cuda(x, w, labels,
                               w_layout=change.get("layout", "vh"))
     assert dict(KL.LAUNCHES) == before
+
+
+# the shapes of #11's main path (gpt3-1.3b and gpt3-2.7b share T and V),
+# bert-base's MLM head (V = 30522: a ragged last vocabulary tile), and
+# ragged token and vocabulary counts
+SHAPES = [(6144, 50304), (16384, 30522), (512, 1000), (40, 300),
+          (1000, 257)]
+
+
+def _wg_walk(t, v, sms, cta):
+    """[(token tile, vocabulary tile)] that CTA `cta` of the persistent
+    kernel computes, in order: `lce_wg`'s loop, tile = cta + k * grid,
+    token tile tile % n_tt, vocabulary tile tile // n_tt."""
+    n_tt, n_vt, grid = KL.wg_schedule(t, v, sms)
+    return [(i % n_tt, i // n_tt) for i in range(cta, n_tt * n_vt, grid)]
+
+
+@pytest.mark.parametrize("t, v", SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_wg_schedule_covers_every_tile_exactly_once(t, v, sms):
+    """The persistent bf16 "vh" kernel: every (token tile, vocabulary
+    tile) of 128 x 256 is computed by exactly one CTA, the CTAs' shares
+    differ by at most one tile, and the tiles the CTAs start on span at
+    most ceil(grid / n_tt) + 1 vocabulary tiles (the w tiles they share in
+    L2)."""
+    n_tt, n_vt, grid = KL.wg_schedule(t, v, sms)
+    assert (n_tt, n_vt) == (-(-t // 128), -(-v // 256))
+    assert grid == min(sms, n_tt * n_vt)
+    walks = [_wg_walk(t, v, sms, c) for c in range(grid)]
+    done = sorted(tile for walk in walks for tile in walk)
+    assert done == sorted((i, j) for i in range(n_tt) for j in range(n_vt))
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+    first = {walk[0][1] for walk in walks}
+    assert len(first) <= -(-grid // n_tt) + 1
+    nsplit, tps = KL.splits(t, v, torch.bfloat16, "vh", sms)
+    assert (nsplit, tps) == (n_vt, 1)
+
+
+@pytest.mark.parametrize("t, v", SHAPES)
+@pytest.mark.parametrize("dtype, layout", [(torch.bfloat16, "hv"),
+                                           (torch.float32, "vh"),
+                                           (torch.float32, "hv")])
+def test_other_forms_split_every_vocabulary_tile_exactly_once(t, v, dtype,
+                                                              layout):
+    """bf16 "hv" (128-wide tiles) and f32 (64-wide): split s takes tiles
+    [s * tps, min((s + 1) * tps, n_vt)); none is empty, none overlaps."""
+    nsplit, tps = KL.splits(t, v, dtype, layout, 132)
+    n_vt = -(-v // (128 if dtype == torch.bfloat16 else 64))
+    shares = [range(s * tps, min((s + 1) * tps, n_vt))
+              for s in range(nsplit)]
+    assert all(len(r) > 0 for r in shares)
+    assert [i for r in shares for i in r] == list(range(n_vt))
+    assert 1 <= nsplit <= 65535
+
+
+def _tile_partials(x, w, labels):
+    """The bf16 "vh" kernel's arithmetic in f32: per 256-wide vocabulary
+    tile the (max, sum-exp, gold) triple of every token, columns past V
+    masked to -1e30, a label outside [0, V) matching no column; then
+    `lce_merge`'s merge in tile order. Returns (loss, lse)."""
+    logits = x @ w.t()
+    t, v = logits.shape
+    labels = labels.long()
+    parts = []
+    for v0 in range(0, v, 256):
+        z = torch.full((t, 256), -1e30)
+        z[:, :min(256, v - v0)] = logits[:, v0:v0 + 256]
+        m = z.amax(-1)
+        s = torch.exp(z - m[:, None]).sum(-1)
+        rel = labels - v0
+        hit = (rel >= 0) & (rel < 256) & (labels < v)
+        g = torch.where(hit, z.gather(1, rel.clamp(0, 255)[:, None])[:, 0],
+                        torch.zeros(t))
+        parts.append((m, s, g))
+    mx = torch.stack([p[0] for p in parts]).amax(0)
+    s = sum(p[1] * torch.exp(p[0] - mx) for p in parts)
+    lse = mx + torch.log(s)
+    return lse - sum(p[2] for p in parts), lse
+
+
+@pytest.mark.parametrize("t, h, v", [(40, 64, 300), (130, 32, 1000),
+                                     (16, 128, 256)])
+def test_tile_partials_merge_to_the_plain_version(t, h, v):
+    """Per-tile triples merged in a fixed order give the plain loss and
+    lse, ragged V included, with labels at -100, at V - 1 and past V in
+    the last tile's padding columns."""
+    x, w, labels = _rand(t, h, v, 5)
+    labels[0], labels[1], labels[2] = -100, v - 1, v + 3
+    x, w, labels = map(torch.from_numpy, (x, w, labels))
+    loss, lse = _tile_partials(x, w, labels)
+    want, want_lse = LC.linear_cross_entropy_reference(x, w, labels,
+                                                       return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=LOSS_TOL, rtol=LOSS_TOL)
+    torch.testing.assert_close(loss, want, atol=LOSS_TOL, rtol=LOSS_TOL)
+
+
+@pytest.mark.parametrize("bad, match", [
+    ("base", "16-byte aligned"),
+    ("stride", "16-byte aligned"),
+    ("last_dim", "contiguous last dim"),
+])
+def test_matrices_a_tma_map_cannot_take_are_refused(bad, match):
+    """#11's bf16 "vh" kernel reads x [T, H] and w [V, H] through 2-D TMA
+    maps: `check_view`'s rules, the ones of the flash kernels' views."""
+    if bad == "base":        # the base one element past 16-byte alignment
+        t = torch.zeros(8, 2 * 64 + 8, dtype=torch.bfloat16)[:, 1:129]
+    elif bad == "stride":    # rows of 132 elements: 264 bytes
+        t = torch.zeros(8, 132, dtype=torch.bfloat16)[:, :128]
+    else:
+        t = torch.zeros(128, 8, dtype=torch.bfloat16).t()
+    with pytest.raises(ValueError, match=match):
+        KL.check_view(t, "x")
+
+
+@pytest.mark.parametrize("shape", [(6144, 2048), (30522, 768),
+                                   (50304, 2560)])
+def test_the_main_paths_matrices_pass_the_tma_checks(shape):
+    """gpt3-1.3b's and gpt3-2.7b's x and tied heads, bert's MLM head, and a
+    column slice of a wider matrix whose rows stay 16-byte aligned."""
+    KL.check_view(torch.zeros(shape, dtype=torch.bfloat16), "w")
+    wide = torch.zeros(8, shape[1] + 8, dtype=torch.bfloat16)
+    KL.check_view(wide[:, :shape[1]], "x")

@@ -1,16 +1,17 @@
 """Kernels #1-#4 (paged decode and window attention, fp and int8 pools) of
 this checkout against those of another checkout, on the card: bitwise,
-except #4 with a bf16 q.
+except the windows (#3 and #4) with a bf16 q.
 
 Head dims that are not a multiple of 32 take a masked instantiation of
 the paged kernels; this test holds that every head dim the kernels took
 before (32 to 256 by 32) still gives bitwise the same outputs as the
 other checkout (say, an older commit unpacked with ``git archive``).
-#4 in bf16 runs a tensor-core tile kernel that rounds P * v_scale to
-bf16 once and sums in another order than the warp-per-row kernel it
-replaced, so against a checkout from before that kernel it is held to
-its phase-2 limit in `chip_smoke.py` (allclose at 2e-2) instead; #1-#3
-at every dtype and #4 in f32 stay bitwise.
+#3 and #4 in bf16 run a tensor-core tile kernel that rounds P (P *
+v_scale for int8 pools) to bf16 once and sums in another order than the
+warp-per-row kernel it replaced, so against a checkout from before that
+kernel they are held to their phase-2 limit in `chip_smoke.py` (allclose
+at 2e-2) instead; #1 and #2 at every dtype and #3 and #4 in f32 stay
+bitwise.
 Each checkout builds and runs its kernels in a process of its own, on
 the inputs of `chip_smoke.py`'s phase 2. It needs an NVIDIA GPU and the
 other checkout's path in ``PADDLE_TPU_TORCH_OTHER``, and skips without
@@ -68,18 +69,18 @@ def _dump(root, out):
     torch.save(res, out)
 
 
-# #4 with a bf16 q: its phase-2 limit, not bitwise (see above)
-Q8_BF16_TOL = 2e-2
+# #3 and #4 with a bf16 q: their phase-2 limit, not bitwise (see above)
+TILE_TOL = 2e-2
 
 
 def _bitwise(key):
-    return not ("window" in key and "bfloat16" in key and "q8=True" in key)
+    return not ("window" in key and "bfloat16" in key)
 
 
 def compare(other):
     """{"compared": n, "differ": [keys]} of the two checkouts' outputs:
-    keys whose outputs are not bitwise equal, or for #4 in bf16 not
-    within Q8_BF16_TOL."""
+    keys whose outputs are not bitwise equal, or for #3 and #4 in bf16
+    not within TILE_TOL."""
     import torch
     outs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -96,7 +97,7 @@ def compare(other):
             "differ": [k for k in a if not (
                 torch.equal(a[k], b[k]) if _bitwise(k) else
                 torch.allclose(a[k].float(), b[k].float(),
-                               atol=Q8_BF16_TOL, rtol=Q8_BF16_TOL))]}
+                               atol=TILE_TOL, rtol=TILE_TOL))]}
 
 
 @pytest.fixture

@@ -1,17 +1,18 @@
 """Kernel #4 (int8 paged prefix attention) as its tensor-core tile kernel
 computes it, sized on the CPU before it runs on the card.
 
-The bf16 route of `paged_prefix_attention_q8` launches `prefix_q8_tc`
-(`ops/cuda/csrc/paged_prefix_attention.cu`): pool columns in tiles of 64,
-f32 scores times k_scale * scale, an online softmax in f32, and P * v_scale
-rounded to bf16 once as the A operand of its product with the codes. That
-rounding is the one arithmetic change against the kernel it replaced. Here
-the same schedule is emulated in PyTorch on phase 2's inputs of
-`chip_smoke.py` (B=8, H=16, D=128 and 80, windows of 9, 32 and 128 rows,
-the same starts) and held to the card's limit (allclose at 2e-2) against
-the f32 plain version and the JAX reference on the same numpy inputs; a
-run that drops each row's last pool block must fail that limit. The
-wrappers' view checks of the flash kernels' TMA tensor maps run here too.
+The bf16 route of `paged_prefix_attention_q8` launches `prefix_tc<DP,
+true>` (`ops/cuda/csrc/paged_prefix_attention.cu`): pool columns in tiles
+of 64, f32 scores times k_scale * scale, an online softmax in f32, and P *
+v_scale rounded to bf16 once as the A operand of its product with the
+codes. That rounding is the one arithmetic change against the kernel it
+replaced. Here the same schedule is emulated in PyTorch on phase 2's
+inputs of `chip_smoke.py` (B=8, H=16, D=128 and 80, windows of 9, 32 and
+128 rows, the same starts) and held to the card's limit (allclose at 2e-2)
+against the f32 plain version and the JAX reference on the same numpy
+inputs; a run that drops each row's last pool block must fail that limit.
+The wrappers' view checks of the flash kernels' TMA tensor maps run here
+too.
 """
 import math
 
