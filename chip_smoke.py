@@ -5,9 +5,10 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 the checkout's sources (one nvcc per source, in parallel) and reads the
-redesigned ones back with cuobjdump: #6's bf16 kernels and #11's bf16
-"vh" kernel must contain warpgroup MMAs (HGMMA) and TMA loads (UTMALDG),
-the bf16 tile kernel of #3 and #4 tensor-core MMAs, and their
+redesigned ones back with cuobjdump: #6's bf16 kernels, #9's
+instantiations of them and #11's bf16 "vh" kernel must contain warpgroup
+MMAs (HGMMA) and TMA loads (UTMALDG), the bf16 tile kernel of #3 and #4
+tensor-core MMAs, #1/#2's partition kernel 16-byte loads, and their
 instantiations at head dims 64, 80 and 128 (#11's only one) spill nothing
 (phase 1). The kernels: the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
@@ -17,13 +18,13 @@ backward), the window-batched fused MHA with bias #10 (forward, and
 backward with d(bias)), the fused LayerNorm #8 (forward, backward) and
 packed flash attention #7 (#6's kernels on the packed [B, S, nh * 128]
 layout, one d(qkv)). It holds each against its plain PyTorch version
-(phase 2; #1-#4 also at head dim 80, #3 and #4 bitwise repeatable and
-with a control that drops each row's last pool block, #6 bitwise
+(phase 2; #1-#4 also at head dim 80, bitwise repeatable and with a
+control that drops each row's last pool block, #6 bitwise
 repeatable forward and backward and also at gpt3-2.7b's head dim 80, #11
 also at bert-base's MLM head and gpt3-2.7b's, bitwise repeatable, with a
 control that drops the head's last 256 vocabulary rows, #9
 at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
-sets read back, #10 at swin-t's four stages and swin-b's last with the
+sets read back, bf16 bitwise repeatable, #10 at swin-t's four stages and swin-b's last with the
 model's own bias, bitwise repeatable, and in f32, #8 at gpt3-1.3b's and
 gpt3-2.7b's LayerNorm inputs for the four affine cases, its backward
 bitwise repeatable, #7 at gpt3-1.3b's training shape, equal to #6 on the
@@ -191,19 +192,26 @@ WINDOWS = (1, 9, 32, 128)
 LINE_WINDOW = {"paged_prefix_attention": 9, "paged_prefix_attention_q8": 128}
 # the build phase's SASS check of the redesigned kernels, per library:
 # (kernel names, instructions every one of them must contain; "A|B" is
-# either): #6's bf16 kernels and #11's bf16 "vh" kernel warpgroup MMAs and
-# TMA loads, the bf16 tile kernel of #3 (bf16 pools) and #4 (int8 codes)
-# tensor-core MMAs
+# either): #6's bf16 kernels, #9's instantiations of them (r pass
+# included) and #11's bf16 "vh" kernel warpgroup MMAs and TMA loads, the
+# bf16 tile kernel of #3 (bf16 pools) and #4 (int8 codes) tensor-core MMAs
 SASS_CHECKS = {"flash_attention": (("fwd_wg", "dq_wg", "dkv_wg"),
                                    ("HGMMA", "UTMALDG")),
+               "fused_mha": (("fwd_wg", "dq_wg", "dkv_wg"),
+                             ("HGMMA", "UTMALDG")),
                "paged_prefix_attention": (("prefix_tc",), ("HMMA|HGMMA",)),
-               "linear_ce": (("lce_wg",), ("HGMMA", "UTMALDG"))}
-# ... and the instantiations (by their first template argument: #6's head
-# dim bucket, the tile kernel's head dim padded to 16, in both pool forms;
-# None: every instantiation) the main paths launch at head dims 64, 80 and
-# 128, which must spill 0 bytes
+               "linear_ce": (("lce_wg",), ("HGMMA", "UTMALDG")),
+               # #1/#2's split-sequence kernel: present, its 16-byte loads
+               "paged_attention": (("decode_part",), ("LDG.E.128|LDG.E.64",))}
+# ... and the instantiations (by their first template argument: #6's and
+# #9's head dim bucket, the tile kernel's head dim padded to 16, in both
+# pool forms; None: every instantiation) the main paths launch at head
+# dims 64, 80 and 128, which must spill 0 bytes
 SPILL_FREE = {"fwd_wg": (64, 128), "dq_wg": (64, 128), "dkv_wg": (64, 128),
-              "prefix_tc": (64, 80, 128), "lce_wg": None}
+              "prefix_tc": (64, 80, 128), "lce_wg": None,
+              # #1/#2's partition kernel by NV = ceil(D / 32): 4 (D=128)
+              # and 3 (D=80), fp and int8 pools, bf16 and f32 q
+              "decode_part": (3, 4)}
 
 
 class SmokeFailure(Exception):
@@ -306,13 +314,24 @@ def spill_bytes(log):
 def redesigned(name):
     """A redesigned kernel's tag from its mangled name, else None:
     'kernel<first template argument>' (the tile kernel's pool form after a
-    comma: 'prefix_tc<128,bf16>', 'prefix_tc<128,int8>'), or the bare name
-    of #11's kernel, which is no template."""
-    m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_tc)ILi(\d+)E(?:Lb([01])E)?",
-                  name)
+    comma: 'prefix_tc<128,bf16>', 'prefix_tc<128,int8>'; #9's
+    instantiations of #6's kernels ',mha', its r pass ',mha,r'), or the
+    bare name of #11's kernel, which is no template; #1/#2's partition
+    kernel 'decode_part<NV,pool form,q dtype>'."""
+    m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_tc)ILi(\d+)E(?:Li\d+E)*"
+                  r"((?:Lb[01]E)*)(?:Li\d+E)*E", name)
     if m:
-        form = {"0": ",bf16", "1": ",int8", None: ""}[m.group(3)]
+        flags = re.findall(r"Lb([01])E", m.group(3))
+        if m.group(1) == "prefix_tc":
+            form = "".join({"0": ",bf16", "1": ",int8"}[f] for f in flags)
+        else:
+            form = "".join(n for n, f in zip((",mha", ",r"), flags)
+                           if f == "1")
         return f"{m.group(1)}<{m.group(2)}{form}>"
+    m = re.search(r"decode_partILi(\d+)ELb([01])E(f|13__nv_bfloat16)", name)
+    if m:
+        return (f"decode_part<{m.group(1)},{('fp', 'int8')[int(m.group(2))]}"
+                f",{'f32' if m.group(3) == 'f' else 'bf16'}>")
     return "lce_wg" if re.search(r"\dlce_wgE", name) else None
 
 
@@ -339,17 +358,18 @@ def phase_build(torch, card):
     tool = cuobjdump(KB._nvcc())
     sass = {}
     for lib, (kernels, instrs) in SASS_CHECKS.items():
+        here = set()
         for name, text in sass_by_kernel(tool, libs[lib]).items():
             tag = redesigned(name)
             if tag is None or tag.partition("<")[0] not in kernels:
                 continue
             found = {i: any(x in text for x in i.split("|")) for i in instrs}
             sass[tag] = found
+            here.add(tag.partition("<")[0])
             missing = [i for i in instrs if not found[i]]
             check(not missing, f"{tag}: no {missing} in its SASS")
         for kernel in kernels:
-            check(any(t.partition("<")[0] == kernel for t in sass),
-                  f"{kernel} is not in {libs[lib].name}")
+            check(kernel in here, f"{kernel} is not in {libs[lib].name}")
     all_spills = spill_bytes(log)
     spills = {redesigned(name): n for name, n in all_spills.items()
               if redesigned(name) is not None}
@@ -463,6 +483,7 @@ def phase_kernels(torch, device, card):
             def plain():
                 return A.paged_attention_reference(q, *pools, tables, lens)
         got, want = kern(), plain()
+        again = kern()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         live = lens > 0
@@ -473,10 +494,45 @@ def phase_kernels(torch, device, card):
         row = {"kernel": name, "dtype": str(dtype).split(".")[-1], "D": d,
                "tol": tol, "max_abs_err": float(err.max()),
                "allclose": close, "empty_rows_zero": zeros,
-               "finite": finite}
+               "finite": finite,
+               "bitwise_repeatable": bool(torch.equal(got, again))}
         check(close and zeros and finite,
               f"{name} {row['dtype']} D={d}: kernel disagrees with its "
               f"plain version: {row}")
+        check(row["bitwise_repeatable"],
+              f"{name} {row['dtype']} D={d}: two launches differ")
+        # tables of 4 blocks (64 positions): one partition a row, so no
+        # scratch and no merge launch
+        t4, l4 = tables[:, :4].contiguous(), lens.clamp(max=4 * BS)
+        g4 = K.paged_attention_q8_cuda(q, *pools, t4, l4) if q8 else \
+            K.paged_attention_cuda(q, *pools, t4, l4)
+        w4 = A.paged_attention_reference_q8(q, *pools, t4, l4) if q8 else \
+            A.paged_attention_reference(q, *pools, t4, l4)
+        row["one_partition"] = {
+            "max_abs_err": float((g4.float() - w4.float()).abs().max()),
+            "allclose": torch.allclose(g4.float(), w4.float(), atol=tol,
+                                       rtol=tol),
+            "empty_rows_zero": bool((g4[~live] == 0).all())}
+        check(row["one_partition"]["allclose"]
+              and row["one_partition"]["empty_rows_zero"],
+              f"{name} {row['dtype']} D={d}: the one-partition launch "
+              f"disagrees with its plain version: {row['one_partition']}")
+        if dtype == torch.bfloat16:
+            # control: each live row's last pool block dropped (lens cut
+            # back to the block before), against the plain version of the
+            # whole rows
+            cut = torch.where(lens > 0, lens - ((lens - 1) % BS + 1), lens)
+            kc = K.paged_attention_q8_cuda(q, *pools, tables, cut) if q8 \
+                else K.paged_attention_cuda(q, *pools, tables, cut)
+            rejected = not torch.allclose(kc.float(), want.float(),
+                                          atol=tol, rtol=tol)
+            check(rejected, f"{name} bf16 D={d}: the limit passes a kernel "
+                            f"that drops each row's last pool block")
+            row["control"] = {
+                "what": "kernel with each row's last pool block dropped vs "
+                        "plain", "max_abs_err": float(
+                            (kc.float() - want.float()).abs().max()),
+                "rejected": rejected}
         if dtype == torch.bfloat16:      # the main path's working type
             bms, by = bound(q, pools, lens, q8)
             row.update(ms=run(kern), plain_ms=run(plain),
@@ -778,8 +834,10 @@ def plain_route():
         M.int8_matmul_reference(x, q, s, w_layout)
     fa, ce = FA.flash_attention, FF.linear_cross_entropy
     mha = FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda
-    FM.fused_mha_fwd_cuda = FM.fused_mha_reference
-    FM.fused_mha_bwd_cuda = FM.fused_mha_bwd_reference
+    FM.fused_mha_fwd_cuda = lambda qkv, nh, **kw: (
+        FM.fused_mha_reference(qkv, nh, **kw), None)
+    FM.fused_mha_bwd_cuda = lambda qkv, dout, lse, nh, **kw: \
+        FM.fused_mha_bwd_reference(qkv, dout, nh, **kw)
     mhab = FMB.fused_mha_bias_fwd_cuda, FMB.fused_mha_bias_bwd_cuda
     FMB.fused_mha_bias_fwd_cuda = FMB.fused_mha_bias_reference
     FMB.fused_mha_bias_bwd_cuda = FMB.fused_mha_bias_bwd_reference
@@ -1779,10 +1837,10 @@ def fmha_kept(torch, FM, KM, case, seed):
         hot = torch.zeros(b, s, nh, hd, dtype=qkv.dtype, device=dev)
         hot[:, j, :, j - blk * hd] = 1
         qkv[..., 2 * f:] = hot.reshape(b, s, f)
-        out = KM.fused_mha_fwd_cuda(qkv, nh, dropout_p=p, seed=seed)
+        out, lse = KM.fused_mha_fwd_cuda(qkv, nh, dropout_p=p, seed=seed)
         fwd[:, :, :, j] = (out.view(b, s, nh, hd)[..., :len(j)] > 0) \
             .permute(0, 2, 1, 3)
-        dq = KM.fused_mha_bwd_cuda(qkv, hot.reshape(b, s, f), nh,
+        dq = KM.fused_mha_bwd_cuda(qkv, hot.reshape(b, s, f), lse, nh,
                                    dropout_p=p, seed=seed)
         bwd[:, :, j, :] = (dq[..., 2 * f:].view(b, s, nh, hd)[..., :len(j)]
                            > 0).permute(0, 2, 3, 1)
@@ -1835,6 +1893,14 @@ def phase_fused_mha(torch, device, card):
               f"fused_mha {name}: the router on a strided view of qkv "
               f"differs from the packed run")
         del so, sg
+        if dt == "bfloat16":
+            ro, rg = fmha_run(torch, FM, qkv, dout, nh, causal, kv, p, seed)
+            row["bitwise_repeatable"] = bool(torch.equal(ro, ko)
+                                             and torch.equal(rg, kg))
+            check(row["bitwise_repeatable"],
+                  f"fused_mha {name}: two launches of the bf16 kernels "
+                  f"differ")
+            del ro, rg
         if name in FMHA_KEPT:
             kept = fmha_kept(torch, FM, KM, case, seed)
             row["kept_set"] = kept
@@ -1886,8 +1952,11 @@ def fmha_times(torch, F, FM, KM, run, case, qkv, dout, kw):
     lout = F.scaled_dot_product_attention(*views, dropout_p=p,
                                           is_causal=causal)
     douth = dout.view(b, s, nh, hd).transpose(1, 2)
+    _, lse = KM.fused_mha_fwd_cuda(qkv, nh, **kw)
+    # the backward's three passes, the r pass included
     t = {"fwd_ms": run(lambda: KM.fused_mha_fwd_cuda(qkv, nh, **kw)),
-         "bwd_ms": run(lambda: KM.fused_mha_bwd_cuda(qkv, dout, nh, **kw)),
+         "bwd_ms": run(lambda: KM.fused_mha_bwd_cuda(qkv, dout, lse, nh,
+                                                     **kw)),
          "plain_fwd_ms": run(lambda: FM.fused_mha_reference(qkv, nh, **kw)),
          "plain_bwd_ms": run(lambda: FM.fused_mha_bwd_reference(
              qkv, dout, nh, **kw)),
@@ -1901,8 +1970,10 @@ def fmha_times(torch, F, FM, KM, run, case, qkv, dout, kw):
     half = 0.5 if causal else 1.0
     mm = 2 * b * nh * s * s * hd * half       # one [S, S] x hd product
     item = qkv.element_size()
-    # forward: qkv read once, out written once, 2 products; backward:
-    # qkv and dout read, dqkv written, 5 products (S, dP, dV, dQ, dK)
+    # what the function needs (the lse residual the kernels keep is not
+    # counted): forward: qkv read once, out written once, 2 products;
+    # backward: qkv and dout read, dqkv written, 5 products (S, dP, dV, dQ,
+    # dK: the kernels run 9, recomputing S and dP in two passes)
     fb = bound_of(2 * mm, (3 * f + f) * b * s * item, qkv.dtype)
     bb = bound_of(5 * mm, (3 * f + f + 3 * f) * b * s * item, qkv.dtype)
     t["fused_mha_fwd"] = {"ms": t["fwd_ms"], "plain_ms": t["plain_fwd_ms"],
@@ -2544,8 +2615,8 @@ def phase_train_bert(torch, card, device):
           f"first BERT loss {warm[0]} is not near ln(vocab) "
           f"{math.log(cfg.vocab_size)}")
     prof = profile_call(torch, lambda: step(ids[2], lbl[2]),
-                        names=("fwd_bf16", "stats_bf16", "dq_bf16",
-                               "dkv_bf16", "lce_wg", "lce_merge"))
+                        names=("fwd_wg", "dq_wg", "dkv_wg", "lce_wg",
+                               "lce_merge"))
     same = [float(step(ids[0], ids[0])) for _ in range(6)]
     check(same[-1] < same[0],
           f"the BERT loss on a repeated batch did not fall: {same}")
@@ -2616,8 +2687,7 @@ def phase_train_vit(torch, card, device):
           f"first ViT loss {warm[0]} is not near ln(classes) "
           f"{math.log(cfg.num_classes)}")
     prof = profile_call(torch, lambda: step(imgs[2], lbl[2]),
-                        names=("fwd_bf16", "stats_bf16", "dq_bf16",
-                               "dkv_bf16"))
+                        names=("fwd_wg", "dq_wg", "dkv_wg"))
     same = [float(step(imgs[0], lbl[0])) for _ in range(6)]
     check(same[-1] < same[0],
           f"the ViT loss on a repeated batch did not fall: {same}")

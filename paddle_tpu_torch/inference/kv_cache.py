@@ -32,19 +32,22 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class BlockPool:
     """Fixed-size KV block allocator (host bookkeeping + device pools).
 
     num_blocks counts the reserved trash block 0; block_size is KV rows
     per block; num_layers / num_heads / head_dim / dtype / device give
-    the pool geometry, normally from the model via :meth:`for_model`.
-    cache_dtype None keeps the model dtype, "int8" stores (codes int8,
+    the pool geometry, normally from the model via :meth:`for_model`;
+    device None is CUDA (``resolve_device``: it raises where there is
+    none, like the models and the optimizers). cache_dtype None keeps the model dtype, "int8" stores (codes int8,
     scale f32) with one factored scale per (row, head)."""
 
     def __init__(self, *, num_blocks: int, block_size: int,
                  num_layers: int, num_heads: int, head_dim: int,
-                 dtype=torch.float32, device="cpu", cache_dtype=None):
+                 dtype=torch.float32, device=None, cache_dtype=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved trash block)")
@@ -59,7 +62,7 @@ class BlockPool:
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cache_dtype = cache_dtype
         # LIFO free list: recently freed blocks are re-issued first
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))

@@ -44,8 +44,9 @@ _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points per library (source stem) and their argument types
 _ENTRY_POINTS = {
     "paged_attention": {
-        "pt_paged_attention": [_p] * 6 + [_i] * 6 + [_f, _i, _p],
-        "pt_paged_attention_q8": [_p] * 8 + [_i] * 6 + [_f, _i, _p]},
+        "pt_paged_attention": [_p] * 7 + [_i] * 6 + [_f, _i, _p],
+        "pt_paged_attention_q8": [_p] * 9 + [_i] * 6 + [_f, _i, _p],
+        "pt_paged_attention_part": []},
     "paged_prefix_attention": {
         "pt_paged_prefix_attention": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
         "pt_paged_prefix_attention_q8": [_p] * 8 + [_i] * 7 + [_f, _i, _p]},
@@ -59,8 +60,8 @@ _ENTRY_POINTS = {
         "pt_linear_ce_partial": [_p] * 4 + [_i] * 8 + [_p],
         "pt_linear_ce_merge": [_p] * 3 + [_i] * 2 + [_p]},
     "fused_mha": {
-        "pt_fused_mha_fwd": [_p] * 4 + [_i] * 6 + [_f, _u, _f, _i, _p],
-        "pt_fused_mha_bwd": [_p] * 6 + [_i] * 6 + [_f, _u, _f, _i, _p]},
+        "pt_fused_mha_fwd": [_p] * 5 + [_i] * 6 + [_f, _u, _f, _i, _p],
+        "pt_fused_mha_bwd": [_p] * 7 + [_i] * 6 + [_f, _u, _f, _i, _p]},
     "fused_mha_bias": {
         "pt_fused_mha_bias_fwd": [_p] * 3 + [_i] * 5 + [_f, _i, _p],
         "pt_fused_mha_bias_bwd": [_p] * 6 + [_i] * 5 + [_f, _i, _p]},

@@ -439,6 +439,20 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// Runs a tensor-map encoding; if it fails, makes the current device's
+// primary context current on this thread and runs it once more. The
+// encoder is a driver call and needs that context, which the runtime binds
+// to a thread only at its first runtime call that needs one: a host thread
+// whose first CUDA work is an encoding (PyTorch's autograd worker, running
+// a backward whose tensors came from the caching allocator) has none yet.
+template <typename Encode>
+inline bool encode_bound(Encode encode) {
+  if (encode() == CUDA_SUCCESS) return true;
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess &&
+         cudaSetDevice(dev) == cudaSuccess && encode() == CUDA_SUCCESS;
+}
+
 // A bf16 [B, S, H, D] view (element strides sb, ss, sh; last dim
 // contiguous) as a 4-D map whose box is 64 columns x `rows` sequence rows
 // of one (head, batch row), 128-byte swizzled; rows past S and columns
@@ -459,11 +473,13 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int B, int S,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bound([&] {
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+               const_cast<void*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
 }
 
 // A bf16 [rows, cols] matrix (row stride ld elements, last dim
@@ -481,11 +497,13 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* base, long long rows,
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bound([&] {
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+               const_cast<void*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
 }
 
 }  // namespace hopper

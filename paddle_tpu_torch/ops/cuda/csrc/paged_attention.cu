@@ -4,8 +4,9 @@
 // `paged_attention_kernel` (fp pools) and `paged_attention_q8_kernel` (int8
 // code pools + per-(row, head) f32 scales). Same function, not the same
 // schedule: the TPU grid walks (batch row, table slot) in order and carries
-// the online-softmax state in VMEM scratch; here one CTA owns one
-// (batch row, head) pair and its warps split the row's token positions.
+// the online-softmax state in VMEM scratch; here the row's positions are
+// split into partitions of kPart, one CTA each (flash-decoding), and the
+// partitions' states are merged in a fixed order.
 //
 //   q       [B, 1, H, D]  fp32 or bf16
 //   pools   [NB, bs, H, D] same dtype as q      (fp form)
@@ -13,27 +14,42 @@
 //   tables  [B, MB] int32 block ids (0 = trash block)
 //   lens    [B] int32 attendable rows per batch row
 //   out     [B, 1, H, D]  q's dtype
+//   scratch f32 [B, H, NP, D + 2], NP = ceil(MB * bs / kPart): the
+//           partitions' (acc, max, sum) of rows with more than one; may be
+//           null when NP = 1 (every row one partition: no merge launch)
 //
 // Bound: device-memory bytes. Each (row, head) reads lens[b] K and V rows of
 // D elements once and does 4 flops per element read, far below the ~20
-// flop/byte an H100's f32 CUDA cores need before compute would matter.
-// Design against that bound:
-//   * only table slots j < ceil(lens[b] / bs) are ever read (padding entries
-//     point at the trash block and are never touched);
-//   * lanes spread over D, so a warp reads one K or V row as one coalesced
-//     segment (16 bytes a lane at D=128 bf16);
-//   * each warp issues the K and V loads of kUnroll positions before it
-//     uses any of them, keeping 2*kUnroll loads in flight per lane;
-//   * scores, softmax and the accumulator stay f32 in registers; warps merge
-//     their (max, sum, acc) states through shared memory once at the end.
-// Head dims: any multiple of 8 up to 256. Each lane owns NV = ceil(D / 32)
-// elements; where D is not a multiple of 32 (gpt3-2.7b's 80) the kernel is
-// instantiated at 32 * NV with the lanes' elements at d >= D masked on
-// every load (read as 0) and every store (skipped), so the pools are read
-// in place, never padded.
-// Rows with lens == 0 produce zeros. The q8 form keeps the TPU kernel's
-// factored scales: the K scale multiplies the score, the V scale the
-// probability, so codes are widened to f32 and never dequantized in memory.
+// flop/byte an H100's f32 CUDA cores need before compute would matter. At
+// decode shapes (B = 8 rows of a few hundred positions) those bytes take
+// ~2 us, so the kernel is bound by latency: how many dependent trips to
+// device memory a position costs, and how many positions are in flight.
+// Design against that:
+//   * a grid of (partition, head, row) CTAs, 128 threads each, a partition
+//     kPart = 64 positions: 4 of 16-position blocks, so a row of 256
+//     positions spreads over 4 CTAs and the grid covers the card at B = 8;
+//     CTAs past a row's last partition exit at once;
+//   * a group of G lanes owns one position: each lane one 16-byte chunk of
+//     the row (8 bf16, 4 f32; 8 bytes of int8 codes), G a power of two
+//     covering the head dim (16 lanes at D = 128 and at gpt3-2.7b's 80,
+//     whose lanes past D are masked, so pools are read in place, never
+//     padded), so a score reduces in log2(G) shuffles and a warp scores
+//     32 / G positions at once;
+//   * two dependent trips: every group first loads the table entries of
+//     all its positions (kUB at a time), then issues all their K and V
+//     chunk loads (and the int8 scales) before using any;
+//   * scores, softmax and the accumulator stay f32 in registers; the
+//     groups merge their (max, sum, acc) through shared memory, then the
+//     partitions through the scratch in a second small launch (skipped by
+//     rows of one partition, whose CTA writes the output itself). No
+//     atomics: every sum runs in a fixed order, so two launches agree
+//     bitwise.
+// Head dims: any multiple of 8 up to 256, instantiated at NV = ceil(D / 32)
+// (the widest row a group covers is 32 NV). Rows with lens == 0 produce
+// zeros; table entries are clamped to [0, NB), lens to MB * bs. The q8 form
+// keeps the TPU kernel's factored scales: the K scale multiplies the
+// score, the V scale the probability, so codes are widened to f32 and
+// never dequantized in memory.
 //
 // Plain C interface (loaded with ctypes): each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -42,27 +58,14 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
+constexpr int kThr = 128;   // threads a CTA
+constexpr int kPart = 64;   // positions a CTA (partition)
+constexpr int kUB = 8;      // positions a group keeps in flight
 constexpr int kMaxD = 256;
 constexpr float kNeg = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -73,182 +76,277 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// NV contiguous elements at p, widened to f32. One vector load when the
-// lane's slice is 4, 8 or 16 bytes (the wrapper guarantees 16-byte aligned
-// bases, and every slice starts at a multiple of its own size).
-template <typename T, int NV>
-__device__ __forceinline__ void load_slice(const T* __restrict__ p,
-                                           float (&out)[NV]) {
-  constexpr int kBytes = NV * static_cast<int>(sizeof(T));
-  if constexpr (kBytes == 16 || kBytes == 8 || kBytes == 4) {
-    using Vec = typename std::conditional<
-        kBytes == 16, uint4,
-        typename std::conditional<kBytes == 8, uint2, unsigned int>::type>::
-        type;
-    const Vec raw = *reinterpret_cast<const Vec*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) out[i] = to_f32<T>(e[i]);
+// E elements of T (8, 16 or 32 bytes) as 32-bit words, one or two vector
+// loads; widened to f32 from the words' bits (no local array is addressed,
+// so the words stay in registers)
+template <typename T, int E>
+constexpr int kWords = E * static_cast<int>(sizeof(T)) / 4;
+template <typename T, int E>
+__device__ __forceinline__ void load_words(const T* p,
+                                           uint32_t (&w)[kWords<T, E>]) {
+  if constexpr (kWords<T, E> == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
   } else {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) out[i] = to_f32<T>(p[i]);
+    for (int i = 0; i < kWords<T, E> / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  }
+}
+template <typename T, int E>
+__device__ __forceinline__ void widen(const uint32_t (&w)[kWords<T, E>],
+                                      float (&out)[E]) {
+#pragma unroll
+  for (int i = 0; i < kWords<T, E>; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      out[i] = __uint_as_float(w[i]);
+    } else if constexpr (sizeof(T) == 2) {  // bf16: the f32's top half
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {  // int8 codes
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        out[4 * i + k] =
+            static_cast<float>(static_cast<int8_t>((w[i] >> (8 * k)) & 0xffu));
+    }
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// The lane layout of a position's row for pool element KT at NV = ceil(D /
+// 32): chunks of E elements (16 bytes of fp, 8 of int8 codes), NC chunks
+// in the widest row 32 NV, G lanes a position (the next power of two, at
+// most 32), C chunks a lane, NG groups a CTA, U positions a group.
+template <typename KT, int NV>
+struct Layout {
+  static constexpr int E = sizeof(KT) == 4 ? 4 : 8;
+  static constexpr int NC = 32 * NV / E;
+  static constexpr int G = NC > 16 ? 32 : NC > 8 ? 16 : NC > 4 ? 8 : NC > 2 ? 4 : 2;
+  static constexpr int C = (NC + G - 1) / G;
+  static constexpr int NG = kThr / G;
+  static constexpr int U = kPart / NG;
+};
 
-// PART: D < 32 * NV (the head dim Dr is not a multiple of 32): lane slices
-// are read element by element, masked at d >= Dr.
-template <typename T, int NV, bool PART>
-__device__ __forceinline__ void load_lane(const T* __restrict__ p, int d0,
-                                          int Dr, float (&out)[NV]) {
-  if constexpr (PART) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) out[i] = d0 + i < Dr ? to_f32<T>(p[i]) : 0.f;
-  } else {
-    load_slice<T, NV>(p, out);
-  }
-}
-
-// One CTA per (head, batch row): blockIdx.x = h, blockIdx.y = b.
+// One CTA per (partition, head, batch row): blockIdx = (part, h, b).
 // Q8 = false: KT = QT, scales unused. Q8 = true: KT = int8_t, scales used.
-template <typename QT, typename KT, bool Q8, int NV, bool PART>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
-                        const float* __restrict__ k_scale,
-                        const KT* __restrict__ v_pool,
-                        const float* __restrict__ v_scale,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ lens, QT* __restrict__ out,
-                        int H, int NB, int bs, int MB, int Dr, float scale) {
-  constexpr int D = 32 * NV;            // the lanes' extent
-  const int Dm = PART ? Dr : D;         // the head dim in memory
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
+// (The bound's 1 block per SM lets ptxas take the registers it needs: with
+// the thread count alone it held the 16-lane instantiations, D = 80 and
+// 128, to 80 registers and spilled.)
+template <int NV, bool Q8, typename QT, typename KT>
+__global__ void __launch_bounds__(kThr, 1)
+    decode_part(const QT* __restrict__ q, const KT* __restrict__ k_pool,
+                const float* __restrict__ k_scale,
+                const KT* __restrict__ v_pool,
+                const float* __restrict__ v_scale,
+                const int* __restrict__ tables, const int* __restrict__ lens,
+                QT* __restrict__ out, float* __restrict__ scratch, int H,
+                int NB, int bs, int MB, int D, int NP, float scale) {
+  using L = Layout<KT, NV>;
+  constexpr int E = L::E, G = L::G, C = L::C, NG = L::NG, U = L::U;
+  constexpr int KW = kWords<KT, E>, QW = kWords<QT, E>;
+  const int part = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   // lens past the table width would index past the row's table; the
   // reference masks columns >= MB * bs, so clamping is the same function
   const int n = min(max(lens[b], 0), MB * bs);
+  const int np = max((n + kPart - 1) / kPart, 1);  // an empty row: one
+  if (part >= np) return;
+  const int tid = threadIdx.x, grp = tid / G, gl = tid % G;
   const int* trow = tables + static_cast<int64_t>(b) * MB;
-  const int64_t qo = (static_cast<int64_t>(b) * H + h) * Dm;
+  const int64_t qo = (static_cast<int64_t>(b) * H + h) * D;
 
-  float qv[NV];
-  load_lane<QT, NV, PART>(q + qo + lane * NV, lane * NV, Dm, qv);
-
-  float m = kNeg, l = 0.f;
-  float acc[NV];
+  float qv[C][E];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) acc[i] = 0.f;
-
-  for (int base = warp; base < n; base += kWarps * kUnroll) {
-    float kr[kUnroll][NV], vr[kUnroll][NV], ks[kUnroll], vs[kUnroll];
+  for (int c = 0; c < C; ++c) {
+    const int d0 = (gl + c * G) * E;
+    uint32_t w[QW];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * kWarps;
-      if (j < n) {
-        // a table entry outside [0, NB) would read outside the pool;
-        // clamping keeps the read in bounds (the engine never emits one)
-        const int blk = min(max(trow[j / bs], 0), NB - 1);
-        const int64_t row = static_cast<int64_t>(blk) * bs + j % bs;
-        const int64_t off = (row * H + h) * Dm + lane * NV;
-        load_lane<KT, NV, PART>(k_pool + off, lane * NV, Dm, kr[u]);
-        load_lane<KT, NV, PART>(v_pool + off, lane * NV, Dm, vr[u]);
-        if constexpr (Q8) {
-          ks[u] = k_scale[row * H + h];
-          vs[u] = v_scale[row * H + h];
+    for (int i = 0; i < QW; ++i) w[i] = 0u;
+    if (d0 < D) load_words<QT, E>(q + qo + d0, w);
+    widen<QT, E>(w, qv[c]);
+  }
+  float m = kNeg, l = 0.f, acc[C][E];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[c][e] = 0.f;
+
+#pragma unroll
+  for (int u0 = 0; u0 < U; u0 += kUB) {
+    // this group's positions j = p0 + grp + NG u: table entries first, then
+    // every K and V chunk (and scale) before any is used
+    int64_t row[kUB];
+    bool live[kUB];
+#pragma unroll
+    for (int u = 0; u < kUB; ++u) {
+      const int j = part * kPart + grp + NG * (u0 + u);
+      live[u] = u0 + u < U && j < n;
+      // a table entry outside [0, NB) would read outside the pool;
+      // clamping keeps the read in bounds (the engine never emits one)
+      const int blk = live[u] ? min(max(trow[j / bs], 0), NB - 1) : 0;
+      row[u] = static_cast<int64_t>(blk) * bs + j % bs;
+    }
+    uint32_t kr[kUB][C][KW], vr[kUB][C][KW];
+    float ks[kUB], vs[kUB];
+#pragma unroll
+    for (int u = 0; u < kUB; ++u) {
+      const int64_t base = (row[u] * H + h) * D;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int d0 = (gl + c * G) * E;
+#pragma unroll
+        for (int i = 0; i < KW; ++i) kr[u][c][i] = vr[u][c][i] = 0u;
+        if (live[u] && d0 < D) {
+          load_words<KT, E>(k_pool + base + d0, kr[u][c]);
+          load_words<KT, E>(v_pool + base + d0, vr[u][c]);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < NV; ++i) kr[u][i] = vr[u][i] = 0.f;
-        ks[u] = vs[u] = 0.f;
+      }
+      if constexpr (Q8) {
+        ks[u] = live[u] ? k_scale[row[u] * H + h] : 0.f;
+        vs[u] = live[u] ? v_scale[row[u] * H + h] : 0.f;
       }
     }
-    float s[kUnroll];
+    float s[kUB];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kUB; ++u) {
       float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < NV; ++i) d += qv[i] * kr[u][i];
-      d = warp_sum(d);
+      for (int c = 0; c < C; ++c) {
+        float kf[E];
+        widen<KT, E>(kr[u][c], kf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) d += qv[c][e] * kf[e];
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, o);
       if constexpr (Q8) d *= ks[u] * scale;
       else d *= scale;
-      s[u] = (base + u * kWarps < n) ? d : kNeg;
+      s[u] = live[u] ? d : kNeg;
     }
     float mx = m;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) mx = fmaxf(mx, s[u]);
+    for (int u = 0; u < kUB; ++u) mx = fmaxf(mx, s[u]);
     const float corr = expf(m - mx);
-    float p[kUnroll], psum = 0.f;
+    float p[kUB], psum = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      p[u] = (base + u * kWarps < n) ? expf(s[u] - mx) : 0.f;
+    for (int u = 0; u < kUB; ++u) {
+      p[u] = live[u] ? expf(s[u] - mx) : 0.f;
       psum += p[u];
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      float a = acc[i] * corr;
+    for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if constexpr (Q8) a += (p[u] * vs[u]) * vr[u][i];
-        else a += p[u] * vr[u][i];
+      for (int e = 0; e < E; ++e) acc[c][e] *= corr;
+#pragma unroll
+    for (int u = 0; u < kUB; ++u) {
+      const float pu = Q8 ? p[u] * vs[u] : p[u];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float vf[E];
+        widen<KT, E>(vr[u][c], vf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[c][e] += pu * vf[e];
       }
-      acc[i] = a;
     }
     m = mx;
   }
 
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][D];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+  // the groups' states, merged in group order
+  __shared__ float sm_m[NG], sm_l[NG];
+  __shared__ float sm_acc[NG][32 * NV];
+  if (gl == 0) {
+    sm_m[grp] = m;
+    sm_l[grp] = l;
   }
 #pragma unroll
-  for (int i = 0; i < NV; ++i) sm_acc[warp][lane * NV + i] = acc[i];
+  for (int c = 0; c < C; ++c) {
+    const int d0 = (gl + c * G) * E;
+    if (d0 < 32 * NV)
+#pragma unroll
+      for (int e = 0; e < E; ++e) sm_acc[grp][d0 + e] = acc[c][e];
+  }
   __syncthreads();
-
   float M = kNeg;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w]);
-  float w_scale[kWarps];
-  float L = 0.f;
+  for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
+  float w[NG], Ls = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    w_scale[w] = expf(sm_m[w] - M);
-    L += sm_l[w] * w_scale[w];
+  for (int g = 0; g < NG; ++g) {
+    w[g] = expf(sm_m[g] - M);
+    Ls += sm_l[g] * w[g];
   }
-  L = fmaxf(L, 1e-30f);  // lens == 0 rows: acc is 0, output is 0
-  for (int d = threadIdx.x; d < Dm; d += kWarps * 32) {
-    float o = 0.f;
+  const int64_t pi = (static_cast<int64_t>(b) * H + h) * NP + part;
+  float* pacc = scratch + pi * (D + 2);
+  for (int d = tid; d < D; d += kThr) {
+    float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += sm_acc[w][d] * w_scale[w];
-    out[qo + d] = from_f32<QT>(o / L);
+    for (int g = 0; g < NG; ++g) a += sm_acc[g][d] * w[g];
+    if (np == 1)  // lens == 0 rows: acc is 0, the output is 0
+      out[qo + d] = from_f32<QT>(a / fmaxf(Ls, 1e-30f));
+    else
+      pacc[d] = a;
+  }
+  if (np > 1 && tid == 0) {
+    pacc[D] = M;
+    pacc[D + 1] = Ls;
   }
 }
 
-template <typename QT, typename KT, bool Q8, bool PART>
-cudaError_t launch_d(const void* q, const void* k, const float* ks,
-                     const void* v, const float* vs, const int* tables,
-                     const int* lens, void* out, int B, int H, int D, int NB,
-                     int bs, int MB, float scale, cudaStream_t stream) {
-  const dim3 grid(H, B);
-  const dim3 block(kWarps * 32);
+// One CTA per (head, batch row) with more than one partition: the
+// partitions' states merged in partition order.
+template <typename QT>
+__global__ void __launch_bounds__(kThr)
+    decode_merge(const int* __restrict__ lens,
+                 const float* __restrict__ scratch, QT* __restrict__ out,
+                 int H, int bs, int MB, int D, int NP) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n = min(max(lens[b], 0), MB * bs);
+  const int np = (n + kPart - 1) / kPart;
+  if (np <= 1) return;
+  const int64_t bh = static_cast<int64_t>(b) * H + h;
+  const float* part = scratch + bh * NP * (D + 2);
+  float M = kNeg;
+  for (int i = 0; i < np; ++i) M = fmaxf(M, part[i * (D + 2) + D]);
+  float Ls = 0.f;
+  for (int i = 0; i < np; ++i)
+    Ls += part[i * (D + 2) + D + 1] * expf(part[i * (D + 2) + D] - M);
+  for (int d = threadIdx.x; d < D; d += kThr) {
+    float a = 0.f;
+    for (int i = 0; i < np; ++i)
+      a += part[i * (D + 2) + d] * expf(part[i * (D + 2) + D] - M);
+    out[bh * D + d] = from_f32<QT>(a / Ls);
+  }
+}
+
+// partitions a row of MB * bs positions can have
+int partitions(int bs, int MB) {
+  return static_cast<int>((static_cast<long long>(MB) * bs + kPart - 1) /
+                          kPart);
+}
+
+template <bool Q8, typename QT, typename KT>
+cudaError_t launch(const void* q, const void* k, const float* ks,
+                   const void* v, const float* vs, const int* tables,
+                   const int* lens, void* out, float* scratch, int B, int H,
+                   int D, int NB, int bs, int MB, float scale,
+                   cudaStream_t stream) {
+  const int NP = partitions(bs, MB);
+  const dim3 grid(NP, H, B);
   const auto* qp = static_cast<const QT*>(q);
   const auto* kp = static_cast<const KT*>(k);
   const auto* vp = static_cast<const KT*>(v);
   auto* op = static_cast<QT*>(out);
-#define PT_CASE(NV)                                                        \
-  case NV:                                                                 \
-    paged_decode_kernel<QT, KT, Q8, NV, PART><<<grid, block, 0, stream>>>( \
-        qp, kp, ks, vp, vs, tables, lens, op, H, NB, bs, MB, D, scale);    \
+#define PT_CASE(NV)                                                         \
+  case NV:                                                                  \
+    decode_part<NV, Q8, QT, KT><<<grid, kThr, 0, stream>>>(                 \
+        qp, kp, ks, vp, vs, tables, lens, op, scratch, H, NB, bs, MB, D, NP, \
+        scale);                                                             \
     break;
   switch ((D + 31) / 32) {
     PT_CASE(1)
@@ -263,50 +361,48 @@ cudaError_t launch_d(const void* q, const void* k, const float* ks,
       return cudaErrorInvalidValue;
   }
 #undef PT_CASE
+  if (cudaError_t e = cudaGetLastError()) return e;
+  if (NP == 1) return cudaSuccess;
+  decode_merge<QT><<<dim3(H, B), kThr, 0, stream>>>(lens, scratch, op, H, bs,
+                                                    MB, D, NP);
   return cudaGetLastError();
 }
 
-// head dims that are a multiple of 32 take the unmasked instantiation
-template <typename QT, typename KT, bool Q8>
-cudaError_t launch(const void* q, const void* k, const float* ks,
-                   const void* v, const float* vs, const int* tables,
-                   const int* lens, void* out, int B, int H, int D, int NB,
-                   int bs, int MB, float scale, cudaStream_t stream) {
-  if (D % 32 == 0)
-    return launch_d<QT, KT, Q8, false>(q, k, ks, v, vs, tables, lens, out, B,
-                                       H, D, NB, bs, MB, scale, stream);
-  return launch_d<QT, KT, Q8, true>(q, k, ks, v, vs, tables, lens, out, B, H,
-                                    D, NB, bs, MB, scale, stream);
-}
-
 bool bad_shape(int B, int H, int D, int NB, int bs, int MB) {
-  return B < 0 || B > 65535 || H < 1 || D < 8 || D > kMaxD || D % 8 != 0 ||
-         NB < 1 || bs < 1 || MB < 1;
+  return B < 0 || B > 65535 || H < 1 || H > 65535 || D < 8 || D > kMaxD ||
+         D % 8 != 0 || NB < 1 || bs < 1 || MB < 1 ||
+         static_cast<long long>(MB) * bs >= (1ll << 31);
 }
 
 }  // namespace
 
 extern "C" {
 
+// positions a partition (kPart): the scratch holds B * H * NP * (D + 2)
+// f32, NP = ceil(MB * bs / kPart)
+int pt_paged_attention_part() { return kPart; }
+
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it)
 int pt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                       const int* tables, const int* lens, void* out, int B,
-                       int H, int D, int NB, int bs, int MB, float scale,
-                       int dtype, void* stream) {
+                       const int* tables, const int* lens, void* out,
+                       float* scratch, int B, int H, int D, int NB, int bs,
+                       int MB, float scale, int dtype, void* stream) {
   // an error an earlier runtime call left pending is returned (and so
   // cleared), never dropped: the wrapper raises it
   if (cudaError_t pending = cudaGetLastError()) return pending;
-  if (bad_shape(B, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
+  if (bad_shape(B, H, D, NB, bs, MB) ||
+      (scratch == nullptr && partitions(bs, MB) > 1))
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, float, false>(q, k_pool, nullptr, v_pool, nullptr,
-                                       tables, lens, out, B, H, D, NB, bs, MB,
-                                       scale, s);
+    return launch<false, float, float>(q, k_pool, nullptr, v_pool, nullptr,
+                                       tables, lens, out, scratch, B, H, D,
+                                       NB, bs, MB, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(
-        q, k_pool, nullptr, v_pool, nullptr, tables, lens, out, B, H, D, NB,
-        bs, MB, scale, s);
+    return launch<false, __nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, nullptr, v_pool, nullptr, tables, lens, out, scratch, B,
+        H, D, NB, bs, MB, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -314,23 +410,25 @@ int pt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
 int pt_paged_attention_q8(const void* q, const void* k_codes,
                           const float* k_scale, const void* v_codes,
                           const float* v_scale, const int* tables,
-                          const int* lens, void* out, int B, int H, int D,
-                          int NB, int bs, int MB, float scale, int qdtype,
-                          void* stream) {
+                          const int* lens, void* out, float* scratch, int B,
+                          int H, int D, int NB, int bs, int MB, float scale,
+                          int qdtype, void* stream) {
   // an error an earlier runtime call left pending is returned (and so
   // cleared), never dropped: the wrapper raises it
   if (cudaError_t pending = cudaGetLastError()) return pending;
-  if (bad_shape(B, H, D, NB, bs, MB)) return cudaErrorInvalidValue;
+  if (bad_shape(B, H, D, NB, bs, MB) ||
+      (scratch == nullptr && partitions(bs, MB) > 1))
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (qdtype == 0)
-    return launch<float, int8_t, true>(q, k_codes, k_scale, v_codes, v_scale,
-                                       tables, lens, out, B, H, D, NB, bs, MB,
-                                       scale, s);
+    return launch<true, float, int8_t>(q, k_codes, k_scale, v_codes, v_scale,
+                                       tables, lens, out, scratch, B, H, D,
+                                       NB, bs, MB, scale, s);
   if (qdtype == 1)
-    return launch<__nv_bfloat16, int8_t, true>(q, k_codes, k_scale, v_codes,
-                                               v_scale, tables, lens, out, B,
-                                               H, D, NB, bs, MB, scale, s);
+    return launch<true, __nv_bfloat16, int8_t>(
+        q, k_codes, k_scale, v_codes, v_scale, tables, lens, out, scratch, B,
+        H, D, NB, bs, MB, scale, s);
   return cudaErrorInvalidValue;
 }
 

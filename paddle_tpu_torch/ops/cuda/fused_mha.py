@@ -1,15 +1,16 @@
 """Bind and launch the hand-written fused short-sequence MHA (kernel #9 of
-the port, `csrc/fused_mha.cu`, CUDA C++ for sm_90a): the forward and the
-backward on the packed projection output. The library is built and loaded
-by `build.py`.
+the port, `csrc/fused_mha.cu`, CUDA C++ for sm_90a; its bf16 kernels are
+#6's warpgroup kernels of `csrc/flash_wg.cuh` with #9's features): the
+forward and the backward on the packed projection output. The library is
+built and loaded by `build.py`.
 
 The wrappers check device, dtypes, shapes, contiguity and alignment,
 raise ValueError on what the kernels do not take, allocate the outputs
-and the backward's row statistics, launch on PyTorch's current stream and
-raise RuntimeError when a launch reports an error. They never fall back
-to another implementation. Each call adds one to
-``LAUNCHES["fused_mha_fwd"]`` or ``["fused_mha_bwd"]`` (the backward
-entry point runs its three passes as one call).
+and the backward's scratch, launch on PyTorch's current stream and raise
+RuntimeError when a launch reports an error. They never fall back to
+another implementation. Each call adds one to ``LAUNCHES["fused_mha_fwd"]``
+or ``["fused_mha_bwd"]`` (the backward entry point runs its three passes
+as one call).
 """
 from __future__ import annotations
 
@@ -95,47 +96,61 @@ def _ptr(t):
 
 def fused_mha_fwd_cuda(qkv, num_heads, *, scale=None, kv_len=None,
                        lens=None, causal=False, dropout_p=0.0, seed=None):
-    """Forward: qkv [B, S, 3F] -> out [B, S, F] in qkv's dtype. kv_len an
-    int, or lens an int32 [B] device tensor; seed an int32 [1] device
-    tensor when dropout_p > 0."""
+    """Forward: qkv [B, S, 3F] -> (out [B, S, F] in qkv's dtype, lse). lse
+    is the softmax's log-sum-exp [B, nh, S] f32, the bf16 backward's
+    residual; None in f32, whose backward recomputes its statistics.
+    kv_len an int, or lens an int32 [B] device tensor; seed an int32 [1]
+    device tensor when dropout_p > 0."""
     B, S, nh, D, kv = _check(qkv, num_heads, kv_len, lens, dropout_p, seed)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     thresh, inv = _drop_args(dropout_p)
     lib = load_library("fused_mha")
     out = torch.empty((B, S, nh * D), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, nh, S), dtype=torch.float32, device=qkv.device) \
+        if qkv.dtype == torch.bfloat16 else None
     rc = lib.pt_fused_mha_fwd(
-        qkv.data_ptr(), out.data_ptr(), _ptr(lens), _ptr(seed), B, S, nh, D,
-        kv, int(bool(causal)), scale, thresh, inv, _DTYPE_CODE[qkv.dtype],
+        qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(lens), _ptr(seed),
+        B, S, nh, D, kv, int(bool(causal)), scale, thresh, inv,
+        _DTYPE_CODE[qkv.dtype],
         torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, rc, "fused_mha_fwd",
                    f"; B={B} S={S} nh={nh} D={D} dtype={qkv.dtype}")
     LAUNCHES["fused_mha_fwd"] += 1
-    return out
+    return out, lse
 
 
-def fused_mha_bwd_cuda(qkv, dout, num_heads, *, scale=None, kv_len=None,
-                       lens=None, causal=False, dropout_p=0.0, seed=None):
-    """Backward: d(qkv) [B, S, 3F] in qkv's dtype from qkv and dout
-    [B, S, F] (contiguous, qkv's dtype). Runs three passes: the row
-    statistics (max, 1/sum and the in-row term r of every query row), the
-    dQ pass and the dK/dV pass; each writes its columns of the packed
-    gradient."""
+def fused_mha_bwd_cuda(qkv, dout, lse, num_heads, *, scale=None,
+                       kv_len=None, lens=None, causal=False, dropout_p=0.0,
+                       seed=None):
+    """Backward: d(qkv) [B, S, 3F] in qkv's dtype from qkv, dout [B, S, F]
+    (contiguous, qkv's dtype) and the forward's lse (bf16; None in f32).
+    Runs three passes, each a launch: bf16, the in-row term r of every
+    query row (from lse), the dQ pass and the dK/dV pass; f32, the row
+    statistics (max, 1/sum and r), dQ and dK/dV. The dQ and dK/dV passes
+    write their columns of the packed gradient."""
     B, S, nh, D, kv = _check(qkv, num_heads, kv_len, lens, dropout_p, seed)
     if tuple(dout.shape) != (B, S, nh * D) or dout.dtype != qkv.dtype or \
             dout.device != qkv.device or not dout.is_contiguous() or \
             dout.data_ptr() % 16:
         raise ValueError(f"dout must be contiguous [B, S, F] = "
                          f"{(B, S, nh * D)} in qkv's dtype and device")
+    bf16 = qkv.dtype == torch.bfloat16
+    if bf16 and (lse is None or lse.dtype != torch.float32
+                 or tuple(lse.shape) != (B, nh, S)
+                 or lse.device != qkv.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be the forward's contiguous float32 "
+                         f"[B, nh, S] = {(B, nh, S)} on {qkv.device}")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     thresh, inv = _drop_args(dropout_p)
     lib = load_library("fused_mha")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, nh, S), dtype=torch.float32,
-                        device=qkv.device)
+    scratch = torch.empty((B, nh, S) if bf16 else (3, B, nh, S),
+                          dtype=torch.float32, device=qkv.device)
     rc = lib.pt_fused_mha_bwd(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        _ptr(lens), _ptr(seed), B, S, nh, D, kv, int(bool(causal)), scale,
-        thresh, inv, _DTYPE_CODE[qkv.dtype],
+        qkv.data_ptr(), dout.data_ptr(), _ptr(lse if bf16 else None),
+        dqkv.data_ptr(), scratch.data_ptr(), _ptr(lens), _ptr(seed), B, S,
+        nh, D, kv, int(bool(causal)), scale, thresh, inv,
+        _DTYPE_CODE[qkv.dtype],
         torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, rc, "fused_mha_bwd",
                    f"; B={B} S={S} nh={nh} D={D} dtype={qkv.dtype}")

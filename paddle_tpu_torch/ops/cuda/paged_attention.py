@@ -1,8 +1,9 @@
 """Bind and launch the hand-written paged-attention kernels (CUDA C++ for
 sm_90a): single-token decode (`csrc/paged_attention.cu`, kernels #1 and #2
-of the port) and the multi-token window over a cached prefix
-(`csrc/paged_prefix_attention.cu`, kernels #3 and #4). The libraries are
-built and loaded by `build.py`.
+of the port: a split-sequence kernel and, where a row can span more than
+one partition, the merge of its partitions) and the multi-token window
+over a cached prefix (`csrc/paged_prefix_attention.cu`, kernels #3 and
+#4). The libraries are built and loaded by `build.py`.
 
 Each wrapper checks device, dtypes, shapes and contiguity, raises
 ValueError on what the kernel does not take, allocates the output, launches
@@ -102,9 +103,27 @@ def _check_pools(q, pools, NB, bs, H, D):
                              f"; got {tuple(p.shape)} {p.dtype}")
 
 
+_PART = {}   # positions a decode partition (the kernel's kPart), per library
+
+
+def _scratch(lib, B, H, D, bs, MB, device):
+    """A new f32 scratch for the decode partitions' states [B, H, NP,
+    D + 2], NP = ceil(MB * bs / part); None (no scratch, no merge launch)
+    when every row fits in one partition."""
+    part = _PART.get(lib)
+    if part is None:
+        part = _PART[lib] = lib.pt_paged_attention_part()
+    n_part = -(-MB * bs // part)
+    if n_part == 1:
+        return None
+    return torch.empty(B * H * n_part * (D + 2), dtype=torch.float32,
+                       device=device)
+
+
 def _launch(lib_name, fn, counter, q, pools, tables, vec, scale, window):
     """Check, launch `fn` of library `lib_name` over (q, *pools, tables,
-    vec, out, shapes), count the launch; returns out."""
+    vec, out, shapes; the decode kernels also a scratch for their
+    partitions' states after out), count the launch; returns out."""
     B, S, H, D, NB, bs, MB = _check_common(
         q, pools, tables, vec, window=window,
         what="start" if window else "lens")
@@ -113,9 +132,12 @@ def _launch(lib_name, fn, counter, q, pools, tables, vec, scale, window):
     out = torch.empty_like(q)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     shapes = (B, S, H, D, NB, bs, MB) if window else (B, H, D, NB, bs, MB)
+    scratch = () if window else (_scratch(lib, B, H, D, bs, MB, q.device),)
     rc = getattr(lib, fn)(
         q.data_ptr(), *(p.data_ptr() for p in pools), tables.data_ptr(),
-        vec.data_ptr(), out.data_ptr(), *shapes, scale,
+        vec.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch),
+        *shapes, scale,
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(lib, rc, counter)
     LAUNCHES[counter] += 1

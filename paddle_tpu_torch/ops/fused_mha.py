@@ -7,9 +7,11 @@ causal mask and attention-probability dropout drawn inside the kernel.
 `fused_mha` routes by device and by nothing else: for CUDA tensors the
 hand-written kernels (ops/cuda/fused_mha.py, kernel #9: the forward and
 the backward), which launch or raise; for CPU tensors the plain versions
-here. Both run inside one torch.autograd.Function that saves only qkv,
-the seed and the lens, as the JAX custom VJP does; the backward
-recomputes the softmax and returns d(qkv) in the packed layout.
+here. Both run inside one torch.autograd.Function that saves qkv, the
+seed and the lens, as the JAX custom VJP does, and on the bf16 kernel
+route the forward's log-sum-exp (f32 [B, nh, S]: 1/32 of the output's
+bytes at head dim 64); the backward recomputes the softmax from it and
+returns d(qkv) in the packed layout.
 
 The function (`fused_mha_reference` and `fused_mha_bwd_reference`, what
 the JAX kernel bodies compute): f32 scores times the scale; the causal
@@ -183,7 +185,7 @@ def _packed(t):
 
 class _FusedMHA(torch.autograd.Function):
     """Forward kernel (or plain forward); the backward recomputes from the
-    saved qkv, seed and lens only."""
+    saved qkv, seed and lens, and the kernels' lse."""
 
     @staticmethod
     def forward(ctx, qkv, seed, lens, num_heads, scale, kv_len, causal,
@@ -191,23 +193,24 @@ class _FusedMHA(torch.autograd.Function):
         kw = dict(scale=scale, kv_len=kv_len, lens=lens, causal=causal,
                   dropout_p=dropout_p, seed=seed)
         if _on_cuda(qkv):
-            out = fused_mha_fwd_cuda(qkv, num_heads, **kw)
+            out, lse = fused_mha_fwd_cuda(qkv, num_heads, **kw)
         else:
-            out = fused_mha_reference(qkv, num_heads, **kw)
-        ctx.save_for_backward(qkv, seed, lens)
+            out, lse = fused_mha_reference(qkv, num_heads, **kw), None
+        ctx.save_for_backward(qkv, seed, lens, lse)
         ctx.num_heads, ctx.scale, ctx.kv_len = num_heads, scale, kv_len
         ctx.causal, ctx.dropout_p = causal, dropout_p
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, seed, lens = ctx.saved_tensors
+        qkv, seed, lens, lse = ctx.saved_tensors
         kw = dict(scale=ctx.scale, kv_len=ctx.kv_len, lens=lens,
                   causal=ctx.causal, dropout_p=ctx.dropout_p, seed=seed)
-        bwd = fused_mha_bwd_cuda if _on_cuda(qkv) else \
-            fused_mha_bwd_reference
-        dqkv = bwd(qkv, _packed(dout.to(qkv.dtype)), ctx.num_heads,
-                   **kw)
+        dout = _packed(dout.to(qkv.dtype))
+        if _on_cuda(qkv):
+            dqkv = fused_mha_bwd_cuda(qkv, dout, lse, ctx.num_heads, **kw)
+        else:
+            dqkv = fused_mha_bwd_reference(qkv, dout, ctx.num_heads, **kw)
         return dqkv, None, None, None, None, None, None, None
 
 

@@ -319,10 +319,12 @@ def test_router_hands_the_kernels_packed_aligned_tensors(kind,
 
     def fwd(x, nh, **kw):
         packed(x)
-        return FM.fused_mha_reference(x, nh, **kw)
+        out = FM.fused_mha_reference(x, nh, **kw)
+        return out, torch.zeros(x.shape[0], nh, x.shape[1])
 
-    def bwd(x, dout, nh, **kw):
+    def bwd(x, dout, lse, nh, **kw):
         packed(x, dout)
+        assert tuple(lse.shape) == (x.shape[0], nh, x.shape[1])
         return FM.fused_mha_bwd_reference(x, dout, nh, **kw)
     monkeypatch.setattr(FM, "_on_cuda", lambda x: True)
     monkeypatch.setattr(FM, "fused_mha_fwd_cuda", fwd)

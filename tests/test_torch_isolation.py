@@ -202,7 +202,7 @@ def test_fused_mha_wrapper_rejects_what_the_kernel_does_not_take(
     dout = torch.zeros(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3,
                        dtype=qkv.dtype)
     with pytest.raises(ValueError, match=match):
-        cuda_fm.fused_mha_bwd_cuda(qkv, dout, nh, **kw)
+        cuda_fm.fused_mha_bwd_cuda(qkv, dout, None, nh, **kw)
     assert cuda_fm.LAUNCHES["fused_mha_fwd"] == 0
     assert cuda_fm.LAUNCHES["fused_mha_bwd"] == 0
 

@@ -9,6 +9,7 @@ accounted for (owners' plus the cache's).
 """
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu.inference.kv_cache import BlockPool as JBlockPool
 from paddle_tpu.inference.prefix_cache import PrefixCache as JPrefixCache
@@ -19,7 +20,7 @@ GEO = dict(num_blocks=24, block_size=4, num_layers=2, num_heads=2,
 
 
 def _pair(byte_budget_blocks=None):
-    tp, jp = pt.BlockPool(**GEO), JBlockPool(**GEO)
+    tp, jp = pt.BlockPool(**GEO, device="cpu"), JBlockPool(**GEO)
     budget = None if byte_budget_blocks is None \
         else byte_budget_blocks * tp.bytes_per_block
     return (tp, pt.PrefixCache(tp, byte_budget=budget),
@@ -53,9 +54,21 @@ def _prompt(seed, n):
 
 def test_bytes_per_block_matches_jax():
     for cache_dtype in (None, "int8"):
-        a = pt.BlockPool(**GEO, cache_dtype=cache_dtype)
+        a = pt.BlockPool(**GEO, cache_dtype=cache_dtype, device="cpu")
         b = JBlockPool(**GEO, cache_dtype=cache_dtype)
         assert a.bytes_per_block == b.bytes_per_block
+
+
+def test_pool_without_a_device_is_a_cuda_pool(monkeypatch):
+    """BlockPool resolves its device as the models and optimizers do: no
+    device means CUDA, and without CUDA that raises resolve_device's error
+    instead of building a CPU pool nobody asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        pt.BlockPool(**GEO)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        pt.BlockPool(**GEO, cache_dtype="int8")
+    assert pt.BlockPool(**GEO, device="cpu").device == torch.device("cpu")
 
 
 def test_shared_alloc_refcounts_match_jax():

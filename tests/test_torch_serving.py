@@ -162,7 +162,7 @@ def test_block_pool_matches_jax_allocator():
     from paddle_tpu.inference import BlockPool as JBlockPool
     geo = dict(num_blocks=9, block_size=4, num_layers=1, num_heads=2,
                head_dim=8)
-    tp, jp = pt.BlockPool(**geo), JBlockPool(**geo)
+    tp, jp = pt.BlockPool(**geo, device="cpu"), JBlockPool(**geo)
     ops = [("alloc", 0, 5), ("alloc", 1, 9), ("free", 0, 0),
            ("alloc", 2, 16), ("alloc", 3, 20), ("free", 1, 0),
            ("alloc", 4, 3), ("alloc", 5, 1)]
@@ -185,7 +185,8 @@ def test_block_pool_matches_jax_allocator():
         tp.alloc(2, 1)
     pools = tp.make_pools()
     assert [tuple(p.shape) for p in pools[0]] == [(9, 4, 2, 8)] * 2
-    q8 = pt.BlockPool(**geo, cache_dtype="int8").make_pools()[0]
+    q8 = pt.BlockPool(**geo, cache_dtype="int8",
+                      device="cpu").make_pools()[0]
     assert [tuple(p.shape) for p in q8] == [(9, 4, 2, 8), (9, 4, 2)] * 2
     assert [p.dtype for p in q8] == [torch.int8, torch.float32] * 2
 

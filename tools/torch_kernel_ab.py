@@ -3,10 +3,12 @@
 on one card.
 
     python3 tools/torch_kernel_ab.py [--source STEM] [VARIANT.cu ...]
+    python3 tools/torch_kernel_ab.py --sass-ops
 
 Run from the root of a checkout on a machine with an NVIDIA GPU. STEM names
 the source under `paddle_tpu_torch/ops/cuda/csrc/`: `flash_attention` (#6,
-the default), `paged_prefix_attention` (#3 and #4) or `linear_ce` (#11).
+the default), `paged_prefix_attention` (#3 and #4), `linear_ce` (#11),
+`fused_mha` (#9) or `paged_attention` (#1 and #2).
 Each VARIANT.cu is a full replacement of that source (same C entry
 points); it is built with the package's nvcc flags beside a copy of the
 headers, and its library stands in for the checkout's while it is timed.
@@ -14,21 +16,35 @@ At the shapes `chip_smoke.py` times the kernel, every library runs in
 turns (checkout, variants, checkout, variants reversed), each timed as
 `chip_smoke.py` times kernels (median of 50 launches, L2 flushed), with
 its errors against the plain versions:
-  * flash_attention: FLASH_TIMED, the forward, dQ and dK/dV kernels and
-    their per-row errors;
+  * flash_attention: every bf16 FLASH_CASES shape, the forward, dQ and
+    dK/dV kernels, their per-row errors and a digest of their outputs (equal digests: bitwise
+    equal outputs, so a parent's source shows whether the checkout's
+    kernels still compute the same bits);
+  * fused_mha: FMHA_TIMED, the forward and the backward (its three
+    passes) and their per-row errors;
+  * paged_attention: #1 and #2 in bf16 at head dims 128 and 80, with the
+    max abs error;
   * paged_prefix_attention: every window of WINDOWS at head dims 128 and
     80, #3 and #4 in bf16, with the max abs error;
   * linear_ce: CE_TIMED, the forward, with the max abs loss error.
 With no variant it times the checkout's kernels alone. Prints ptxas's
 "Potential Performance Loss" lines (serialised wgmmas) of every build and
 the kernels of each variant that spill, then one JSON line per shape.
+
+--sass-ops builds the checkout's libraries and prints one JSON line: the
+count of each opcode of SASS_OPS in every redesigned kernel that
+`chip_smoke.py` checks (SASS_CHECKS), by its tag (`chip_smoke.redesigned`).
+The dropout generator's integer work is #9's forward's excess over #6's at
+the same head dim bucket.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -36,22 +52,36 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("flash_attention", "paged_prefix_attention", "linear_ce")
+SOURCES = ("flash_attention", "paged_prefix_attention", "linear_ce",
+           "fused_mha", "paged_attention")
+SASS_OPS = ("IMAD", "LOP3", "SHF", "IADD3", "ISETP", "SEL", "FSEL", "MUFU",
+            "FFMA", "FMUL", "HGMMA")
+
+
+def digest(torch, *ts):
+    """sha256 of the tensors' bytes (bitwise equal tensors, equal digests)"""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def flash_cases(torch, cs, dev):
-    """(case, {metric: fn}, errors fn) at FLASH_TIMED."""
+    """(case, {metric: fn}, errors fn) at every bf16 FLASH_CASES shape
+    (FLASH_TIMED: the shapes whose times the smoke reports)."""
     from paddle_tpu_torch.ops import flash_attention as FA
     from paddle_tpu_torch.ops.cuda import flash_attention as KF
-    for case in (c for c in cs.FLASH_CASES if c[0] in cs.FLASH_TIMED):
-        name, b, sq, _, h, d, causal, _ = case
+    for case in cs.FLASH_CASES:
+        name, b, sq, _, h, d, causal, kv_len = case
         leaves, split = cs.flash_leaves(torch, dev, case, torch.bfloat16)
         q, k, v = split(leaves)
         g = torch.Generator(device=dev).manual_seed(22)
         dout = torch.randn(b, sq, h, d, generator=g,
                            device=dev).to(torch.bfloat16)
-        kw = dict(causal=causal, scale=d ** -0.5)
-        po, _ = FA.flash_forward_reference(q, k, v, causal=causal)
+        kw = dict(causal=causal, scale=d ** -0.5, kv_len=kv_len)
+        po, _ = FA.flash_forward_reference(q, k, v, causal=causal,
+                                           kv_len=kv_len)
 
         def timed(kw=kw, q=q, k=k, v=v, dout=dout):
             o, lse = KF.flash_fwd_cuda(q, k, v, **kw)
@@ -62,15 +92,69 @@ def flash_cases(torch, cs, dev):
                     "dkv_ms": lambda: KF.flash_bwd_dkv_cuda(
                         q, k, v, dout, lse, delta, **kw)}
 
-        def errors(kw=kw, q=q, k=k, v=v, dout=dout, po=po, causal=causal):
+        def errors(kw=kw, q=q, k=k, v=v, dout=dout, po=po, causal=causal,
+                   kv_len=kv_len):
             o, lse = KF.flash_fwd_cuda(q, k, v, **kw)
             delta = KF.flash_delta(o, dout)
             dq = KF.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, **kw)
             dk, dv = KF.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, **kw)
-            pg = FA.flash_bwd_reference(q, k, v, o, lse, dout, causal=causal)
+            pg = FA.flash_bwd_reference(q, k, v, o, lse, dout, causal=causal,
+                                        kv_len=kv_len)
             return {"row_err": [cs.row_err(a, r) for a, r in
-                                zip((o, dq, dk, dv), (po, *pg))]}
+                                zip((o, dq, dk, dv), (po, *pg))],
+                    "digest": digest(torch, o, lse, dq, dk, dv)}
         yield name, timed, errors
+
+
+def fmha_cases(torch, cs, dev):
+    """#9 at FMHA_TIMED: the forward and the backward."""
+    from paddle_tpu_torch.ops import fused_mha as FM
+    from paddle_tpu_torch.ops.cuda import fused_mha as KM
+    for case in (c for c in cs.FMHA_CASES if c[0] in cs.FMHA_TIMED):
+        name, b, s, nh, hd, dt, causal, lens, p = case
+        qkv, dout, kv, seed = cs.fmha_inputs(torch, dev, case)
+        kw = dict(lens=kv, causal=causal, dropout_p=p, seed=seed)
+        po = FM.fused_mha_reference(qkv, nh, **kw)
+        pg = FM.fused_mha_bwd_reference(qkv, dout, nh, **kw)
+
+        def timed(qkv=qkv, dout=dout, nh=nh, kw=kw):
+            _, lse = KM.fused_mha_fwd_cuda(qkv, nh, **kw)
+            return {"fwd_ms": lambda: KM.fused_mha_fwd_cuda(qkv, nh, **kw),
+                    "bwd_ms": lambda: KM.fused_mha_bwd_cuda(qkv, dout, lse,
+                                                            nh, **kw)}
+
+        def errors(qkv=qkv, dout=dout, nh=nh, hd=hd, kw=kw, po=po, pg=pg):
+            o, lse = KM.fused_mha_fwd_cuda(qkv, nh, **kw)
+            g = KM.fused_mha_bwd_cuda(qkv, dout, lse, nh, **kw)
+            errs = cs.fmha_errs(o, g, po, pg, nh, hd)
+            return {"row_err": {n: e[0] for n, e in errs.items()},
+                    "digest": digest(torch, o, lse, g)}
+        yield name, timed, errors
+
+
+def decode_cases(torch, cs, dev):
+    """#1 and #2 in bf16 at head dims 128 and 80, phase 2's inputs."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+    for q8 in (False, True):
+        kern = K.paged_attention_q8_cuda if q8 else K.paged_attention_cuda
+        plain = A.paged_attention_reference_q8 if q8 else \
+            A.paged_attention_reference
+        for d in (cs.D, 80):
+            q, pools, tables, lens = cs.kernel_inputs(
+                torch, dev, torch.bfloat16, q8, d)
+            args = (q, *pools, tables, lens)
+            want = plain(*args)
+
+            def timed(kern=kern, args=args):
+                return {"ms": lambda: kern(*args)}
+
+            def errors(kern=kern, args=args, want=want):
+                got = kern(*args)
+                return {"max_abs_err": float((got.float() - want.float())
+                                             .abs().max()),
+                        "digest": digest(torch, got)}
+            yield f"{'q8' if q8 else 'bf16'}_D{d}", timed, errors
 
 
 def prefix_cases(torch, cs, dev):
@@ -120,13 +204,35 @@ def ce_cases(torch, cs, dev):
         yield name, timed, errors
 
 
+def sass_op_counts(cs, KB):
+    """{tag: {"total": instructions, opcode: count}} of every redesigned
+    kernel in the libraries of chip_smoke's SASS_CHECKS."""
+    libs = KB.build()
+    tool = cs.cuobjdump(KB._nvcc())
+    counts = {}
+    for lib, (kernels, _) in cs.SASS_CHECKS.items():
+        for name, text in cs.sass_by_kernel(tool, libs[lib]).items():
+            tag = cs.redesigned(name)
+            if tag is None or tag.partition("<")[0] not in kernels:
+                continue
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_]*)", text)
+            counts[tag] = {"total": len(ops), **{
+                o: sum(1 for x in ops if x.split("_")[0] == o
+                       or x.startswith(o + ".")) for o in SASS_OPS}}
+    return counts
+
+
 CASES = {"flash_attention": flash_cases,
-         "paged_prefix_attention": prefix_cases, "linear_ce": ce_cases}
+         "paged_prefix_attention": prefix_cases, "linear_ce": ce_cases,
+         "fused_mha": fmha_cases, "paged_attention": decode_cases}
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", choices=SOURCES, default="flash_attention")
+    ap.add_argument("--sass-ops", action="store_true",
+                    help="print the redesigned kernels' opcode counts")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args(argv)
     stem = args.source
@@ -140,6 +246,10 @@ def main(argv) -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from paddle_tpu_torch.ops.cuda import build as KB
+    if args.sass_ops:
+        print(json.dumps({"card": cs.card_line(),
+                          "sass_op_counts": sass_op_counts(cs, KB)}))
+        return 0
 
     libs = {"checkout": KB.load_library(stem)}
     logs = {"checkout": (KB.BUILD_DIR / "nvcc.log").read_text()}
@@ -186,8 +296,11 @@ def main(argv) -> int:
                 row.update({k: run(fn) for k, fn in timed().items()})
                 res.setdefault(tag, []).append(row)
             KB._libs[stem] = libs["checkout"]
+            same = {tag: all(r.get("digest") == res["checkout"][0].get(
+                "digest") for r in rows) for tag, rows in res.items()}
             print(json.dumps({"case": case, "source": stem,
-                              "card": cs.card_line(), "runs": res}),
+                              "card": cs.card_line(), "runs": res,
+                              "bitwise_equal_to_checkout": same}),
                   flush=True)
             torch.cuda.empty_cache()
     return 0
