@@ -6,11 +6,13 @@
 Run from the root of a checkout. It builds the hand-written kernels from
 the checkout's sources (one nvcc per source, in parallel) and reads the
 redesigned ones back with cuobjdump: #6's bf16 kernels, #9's
-instantiations of them and #11's bf16 "vh" kernel must contain warpgroup
-MMAs (HGMMA) and TMA loads (UTMALDG), the bf16 tile kernel of #3 and #4
-tensor-core MMAs, #1/#2's partition kernel 16-byte loads, and their
-instantiations at head dims 64, 80 and 128 (#11's only one) spill nothing
-(phase 1). The kernels: the
+instantiations of them, #11's bf16 "vh" kernel and #5's bf16 "nk" kernel
+must contain warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), the bf16
+tile kernel of #3 and #4 tensor-core MMAs, #1/#2's partition kernel
+16-byte loads, #10's plan-driven kernels be present with their 16-byte
+or cp.async loads, and their instantiations at head dims 64, 80 and 128
+(#11's only one; every one of #5's; #10's at 32) spill nothing (phase
+1). The kernels: the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
 attention #6 (forward, dQ and dK/dV passes), the fused linear
 cross-entropy forward #11, the fused short-sequence MHA #9 (forward and
@@ -25,7 +27,9 @@ also at bert-base's MLM head and gpt3-2.7b's, bitwise repeatable, with a
 control that drops the head's last 256 vocabulary rows, #9
 at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
 sets read back, bf16 bitwise repeatable, #10 at swin-t's four stages and swin-b's last with the
-model's own bias, bitwise repeatable, and in f32, #8 at gpt3-1.3b's and
+model's own bias, bitwise repeatable, its live-block plan equal to the
+plain one, on a bias with scattered live entries, and in f32, #5
+bitwise repeatable with its ratio to torch.matmul reported, #8 at gpt3-1.3b's and
 gpt3-2.7b's LayerNorm inputs for the four affine cases, its backward
 bitwise repeatable, #7 at gpt3-1.3b's training shape, equal to #6 on the
 same data), checks parity between
@@ -197,6 +201,12 @@ LINE_WINDOW = {"paged_prefix_attention": 9, "paged_prefix_attention_q8": 128}
 # bf16 tile kernel of #3 (bf16 pools) and #4 (int8 codes) tensor-core MMAs
 SASS_CHECKS = {"flash_attention": (("fwd_wg", "dq_wg", "dkv_wg"),
                                    ("HGMMA", "UTMALDG")),
+               # #5's bf16 "nk" kernel: warpgroup MMAs fed by TMA
+               "int8_matmul": (("i8_wg",), ("HGMMA", "UTMALDG")),
+               # #10's plan-driven bf16 kernels: present, the plan pass's
+               # 16-byte bias loads, the others' cp.async staging
+               "fused_mha_bias": (("mhb_plan", "mhb_fwd", "mhb_dq", "mhb_db",
+                                   "mhb_dkv"), ("LDG.E.128|LDGSTS",)),
                "fused_mha": (("fwd_wg", "dq_wg", "dkv_wg"),
                              ("HGMMA", "UTMALDG")),
                "paged_prefix_attention": (("prefix_tc",), ("HMMA|HGMMA",)),
@@ -211,7 +221,13 @@ SPILL_FREE = {"fwd_wg": (64, 128), "dq_wg": (64, 128), "dkv_wg": (64, 128),
               "prefix_tc": (64, 80, 128), "lce_wg": None,
               # #1/#2's partition kernel by NV = ceil(D / 32): 4 (D=128)
               # and 3 (D=80), fp and int8 pools, bf16 and f32 q
-              "decode_part": (3, 4)}
+              "decode_part": (3, 4),
+              # #5's bf16 "nk" kernel by its tokens a CTA: every one
+              "i8_wg": None,
+              # #10's bf16 kernels at swin's head dim 32 (the plan pass
+              # has no head dim)
+              "mhb_fwd": (32,), "mhb_dq": (32,), "mhb_db": (32,),
+              "mhb_dkv": (32,), "mhb_plan": None}
 
 
 class SmokeFailure(Exception):
@@ -315,8 +331,10 @@ def redesigned(name):
     """A redesigned kernel's tag from its mangled name, else None:
     'kernel<first template argument>' (the tile kernel's pool form after a
     comma: 'prefix_tc<128,bf16>', 'prefix_tc<128,int8>'; #9's
-    instantiations of #6's kernels ',mha', its r pass ',mha,r'), or the
-    bare name of #11's kernel, which is no template; #1/#2's partition
+    instantiations of #6's kernels ',mha', its r pass ',mha,r'; #5's
+    'i8_wg<tokens a CTA>'; #10's 'mhb_fwd<head dim bucket>' and its
+    siblings), or the bare name of #11's kernel and of #10's plan pass,
+    which are no templates; #1/#2's partition
     kernel 'decode_part<NV,pool form,q dtype>'."""
     m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_tc)ILi(\d+)E(?:Li\d+E)*"
                   r"((?:Lb[01]E)*)(?:Li\d+E)*E", name)
@@ -332,6 +350,11 @@ def redesigned(name):
     if m:
         return (f"decode_part<{m.group(1)},{('fp', 'int8')[int(m.group(2))]}"
                 f",{'f32' if m.group(3) == 'f' else 'bf16'}>")
+    m = re.search(r"\d(i8_wg|mhb_fwd|mhb_dq|mhb_db|mhb_dkv)ILi(\d+)E", name)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    if re.search(r"\dmhb_planE", name):
+        return "mhb_plan"
     return "lce_wg" if re.search(r"\dlce_wgE", name) else None
 
 
@@ -757,14 +780,23 @@ def gemm_bound(m, k, n, dtype):
                                                            "operations")
 
 
+# the aims of #5's bf16 "nk" kernel against torch.matmul, by M class: a
+# ratio ms / library_ms at or below it meets it. Reported, never gated.
+GEMM_AIMS = {8: 0.6, 72: 1.0, 128: 1.0, 1024: 1.2}
+
+
 def phase_int8_matmul(torch, device, card):
     """Kernel #5 against its plain version at every GEMM shape of the
-    slice's paths, bf16 and f32; times of kernel, plain version and the
-    yardstick (one torch.matmul on the weight dequantized into x's dtype
-    beforehand, so it reads twice the weight bytes)."""
+    slice's paths, bf16 and f32; two launches bitwise equal; times of
+    kernel, plain version and the yardstick (one torch.matmul on the
+    weight dequantized into x's dtype beforehand, so it reads twice the
+    weight bytes); for the bf16 "nk" shapes the launch plan (tokens a CTA,
+    cluster size, CTAs) and the ratio to the yardstick beside its aim
+    (GEMM_AIMS, reported only)."""
     from paddle_tpu_torch.ops.cuda import int8_matmul as KM
     from paddle_tpu_torch.ops.int8_matmul import int8_matmul_reference
     run = timer(torch, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows, line = [], None
     for m, name, k, n, layout in GEMM_CASES:
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -775,30 +807,44 @@ def phase_int8_matmul(torch, device, card):
 
             def plain():
                 return int8_matmul_reference(x, q, s, layout)
-            got, want = kern(), plain()
+            got, got2, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             close = torch.allclose(got.float(), want.float(), atol=tol,
                                    rtol=tol)
             row = {"shape": name, "M": m, "K": k, "N": n, "layout": layout,
                    "dtype": str(dtype).split(".")[-1], "tol": tol,
-                   "max_abs_err": err, "allclose": close}
+                   "max_abs_err": err, "allclose": close,
+                   "bitwise_repeat": bool(torch.equal(got, got2))}
             check(close and bool(torch.isfinite(got.float()).all()),
                   f"int8_matmul {row}: kernel disagrees with its plain "
                   f"version")
+            check(row["bitwise_repeat"], f"int8_matmul {row}: two launches "
+                                         f"differ")
             wq = q.float() if layout == "kn" else q.float().t()
             wd = (wq * s).to(dtype)           # dequantized, outside timing
             bms, by = gemm_bound(m, k, n, dtype)
             row.update(ms=run(kern), plain_ms=run(plain),
                        library_ms=run(lambda: torch.matmul(x, wd)),
                        bound_ms=bms, bound_by=by)
+            if dtype == torch.bfloat16 and layout == "nk":
+                nt, nwg, cs, ctas = KM.wg_plan(m, n, k, sms)
+                row["kernel"] = {"name": f"i8_wg<{nt}>", "tokens": nt,
+                                 "warpgroups": nwg, "cluster": cs,
+                                 "ctas": ctas}
+                if m in GEMM_AIMS:
+                    ratio = row["ms"] / row["library_ms"]
+                    row["vs_library"] = {"ratio": ratio,
+                                         "aim": GEMM_AIMS[m],
+                                         "meets_aim": ratio <= GEMM_AIMS[m]}
             del wd
             rows.append(row)
             if (m, name) == GEMM_LINE and dtype == torch.bfloat16:
                 line = row
     emit({"phase": "int8_matmul_vs_plain", "ok": True, "card": card,
           "timing": "median of 50 launches, CUDA events, L2 flushed",
-          "cases": rows})
+          "aims": "ms / library_ms at or below GEMM_AIMS by M (reported, "
+                  "not gated)", "cases": rows})
     return {"int8_matmul": line}
 
 
@@ -839,8 +885,11 @@ def plain_route():
     FM.fused_mha_bwd_cuda = lambda qkv, dout, lse, nh, **kw: \
         FM.fused_mha_bwd_reference(qkv, dout, nh, **kw)
     mhab = FMB.fused_mha_bias_fwd_cuda, FMB.fused_mha_bias_bwd_cuda
-    FMB.fused_mha_bias_fwd_cuda = FMB.fused_mha_bias_reference
-    FMB.fused_mha_bias_bwd_cuda = FMB.fused_mha_bias_bwd_reference
+    FMB.fused_mha_bias_fwd_cuda = lambda qkv, bias, nh, *, scale=None: (
+        FMB.fused_mha_bias_reference(qkv, bias, nh, scale=scale), None, None)
+    FMB.fused_mha_bias_bwd_cuda = lambda qkv, bias, dout, ml, plan, nh, *, \
+        scale=None: FMB.fused_mha_bias_bwd_reference(qkv, bias, dout, nh,
+                                                     scale=scale)
     FA.flash_attention = lambda q, k, v, causal=False, scale=None, \
         kv_len=None: FA.flash_attention_reference(q, k, v, causal, scale,
                                                   kv_len)
@@ -2736,6 +2785,30 @@ FMB_TIMED = ("swin-t_s1", "swin-t_s2", "swin-t_s3", "swin-t_s4")
 # the control: the bias with one off-diagonal window block (query window
 # 0, key window 1 of period 0) zeroed, so two windows see each other
 FMB_CONTROL = "swin-t_s1"
+# the scattered case, at that case's shapes: a bias of -1e9 but for three
+# entries a row, two in the row's own 64-key tile and one three tiles on,
+# so the live blocks are no window layout (a plan that assumed contiguous
+# windows would drop the far one); the kernels must agree with the plain
+# versions on it
+FMB_SCATTER = "swin-t_s1"
+
+
+def fmb_scattered_bias(torch, device, r_n, nh, s):
+    """FMB_SCATTER's bias [r_n, nh, s, s]: -1e9 but for three N(0, 0.25)
+    entries a row, at columns 64 qt + (13 i + 29 j) mod 64 (j = 0, 1) and
+    64 ((qt + 3) mod nt) + (7 i) mod 64, clipped to the sequence."""
+    g = torch.Generator(device=device).manual_seed(26)
+    nt = -(-s // 64)
+    bias = torch.full((r_n, nh, s, s), -1e9, device=device)
+    i = torch.arange(s, device=device)
+    qt = i // 64
+    cols = [qt * 64 + (13 * i + 29 * j) % 64 for j in (0, 1)]
+    cols.append(((qt + 3) % nt) * 64 + (7 * i) % 64)
+    for c in cols:
+        c = c.clamp_max(s - 1)
+        vals = torch.randn(r_n, nh, s, generator=g, device=device) * 0.5
+        bias[:, :, i, c] = vals
+    return bias.contiguous()
 
 
 def fmb_inputs(torch, device, case):
@@ -2781,12 +2854,24 @@ def fmb_errs(out, dqkv, dbias, po, pg, pb, nh, hd):
     return errs
 
 
+def fmb_run(KMB, qkv, bias, dout, nh):
+    """#10's forward and backward entry points on one input: (out,
+    d(qkv), d(bias), the bf16 plan or None)."""
+    out, ml, plan = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
+    dqkv, dbias = KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout, ml, plan, nh)
+    return out, dqkv, dbias, plan
+
+
 def phase_fused_mha_bias(torch, device, card):
     """Kernel #10 against its plain versions, forward and backward with
     d(bias), per row and per tensor (out, dq, dk, dv, d(bias)) at every
-    case; two launches of each entry point bitwise equal; two controls
-    that the limits must reject (the forward and the backward given a bias
-    with one off-diagonal window block zeroed); at swin-t's four stages
+    case; two launches of each entry point bitwise equal; in bf16 the
+    kernels' live-block plan equal to the plain `fused_mha_bias_plan` of
+    the same bias, its live fraction printed on a line of its own before
+    the phase's; two controls that the limits must reject (the forward and
+    the backward given a bias with one off-diagonal window block zeroed);
+    a bias whose live entries are scattered (FMB_SCATTER) on which the
+    kernels must agree with the plain versions; at swin-t's four stages
     the times of the kernels, the plain versions, the yardstick
     F.scaled_dot_product_attention with the bias as its float mask on the
     [B, nh, S, hd] views (never on the path), forward and backward, and
@@ -2796,14 +2881,12 @@ def phase_fused_mha_bias(torch, device, card):
     from paddle_tpu_torch.ops import fused_mha_bias as FMB
     from paddle_tpu_torch.ops.cuda import fused_mha_bias as KMB
     run = timer(torch, device)
-    rows, kernels, times = [], {}, {}
+    rows, kernels, times, live = [], {}, {}, {}
     for case in FMB_CASES:
         name, b, s, nh, hd, r_n, dt, hw = case
         qkv, dout, bias = fmb_inputs(torch, device, case)
-        out = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
-        dqkv, dbias = KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout, nh)
-        out2 = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
-        dqkv2, dbias2 = KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout, nh)
+        out, dqkv, dbias, plan = fmb_run(KMB, qkv, bias, dout, nh)
+        out2, dqkv2, dbias2, _ = fmb_run(KMB, qkv, bias, dout, nh)
         po = FMB.fused_mha_bias_reference(qkv, bias, nh)
         pg, pb = FMB.fused_mha_bias_bwd_reference(qkv, bias, dout, nh)
         torch.cuda.synchronize()
@@ -2825,11 +2908,16 @@ def phase_fused_mha_bias(torch, device, card):
         check(row["bitwise_repeat"],
               f"fused_mha_bias {name}: two launches differ")
         del out2, dqkv2, dbias2
+        if plan is not None:
+            check(torch.equal(plan, FMB.fused_mha_bias_plan(bias)),
+                  f"fused_mha_bias {name}: the kernels' plan differs from "
+                  f"fused_mha_bias_plan of the same bias")
+            live[name] = float(plan.float().mean())
+            row["live_fraction"] = live[name]
         if name == FMB_CONTROL:
             bad = bias.clone()
             bad[0, :, :49, 49:98] = 0.0
-            co = KMB.fused_mha_bias_fwd_cuda(qkv, bad, nh)
-            cg, cb = KMB.fused_mha_bias_bwd_cuda(qkv, bad, dout, nh)
+            co, cg, cb, _ = fmb_run(KMB, qkv, bad, dout, nh)
             cerr = fmb_errs(co, cg, cb, po, pg, pb, nh, hd)
             ctl = {"what": "kernel given the bias with the block (query "
                            "window 0, key window 1) of period 0 zeroed, vs "
@@ -2842,8 +2930,27 @@ def phase_fused_mha_bias(torch, device, card):
                   f"windows see each other: {ctl}")
             row["control"] = dict(ctl, rejected=True)
             del bad, co, cg, cb
+        if name == FMB_SCATTER:
+            sb = fmb_scattered_bias(torch, device, r_n, nh, s)
+            so, sg, sbg, splan = fmb_run(KMB, qkv, sb, dout, nh)
+            spo = FMB.fused_mha_bias_reference(qkv, sb, nh)
+            spg, spb = FMB.fused_mha_bias_bwd_reference(qkv, sb, dout, nh)
+            serr = fmb_errs(so, sg, sbg, spo, spg, spb, nh, hd)
+            sc = {"what": "bias -1e9 but for three scattered entries a row "
+                          "(two in the row's own 64-key tile, one three "
+                          "tiles on)",
+                  "live_fraction": float(splan.float().mean()),
+                  "plan_equal": bool(torch.equal(
+                      splan, FMB.fused_mha_bias_plan(sb))),
+                  "row_err": {n: e[0] for n, e in serr.items()}}
+            check(sc["plan_equal"] and max(sc["row_err"].values()) <= tol,
+                  f"fused_mha_bias {name}: the kernels disagree with the "
+                  f"plain versions on scattered live entries: {sc}")
+            row["scattered"] = dict(sc, agrees=True)
+            del sb, so, sg, sbg, spo, spg, spb
         if name in FMB_TIMED:
-            t = fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias)
+            t = fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias,
+                          live.get(name, 1.0))
             times[name] = t
             if name == FMB_LINE:
                 for kname, err in (("fused_mha_bias_fwd", errs["out"][1]),
@@ -2852,8 +2959,12 @@ def phase_fused_mha_bias(torch, device, card):
                                        ("dq", "dk", "dv", "dbias")))):
                     kernels[kname] = dict(t[kname], max_abs_err=err)
         rows.append(row)
-        del qkv, dout, bias, out, dqkv, dbias, po, pg, pb
+        del qkv, dout, bias, out, dqkv, dbias, po, pg, pb, plan
         torch.cuda.empty_cache()
+    emit({"phase": "fused_mha_bias_plan", "card": card,
+          "what": "share of the (64-row, 64-key) blocks of each bf16 case's "
+                  "bias the kernels visit (their plan, equal to "
+                  "fused_mha_bias_plan)", "live_fraction": live})
     emit({"phase": "fused_mha_bias_vs_plain", "ok": True, "card": card,
           "error": "row_err: per row max |kernel - plain| over the row's "
                    "rms of plain (floored at 10% of the tensor's rms), "
@@ -2866,9 +2977,10 @@ def phase_fused_mha_bias(torch, device, card):
     return kernels
 
 
-def fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias):
+def fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias, live):
     """Times and bounds of the forward and the backward at one case, and
-    the two SDPA yardsticks."""
+    the two SDPA yardsticks. `live`: the plan's live share of the blocks,
+    which scales the products the bound counts."""
     name, b, s, nh, hd, r_n, dt, hw = case
     f, n, wg = nh * hd, 49, s // 49
     x = qkv.detach().requires_grad_()
@@ -2889,9 +3001,10 @@ def fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias):
     wviews = x.view(b * wg, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
     wout = F.scaled_dot_product_attention(*wviews, attn_mask=wmask)
     wdout = dout.view(b * wg, n, nh, hd).transpose(1, 2)
+    _, ml, plan = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
     t = {"fwd_ms": run(lambda: KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)),
-         "bwd_ms": run(lambda: KMB.fused_mha_bias_bwd_cuda(qkv, bias, dout,
-                                                           nh)),
+         "bwd_ms": run(lambda: KMB.fused_mha_bias_bwd_cuda(
+             qkv, bias, dout, ml, plan, nh)),
          "plain_fwd_ms": run(lambda: FMB.fused_mha_bias_reference(
              qkv, bias, nh)),
          "plain_bwd_ms": run(lambda: FMB.fused_mha_bias_bwd_reference(
@@ -2910,13 +3023,16 @@ def fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias):
              wout, x, wdout, retain_graph=True)),
          "per_window": f"SDPA on [B * W_g = {b * wg}, nh, 49, hd] with the "
                        f"diagonal bias blocks as the mask: the same result "
-                       f"at 1/{wg} of the work (no d(bias))"}
-    mm = 2 * b * nh * s * s * hd              # one [S, S] x hd product
+                       f"at 1/{wg} of the work (no d(bias))",
+         "live_fraction": live}
+    # the products of the blocks this bias leaves live (the kernels visit
+    # those and no others)
+    mm = 2 * b * nh * s * s * hd * live       # one [S, S] x hd product
     item = qkv.element_size()
     bias_b = bias.numel() * 4
     # forward: qkv and the bias read once, out written once, 2 products;
     # backward: qkv, dout and the bias read, dqkv and d(bias) written, 5
-    # products (S, dP, dV, dQ, dK); the full S x S, as the kernel computes
+    # products (S, dP, dV, dQ, dK)
     fb = bound_of(2 * mm, (3 * f + f) * b * s * item + bias_b, qkv.dtype)
     bb = bound_of(5 * mm, (3 * f + f + 3 * f) * b * s * item + 2 * bias_b,
                   qkv.dtype)
@@ -2928,7 +3044,7 @@ def fmb_times(torch, F, FMB, KMB, run, case, qkv, dout, bias):
                                "plain_ms": t["plain_bwd_ms"],
                                "library_ms": t["library_bwd_ms"],
                                "bound_ms": bb[0], "bound_by": bb[1]}
-    del lout, views, x, mask, wout, wviews, wmask
+    del lout, views, x, mask, wout, wviews, wmask, ml, plan
     return t
 
 
@@ -3029,8 +3145,8 @@ def phase_train_swin(torch, card, device):
           f"first Swin loss {warm[0]} is not near ln(1000) "
           f"{math.log(1000)}")
     prof = profile_call(torch, lambda: step(imgs[2], lbl[2]),
-                        names=("bias_fwd", "bias_stats", "bias_dq",
-                               "bias_db", "bias_dkv"))
+                        names=("mhb_plan", "mhb_fwd", "mhb_dq", "mhb_db",
+                               "mhb_dkv"))
     same = [float(step(imgs[0], lbl[0])) for _ in range(6)]
     check(same[-1] < same[0],
           f"the Swin loss on a repeated batch did not fall: {same}")

@@ -51,7 +51,7 @@ _ENTRY_POINTS = {
         "pt_paged_prefix_attention": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
         "pt_paged_prefix_attention_q8": [_p] * 8 + [_i] * 7 + [_f, _i, _p]},
     "int8_matmul": {
-        "pt_int8_matmul": [_p] * 4 + [_i] * 5 + [_p]},
+        "pt_int8_matmul": [_p] * 4 + [_i] * 7 + [_p]},
     "flash_attention": {
         "pt_flash_fwd": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
         "pt_flash_bwd_dq": [_p] * 9 + [_i] * 7 + [_f, _i, _p],
@@ -63,8 +63,8 @@ _ENTRY_POINTS = {
         "pt_fused_mha_fwd": [_p] * 5 + [_i] * 6 + [_f, _u, _f, _i, _p],
         "pt_fused_mha_bwd": [_p] * 7 + [_i] * 6 + [_f, _u, _f, _i, _p]},
     "fused_mha_bias": {
-        "pt_fused_mha_bias_fwd": [_p] * 3 + [_i] * 5 + [_f, _i, _p],
-        "pt_fused_mha_bias_bwd": [_p] * 6 + [_i] * 5 + [_f, _i, _p]},
+        "pt_fused_mha_bias_fwd": [_p] * 5 + [_i] * 5 + [_f, _i, _p],
+        "pt_fused_mha_bias_bwd": [_p] * 8 + [_i] * 5 + [_f, _i, _p]},
     "layer_norm": {
         "pt_layer_norm_fwd": [_p] * 6 + [_i] * 2 + [_f, _i, _p],
         "pt_layer_norm_bwd": [_p] * 9 + [_i] * 3 + [_p]},

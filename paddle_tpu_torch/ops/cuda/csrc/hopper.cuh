@@ -1,17 +1,20 @@
 // Hopper (sm_90a) helpers for the kernels that use the tensor memory
 // accelerator and warpgroup matrix multiplies (flash_attention.cu,
-// linear_ce.cu), and the ldmatrix loads of the mma.sync tile kernel of
-// paged_prefix_attention.cu:
+// fused_mha.cu, linear_ce.cu, int8_matmul.cu), and the ldmatrix loads of
+// the mma.sync tile kernel of paged_prefix_attention.cu:
 //   * mbarrier init / arrive / expect_tx / parity wait, a warp's release
 //     of a ring stage, and the 1 KB alignment of the swizzled tiles;
 //   * 2-D and 4-D TMA tile loads (cp.async.bulk.tensor) into
 //     128-byte-swizzled shared memory, and the host-side tensor maps for
-//     them, encoded with cuTensorMapEncodeTiled fetched through
-//     cudaGetDriverEntryPoint (the libraries link the shared CUDA runtime
-//     and no libcuda);
+//     them (2-D of any element type), encoded with cuTensorMapEncodeTiled
+//     fetched through cudaGetDriverEntryPoint (the libraries link the
+//     shared CUDA runtime and no libcuda);
 //   * wgmma.mma_async m64nNk16 bf16 x bf16 -> f32, A and B from shared
 //     memory (both K-major) or A from registers and B from shared memory
-//     (MN-major), with their shared-memory matrix descriptors;
+//     (MN-major: mma_rs; K-major: mma_rk, N = 8 .. 128), with their
+//     shared-memory matrix descriptors;
+//   * a CTA's cluster rank, the cluster barrier and loads from another
+//     CTA's shared memory (distributed shared memory);
 //   * setmaxnreg, and ldmatrix x4 (plain and transposed).
 //
 // Shared-memory tile layout used with the descriptors: a [R rows x DM
@@ -93,6 +96,33 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
   return reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// -------------------------------------------------------------- clusters
+// this CTA's rank in its thread-block cluster (0 without a cluster)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster arrives, then waits: shared
+// memory written before it is visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the four f32 at this CTA's 16-byte aligned shared address p, read from
+// CTA `rank` of the cluster (distributed shared memory)
+__device__ __forceinline__ float4 ld_dsmem4(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
 }
 
 // ------------------------------------------------------------------ TMA
@@ -403,6 +433,98 @@ __device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 8] += A[64 x 16] (registers) * B[16 x 8] (shared, K-major)
+__device__ __forceinline__ void mma_rk(float (&d)[4], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] (registers) * B[16 x 16] (shared, K-major)
+__device__ __forceinline__ void mma_rk(float (&d)[8], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] (registers) * B[16 x 32] (shared, K-major)
+__device__ __forceinline__ void mma_rk(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (shared, K-major)
+__device__ __forceinline__ void mma_rk(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (shared, K-major)
+__device__ __forceinline__ void mma_rk(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // -------------------------------------------------------------- ldmatrix
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -482,28 +604,38 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int B, int S,
   });
 }
 
-// A bf16 [rows, cols] matrix (row stride ld elements, last dim
-// contiguous) as a 2-D map whose box is 64 columns x `box_rows` rows,
-// 128-byte swizzled; rows past `rows` and columns past `cols` read as
-// zeros. False where cuTensorMapEncodeTiled refuses the view (a base or a
-// row stride that is not a multiple of 16 bytes, or a stride of 2^40
-// bytes or more).
-inline bool tensor_map_2d(CUtensorMap* map, const void* base, long long rows,
-                          long long cols, long long ld, int box_rows) {
+// A [rows, cols] matrix of `type` (elements of `elem_bytes`; row stride ld
+// elements, last dim contiguous) as a 2-D map whose box is box_cols
+// columns (box_cols * elem_bytes <= 128) x box_rows rows, 128-byte
+// swizzled; rows past `rows` and columns past `cols` read as zeros. False
+// where cuTensorMapEncodeTiled refuses the view (a base or a row stride
+// that is not a multiple of 16 bytes, or a stride of 2^40 bytes or more).
+inline bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          int elem_bytes, const void* base, long long rows,
+                          long long cols, long long ld, int box_cols,
+                          int box_rows) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return encode_bound([&] {
-    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-               const_cast<void*>(base), dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    return enc(map, type, 2, const_cast<void*>(base), dims, strides, box,
+               unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   });
+}
+
+// A bf16 [rows, cols] matrix (row stride ld elements) as a 2-D map whose
+// box is 64 columns x `box_rows` rows, as above
+inline bool tensor_map_2d(CUtensorMap* map, const void* base, long long rows,
+                          long long cols, long long ld, int box_rows) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows,
+                       cols, ld, 64, box_rows);
 }
 
 }  // namespace hopper

@@ -7,8 +7,14 @@ raises ValueError on what the kernel does not take, allocates the output,
 launches on PyTorch's current stream and raises RuntimeError when the
 launch reports an error. It never falls back to another implementation.
 Each launch adds one to ``LAUNCHES["int8_matmul"]``.
+
+bf16 x with the "nk" layout runs the warpgroup kernel `i8_wg`, whose
+tokens a CTA and K split over a cluster `wg_plan` chooses here; the other
+forms run the first design's kernels.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,6 +22,52 @@ from .build import LAUNCHES, load_library, raise_on_error
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUT_CODE = {"kn": 0, "nk": 1}
+WG_CHUNK = 128                 # codes a pipeline stage holds of each channel
+
+
+@functools.lru_cache(maxsize=None)
+def wg_plan(m, n, k, sms):
+    """i8_wg's launch for x [m, k] and q [n, k] on a card of `sms` SMs:
+    (tokens a CTA, consumer warpgroups, cluster size, CTAs). The tokens
+    and cluster sizes it returns are the instantiations `launch_nk_bf16`
+    in `csrc/int8_matmul.cu` switches over, which rejects any other.
+
+    Tokens: the least power of two from 8 holding m up to 64 (one
+    consumer warpgroup, 64 channels a CTA, two CTAs an SM). Above, tiles
+    of 128 tokens on two warpgroups (128 channels a CTA, so x is read
+    once per 128 channels) where n gives at least 32 such channel tiles,
+    else tiles of 64 tokens. The K extent is split over a cluster, doubled
+    from 1 while the doubled launch fits what the card holds at once (3/4
+    of two CTAs an SM, or one an SM at two warpgroups), each rank keeps at
+    least two 128-code chunks, and the cluster stays within 4. These
+    limits are measured ones (an H100, phase 2's shapes): clusters of 8
+    and launches past one wave ran slower."""
+    if m <= 64:
+        nt = max(8, 1 << (m - 1).bit_length())
+    elif -(-n // 128) >= 32 or m > 128:
+        nt = 128
+    else:
+        nt = 64
+    nwg = 1 if nt <= 64 else 2
+    tiles = -(-n // (64 * nwg)) * -(-m // nt)
+    chunks = -(-k // WG_CHUNK)
+    held = 3 * sms // 2 if nwg == 1 else sms
+    cs = 1
+    while cs < 4 and tiles * 2 * cs <= held and 4 * cs <= chunks:
+        cs *= 2
+    return nt, nwg, cs, tiles * cs
+
+
+_SMS = {}
+
+
+def _sms(device):
+    """The SM count of a CUDA device, read once."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
 
 
 def _check(x, q, s, w_layout):
@@ -65,9 +117,12 @@ def int8_matmul_cuda(x, q, s, *, w_layout="kn"):
     M, N, K = _check(x, q, s, w_layout)
     lib = load_library("int8_matmul")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    nt, cs = 0, 0
+    if x.dtype == torch.bfloat16 and w_layout == "nk":
+        nt, _, cs, _ = wg_plan(M, N, K, _sms(x.device))
     rc = lib.pt_int8_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N, K,
-        _LAYOUT_CODE[w_layout], _DTYPE_CODE[x.dtype],
+        _LAYOUT_CODE[w_layout], _DTYPE_CODE[x.dtype], nt, cs,
         torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(lib, rc, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1

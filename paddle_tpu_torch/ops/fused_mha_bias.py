@@ -16,8 +16,10 @@ share a period index, so autograd reaches the relative-position table.
 the hand-written kernels (ops/cuda/fused_mha_bias.py, kernel #10: the
 forward and the backward with d(bias)), which launch or raise; for CPU
 tensors the plain versions here. Both run inside one
-torch.autograd.Function that saves only qkv and the bias, as the JAX
-custom VJP does.
+torch.autograd.Function that saves qkv and the bias, as the JAX custom VJP
+does, and in bf16 on CUDA also the forward's row statistics and its
+live-block plan (`fused_mha_bias_plan`): the bf16 kernels visit only the
+(64-row, 64-key) blocks of the bias that hold an entry above -5e8.
 
 The function (`fused_mha_bias_reference` and
 `fused_mha_bias_bwd_reference`, what the JAX kernel bodies compute): f32
@@ -62,7 +64,34 @@ def use_fused_mha_bias(s, num_heads, head_dim) -> bool:
     return (num_heads * s * s * 4 + 6 * s * s * 4) <= _VMEM_BUDGET
 
 
+# the plan's tiles (query rows x keys) and its liveness threshold: the
+# values ops/cuda/csrc/fused_mha_bias.cu's PT and kLive hold
+PLAN_TILE = 64
+PLAN_LIVE = -5e8
+
+
 # ---------------------------------------------------------- plain versions
+def fused_mha_bias_plan(bias):
+    """The live-block plan of a bias [R, nh, S, S]: uint8 [R, nh, nt, nt]
+    (nt = ceil(S / PLAN_TILE)), 1 where the (query tile, key tile) block
+    holds an entry above PLAN_LIVE. A query tile holding a row with no such entry
+    keeps every key tile (the full softmax of that row is near-uniform
+    over all keys). Read from the bias values alone; the plain twin of the
+    kernels' plan pass."""
+    r_n, nh, s, _ = bias.shape
+    tile = PLAN_TILE
+    nt = -(-s // tile)
+    pad = nt * tile - s
+    live = torch.nn.functional.pad(bias > PLAN_LIVE, (0, pad, 0, pad))
+    blocks = live.reshape(r_n, nh, nt, tile, nt, tile)
+    plan = blocks.any(dim=5).any(dim=3)
+    rows = live.any(dim=-1)[..., :s]                      # [R, nh, S]
+    rows = torch.nn.functional.pad(rows, (0, pad), value=True)
+    dead = ~rows.reshape(r_n, nh, nt, tile).all(dim=-1)   # a dead row
+    plan = plan | dead[..., None]
+    return plan.to(torch.uint8)
+
+
 def _sigma(q, k, bias, scale):
     """f32 softmax [B, nh, S, S] of the f32 scores plus bias[p mod R]."""
     b, s, nh, _ = q.shape
@@ -117,24 +146,32 @@ def fused_mha_bias_bwd_reference(qkv, bias, dout, num_heads, *, scale=None):
 # ----------------------------------------------------------------- router
 class _FusedMHABias(torch.autograd.Function):
     """Forward kernel (or plain forward); the backward recomputes the
-    softmax from the saved qkv and bias only."""
+    softmax from the saved qkv and bias (plain, f32 kernels) or from the
+    forward's row statistics and plan (bf16 kernels)."""
 
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, scale):
-        fwd = fused_mha_bias_fwd_cuda if _on_cuda(qkv) else \
-            fused_mha_bias_reference
-        out = fwd(qkv, bias, num_heads, scale=scale)
-        ctx.save_for_backward(qkv, bias)
+        if _on_cuda(qkv):
+            out, ml, plan = fused_mha_bias_fwd_cuda(qkv, bias, num_heads,
+                                                    scale=scale)
+        else:
+            out = fused_mha_bias_reference(qkv, bias, num_heads,
+                                           scale=scale)
+            ml = plan = None
+        ctx.save_for_backward(qkv, bias, ml, plan)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, bias = ctx.saved_tensors
-        bwd = fused_mha_bias_bwd_cuda if _on_cuda(qkv) else \
-            fused_mha_bias_bwd_reference
-        dqkv, dbias = bwd(qkv, bias, _packed(dout.to(qkv.dtype)),
-                          ctx.num_heads, scale=ctx.scale)
+        qkv, bias, ml, plan = ctx.saved_tensors
+        dout = _packed(dout.to(qkv.dtype))
+        if _on_cuda(qkv):
+            dqkv, dbias = fused_mha_bias_bwd_cuda(
+                qkv, bias, dout, ml, plan, ctx.num_heads, scale=ctx.scale)
+        else:
+            dqkv, dbias = fused_mha_bias_bwd_reference(
+                qkv, bias, dout, ctx.num_heads, scale=ctx.scale)
         return dqkv, dbias, None, None
 
 

@@ -251,7 +251,7 @@ def test_fused_mha_bias_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match=match):
         cuda_fmb.fused_mha_bias_fwd_cuda(qkv, bias, nh)
     with pytest.raises(ValueError, match=match):
-        cuda_fmb.fused_mha_bias_bwd_cuda(qkv, bias, dout, nh)
+        cuda_fmb.fused_mha_bias_bwd_cuda(qkv, bias, dout, None, None, nh)
     assert cuda_fmb.LAUNCHES["fused_mha_bias_fwd"] == 0
     assert cuda_fmb.LAUNCHES["fused_mha_bias_bwd"] == 0
 

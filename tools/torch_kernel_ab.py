@@ -8,7 +8,8 @@ on one card.
 Run from the root of a checkout on a machine with an NVIDIA GPU. STEM names
 the source under `paddle_tpu_torch/ops/cuda/csrc/`: `flash_attention` (#6,
 the default), `paged_prefix_attention` (#3 and #4), `linear_ce` (#11),
-`fused_mha` (#9) or `paged_attention` (#1 and #2).
+`fused_mha` (#9), `paged_attention` (#1 and #2), `int8_matmul` (#5) or
+`fused_mha_bias` (#10).
 Each VARIANT.cu is a full replacement of that source (same C entry
 points); it is built with the package's nvcc flags beside a copy of the
 headers, and its library stands in for the checkout's while it is timed.
@@ -26,7 +27,11 @@ its errors against the plain versions:
     max abs error;
   * paged_prefix_attention: every window of WINDOWS at head dims 128 and
     80, #3 and #4 in bf16, with the max abs error;
-  * linear_ce: CE_TIMED, the forward, with the max abs loss error.
+  * linear_ce: CE_TIMED, the forward, with the max abs loss error;
+  * int8_matmul: every bf16 GEMM_CASES shape, with the max abs error and
+    a digest of the output;
+  * fused_mha_bias: FMB_TIMED, the forward (its plan pass included) and
+    the backward, their per-row errors and a digest of their outputs.
 With no variant it times the checkout's kernels alone. Prints ptxas's
 "Potential Performance Loss" lines (serialised wgmmas) of every build and
 the kernels of each variant that spill, then one JSON line per shape.
@@ -53,7 +58,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = ("flash_attention", "paged_prefix_attention", "linear_ce",
-           "fused_mha", "paged_attention")
+           "fused_mha", "paged_attention", "int8_matmul", "fused_mha_bias")
 SASS_OPS = ("IMAD", "LOP3", "SHF", "IADD3", "ISETP", "SEL", "FSEL", "MUFU",
             "FFMA", "FMUL", "HGMMA")
 
@@ -204,6 +209,53 @@ def ce_cases(torch, cs, dev):
         yield name, timed, errors
 
 
+def gemm_cases(torch, cs, dev):
+    """#5 in bf16 at every GEMM_CASES shape, phase 2's inputs."""
+    from paddle_tpu_torch.ops.cuda import int8_matmul as KM
+    from paddle_tpu_torch.ops.int8_matmul import int8_matmul_reference
+    for m, name, k, n, layout in cs.GEMM_CASES:
+        x, q, s = cs.gemm_inputs(torch, dev, m, k, n, layout,
+                                 torch.bfloat16)
+        want = int8_matmul_reference(x, q, s, layout)
+
+        def timed(x=x, q=q, s=s, layout=layout):
+            return {"ms": lambda: KM.int8_matmul_cuda(x, q, s,
+                                                      w_layout=layout)}
+
+        def errors(x=x, q=q, s=s, layout=layout, want=want):
+            got = KM.int8_matmul_cuda(x, q, s, w_layout=layout)
+            return {"max_abs_err": float((got.float() - want.float())
+                                         .abs().max()),
+                    "digest": digest(torch, got)}
+        yield f"M{m}_{name}", timed, errors
+
+
+def fmb_cases(torch, cs, dev):
+    """#10 at FMB_TIMED: the forward and the backward."""
+    from paddle_tpu_torch.ops import fused_mha_bias as FMB
+    from paddle_tpu_torch.ops.cuda import fused_mha_bias as KMB
+    for case in (c for c in cs.FMB_CASES if c[0] in cs.FMB_TIMED):
+        name, b, s, nh, hd, r_n, dt, hw = case
+        qkv, dout, bias = cs.fmb_inputs(torch, dev, case)
+        po = FMB.fused_mha_bias_reference(qkv, bias, nh)
+        pg, pb = FMB.fused_mha_bias_bwd_reference(qkv, bias, dout, nh)
+
+        def timed(qkv=qkv, dout=dout, bias=bias, nh=nh):
+            _, ml, plan = KMB.fused_mha_bias_fwd_cuda(qkv, bias, nh)
+            return {"fwd_ms": lambda: KMB.fused_mha_bias_fwd_cuda(qkv, bias,
+                                                                  nh),
+                    "bwd_ms": lambda: KMB.fused_mha_bias_bwd_cuda(
+                        qkv, bias, dout, ml, plan, nh)}
+
+        def errors(qkv=qkv, dout=dout, bias=bias, nh=nh, hd=hd, po=po,
+                   pg=pg, pb=pb):
+            o, dq, db, _ = cs.fmb_run(KMB, qkv, bias, dout, nh)
+            errs = cs.fmb_errs(o, dq, db, po, pg, pb, nh, hd)
+            return {"row_err": {n: e[0] for n, e in errs.items()},
+                    "digest": digest(torch, o, dq, db)}
+        yield name, timed, errors
+
+
 def sass_op_counts(cs, KB):
     """{tag: {"total": instructions, opcode: count}} of every redesigned
     kernel in the libraries of chip_smoke's SASS_CHECKS."""
@@ -225,7 +277,8 @@ def sass_op_counts(cs, KB):
 
 CASES = {"flash_attention": flash_cases,
          "paged_prefix_attention": prefix_cases, "linear_ce": ce_cases,
-         "fused_mha": fmha_cases, "paged_attention": decode_cases}
+         "fused_mha": fmha_cases, "paged_attention": decode_cases,
+         "int8_matmul": gemm_cases, "fused_mha_bias": fmb_cases}
 
 
 def main(argv) -> int:
