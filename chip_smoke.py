@@ -10,9 +10,9 @@ instantiations of them, #11's bf16 "vh" kernel and #5's bf16 "nk" kernel
 must contain warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), the bf16
 tile kernel of #3 and #4 tensor-core MMAs, #1/#2's partition kernel
 16-byte loads, #10's plan-driven kernels be present with their 16-byte
-or cp.async loads, and their instantiations at head dims 64, 80 and 128
-(#11's only one; every one of #5's; #10's at 32) spill nothing (phase
-1). The kernels: the
+or cp.async loads, #8's kernels with 16-byte loads, and their
+instantiations at head dims 64, 80 and 128 (#11's only one; every one of
+#5's and #8's; #10's at 32) spill nothing (phase 1). The kernels: the
 paged-attention kernels #1-#4, the weight-only int8 GEMM #5, flash
 attention #6 (forward, dQ and dK/dV passes), the fused linear
 cross-entropy forward #11, the fused short-sequence MHA #9 (forward and
@@ -29,8 +29,9 @@ at bert-base and vit-l16 shapes with dropout, lengths and causal, its kept
 sets read back, bf16 bitwise repeatable, #10 at swin-t's four stages and swin-b's last with the
 model's own bias, bitwise repeatable, its live-block plan equal to the
 plain one, on a bias with scattered live entries, and in f32, #5
-bitwise repeatable with its ratio to torch.matmul reported, #8 at gpt3-1.3b's and
-gpt3-2.7b's LayerNorm inputs for the four affine cases, its backward
+bitwise repeatable with its ratio to torch.matmul reported, #8 at gpt3-1.3b's,
+gpt3-2.7b's, bert-base's, vit-l16's, a Swin patch merge's and one
+32768-wide LayerNorm input for the four affine cases, its backward
 bitwise repeatable, #7 at gpt3-1.3b's training shape, equal to #6 on the
 same data), checks parity between
 the kernel route and the plain route on the card for the paged engine,
@@ -212,7 +213,10 @@ SASS_CHECKS = {"flash_attention": (("fwd_wg", "dq_wg", "dkv_wg"),
                "paged_prefix_attention": (("prefix_tc",), ("HMMA|HGMMA",)),
                "linear_ce": (("lce_wg",), ("HGMMA", "UTMALDG")),
                # #1/#2's split-sequence kernel: present, its 16-byte loads
-               "paged_attention": (("decode_part",), ("LDG.E.128|LDG.E.64",))}
+               "paged_attention": (("decode_part",), ("LDG.E.128|LDG.E.64",)),
+               # #8's kernels: present, with 16-byte loads
+               "layer_norm": (("ln_fwd_rows", "ln_bwd_rows", "ln_fwd_loop",
+                               "ln_bwd_loop", "ln_bwd_sum"), ("LDG.E.128",))}
 # ... and the instantiations (by their first template argument: #6's and
 # #9's head dim bucket, the tile kernel's head dim padded to 16, in both
 # pool forms; None: every instantiation) the main paths launch at head
@@ -227,7 +231,11 @@ SPILL_FREE = {"fwd_wg": (64, 128), "dq_wg": (64, 128), "dkv_wg": (64, 128),
               # #10's bf16 kernels at swin's head dim 32 (the plan pass
               # has no head dim)
               "mhb_fwd": (32,), "mhb_dq": (32,), "mhb_db": (32,),
-              "mhb_dkv": (32,), "mhb_plan": None}
+              "mhb_dkv": (32,), "mhb_plan": None,
+              # #8's kernels, every instantiation: the models' widths reach
+              # every "rows" one, and the wide rows the loops
+              "ln_fwd_rows": None, "ln_bwd_rows": None, "ln_fwd_loop": None,
+              "ln_bwd_loop": None, "ln_bwd_sum": None}
 
 
 class SmokeFailure(Exception):
@@ -335,7 +343,9 @@ def redesigned(name):
     'i8_wg<tokens a CTA>'; #10's 'mhb_fwd<head dim bucket>' and its
     siblings), or the bare name of #11's kernel and of #10's plan pass,
     which are no templates; #1/#2's partition
-    kernel 'decode_part<NV,pool form,q dtype>'."""
+    kernel 'decode_part<NV,pool form,q dtype>'; #8's kernels by their
+    template arguments ('ln_bwd_rows<1,4,bf16>', 'ln_fwd_loop<f32>') and
+    its partials' sum 'ln_bwd_sum'."""
     m = re.search(r"(fwd_wg|dq_wg|dkv_wg|prefix_tc)ILi(\d+)E(?:Li\d+E)*"
                   r"((?:Lb[01]E)*)(?:Li\d+E)*E", name)
     if m:
@@ -355,6 +365,14 @@ def redesigned(name):
         return f"{m.group(1)}<{m.group(2)}>"
     if re.search(r"\dmhb_planE", name):
         return "mhb_plan"
+    m = re.search(r"\d(ln_fwd_rows|ln_bwd_rows|ln_fwd_loop|ln_bwd_loop)I"
+                  r"((?:Li\d+E)*)(f|13__nv_bfloat16)E", name)
+    if m:
+        args = re.findall(r"Li(\d+)E", m.group(2)) + [
+            "f32" if m.group(3) == "f" else "bf16"]
+        return f"{m.group(1)}<{','.join(args)}>"
+    if re.search(r"\dln_bwd_sumE", name):
+        return "ln_bwd_sum"
     return "lce_wg" if re.search(r"\dlce_wgE", name) else None
 
 
@@ -3176,8 +3194,15 @@ def phase_train_swin(torch, card, device):
 # ------------------------------------------------ slice 7: kernel #8
 # kernel #8 cases: (name, R, H): every LayerNorm input of bench_gpt's
 # gpt3-1.3b step (B=3 x S=2048 rows) and of _bench_gpt27's gpt3-2.7b
-# (B=6 x S=1024), each in bf16 and f32 and for the four affine cases
-LN_CASES = [("gpt3-1.3b", 6144, 2048), ("gpt3-2.7b", 6144, 2560)]
+# (B=6 x S=1024), bench_bert's bert-base (B=32 x S=512), bench_vit's
+# vit-l16 (B=64 x 197 tokens), the first patch merge's LayerNorm of
+# bench_swin's swin-t (B=32 x 28 x 28 at 4 x 96), and one row width past
+# the kernels' "rows" plans (64 rows of 32768), each in bf16 and f32 and
+# for the four affine cases
+LN_CASES = [("gpt3-1.3b", 6144, 2048), ("gpt3-2.7b", 6144, 2560),
+            ("bert-base", 16384, 768), ("vit-l16", 12608, 1024),
+            ("swin-t-merge", 25088, 384), ("wide", 64, 32768)]
+LN_CUT = 16    # rows the control's backward leaves out
 LN_AFFINE = ("gb", "g", "b", "none")
 # limits on row_err of out and dx (as for #6, #9 and #10: bf16 rounds the
 # outputs, so a result one bf16 step off at 5 sigma reads ~0.03) and on
@@ -3202,10 +3227,10 @@ def phase_layer_norm(torch, device, card):
     rsig of the forward; dx, d(gamma) and d(beta) of the backward from the
     kernel's own statistics; the backward bitwise equal over two launches;
     a control the limits must reject (the backward run without its first
-    row block, so d(gamma) and d(beta) miss one block's partial); at both
-    shapes in bf16 the times of the kernels, the plain versions and
-    F.layer_norm (the yardstick, never on the path), forward, backward and
-    both."""
+    LN_CUT rows, so d(gamma) and d(beta) miss their terms); at every shape
+    in bf16 the times of the kernels, the plain versions and F.layer_norm
+    (the yardstick, never on the path), forward, backward and both, and
+    the backward's two launches alone under the profiler."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import layer_norm as LN
     from paddle_tpu_torch.ops.cuda import layer_norm as KL
@@ -3252,17 +3277,17 @@ def phase_layer_norm(torch, device, card):
                       f"layer_norm {name} {dt} {aff}: kernel disagrees "
                       f"with its plain version: {row}")
                 if dtype == torch.bfloat16 and aff == "gb":
-                    cut = KL.BWD_ROWS
+                    cut = LN_CUT
                     _, cg, cb = KL.layer_norm_bwd_cuda(
                         dy[cut:], x[cut:], mu[cut:], rs[cut:], g)
                     ctl = {"dgamma": rel_err(cg, pdg),
                            "dbeta": rel_err(cb, pdb)}
                     check(min(ctl.values()) > stol,
                           f"layer_norm {name}: the limits pass a backward "
-                          f"that drops its first row block: {ctl}")
+                          f"that drops its first {cut} rows: {ctl}")
                     row["control"] = {
                         "what": f"backward on rows {cut}.. (the first "
-                                f"row block's partial dropped) vs plain",
+                                f"{cut} rows' terms dropped) vs plain",
                         "rel_err": ctl, "rejected": True}
                     t, k = ln_times(torch, F, LN, KL, run, x, g, b, dy,
                                     row)
@@ -3302,7 +3327,10 @@ def ln_times(torch, F, LN, KL, run, x, g, b, dy, row):
         return torch.autograd.grad(F.layer_norm(xs[0], (h,), xs[1], xs[2],
                                                 1e-5), xs, dy)
 
-    t = {"fwd_ms": run(lambda: KL.layer_norm_fwd_cuda(x, g, b, 1e-5)),
+    t = {"plan": KL.ln_plan(r, h, x.dtype,
+                            torch.cuda.get_device_properties(x.device)
+                            .multi_processor_count)._asdict(),
+         "fwd_ms": run(lambda: KL.layer_norm_fwd_cuda(x, g, b, 1e-5)),
          "bwd_ms": run(lambda: KL.layer_norm_bwd_cuda(dy, x, mu, rs, g)),
          "fwd_bwd_ms": run(kern_fb),
          "plain_fwd_ms": run(lambda: LN.fused_layer_norm_reference(
@@ -3315,6 +3343,22 @@ def ln_times(torch, F, LN, KL, run, x, g, b, dy, row):
          "library_fwd_bwd_ms": run(lib_fb),
          "library": "F.layer_norm (two-pass variance) and its autograd "
                     "backward into x, gamma and beta"}
+    # PyTorch's elementwise streams over the same bytes (a yardstick of
+    # what this timer reads for them, never on the path): x copied out
+    # (the forward's reads and writes), dy + x into a third tensor (the
+    # backward row pass's)
+    sink = torch.empty_like(x)
+    t["same_bytes_copy_ms"] = run(lambda: sink.copy_(x))
+    t["same_bytes_add_ms"] = run(lambda: torch.add(dy, x, out=sink))
+    # the backward's row pass and partials' sum apart: mean device time of
+    # each over 20 back-to-back calls under the profiler (no L2 flush)
+    prof = profile_call(torch, lambda: [KL.layer_norm_bwd_cuda(
+        dy, x, mu, rs, g) for _ in range(20)],
+        names=("ln_bwd_rows", "ln_bwd_loop", "ln_bwd_sum"))
+    t["bwd_profiled_ms"] = {
+        ("sum" if "ln_bwd_sum" in o["op"] else "rows"):
+            o["device_ms"] / o["count"]
+        for o in prof["named_device_ops"]}
     # bytes: x read and out written (forward); dy and x read, dx written
     # (backward); gamma, beta, mu, rsig, d(gamma), d(beta) besides;
     # operations: ~7 f32 operations an element forward, ~12 backward, on

@@ -66,8 +66,8 @@ _ENTRY_POINTS = {
         "pt_fused_mha_bias_fwd": [_p] * 5 + [_i] * 5 + [_f, _i, _p],
         "pt_fused_mha_bias_bwd": [_p] * 8 + [_i] * 5 + [_f, _i, _p]},
     "layer_norm": {
-        "pt_layer_norm_fwd": [_p] * 6 + [_i] * 2 + [_f, _i, _p],
-        "pt_layer_norm_bwd": [_p] * 9 + [_i] * 3 + [_p]},
+        "pt_layer_norm_fwd": [_p] * 6 + [_i] * 2 + [_f] + [_i] * 6 + [_p],
+        "pt_layer_norm_bwd": [_p] * 9 + [_i] * 9 + [_p]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -104,8 +104,8 @@ class _FusedLayerNorm(torch.autograd.Function):
 def fused_layer_norm(x, gamma=None, beta=None, eps: float = 1e-5):
     """LayerNorm over the last axis of x [..., H] with optional gamma and
     beta [H]; returns x's shape and dtype. On CUDA tensors kernel #8 runs
-    (the caller checks `fused_layer_norm_supported`; the kernels take H a
-    multiple of 8 up to 16384 and raise on others); on CPU tensors its
+    (the caller checks `fused_layer_norm_supported`; the kernels take any
+    H that is a multiple of 8 and raise on others); on CPU tensors its
     plain version, under autograd."""
     h = x.shape[-1]
     x2 = x.reshape(-1, h)

@@ -8,8 +8,8 @@ on one card.
 Run from the root of a checkout on a machine with an NVIDIA GPU. STEM names
 the source under `paddle_tpu_torch/ops/cuda/csrc/`: `flash_attention` (#6,
 the default), `paged_prefix_attention` (#3 and #4), `linear_ce` (#11),
-`fused_mha` (#9), `paged_attention` (#1 and #2), `int8_matmul` (#5) or
-`fused_mha_bias` (#10).
+`fused_mha` (#9), `paged_attention` (#1 and #2), `int8_matmul` (#5),
+`fused_mha_bias` (#10) or `layer_norm` (#8).
 Each VARIANT.cu is a full replacement of that source (same C entry
 points); it is built with the package's nvcc flags beside a copy of the
 headers, and its library stands in for the checkout's while it is timed.
@@ -31,8 +31,13 @@ its errors against the plain versions:
   * int8_matmul: every bf16 GEMM_CASES shape, with the max abs error and
     a digest of the output;
   * fused_mha_bias: FMB_TIMED, the forward (its plan pass included) and
-    the backward, their per-row errors and a digest of their outputs.
-With no variant it times the checkout's kernels alone. Prints ptxas's
+    the backward, their per-row errors and a digest of their outputs;
+  * layer_norm: every LN_CASES shape in bf16 with gamma and beta, the
+    forward and the backward (both its launches), their errors against
+    the plain versions and a digest of their outputs.
+A library that refuses a shape (its launch raises) is recorded with the
+error for that shape and timed no further there. With no variant it
+times the checkout's kernels alone. Prints ptxas's
 "Potential Performance Loss" lines (serialised wgmmas) of every build and
 the kernels of each variant that spill, then one JSON line per shape.
 
@@ -58,7 +63,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = ("flash_attention", "paged_prefix_attention", "linear_ce",
-           "fused_mha", "paged_attention", "int8_matmul", "fused_mha_bias")
+           "fused_mha", "paged_attention", "int8_matmul", "fused_mha_bias",
+           "layer_norm")
 SASS_OPS = ("IMAD", "LOP3", "SHF", "IADD3", "ISETP", "SEL", "FSEL", "MUFU",
             "FFMA", "FMUL", "HGMMA")
 
@@ -256,6 +262,33 @@ def fmb_cases(torch, cs, dev):
         yield name, timed, errors
 
 
+def ln_cases(torch, cs, dev):
+    """#8 in bf16 with gamma and beta at every LN_CASES shape."""
+    from paddle_tpu_torch.ops import layer_norm as LN
+    from paddle_tpu_torch.ops.cuda import layer_norm as KL
+    for name, r, h in cs.LN_CASES:
+        x, g, b, dy = cs.ln_inputs(torch, dev, r, h, torch.bfloat16)
+        po, _, _ = LN.fused_layer_norm_reference(x, g, b, 1e-5)
+
+        def timed(x=x, g=g, b=b, dy=dy):
+            _, mu, rs = KL.layer_norm_fwd_cuda(x, g, b, 1e-5)
+            return {"fwd_ms": lambda: KL.layer_norm_fwd_cuda(x, g, b, 1e-5),
+                    "bwd_ms": lambda: KL.layer_norm_bwd_cuda(dy, x, mu, rs,
+                                                             g)}
+
+        def errors(x=x, g=g, b=b, dy=dy, po=po):
+            out, mu, rs = KL.layer_norm_fwd_cuda(x, g, b, 1e-5)
+            dx, dg, db = KL.layer_norm_bwd_cuda(dy, x, mu, rs, g)
+            pdx, pdg, pdb = LN.fused_layer_norm_bwd_reference(dy, x, mu, rs,
+                                                              g)
+            return {"row_err": {"out": cs.row_err(out, po),
+                                "dx": cs.row_err(dx, pdx)},
+                    "rel_err": {"dgamma": cs.rel_err(dg, pdg),
+                                "dbeta": cs.rel_err(db, pdb)},
+                    "digest": digest(torch, out, mu, rs, dx, dg, db)}
+        yield name, timed, errors
+
+
 def sass_op_counts(cs, KB):
     """{tag: {"total": instructions, opcode: count}} of every redesigned
     kernel in the libraries of chip_smoke's SASS_CHECKS."""
@@ -278,7 +311,8 @@ def sass_op_counts(cs, KB):
 CASES = {"flash_attention": flash_cases,
          "paged_prefix_attention": prefix_cases, "linear_ce": ce_cases,
          "fused_mha": fmha_cases, "paged_attention": decode_cases,
-         "int8_matmul": gemm_cases, "fused_mha_bias": fmb_cases}
+         "int8_matmul": gemm_cases, "fused_mha_bias": fmb_cases,
+         "layer_norm": ln_cases}
 
 
 def main(argv) -> int:
@@ -345,8 +379,11 @@ def main(argv) -> int:
             res = {}
             for tag in order:
                 KB._libs[stem] = libs[tag]
-                row = errors()
-                row.update({k: run(fn) for k, fn in timed().items()})
+                try:
+                    row = errors()
+                    row.update({k: run(fn) for k, fn in timed().items()})
+                except RuntimeError as exc:    # the library refused it
+                    row = {"error": str(exc)}
                 res.setdefault(tag, []).append(row)
             KB._libs[stem] = libs["checkout"]
             same = {tag: all(r.get("digest") == res["checkout"][0].get(
