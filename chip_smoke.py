@@ -55,14 +55,34 @@ same under both opt-ins, _bench_gpt27's (gpt3-2.7b, bf16, B=6, S=1024,
 save_qkv recompute, int8 moments), bench_bert's
 (bert-base, bf16, B=32, S=512, dropout), bench_vit's (vit-l16 at 224^2,
 bf16, B=64) and bench_swin's (swin-t at 224^2, bf16, B=32), each timed
-and profiled. Each phase prints one JSON line; any failure
-exits non-zero. The line before the last is the card's name and
-power limit from nvidia-smi; the last line is {"ok": true, "device":
-{...}} with the number of devices the smoke used. Without a CUDA device,
-or without the package beside it, it exits 2 and prints no result.
+and profiled. Then ResNet-50 (no kernel of ours; cuDNN's convolutions
+and batch norms): resnet_parity holds ResNet-50 at 1000 classes on 64^2
+images, B=16, the card against the CPU and channels-last against NCHW on
+the card (logits, loss, every gradient, the running statistics, eval
+logits; f32 gradients against the CPU's f64 on the f32 run's own ReLU
+branches), and every optimizer and clip for 5 steps card against CPU over
+ResNet-50's parameter kinds (f32 and bf16; DGCMomentum also over 2^24 + 1
+elements; an f32 case outside its limits runs again on both sides, and
+passes only if the CPU's run did not reproduce itself while the card's
+did and agrees with the CPU's second run); train_resnet50_nhwc and
+train_resnet50_nchw run bench_resnet50's configuration (resnet50, bf16,
+224^2, B=64, Momentum(lr=0.1)) under FLAGS_conv_channels_last on and
+off, each timed and profiled, with the optimizer update's launches
+counted. Each phase prints one JSON line; any failure exits non-zero
+(resnet_parity prints its record, then names what failed last). The line
+before the last is the card's name and power limit from nvidia-smi; the
+last line is {"ok": true, "device": {...}} with the number of devices
+the smoke used. Without a CUDA device, or without the package beside it,
+it exits 2 and prints no result.
+
+    python3 chip_smoke.py --parity-repeats N
+
+runs resnet_parity alone N times, each run's record followed by a line
+that lists its reruns and failures, and exits 1 if any run failed.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import importlib.util
 import json
@@ -3599,7 +3619,500 @@ def fp_times(torch, F, FA, KF, run, case, qkv, dout, row):
     return {"kernels": kernels, "times": t}
 
 
-def main() -> int:
+# ------------------------------------------- slice 13: ResNet-50 training
+# resnet_parity's limits: loss relative, logits and every gradient
+# (each leaf) relative to their largest magnitude, running statistics
+# absolute
+RN_LIMITS = {"loss": 1e-5, "logits": 1e-4, "grads": 1e-3, "stats": 1e-5,
+             "eval_logits": 1e-4}
+# (dtype, comparison, the measures gated). A ReLU whose input lies within
+# rounding of 0 takes the other branch in another run, which moves that
+# element's whole gradient; in layer4 a batch norm's backward spreads it
+# over the channel's 64 values, so two f32 runs' gradients (the CPU's
+# and the card's) differ by up to ~26% of a leaf's largest value. Each
+# f32 run's gradients are held instead against the CPU's f64 evaluation
+# on that run's own branches ("_on_its_branches"), at the full limits.
+# cuDNN runs f64 convolutions in NCHW whatever the memory format, so the
+# channels-last kernels are the f32 card_cl run's.
+RN_ALL = tuple(RN_LIMITS)
+RN_GATES = (("float64", "card_vs_cpu", RN_ALL),
+            ("float64", "card_cl_vs_card", RN_ALL),
+            ("float32", "card_vs_cpu", ("loss", "logits", "stats",
+                                        "eval_logits")),
+            ("float32", "card_cl_vs_card", ("loss", "logits", "stats",
+                                            "eval_logits")),
+            ("float32", "cpu_vs_cpu_f64_on_its_branches", RN_ALL),
+            ("float32", "card_vs_cpu_f64_on_its_branches", RN_ALL),
+            ("float32", "card_cl_vs_cpu_f64_on_its_branches", RN_ALL))
+RN_B = 16     # batch statistics over 64 values a channel in layer4
+# the optimizers held card against CPU over ResNet-50's parameter kinds:
+# (class, kwargs, clip); Lamb's exclude function reads the name
+RN_OPTS = {
+    "SGD": ("SGD", dict(learning_rate=0.05, weight_decay=1e-4), None),
+    "Momentum": ("Momentum", dict(learning_rate=0.1, momentum=0.9,
+                                  weight_decay=1e-4), None),
+    "Momentum_nesterov": ("Momentum", dict(learning_rate=0.1, momentum=0.9,
+                                           use_nesterov=True), None),
+    "Adam": ("Adam", dict(learning_rate=1e-3, weight_decay=1e-4), None),
+    "AdamW": ("AdamW", dict(learning_rate=1e-3, weight_decay=0.05,
+                            lr_ratio=lambda p: 0.5), None),
+    "Adamax": ("Adamax", dict(learning_rate=1e-3), None),
+    "Adagrad": ("Adagrad", dict(learning_rate=0.01,
+                                initial_accumulator_value=0.1), None),
+    "Adadelta": ("Adadelta", dict(learning_rate=1.0, rho=0.9), None),
+    "RMSProp": ("RMSProp", dict(learning_rate=1e-3, momentum=0.5,
+                                centered=True), None),
+    "Lamb": ("Lamb", dict(learning_rate=1e-3, lamb_weight_decay=0.01,
+                          exclude_from_weight_decay_fn=lambda n:
+                          ".bn" in n), None),
+    "LarsMomentum": ("LarsMomentum", dict(learning_rate=0.1), None),
+    "DGCMomentum": ("DGCMomentum", dict(learning_rate=0.1, sparsity=0.999),
+                    None),
+    "Momentum_clip_norm": ("Momentum", dict(learning_rate=0.1),
+                           ("ClipGradByNorm", (0.5,))),
+    "Momentum_clip_value": ("Momentum", dict(learning_rate=0.1),
+                            ("ClipGradByValue", (1e-3,))),
+}
+# ResNet-50's parameter kinds: layer4's 3x3 conv, a BN scale, the head
+RN_OPT_SHAPES = {"layer4.0.conv2.weight": ((512, 512, 3, 3), 1e-3),
+                 "layer4.0.bn2.weight": ((512,), 1e-2),
+                 "fc.weight": ((1000, 2048), 1e-3)}
+# train_resnet50: bench_resnet50's batch and image side, steps a window
+RN_TRAIN = {"B": 64, "image": 224, "N": 10}
+
+
+@contextlib.contextmanager
+def relu_branches(record=None, replay=None):
+    """Within it, `fused_conv_bn_act`'s ReLU (ResNet's only one) appends
+    each call's branch (input > 0) to `record`, or computes input *
+    branch from `replay`'s branches in call order (the same function on
+    those branches; its gradient is the branch)."""
+    from paddle_tpu_torch.nn import functional as PF
+    relu = PF._EPILOGUE_ACTS["relu"]
+    it = iter(replay or ())
+
+    def act(v):
+        if replay is None:
+            record.append(v.detach() > 0)
+            return relu(v)
+        b = next(it)
+        check(b.shape == v.shape, f"replayed branch {tuple(b.shape)} for "
+                                  f"an input {tuple(v.shape)}")
+        return v * b.to(device=v.device, dtype=v.dtype)
+
+    PF._EPILOGUE_ACTS["relu"] = act
+    try:
+        yield
+    finally:
+        PF._EPILOGUE_ACTS["relu"] = relu
+    check(replay is None or next(it, None) is None,
+          "fewer ReLU calls than replayed branches")
+
+
+def resnet_run(torch, model, img, lab, record=None, replay=None):
+    """One training forward and backward (its ReLU branches recorded into
+    `record` or replayed from `replay`, see relu_branches) and one eval
+    forward: (train logits, loss, {gradient}, {buffer after the training
+    forward}, eval logits), on the CPU in f64."""
+    import torch.nn.functional as F
+    model.zero_grad(set_to_none=True)
+    model.train()
+    if record is None and replay is None:
+        logits = model(img)
+    else:
+        with relu_branches(record, replay):
+            logits = model(img)
+    loss = F.cross_entropy(logits, lab)
+    loss.backward()
+    stats = {n: b.detach().double().cpu() for n, b in model.named_buffers()}
+    model.eval()
+    with torch.no_grad():
+        ev = model(img)
+    out = (logits.detach().double().cpu(), float(loss.detach()),
+           {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+           stats, ev.double().cpu())
+    model.train()
+    return out
+
+
+def resnet_errs(a, b):
+    """Run a against run b by RN_LIMITS' measures."""
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+    grads = {n: rel(a[2][n], b[2][n]) for n in b[2]}
+    worst = max(grads, key=grads.get)
+    return {"logits": rel(a[0], b[0]),
+            "loss": abs(a[1] - b[1]) / abs(b[1]),
+            "grads": grads[worst], "worst_grad": worst,
+            "stats": max(float((a[3][n] - b[3][n]).abs().max())
+                         for n in b[3]),
+            "eval_logits": rel(a[4], b[4])}
+
+
+def within(errs, keys):
+    return all(errs[k] <= RN_LIMITS[k] for k in keys)
+
+
+def branch_flips(a, b):
+    """ReLU inputs whose branch differs between two runs' records."""
+    return sum(int((x.cpu() != y.cpu()).sum()) for x, y in zip(a, b))
+
+
+def bf16_steps(torch, a, b):
+    """max over elements of |a - b| in units of the bf16 step at
+    max(|a|, |b|)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    step = torch.ldexp(torch.ones_like(a), (e - 8).to(torch.int32))
+    return float(((a - b).abs() / step).max())
+
+
+def opt_trajectories(torch, pt, case, device, dtype, init, grads):
+    """RN_OPTS[case] for len(grads) steps of Optimizer.step() on `device`
+    and on the CPU, from the same parameters and gradients: {the worst
+    parameter error over the steps ("params"), the state's ("state"),
+    where the worst parameter error lies ("worst": step, tensor, element,
+    card and CPU values), whether the CPU's parameters moved ("moved"),
+    and each side's last parameters and state ("card", "cpu")}. f32:
+    rel_err; bf16: bf16_steps, each step started from the CPU's parameters
+    (the CPU's vectorised sqrt and pow are off by an ulp on some inputs, so
+    a rounding that flips once would otherwise carry over and can add a
+    second step later)."""
+    cls, kw, clip = RN_OPTS[case]
+    cpu = torch.device("cpu")
+    runs = []
+    for dev in (device, cpu):
+        named = [(n, torch.nn.Parameter(a.to(device=dev, dtype=dtype,
+                                             copy=True)))
+                 for n, a in init.items()]
+        extra = {} if clip is None else dict(
+            grad_clip=getattr(pt.nn, clip[0])(*clip[1]))
+        runs.append((named, getattr(pt.optimizer, cls)(
+            parameters=named, device=dev, **kw, **extra)))
+    (kn, kopt), (cn, copt) = runs
+    perr = serr = 0.0
+    worst = None
+    for s, g in enumerate(grads):
+        for (n, kp), (_, cp) in zip(kn, cn):
+            kp.grad = g[n].to(device=device, dtype=dtype, copy=True)
+            cp.grad = g[n].to(dtype=dtype, copy=True)
+        kopt.step()
+        copt.step()
+        for (n, kp), (_, cp) in zip(kn, cn):
+            k32 = kp.detach().cpu()
+            e = rel_err(k32, cp.detach()) if dtype == torch.float32 \
+                else bf16_steps(torch, k32, cp.detach())
+            if e > perr or worst is None:
+                i = int((k32.float() - cp.detach().float()).abs().argmax())
+                worst = {"step": s, "tensor": n, "element": i,
+                         "card": float(k32.reshape(-1)[i]),
+                         "cpu": float(cp.detach().reshape(-1)[i])}
+            perr = max(perr, e)
+            if dtype != torch.float32:
+                with torch.no_grad():
+                    kp.copy_(cp)
+            for k, v in copt._states[n].items():
+                serr = max(serr, rel_err(kopt._states[n][k].cpu(), v))
+    moved = any(not torch.equal(cp.detach(), init[n].to(dtype))
+                for n, cp in cn)
+
+    def last(named, opt):
+        return {n: [p.detach().cpu()] + [v.cpu() for _, v in
+                                         sorted(opt._states[n].items())]
+                for n, p in named}
+    return {"params": perr, "state": serr, "worst": worst, "moved": moved,
+            "card": last(kn, kopt), "cpu": last(cn, copt)}
+
+
+def same_run(torch, a, b):
+    """Whether two runs' last parameters and state are bitwise equal."""
+    return all(len(a[n]) == len(b[n]) and
+               all(torch.equal(x, y) for x, y in zip(a[n], b[n]))
+               for n in b)
+
+
+def opt_check(torch, pt, case, device, dtype, init, grads):
+    """opt_trajectories' errors held to their limits (f32: 1e-6 relative
+    for parameters and state; bf16: one bf16 step per parameter element).
+    An f32 run outside them runs again on both sides: it passes only if
+    the CPU's reference did not reproduce itself while the card's run did,
+    bit for bit, and the card agrees with the CPU's second run; the record
+    says which side reproduced."""
+    f32 = dtype == torch.float32
+
+    def within(r):
+        return (r["params"] <= 1e-6 and r["state"] <= 1e-6) if f32 \
+            else r["params"] <= 1.0
+    a = opt_trajectories(torch, pt, case, device, dtype, init, grads)
+    rec = {k: a[k] for k in ("params", "state", "moved", "worst")}
+    ok = within(a)
+    if not ok and f32:
+        b = opt_trajectories(torch, pt, case, device, dtype, init, grads)
+        card_same, cpu_same = (same_run(torch, a[k], b[k])
+                               for k in ("card", "cpu"))
+        rec["rerun"] = {"params": b["params"], "state": b["state"],
+                        "worst": b["worst"], "card_reproduced": card_same,
+                        "cpu_reproduced": cpu_same}
+        ok = card_same and not cpu_same and within(b)
+    # (a bf16 BN scale near 1 may not move at a small rate: its step there
+    # is 2^-7); the state is f32 in both dtypes, but a bf16 run restarts
+    # each step from the CPU's parameters
+    rec["ok"] = bool(ok and a["moved"])
+    return rec, a
+
+
+def phase_resnet_parity(torch, device, card):
+    """ResNet-50 at full width (1000 classes) on 64^2 images, B=RN_B: the
+    same seeded weights on the card and on the CPU, one training forward
+    and backward (logits, loss, every gradient, the running statistics
+    after the forward) and one eval forward, the card against the CPU and
+    channels-last against NCHW on the card, in f32 and f64, each also
+    against the CPU's f64 run, and each f32 run against the CPU's f64 run
+    on that f32 run's ReLU branches (gated by RN_GATES); then every
+    optimizer (and the two new clips) for 5 steps over ResNet-50's
+    parameter kinds, card against CPU, in f32 and bf16, and DGCMomentum
+    over one 2^24 + 1-element tensor."""
+    import paddle_tpu_torch as pt
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(61)
+    img = torch.randn(RN_B, 3, 64, 64, generator=g, dtype=torch.float64)
+    lab = torch.randint(0, 1000, (RN_B,), generator=g)
+    ref = pt.resnet50(num_classes=1000, device=cpu, seed=5)
+    state = ref.state_dict()
+
+    def run(dt, where, cl=False, record=None, replay=None):
+        pt.set_flags({"FLAGS_conv_channels_last": cl})
+        try:
+            dev = cpu if where == "cpu" else device
+            m = pt.resnet50(num_classes=1000, device=dev, seed=5)
+            m.load_state_dict(state)
+            m.to(dt)
+            return resnet_run(torch, m, img.to(device=dev, dtype=dt),
+                              lab.to(dev), record, replay)
+        finally:
+            pt.set_flags({"FLAGS_conv_channels_last": False})
+
+    runs, branches = {}, {}
+    t0 = time.perf_counter()
+    for dt in ("float32", "float64"):
+        for where, cl in (("cpu", False), ("card", False), ("card_cl", True)):
+            branches[(dt, where)] = rec = []
+            runs[(dt, where)] = run(getattr(torch, dt), where, cl, rec)
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    exact = runs[("float64", "cpu")]
+    t0 = time.perf_counter()
+    on_branches = {w: run(torch.float64, "cpu",
+                          replay=branches[("float32", w)])
+                   for w in ("cpu", "card", "card_cl")}
+    replay_s = time.perf_counter() - t0
+    cmp = {}
+    for dt in ("float32", "float64"):
+        cmp[dt] = {
+            "card_vs_cpu": resnet_errs(runs[(dt, "card")], runs[(dt, "cpu")]),
+            "card_cl_vs_card": resnet_errs(runs[(dt, "card_cl")],
+                                           runs[(dt, "card")]),
+            "cpu_vs_cpu_f64": resnet_errs(runs[(dt, "cpu")], exact),
+            "card_vs_cpu_f64": resnet_errs(runs[(dt, "card")], exact),
+            "card_cl_vs_cpu_f64": resnet_errs(runs[(dt, "card_cl")], exact)}
+    for w in on_branches:
+        cmp["float32"][f"{w}_vs_cpu_f64_on_its_branches"] = resnet_errs(
+            runs[("float32", w)], on_branches[w])
+    flips = {w: branch_flips(branches[("float32", w)],
+                             branches[("float64", "cpu")])
+             for w in ("cpu", "card", "card_cl")}
+    relu_inputs = sum(b.numel() for b in branches[("float64", "cpu")])
+    gated = {f"{dt}_{k}": within(cmp[dt][k], keys)
+             for dt, k, keys in RN_GATES}
+    # optimizers: card against CPU, 5 steps
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(62)
+    init = {n: (torch.rand(s, generator=g) - 0.5) * 0.05 +
+            (1.0 if ".bn" in n else 0.0) for n, (s, _) in
+            RN_OPT_SHAPES.items()}
+    grads = [{n: torch.randn(s, generator=g) * sc for n, (s, sc) in
+              RN_OPT_SHAPES.items()} for _ in range(5)]
+    opt_errs = {f"{case}_{dt}": opt_check(torch, pt, case, device,
+                                          getattr(torch, dt), init, grads)[0]
+                for case in RN_OPTS for dt in ("float32", "bfloat16")}
+    # DGC over one tensor past torch.quantile's 2^24 elements
+    big = {"wte.weight": (torch.rand(2 ** 24 + 1, generator=g) - 0.5) * 0.1}
+    bg = [{"wte.weight": torch.randn(2 ** 24 + 1, generator=g) * 1e-2}
+          for _ in range(5)]
+    dgc, dgc_run = opt_check(torch, pt, "DGCMomentum", device,
+                             torch.float32, big, bg)
+    dgc["changed"] = int((dgc_run["cpu"]["wte.weight"][0]
+                          != big["wte.weight"]).sum())
+    dgc["ok"] = dgc["ok"] and 0 < dgc["changed"] < 2 ** 24
+    del dgc_run
+    opt_s = time.perf_counter() - t0
+    out = {"phase": "resnet_parity", "card": card,
+           "model": {"preset": "resnet50", "classes": 1000, "image": 64,
+                     "B": RN_B, "params": sum(p.numel()
+                                              for p in ref.parameters())},
+           "limits": RN_LIMITS, "gates": RN_GATES,
+           "errors": cmp, "gated": gated,
+           "relu_branch_flips_vs_cpu_f64": flips,
+           "relu_inputs": relu_inputs, "relu_calls": len(
+               branches[("float64", "cpu")]),
+           "model_s": model_s, "replay_s": replay_s,
+           "optimizers": opt_errs, "optimizer_s": opt_s,
+           "dgc_2p24p1": dgc, "seconds": time.perf_counter() - t_phase}
+    # what failed goes last, after the whole record, so that the end of
+    # the output names it
+    failed = {f"resnet_{dt}_{c}": {m: cmp[dt][c][m] for m in keys}
+              for dt, c, keys in RN_GATES if not gated[f"{dt}_{c}"]}
+    failed.update({f"optimizer_{k}": v for k, v in opt_errs.items()
+                   if not v["ok"]})
+    if not dgc["ok"]:
+        failed["dgc_2p24p1"] = dgc
+    out["ok"] = not failed
+    emit(out)
+    if failed:
+        exc = SmokeFailure(f"resnet_parity outside its limits: "
+                           f"{json.dumps(failed)}")
+        exc.record = out
+        raise exc
+    torch.cuda.empty_cache()
+    return out
+
+
+def update_launches(torch, opt, step):
+    """Device kernels one optimizer update over every parameter of the
+    TrainStep `step` launches, read by the profiler (zero gradients)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    grads = [torch.zeros_like(p) for p in step._params]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for n, p, gr, st in zip(step._param_names, step._params, grads,
+                                step._opt_state):
+            opt.update(p, gr, st, 0.0, step._step_i + 1, opt._wd_for(n),
+                       name=n)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def phase_train_resnet50(torch, card, device, channels_last):
+    """bench_resnet50's configuration at full width: resnet50 (25.6M
+    parameters) at 224^2, 1000 classes, bf16 parameters and buffers, B=64,
+    Momentum(lr=0.1, momentum=0.9), cross-entropy of the f32 logits,
+    under FLAGS_conv_channels_last on (bench's setting on the chip) or
+    off; images N(0, 1) and labels drawn on the device from a seeded
+    generator (bench: numpy). 2 warm steps, then the best of 2 windows of
+    10 (bench: one window of 8), then one profiled step; learning is
+    checked on one batch repeated 6 more times, and every running
+    statistic must have left its initial 0 or 1. MFU is bench_resnet50's:
+    3 x 7.7e9 FLOPs an image over the peak."""
+    import math
+    import torch.nn.functional as F
+    import paddle_tpu_torch as pt
+    t_phase = time.perf_counter()
+    B_, hw, N = RN_TRAIN["B"], RN_TRAIN["image"], RN_TRAIN["N"]
+    pt.set_flags({"FLAGS_conv_channels_last": channels_last})
+    try:
+        model = pt.resnet50(num_classes=1000, device=device,
+                            dtype=torch.bfloat16, seed=0)
+        model.train()
+        opt = pt.Momentum(learning_rate=0.1, momentum=0.9,
+                          parameters=model.named_parameters(), device=device)
+        step = pt.TrainStep(model, opt,
+                            lambda x, y: F.cross_entropy(model(x).float(),
+                                                         y), device=device)
+        g = torch.Generator(device=device).manual_seed(0)
+        imgs = torch.randn(N + 2, B_, 3, hw, hw, generator=g,
+                           device=device).to(torch.bfloat16)
+        lbl = torch.randint(0, 1000, (N + 2, B_), generator=g, device=device)
+        warm, losses, windows, _, peak = timed_steps(
+            torch, step, lambda i: (imgs[i], lbl[i]), N)
+        best = min(windows)
+        img_s = B_ * N / best
+        check(all(math.isfinite(x) for x in warm + losses),
+              "a ResNet-50 training loss is not finite")
+        check(abs(warm[0] - math.log(1000)) < 2.0,
+              f"first ResNet-50 loss {warm[0]} is not near ln(1000) "
+              f"{math.log(1000)}")
+        seen = []
+        hook = model.layer1.register_forward_hook(
+            lambda mod, i, o: seen.append(o.is_contiguous(
+                memory_format=torch.channels_last)))
+        prof = profile_call(torch, lambda: step(imgs[2], lbl[2]),
+                            names=("batch_norm", "bn_", "conv", "gemm",
+                                   "elementwise"))
+        hook.remove()
+        same = [float(step(imgs[0], lbl[0])) for _ in range(6)]
+        check(same[-1] < same[0],
+              f"the ResNet-50 loss on a repeated batch did not fall: {same}")
+        bns = [m for m in model.modules()
+               if isinstance(m, pt.nn.BatchNorm2D)]
+        still = [i for i, m in enumerate(bns)
+                 if bool((m._mean == 0).all()) or
+                 bool((m._variance == 1).all())]
+        check(not still, f"running statistics never moved in {len(still)} "
+                         f"of {len(bns)} batch norms")
+        check(seen == [channels_last],
+              f"layer1's output channels-last {seen}, flag {channels_last}")
+        launches = update_launches(torch, opt, step)
+        n_params = sum(p.numel() for p in model.parameters())
+        emit({"phase": "train_resnet50" + ("_nhwc" if channels_last
+                                           else "_nchw"),
+              "ok": True, "card": card,
+              "model": {"preset": "resnet50", "image": hw, "classes": 1000,
+                        "dtype": "bfloat16", "buffers": "bfloat16"},
+              "config": {"B": B_, "optimizer": "Momentum(lr=0.1, "
+                         "momentum=0.9)",
+                         "FLAGS_conv_channels_last": channels_last,
+                         "cudnn_benchmark": bool(
+                             torch.backends.cudnn.benchmark),
+                         "loss": "F.cross_entropy(model(x).float(), y)",
+                         "data": "torch.Generator(seed 0) on the device",
+                         "timing": "2 warm steps, best of 2 windows of 10"},
+              "params": n_params, "param_tensors": len(step._params),
+              "images_per_s": img_s, "ms_per_step": best / N * 1e3,
+              "window_s": windows, "flops_per_image": 3 * 7.7e9,
+              "mfu": 3 * 7.7e9 * img_s / TENSOR_FLOPS_PER_S,
+              "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+              "peak_mem_bytes": peak, "first_loss": warm[0],
+              "warm_losses": warm, "last_window_losses": losses,
+              "repeated_batch_losses": same,
+              "trunk_channels_last": seen[0],
+              "update_launches": launches,
+              "update_launches_per_param": launches / len(step._params),
+              "profile_step": prof,
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        pt.set_flags({"FLAGS_conv_channels_last": False})
+    del step, opt, model, imgs
+    torch.cuda.empty_cache()
+
+
+def parity_repeats(torch, device, card, n) -> int:
+    """resnet_parity alone, n times: after each run's record, one line
+    with the cases that ran again and the gates that failed."""
+    bad = 0
+    for i in range(n):
+        try:
+            rec, failed = phase_resnet_parity(torch, device, card), None
+        except SmokeFailure as exc:
+            bad += 1
+            rec, failed = getattr(exc, "record", None), str(exc)
+        cases = {} if rec is None else dict(
+            rec["optimizers"], dgc_2p24p1=rec["dgc_2p24p1"])
+        emit({"phase": "resnet_parity_repeat", "run": i,
+              "rerun": {k: v["rerun"] for k, v in cases.items()
+                        if "rerun" in v},
+              "failed": failed})
+    emit({"phase": "resnet_parity_repeats", "runs": n, "failed": bad})
+    return 1 if bad else 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parity-repeats", type=int, default=0, metavar="N",
+                    help="run resnet_parity alone N times")
+    repeats = ap.parse_args(argv).parity_repeats
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: paddle_tpu_torch/ not found beside this "
               "script; run it from a checkout", file=sys.stderr)
@@ -3615,6 +4128,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     t_start = time.perf_counter()
+    if repeats:
+        return parity_repeats(torch, device, card, repeats)
 
     phase_build(torch, card)
     kern = phase_kernels(torch, device, card)
@@ -3654,6 +4169,9 @@ def main() -> int:
     add_launches(launches, phase_train_bert(torch, card, device))
     add_launches(launches, phase_train_vit(torch, card, device))
     add_launches(launches, phase_train_swin(torch, card, device))
+    phase_resnet_parity(torch, device, card)
+    phase_train_resnet50(torch, card, device, channels_last=True)
+    phase_train_resnet50(torch, card, device, channels_last=False)
 
     rows = []
     for name in ("paged_attention", "paged_attention_q8",

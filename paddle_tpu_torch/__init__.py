@@ -3,9 +3,13 @@ H100. It trains GPT (`GPTForCausalLM.loss` or `GPTPretrainingCriterion`,
 through the flash-attention and fused linear cross-entropy kernels), BERT
 (`BertForMaskedLM.loss`, through the fused short-sequence MHA and the
 fused linear cross-entropy), ViT (`VisionTransformer`, through the fused
-MHA) and Swin (`swin_t` and the other presets of `vision.models`, through
-the window-batched fused MHA with bias) with `AdamW`, `GradScaler`,
-`ClipGradByGlobalNorm` and `TrainStep`, and it serves GPT through the
+MHA), Swin (`swin_t` and the other presets of `vision.models`, through
+the window-batched fused MHA with bias) and the ResNet family (`resnet50`
+and the other constructors, conv and batch norm through cuDNN, channels-last
+under `set_flags({"FLAGS_conv_channels_last": True})`) with any of the
+eleven optimizers of `optimizer` (`Momentum`, `AdamW`, ...), its fifteen
+schedulers, the three gradient clips, `GradScaler` and `TrainStep`, and
+it serves GPT through the
 static decode stack and the padded engine or the paged engine with the
 prefix cache, chunked prefill and speculative decoding, with bf16 or
 weight-only int8 weights.
@@ -32,9 +36,17 @@ from .inference.serving import (Request, RequestTrace, ServingConfig,
 from .amp import GradScaler
 from .convert import (model_state_from_paddle, state_dict_from_paddle,
                       train_state_from_paddle)
+from .core import get_flags, set_flags
 from .jit import TrainStep
-from .nn import ClipGradByGlobalNorm
-from .optimizer import Adam, AdamW
+from . import nn, optimizer
+from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        DGCMomentum, Lamb, LarsMomentum, Momentum, RMSProp)
+from .vision.models import (ResNet, resnet18, resnet34, resnet50, resnet101,
+                            resnet152, resnext50_32x4d, resnext50_64x4d,
+                            resnext101_32x4d, resnext101_64x4d,
+                            resnext152_32x4d, resnext152_64x4d,
+                            wide_resnet50_2, wide_resnet101_2)
 
 __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "gpt_config", "BlockPool", "PrefixCache", "Request",
@@ -48,4 +60,11 @@ __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "VisionTransformer", "vit_config", "vision", "SwinTransformer",
            "swin_t", "swin_s", "swin_b", "swin_l",
            "GPTPretrainingCriterion", "TrainStep", "Adam", "AdamW",
-           "GradScaler", "ClipGradByGlobalNorm"]
+           "GradScaler", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "SGD", "Momentum", "Adamax", "Adagrad",
+           "Adadelta", "RMSProp", "Lamb", "LarsMomentum", "DGCMomentum",
+           "set_flags", "get_flags", "nn", "optimizer", "ResNet", "resnet18",
+           "resnet34", "resnet50", "resnet101", "resnet152",
+           "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+           "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+           "wide_resnet50_2", "wide_resnet101_2"]

@@ -11,8 +11,10 @@ Swin's relative-position tables (``attn.rel_bias_table``, no ``.weight``
 suffix) and everything else carry over as they are. The qkv output columns keep
 their ``[3, num_heads, head_dim]`` order, and a tied LM or MLM head stays
 tied: it is the embedding table itself, so there is no separate entry to
-carry. `model_state_from_paddle` maps onto any port model's own state
-dict; `state_dict_from_paddle` maps GPT from its config alone.
+carry. A ResNet's batch-norm buffers (``bn1._mean``, ``bn1._variance``)
+carry over by name like parameters. `model_state_from_paddle` maps onto
+any port model's own state dict; `state_dict_from_paddle` maps GPT from
+its config alone.
 """
 from __future__ import annotations
 
@@ -28,6 +30,10 @@ _Q_BLOCK = 2048   # the int8 Adam moments' block (optimizer.py)
 _Q8_KEYS = {"moment1_q": lambda nb: (nb, _Q_BLOCK),
             "moment2_q": lambda nb: (nb, _Q_BLOCK),
             "moment1_s": lambda nb: (nb,), "moment2_s": lambda nb: (nb,)}
+# optimizer state shaped like its parameter, of every optimizer
+_PARAM_SHAPED_KEYS = ("moment1", "moment2", "velocity", "moment",
+                      "inf_norm", "avg_squared_grad", "avg_squared_update",
+                      "mean_square", "mean_grad", "momentum", "error")
 
 
 def _is_linear_weight(name: str, ndim: int) -> bool:
@@ -91,16 +97,21 @@ def _to_torch(arr) -> torch.Tensor:
 
 def train_state_from_paddle(jax_state: Dict,
                             model: torch.nn.Module) -> Dict:
-    """Map a JAX-package ``TrainStep.state_dict()`` (step, params, AdamW
-    ``moment1``/``moment2`` or blockwise int8 ``moment1_q``/``_s`` and
-    ``moment2_q``/``_s`` per parameter, optimizer scalars, scaler) onto
-    the port's ``TrainStep.set_state_dict`` layout for the port `model`
-    (GPT, BERT, ViT, Swin, ...); every f32 or bf16 moment takes its
-    parameter's ``[in, out]`` -> ``[out, in]`` transpose, and int8 codes
-    and scales carry over as they are (the port blocks them in the JAX
-    element order), so a port run resumes a JAX run on the same
-    trajectory."""
-    params = model_state_from_paddle(jax_state["params"], model)
+    """Map a JAX-package ``TrainStep.state_dict()`` (step, the trainable
+    parameters, per-parameter optimizer state, optimizer scalars, scaler)
+    onto the port's ``TrainStep.set_state_dict`` layout for the port
+    `model` (GPT, BERT, ViT, Swin, ResNet, ...). The optimizer state is
+    any optimizer's: state shaped like its parameter (Adam's
+    ``moment1``/``moment2``, Momentum's ``velocity``, ...) takes the
+    parameter's ``[in, out]`` -> ``[out, in]`` transpose, and blockwise
+    int8 codes and scales carry over as they are (the port blocks them in
+    the JAX element order), so a port run resumes a JAX run on the same
+    trajectory. Like the JAX state, this holds trainable parameters only:
+    buffers (a ResNet's running statistics) travel in the model's own
+    state dict."""
+    params = _map(jax_state["params"],
+                  {n: tuple(p.shape) for n, p in model.named_parameters()
+                   if p.requires_grad})
     out = {"step": int(jax_state.get("step", 0)), "params": params,
            "opt_extra": dict(jax_state.get("opt_extra", {}))}
     if "opt" in jax_state:
@@ -113,7 +124,7 @@ def train_state_from_paddle(jax_state: Dict,
             entry = {}
             nb = -(-params[name].numel() // _Q_BLOCK)
             for k, v in st.items():
-                if k in ("moment1", "moment2"):
+                if k in _PARAM_SHAPED_KEYS:
                     t = _to_torch(np.asarray(v).T if flip else v)
                     want = tuple(params[name].shape)
                 elif k in _Q8_KEYS:

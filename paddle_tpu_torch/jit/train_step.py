@@ -14,7 +14,13 @@ in the JAX step's order:
     gradients unscaled before anything reads them; a non-finite gradient
     skips the whole update (parameters and optimizer state), and then the
     scaler's rule moves the scale;
-  * the optimizer's ClipGradByGlobalNorm clips by the f32 global norm;
+  * the optimizer's gradient clip applies (ClipGradByGlobalNorm,
+    ClipGradByNorm or ClipGradByValue; the JAX step applies the first
+    only and skips the other two);
+  * the forward runs eagerly in the model's own mode, so a model in
+    train() mode updates its batch-norm running statistics at every
+    forward, once per microbatch (the JAX step's trace never does, and
+    keeps the initial statistics);
   * steps are numbered from 1 and the learning rate is read at every call
     (the caller steps a scheduler); `run_steps(n, *stacked)` runs n steps
     from batches stacked on dim 0 with the learning rate read once, as the

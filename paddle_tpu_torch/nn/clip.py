@@ -1,5 +1,7 @@
-"""Gradient clipping by global norm (the port of
-paddle_tpu/nn/__init__.py's ClipGradByGlobalNorm)."""
+"""Gradient clipping (the port of paddle_tpu/nn/__init__.py's
+ClipGradByGlobalNorm, ClipGradByNorm and ClipGradByValue, with the JAX
+eager `Optimizer.step`'s arithmetic). An optimizer or TrainStep applies
+the clip as `clip(grads)`; the object carries its thresholds."""
 from __future__ import annotations
 
 from typing import List
@@ -7,19 +9,48 @@ from typing import List
 import torch
 
 
+def _norm_scale(sq_sum, clip_norm):
+    """min(1, clip_norm / max(sqrt(sq_sum), 1e-12)) as a f32 0-d tensor."""
+    return torch.clamp(clip_norm / torch.clamp(torch.sqrt(sq_sum),
+                                               min=1e-12), max=1.0)
+
+
 class ClipGradByGlobalNorm:
     """Scale every gradient by min(1, clip_norm / max(||g||, 1e-12)), the
-    norm taken in f32 over all gradients together. An optimizer or
-    TrainStep applies it; the object only carries `clip_norm`."""
+    norm taken in f32 over all gradients together. `group_name` is
+    accepted and unused, as in the JAX package."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = clip_norm
 
     def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The clipped gradients, each in its own dtype."""
         if not grads:
             return grads
-        total = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        scale = torch.clamp(self.clip_norm / torch.clamp(total, min=1e-12),
-                            max=1.0)
+        scale = _norm_scale(sum(g.float().square().sum() for g in grads),
+                            self.clip_norm)
         return [g * scale.to(g.dtype) for g in grads]
+
+
+class ClipGradByNorm:
+    """Scale each gradient by min(1, clip_norm / max(||g||, 1e-12)), its
+    own norm taken in f32."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [g * _norm_scale(g.float().square().sum(),
+                                self.clip_norm).to(g.dtype) for g in grads]
+
+
+class ClipGradByValue:
+    """Clamp every gradient element into [min, max]; `min` defaults to
+    -max."""
+
+    def __init__(self, max, min=None):  # noqa: A002
+        self.max = max
+        self.min = -max if min is None else min
+
+    def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [torch.clamp(g, self.min, self.max) for g in grads]

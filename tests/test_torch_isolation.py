@@ -51,6 +51,11 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.ops.layer_norm\n"
             "import paddle_tpu_torch.ops.cuda.layer_norm\n"
             "import paddle_tpu_torch.distributed.recompute\n"
+            "import paddle_tpu_torch.vision.models.resnet\n"
+            "import paddle_tpu_torch.nn.layers.conv\n"
+            "import paddle_tpu_torch.nn.layers.pooling\n"
+            "import paddle_tpu_torch.nn.layout\n"
+            "import paddle_tpu_torch.core.flags\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -114,7 +119,9 @@ def test_training_modules_are_covered_by_the_source_check():
               "ops/cuda/fused_mha_bias.py", "vision/models/swin.py",
               "ops/layer_norm.py", "ops/cuda/layer_norm.py",
               "nn/functional.py", "nn/layers/norm.py",
-              "distributed/recompute.py"):
+              "distributed/recompute.py", "vision/models/resnet.py",
+              "nn/layers/conv.py", "nn/layers/pooling.py", "nn/layout.py",
+              "core/flags.py", "core/__init__.py", "convert.py"):
         assert f in files, f
 
 

@@ -180,7 +180,7 @@ def test_bf16_moments_and_later_items():
     ts(a, a)
     assert ts._opt_state[0]["moment1"].dtype == torch.bfloat16
     # int8 moments are ported (test_torch_adam_int8 holds them against
-    # JAX); AdamW(lr_ratio=) is still a later item
+    # JAX)
     opt8 = pt.AdamW(1e-3, parameters=tm.named_parameters(),
                     moment_dtype="int8", device="cpu")
     assert opt8.init_state(tm.gpt.wte.weight, name="gpt.wte.weight")[
@@ -191,9 +191,15 @@ def test_bf16_moments_and_later_items():
                                          name="gpt.wte.weight")
     assert "moment1" in sel.init_state(tm.gpt.wpe.weight,
                                        name="gpt.wpe.weight")
-    with pytest.raises(NotImplementedError, match="later item"):
-        pt.AdamW(1e-3, parameters=tm.named_parameters(), device="cpu",
-                 lr_ratio=lambda p: 1.0)
+    # AdamW(lr_ratio=) is accepted and never read, as in the JAX package:
+    # the update equals the one without it (test_torch_optimizers holds it
+    # against the JAX update)
+    pa, pb = (torch.nn.Parameter(torch.linspace(-1, 1, 6)) for _ in "ab")
+    for p, kw in ((pa, dict(lr_ratio=lambda p: 0.5)), (pb, {})):
+        p.grad = torch.linspace(0.3, -0.2, 6)
+        pt.AdamW(1e-3, parameters=[p], device="cpu", **kw).step()
+    assert torch.equal(pa, pb) and not torch.equal(
+        pa, torch.linspace(-1, 1, 6))
     for kw in (dict(mesh=object()), dict(numerics=True),
                dict(grad_comm="int8"), dict(monitor=object())):
         with pytest.raises(NotImplementedError, match="slice"):
