@@ -68,7 +68,24 @@ did and agrees with the CPU's second run); train_resnet50_nhwc and
 train_resnet50_nchw run bench_resnet50's configuration (resnet50, bf16,
 224^2, B=64, Momentum(lr=0.1)) under FLAGS_conv_channels_last on and
 off, each timed and profiled, with the optimizer update's launches
-counted. Each phase prints one JSON line; any failure exits non-zero
+counted. Then GPT with MoE blocks, ERNIE and the incubate layers (no
+kernel of their own): moe_parity holds a gpt3-350m-wide GPT cut to 4
+layers (2 MoE blocks of 8 experts, top-2 gshard, capacity factor 1.0,
+B=2, S=1024), kernel route against plain route, for the loss with the
+router aux loss and every gradient in f32 and bf16 (the plain route
+replaying the kernel route's expert routing), 5-step AdamW
+trajectories, the index dispatch against the one-hot route with their
+drop rates, and 32-token greedy chains through the paged engine;
+ernie_parity holds ERNIE MLM at ernie-3.0-medium's width cut to 2 layers
+(f32 and bf16) and the incubate FusedTransformerEncoderLayer and
+FusedMultiTransformer at bert-base width on #9 against the plain route,
+with the stack's static-cache decode (fp and int8) against its growing
+cache; train_gpt_moe and train_gpt_moe_dense run bench_moe's
+configuration (gpt3-350m bf16, 8 experts every 2nd layer, B=8, S=1024,
+AdamW with bf16 moments) and its dense twin, with the active-parameter
+MFU, the routing overhead and the drop rate; train_ernie-3.0-medium runs
+ERNIE with bench_bert's settings; each timed and profiled. Each phase
+prints one JSON line; any failure exits non-zero
 (resnet_parity prints its record, then names what failed last). The line
 before the last is the card's name and power limit from nvidia-smi; the
 last line is {"ok": true, "device": {...}} with the number of devices
@@ -971,14 +988,12 @@ def _plain_packed_bwd(q, k, v, out, lse, dout, nh, *, causal, scale,
 
 
 @contextlib.contextmanager
-def opt_ins():
-    """PADDLE_TPU_FUSED_LN=1 and PADDLE_TPU_FLASH_PACKED=1 (GPT's LayerNorms
-    through #8 and its attention through #7), the environment restored
+def env_set(**values):
+    """The environment variables `values` set, the environment restored
     after."""
     import os
-    keys = ("PADDLE_TPU_FUSED_LN", "PADDLE_TPU_FLASH_PACKED")
-    saved = {k: os.environ.get(k) for k in keys}
-    os.environ.update({k: "1" for k in keys})
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -987,6 +1002,13 @@ def opt_ins():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def opt_ins():
+    """PADDLE_TPU_FUSED_LN=1 and PADDLE_TPU_FLASH_PACKED=1 (GPT's LayerNorms
+    through #8 and its attention through #7), the environment restored
+    after."""
+    return env_set(PADDLE_TPU_FUSED_LN="1", PADDLE_TPU_FLASH_PACKED="1")
 
 
 def serve(torch, model, cfg_kw, prompts, warm=False):
@@ -2560,37 +2582,11 @@ def phase_encoder_parity(torch, device, card):
     import torch.nn.functional as F
     from paddle_tpu_torch import (BertForMaskedLM, VisionTransformer,
                                   bert_config, vit_config)
-    from paddle_tpu_torch.ops.cuda import build as KB
     out = {"phase": "encoder_train_parity", "card": card}
 
     def compare(model, loss_fn, want):
-        def grads(plain):
-            model.zero_grad(set_to_none=True)
-            model.dropout_generator.manual_seed(7)
-            KB.reset_launch_counts()
-            with plain_route() if plain else contextlib.nullcontext():
-                loss = loss_fn()
-                loss.backward()
-            torch.cuda.synchronize()
-            return (float(loss.detach()),
-                    {n: p.grad.clone() for n, p in model.named_parameters()
-                     if p.grad is not None}, dict(KB.LAUNCHES))
-        kl, kg, kc = grads(False)
-        pl, pg, pc = grads(True)
-        check(sum(pc.values()) == 0, "the plain route launched a kernel")
-        check(all(kc[k] == n for k, n in want.items()),
-              f"kernel route launches {kc}, want {want}")
-        check(set(kg) == set(pg), "the routes reach different parameters")
-        errs = {n: rel_err(kg[n], pg[n]) for n in kg}
-        worst = max(errs, key=errs.get)
-        res = {"loss": {"kernel": kl, "plain": pl,
-                        "rel_err": abs(kl - pl) / abs(pl), "tol": 1e-5},
-               "grads": {"params": len(errs), "worst_param": worst,
-                         "worst_rel_err": errs[worst], "tol": 1e-3},
-               "launches": {k: kc[k] for k in want}}
-        check(res["loss"]["rel_err"] <= 1e-5 and errs[worst] <= 1e-3,
-              f"encoder parity: loss or grads differ: {res}")
-        return res
+        return compare_routes(torch, model, loss_fn, want, torch.float32,
+                              "encoder parity")[0]
 
     cfg = bert_config("bert-base", num_layers=2)
     model = BertForMaskedLM(cfg, device=device, dtype=torch.float32, seed=1)
@@ -4088,6 +4084,611 @@ def phase_train_resnet50(torch, card, device, channels_last):
     torch.cuda.empty_cache()
 
 
+# ---------------------- slice 14: MoE GPT, ERNIE and the fused layers
+# the bf16 legs of the slice-14 parity phases: the loss within CE_TOL's
+# bf16 loss limit, each gradient within the 0.1 row limit of the bf16
+# attention kernels (#6, #9), of its largest entry
+BF16_TRAIN_TOL = {"loss": 2e-3, "grads": 0.1}
+# moe_parity: gpt3-350m width cut to 4 layers (2 of them MoE), 8 experts
+# of top-2 gshard at capacity factor 1.0 (bench_moe's row), B=2, S=1024
+MOE_PARITY = {"preset": "gpt3-350m", "layers": 4, "experts": 8, "B": 2,
+              "S": 1024, "steps": 5, "chain_prompts": 8, "chain_new": 32}
+# bench_moe's configuration (bench.py:341-445) at full width
+MOE_TRAIN = {"preset": "gpt3-350m", "experts": 8, "B": 8, "S": 1024,
+             "N": 8, "cf": 1.0}
+# ernie_parity: ernie-3.0-medium width cut to 2 layers; the fused layers
+# at bert-base width
+ERNIE_PARITY = {"layers": 2, "B": 4, "S": 512, "steps": 5, "width": 768,
+                "heads": 12, "ff": 3072, "decode_steps": 32}
+# bench_bert's settings (bench.py:154) borrowed for ERNIE, which bench.py
+# does not run
+ERNIE_TRAIN = {"preset": "ernie-3.0-medium", "B": 32, "S": 512, "N": 10}
+
+
+def moe_config(torch, p, **kw):
+    from paddle_tpu_torch import gpt_config
+    return gpt_config(p["preset"], num_layers=p["layers"],
+                      max_position_embeddings=max(1024, p["S"]),
+                      moe_num_experts=p["experts"], moe_every_n_layers=2,
+                      moe_gate="gshard", moe_aux_weight=0.01,
+                      moe_capacity_factor=1.0, **kw)
+
+
+@contextlib.contextmanager
+def moe_routing(torch, record=None, replay=None, flips=None):
+    """Test-only, the MoE parity only: every MoE layer's routing (expert
+    ids, capacity slots, keep flags) is appended to `record`, or replaced
+    in call order by `replay`'s, with the gate values taken from this
+    run's own probabilities; `flips` then counts the (token, slot)
+    assignments whose expert or keep flag this run's own routing would
+    have changed. A token near a router tie can take another expert
+    between two runs that differ by rounding (bf16), and one token moves
+    a whole row of its experts' gradients: replaying the routing holds
+    the rest to the rounding limits."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        moe_layer as ML
+    real = ML._topk_routing
+    calls = None if replay is None else iter(replay)
+
+    def routing(probs, top_k, capacity):
+        out = real(probs, top_k, capacity)
+        if record is not None:
+            record.append(tuple(t.detach().clone() for t in out[1:4]))
+        if calls is None:
+            return out
+        idx, locs, keeps = next(calls)
+        if flips is not None:
+            flips.append(int(((idx != out[1]) | (keeps != out[3])).sum()))
+        gate_vals = probs.gather(1, idx)
+        if top_k > 1:
+            gate_vals = gate_vals / torch.clamp(
+                gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+        frac = F.one_hot(idx[:, 0], probs.shape[1]).to(probs.dtype).mean(0)
+        return gate_vals, idx, locs, keeps, frac
+    ML._topk_routing = routing
+    try:
+        yield
+    finally:
+        ML._topk_routing = real
+
+
+def route_grads(torch, model, loss_fn, plain, seed=7, routing=None):
+    """(loss, {name: grad}, launches) of one forward and backward, on the
+    plain route or the kernel route (under the `routing` context, if
+    given); the model's dropout generator is reseeded first so both
+    routes draw the same masks."""
+    from paddle_tpu_torch.ops.cuda import build as KB
+    model.zero_grad(set_to_none=True)
+    gen = getattr(model, "dropout_generator", None)
+    if gen is not None:
+        gen.manual_seed(seed)
+    KB.reset_launch_counts()
+    with plain_route() if plain else contextlib.nullcontext(), \
+            routing or contextlib.nullcontext():
+        loss = loss_fn()
+        loss.backward()
+    torch.cuda.synchronize()
+    return (float(loss.detach()),
+            {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}, dict(KB.LAUNCHES))
+
+
+def compare_routes(torch, model, loss_fn, want, dtype, what, moe=False):
+    """Kernel route against plain route for the loss and every gradient
+    (f32: 1e-5 and 1e-3 of each gradient's largest entry; bf16:
+    BF16_TRAIN_TOL), with the kernel route's launches checked against
+    `want` and none on the plain route. With `moe` the plain route
+    replays the kernel route's MoE routing (`moe_routing`), and the
+    assignments its own routing would have changed are reported."""
+    rec, flips = [], []
+    kl, kg, kc = route_grads(
+        torch, model, loss_fn, False,
+        routing=moe_routing(torch, record=rec) if moe else None)
+    pl, pg, pc = route_grads(
+        torch, model, loss_fn, True,
+        routing=moe_routing(torch, replay=rec, flips=flips) if moe
+        else None)
+    check(sum(pc.values()) == 0, f"{what}: the plain route launched a "
+                                 f"kernel: {pc}")
+    check(all(kc[k] == n for k, n in want.items()),
+          f"{what}: kernel route launches {kc}, want {want}")
+    check(set(kg) == set(pg), f"{what}: the routes reach different "
+                              f"parameters")
+    f32 = dtype == torch.float32
+    ltol, gtol = (1e-5, 1e-3) if f32 else (BF16_TRAIN_TOL["loss"],
+                                           BF16_TRAIN_TOL["grads"])
+    errs = {n: rel_err(kg[n], pg[n]) for n in kg}
+    worst = max(errs, key=errs.get)
+    res = {"loss": {"kernel": kl, "plain": pl,
+                    "rel_err": abs(kl - pl) / abs(pl), "tol": ltol},
+           "grads": {"params": len(errs), "worst_param": worst,
+                     "worst_rel_err": errs[worst], "tol": gtol},
+           "launches": {k: kc[k] for k in want}}
+    if moe:
+        res["routing"] = {"layers_replayed": len(flips),
+                          "assignments": sum(int(r[0].numel()) for r in rec),
+                          "flips_without_replay": sum(flips)}
+    check(res["loss"]["rel_err"] <= ltol and errs[worst] <= gtol,
+          f"{what}: loss or grads differ: {res}")
+    return res, kg
+
+
+def adamw_trajectories(torch, model, init, batches, loss_fn, device, what):
+    """5-step AdamW TrainStep trajectories (decay 0.01, bias and
+    LayerNorm exempt, ClipGradByGlobalNorm(1.0)) from the same weights on
+    the kernel route and the plain route, f32: the losses to 1e-4
+    relative."""
+    from paddle_tpu_torch import AdamW, ClipGradByGlobalNorm, TrainStep
+    traj = {}
+    for plain in (False, True):
+        model.load_state_dict(init)
+        opt = AdamW(1e-4, parameters=model.named_parameters(),
+                    weight_decay=0.01, apply_decay_param_fun=decay_fun,
+                    grad_clip=ClipGradByGlobalNorm(1.0), device=device)
+        step = TrainStep(model, opt, loss_fn, device=device)
+        gen = getattr(model, "dropout_generator", None)
+        if gen is not None:
+            gen.manual_seed(11)
+        with plain_route() if plain else contextlib.nullcontext():
+            traj[plain] = [float(step(*b)) for b in batches]
+        del step, opt
+    rel = max(abs(a - b) / abs(b) for a, b in zip(traj[False], traj[True]))
+    res = {"kernel_losses": traj[False], "plain_losses": traj[True],
+           "max_rel_err": rel, "tol": 1e-4}
+    check(rel <= 1e-4, f"{what}: trajectories differ: {res}")
+    return res
+
+
+def phase_moe_parity(torch, device, card):
+    """GPT with MoE blocks, kernel route against plain route on the card,
+    at MOE_PARITY: in f32 and bf16, the loss (with the router aux loss)
+    and every gradient (#6 in every layer, #11 once), the plain route
+    replaying the kernel route's expert routing (`moe_routing`; the
+    assignments its own routing would have moved are reported); in f32
+    also 5-step
+    AdamW trajectories, the index route against the one-hot route
+    (PADDLE_TPU_MOE_GATHER=0: the same loss, gradients and drop rate),
+    and greedy chains of 32 tokens through the paged engine (equal, or an
+    argmax margin below 1e-3 at the first divergence)."""
+    import numpy as np
+    from paddle_tpu_torch import GPTForCausalLM, synthetic_traffic
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t_phase = time.perf_counter()
+    p = MOE_PARITY
+    cfg = moe_config(torch, p)
+    L, B_, S_ = cfg.num_layers, p["B"], p["S"]
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "linear_ce_fwd": 1}
+    batches = [torch.from_numpy(np.random.RandomState(60 + i).randint(
+        0, cfg.vocab_size, (B_, S_)).astype(np.int64)).to(device)
+        for i in range(p["steps"])]
+    x = batches[0]
+    out = {"phase": "moe_parity", "card": card,
+           "model": dict(cfg_line(cfg, "float32"), experts=p["experts"],
+                         moe_blocks=L // 2, gate="gshard", top_k=2,
+                         capacity_factor=1.0),
+           "B": B_, "S": S_}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        model = GPTForCausalLM(cfg, device=device, dtype=dtype, seed=1)
+        loss_fn = lambda: model.loss(x, x)  # noqa: E731
+        leg, kg = compare_routes(torch, model, loss_fn, want, dtype,
+                                 f"moe_parity {name}", moe=True)
+        leg["aux_loss"] = float(model.gpt.last_aux_loss.detach())
+        if dtype == torch.float32:
+            with env_set(PADDLE_TPU_MOE_GATHER="0"):
+                ol, og, _ = route_grads(torch, model, loss_fn, False)
+            errs = {n: rel_err(og[n], kg[n]) for n in kg}
+            worst = max(errs, key=errs.get)
+            il = leg["loss"]["kernel"]
+            rates = {}
+            for gather in ("1", "0"):
+                moe_layer.record_drop_rate(True)
+                try:
+                    with env_set(PADDLE_TPU_MOE_GATHER=gather), \
+                            torch.no_grad():
+                        model.loss(x, x)
+                    rates[gather] = moe_layer.measured_drop_rate()
+                finally:
+                    moe_layer.record_drop_rate(False)
+            leg["one_hot_route"] = {
+                "loss": ol, "loss_rel_err": abs(ol - il) / abs(il),
+                "worst_param": worst, "worst_grad_rel_err": errs[worst],
+                "tol": [1e-5, 1e-3], "drop_rate_index": rates["1"],
+                "drop_rate_one_hot": rates["0"]}
+            check(abs(ol - il) / abs(il) <= 1e-5 and errs[worst] <= 1e-3
+                  and rates["1"] == rates["0"],
+                  f"moe_parity: the one-hot route differs: "
+                  f"{leg['one_hot_route']}")
+            del og
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            leg["trajectory"] = adamw_trajectories(
+                torch, model, init, [(b, b) for b in batches],
+                lambda a, b: model.loss(a, b), device, "moe_parity")
+            model.load_state_dict(init)
+            prompts = [t["prompt"] for t in synthetic_traffic(
+                p["chain_prompts"], prompt_cap=128,
+                vocab_size=cfg.vocab_size, rate=1e9, seed=5,
+                length_dist="longtail")]
+            kw = dict(max_batch=8, prompt_cap=128,
+                      max_new_tokens=p["chain_new"], decode_chunk=8,
+                      paged=True)
+            KB.reset_launch_counts()
+            kern, _ = serve(torch, model, kw, prompts)
+            launches = dict(KB.LAUNCHES)
+            with plain_route():
+                plain, _ = serve(torch, model, kw, prompts)
+            diverged = divergences(torch, model, device, prompts, kern,
+                                   plain)
+            for d in diverged:
+                check(d["argmax_margin"] < 1e-3,
+                      f"moe_parity: greedy chains diverge: {d}")
+            check(launches["paged_attention"] > 0,
+                  "moe_parity: the engine never launched paged_attention")
+            leg["paged_chains"] = {
+                "requests": len(prompts), "tokens_each": p["chain_new"],
+                "equal_chains": len(prompts) - len(diverged),
+                "diverged": diverged, "kernel_launches": launches}
+        del kg, model
+        torch.cuda.empty_cache()
+        out[name] = leg
+    out["ok"] = True
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def fused_layer_parity(torch, layer, x, want, what):
+    """A fused layer in train() mode (dropout 0.1) on the #9 route against
+    the plain route: its output (1e-5 of the largest entry) and the
+    gradient of every parameter and of x (1e-3 of each largest entry),
+    with the dropout generators reseeded before each route."""
+    from paddle_tpu_torch.ops.cuda import build as KB
+    gens = [m.dropout_generator for m in layer.modules()
+            if hasattr(m, "dropout_generator")]
+    w = torch.randn(x.shape, generator=torch.Generator(
+        device=x.device).manual_seed(3), device=x.device)
+    runs = {}
+    for plain in (False, True):
+        for i, g in enumerate(gens):
+            g.manual_seed(20 + i)
+        layer.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        KB.reset_launch_counts()
+        with plain_route() if plain else contextlib.nullcontext():
+            y = layer(xi)
+            (y.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        grads = {n: q.grad.clone() for n, q in layer.named_parameters()
+                 if q.grad is not None}
+        grads["x"] = xi.grad.clone()
+        runs[plain] = (y.detach(), grads, dict(KB.LAUNCHES))
+    (ky, kg, kc), (py, pg, pc) = runs[False], runs[True]
+    check(sum(pc.values()) == 0, f"{what}: the plain route launched a "
+                                 f"kernel")
+    check(all(kc[k] == n for k, n in want.items()),
+          f"{what}: kernel route launches {kc}, want {want}")
+    errs = {n: rel_err(kg[n], pg[n]) for n in pg}
+    worst = max(errs, key=errs.get)
+    res = {"out_rel_err": rel_err(ky, py), "tol": [1e-5, 1e-3],
+           "grads": len(errs), "worst_grad": worst,
+           "worst_grad_rel_err": errs[worst],
+           "launches": {k: kc[k] for k in want}}
+    check(res["out_rel_err"] <= 1e-5 and errs[worst] <= 1e-3,
+          f"{what}: output or gradients differ: {res}")
+    return res
+
+
+def multi_transformer_decode(torch, stack, device, b, steps):
+    """FusedMultiTransformer in eval(): `steps` single tokens through the
+    growing (k, v) caches, the static (k, v, pos) caches and the int8
+    static caches; the worst |static - growing| over the steps, each over
+    the largest growing output."""
+    e = stack.layers[0].fused_attn
+    nh, hd, h = e.num_heads, e.head_dim, e.embed_dim
+    shape = (b, steps, nh, hd)
+
+    def static(q8):
+        if q8:
+            return [(torch.zeros(shape, dtype=torch.int8, device=device),
+                     torch.zeros(shape[:3], device=device),
+                     torch.zeros(shape, dtype=torch.int8, device=device),
+                     torch.zeros(shape[:3], device=device), 0)
+                    for _ in stack.layers]
+        return [(torch.zeros(shape, device=device),
+                 torch.zeros(shape, device=device), 0)
+                for _ in stack.layers]
+    empty = torch.zeros((b, 0, nh, hd), device=device)
+    grow = [(empty, empty)] * len(stack.layers)
+    fp, q8 = static(False), static(True)
+    worst = {"fp": 0.0, "int8": 0.0}
+    g = torch.Generator(device=device).manual_seed(5)
+    stack.eval()
+    with torch.no_grad():
+        for _ in range(steps):
+            tok = torch.randn((b, 1, h), generator=g, device=device)
+            gy, grow = stack(tok, caches=grow)
+            fy, fp = stack(tok, caches=fp)
+            qy, q8 = stack(tok, caches=q8)
+            worst["fp"] = max(worst["fp"], rel_err(fy, gy))
+            worst["int8"] = max(worst["int8"], rel_err(qy, gy))
+    stack.train()
+    return worst
+
+
+def phase_ernie_parity(torch, device, card):
+    """ERNIE MLM training, kernel route against plain route, at
+    ernie-3.0-medium width cut to 2 layers (B=4, S=512, task ids given,
+    hidden and attention dropout 0.1 in train() mode): in f32 and bf16
+    the loss and every gradient (#9 with dropout in each layer, #11 over
+    V=40000), in f32 also 5-step AdamW trajectories. Then the incubate
+    layers at bert-base width (768, 12 heads, FFN 3072) in f32:
+    FusedTransformerEncoderLayer and a 2-layer FusedMultiTransformer on
+    the #9 route against the plain route, forward and backward (dropout
+    0.1); and the stack's static-cache decode, fp (k, v, pos) and int8,
+    against its growing cache over 32 single tokens (fp to 1e-5 of the
+    output's largest entry; int8 to 2e-2, the codes' rounding)."""
+    import numpy as np
+    from paddle_tpu_torch import ErnieForMaskedLM, ernie_config
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedTransformerEncoderLayer)
+    t_phase = time.perf_counter()
+    p = ERNIE_PARITY
+    cfg = ernie_config("ernie-3.0-medium", num_layers=p["layers"])
+    B_, S_ = p["B"], p["S"]
+    rng = np.random.RandomState(43)
+    batches = []
+    for _ in range(p["steps"]):
+        ids = rng.randint(0, cfg.vocab_size, (B_, S_))
+        lbl = rng.randint(0, cfg.vocab_size, (B_, S_))
+        lbl[rng.rand(B_, S_) > 0.15] = -100
+        task = rng.randint(0, cfg.task_type_vocab_size, (B_, S_))
+        batches.append(tuple(torch.from_numpy(a).to(device)
+                             for a in (ids, lbl, task)))
+    ids, lbl, task = batches[0]
+    want = {"fused_mha_fwd": p["layers"], "fused_mha_bwd": p["layers"],
+            "linear_ce_fwd": 1}
+    out = {"phase": "ernie_parity", "card": card,
+           "model": dict(cfg_line(cfg, "float32"), preset="ernie-3.0-medium"),
+           "B": B_, "S": S_, "dropout": [cfg.hidden_dropout,
+                                         cfg.attention_dropout]}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        model = ErnieForMaskedLM(cfg, device=device, dtype=dtype, seed=1)
+        model.train()
+        leg, kg = compare_routes(
+            torch, model, lambda: model.loss(ids, lbl, task_type_ids=task),
+            want, dtype, f"ernie_parity {name}")
+        del kg
+        if dtype == torch.float32:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            leg["trajectory"] = adamw_trajectories(
+                torch, model, init, batches,
+                lambda a, b, t: model.loss(a, b, task_type_ids=t), device,
+                "ernie_parity")
+        out[name] = leg
+        del model
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((B_, S_, p["width"]), generator=g, device=device)
+    enc = FusedTransformerEncoderLayer(p["width"], p["heads"], p["ff"],
+                                       dropout_rate=0.1, activation="gelu",
+                                       device=device, seed=1)
+    out["encoder_layer"] = fused_layer_parity(
+        torch, enc, x, {"fused_mha_fwd": 1, "fused_mha_bwd": 1},
+        "FusedTransformerEncoderLayer")
+    del enc
+    stack = FusedMultiTransformer(p["width"], p["heads"], p["ff"],
+                                  dropout_rate=0.1, num_layers=2,
+                                  device=device, seed=2)
+    out["multi_transformer"] = fused_layer_parity(
+        torch, stack, x, {"fused_mha_fwd": 2, "fused_mha_bwd": 2},
+        "FusedMultiTransformer")
+    worst = multi_transformer_decode(torch, stack, device, B_,
+                                     p["decode_steps"])
+    out["multi_transformer_decode"] = {"steps": p["decode_steps"],
+                                       "static_vs_growing": worst,
+                                       "tol": {"fp": 1e-5, "int8": 2e-2}}
+    check(worst["fp"] <= 1e-5 and worst["int8"] <= 2e-2,
+          f"FusedMultiTransformer static decode differs from its growing "
+          f"cache: {worst}")
+    del stack
+    torch.cuda.empty_cache()
+    out["ok"] = True
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def moe_active_params(n, cfg, experts):
+    """bench_moe's active-parameter count: the parameters less every
+    expert's FFN weights (2 H inter a layer, biases not counted), plus
+    top-2's."""
+    per = 2 * cfg.hidden_size * cfg.intermediate_size
+    moe_layers = cfg.num_layers // 2
+    return n - experts * per * moe_layers + (2 * per * moe_layers
+                                             if experts else 0)
+
+
+def phase_train_gpt_moe(torch, card, device, experts, moe=None):
+    """bench_moe's configuration at full width (MOE_TRAIN; `experts` 0 is
+    its dense twin): gpt3-350m (24 layers, hidden 1024) with 1024
+    positions, bf16 parameters, 8 experts every 2nd layer (top-2 gshard,
+    moe_aux_weight 0.01, capacity factor 1.0), AdamW(lr=1e-4, bf16
+    moments), B=8, S=1024, model.loss(ids, ids, chunk_size=512); ids from
+    np.random.RandomState(0), [8, B, S] as bench draws them, batch i % 8
+    at step i. 2 warm steps, then the best of 2 windows of 8, then one
+    profiled step; the drop rate at the trained router from one no-grad
+    forward under record_drop_rate; learning checked on one batch
+    repeated 6 times. MFU is bench's over the active parameters (6 N_active
+    + 12 L H S a token); the routing overhead, given the MoE run's summary
+    `moe` in the dense twin, is (dt_moe / dt_dense) / (fpt_moe /
+    fpt_dense) - 1. Returns (launch counts, summary)."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep, gpt_config
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    t_phase = time.perf_counter()
+    p = MOE_TRAIN
+    B_, S_, N = p["B"], p["S"], p["N"]
+    cfg = gpt_config(p["preset"], max_position_embeddings=max(1024, S_),
+                     moe_num_experts=experts, moe_every_n_layers=2,
+                     moe_gate="gshard", moe_aux_weight=0.01,
+                     moe_capacity_factor=p["cf"])
+    model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16", device=device)
+    step = TrainStep(model, opt,
+                     lambda a, b: model.loss(a, b, chunk_size=512),
+                     device=device)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (N, B_, S_)).astype(np.int64)).to(device)
+    warm, losses, windows, counts, peak = timed_steps(
+        torch, step, lambda i: (ids[i % N], ids[i % N]), N)
+    L = cfg.num_layers
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "linear_ce_fwd": 1}
+    per_step = {k: counts[k] / (2 * N) for k in want}
+    check(per_step == want, f"gpt-moe launches per step {per_step}, want "
+                            f"{want}")
+    best = min(windows)
+    n_params = sum(q.numel() for q in model.parameters())
+    n_active = moe_active_params(n_params, cfg, experts)
+    per_token = 6 * n_active + 12 * L * cfg.hidden_size * S_
+    tok_s = B_ * S_ * N / best
+    check(all(math.isfinite(x) for x in warm + losses),
+          "a gpt-moe training loss is not finite")
+    check(abs(warm[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first gpt-moe loss {warm[0]} is not near ln(vocab) "
+          f"{math.log(cfg.vocab_size)}")
+    prof = profile_call(torch, lambda: step(ids[2], ids[2]),
+                        names=("fwd_wg", "dq_wg", "dkv_wg", "lce_wg",
+                               "lce_merge"))
+    drop = None
+    if experts:
+        moe_layer.record_drop_rate(True)
+        try:
+            with torch.no_grad():
+                model.loss(ids[0], ids[0], chunk_size=512)
+            drop = moe_layer.measured_drop_rate()
+        finally:
+            moe_layer.record_drop_rate(False)
+        check(drop is not None and 0.0 <= drop < 0.5,
+              f"gpt-moe drop rate {drop}")
+    same = [float(step(ids[0], ids[0])) for _ in range(6)]
+    check(same[-1] < same[0],
+          f"the gpt-moe loss on a repeated batch did not fall: {same}")
+    summary = {"ms_per_step": best / N * 1e3, "tokens_per_s": tok_s,
+               "flops_per_token": per_token,
+               "mfu_active": per_token * tok_s / TENSOR_FLOPS_PER_S}
+    line = {"phase": "train_gpt_moe" if experts else "train_gpt_moe_dense",
+            "ok": True, "card": card,
+            "model": dict(cfg_line(cfg, "bfloat16"), experts=experts,
+                          moe_every_n_layers=2, gate="gshard", top_k=2,
+                          capacity_factor=p["cf"], moe_aux_weight=0.01),
+            "config": {"B": B_, "S": S_,
+                       "max_position_embeddings": max(1024, S_),
+                       "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                       "loss": "model.loss(ids, ids, chunk_size=512)",
+                       "ids": "np.random.RandomState(0) [8, B, S], "
+                              "labels = ids",
+                       "timing": "2 warm steps, best of 2 windows of 8"},
+            "params": n_params, "active_params": n_active, **summary,
+            "window_s": windows,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet); "
+                        "active parameters (bench_moe's formula)",
+            "peak_mem_bytes": peak, "first_loss": warm[0],
+            "warm_losses": warm, "last_window_losses": losses,
+            "repeated_batch_losses": same, "drop_rate": drop,
+            "launches_per_step": per_step, "profile_step": prof}
+    if moe is not None:
+        line["routing_overhead"] = ((moe["ms_per_step"] / summary[
+            "ms_per_step"]) / (moe["flops_per_token"] / per_token) - 1.0)
+        line["moe_ms_per_step"] = moe["ms_per_step"]
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def phase_train_ernie(torch, card, device):
+    """ErnieForMaskedLM at ernie-3.0-medium (6 layers, H=768, vocab
+    40000) with bench_bert's settings (ERNIE_TRAIN; bench.py has no ERNIE
+    row): bf16 parameters, B=32, S=512, hidden and attention dropout 0.1
+    in train() mode, AdamW(lr=1e-4, bf16 moments), model.loss(ids,
+    labels, chunk_size=256) (#9 with in-kernel dropout in every layer, #11
+    over the tied MLM head); ids and labels drawn independently from
+    np.random.RandomState(0), task ids 0. 2 warm steps, then the best of 2
+    windows of 10, then one profiled step; learning checked on one batch
+    repeated 6 more times with the ids as labels."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch import AdamW, ErnieForMaskedLM, TrainStep, \
+        ernie_config
+    t_phase = time.perf_counter()
+    p = ERNIE_TRAIN
+    B_, S_, N = p["B"], p["S"], p["N"]
+    cfg = ernie_config(p["preset"])
+    model = ErnieForMaskedLM(cfg, device=device, dtype=torch.bfloat16,
+                             seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16", device=device)
+    step = TrainStep(model, opt,
+                     lambda a, b: model.loss(a, b, chunk_size=256),
+                     device=device)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (N + 2, B_, S_))).to(device)
+    lbl = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (N + 2, B_, S_))).to(device)
+    warm, losses, windows, counts, peak = timed_steps(
+        torch, step, lambda i: (ids[i], lbl[i]), N)
+    want = {"fused_mha_fwd": cfg.num_layers,
+            "fused_mha_bwd": cfg.num_layers, "linear_ce_fwd": 1}
+    per_step = {k: counts[k] / (2 * N) for k in want}
+    check(per_step == want, f"ernie launches per step {per_step}, want "
+                            f"{want}")
+    best = min(windows)
+    n_params = sum(q.numel() for q in model.parameters())
+    per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * S_
+    tok_s = B_ * S_ * N / best
+    check(all(math.isfinite(x) for x in warm + losses),
+          "an ERNIE training loss is not finite")
+    check(abs(warm[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first ERNIE loss {warm[0]} is not near ln(vocab) "
+          f"{math.log(cfg.vocab_size)}")
+    prof = profile_call(torch, lambda: step(ids[2], lbl[2]),
+                        names=("fwd_wg", "dq_wg", "dkv_wg", "lce_wg",
+                               "lce_merge"))
+    same = [float(step(ids[0], ids[0])) for _ in range(6)]
+    check(same[-1] < same[0],
+          f"the ERNIE loss on a repeated batch did not fall: {same}")
+    emit({"phase": "train_ernie-3.0-medium", "ok": True, "card": card,
+          "model": cfg_line(cfg, "bfloat16"),
+          "config": {"B": B_, "S": S_, "dropout": [cfg.hidden_dropout,
+                                                   cfg.attention_dropout],
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "loss": "model.loss(ids, labels, chunk_size=256)",
+                     "ids": "np.random.RandomState(0): ids, then labels",
+                     "settings": "bench_bert's (bench.py has no ERNIE row)",
+                     "timing": "2 warm steps, best of 2 windows of 10"},
+          "params": n_params, "tokens_per_s": tok_s,
+          "ms_per_step": best / N * 1e3, "window_s": windows,
+          "flops_per_token": per_token,
+          "mfu": per_token * tok_s / TENSOR_FLOPS_PER_S,
+          "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+          "peak_mem_bytes": peak, "first_loss": warm[0],
+          "warm_losses": warm, "last_window_losses": losses,
+          "repeated_batch_losses": same, "launches_per_step": per_step,
+          "profile_step": prof, "seconds": time.perf_counter() - t_phase})
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def parity_repeats(torch, device, card, n) -> int:
     """resnet_parity alone, n times: after each run's record, one line
     with the cases that ran again and the gates that failed."""
@@ -4172,6 +4773,13 @@ def main(argv=None) -> int:
     phase_resnet_parity(torch, device, card)
     phase_train_resnet50(torch, card, device, channels_last=True)
     phase_train_resnet50(torch, card, device, channels_last=False)
+    phase_moe_parity(torch, device, card)
+    phase_ernie_parity(torch, device, card)
+    counts, moe = phase_train_gpt_moe(torch, card, device, experts=8)
+    add_launches(launches, counts)
+    counts, _ = phase_train_gpt_moe(torch, card, device, experts=0, moe=moe)
+    add_launches(launches, counts)
+    add_launches(launches, phase_train_ernie(torch, card, device))
 
     rows = []
     for name in ("paged_attention", "paged_attention_q8",

@@ -1,8 +1,10 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu on an NVIDIA
 H100. It trains GPT (`GPTForCausalLM.loss` or `GPTPretrainingCriterion`,
-through the flash-attention and fused linear cross-entropy kernels), BERT
+through the flash-attention and fused linear cross-entropy kernels; with
+routed-expert MoE blocks under `GPTConfig(moe_num_experts=...)`), BERT
 (`BertForMaskedLM.loss`, through the fused short-sequence MHA and the
-fused linear cross-entropy), ViT (`VisionTransformer`, through the fused
+fused linear cross-entropy), ERNIE (`ErnieForMaskedLM.loss`, the same
+kernels), ViT (`VisionTransformer`, through the fused
 MHA), Swin (`swin_t` and the other presets of `vision.models`, through
 the window-batched fused MHA with bias) and the ResNet family (`resnet50`
 and the other constructors, conv and batch norm through cuDNN, channels-last
@@ -12,7 +14,8 @@ schedulers, the three gradient clips, `GradScaler` and `TrainStep`, and
 it serves GPT through the
 static decode stack and the padded engine or the paged engine with the
 prefix cache, chunked prefill and speculative decoding, with bf16 or
-weight-only int8 weights.
+weight-only int8 weights. `incubate` holds the fused transformer layers
+(`incubate.nn`) and the MoE layer (`incubate.distributed.models.moe`).
 
 The JAX package `paddle_tpu` is the reference; this package imports
 neither it nor JAX. Entry points run on CUDA unless the caller passes
@@ -25,6 +28,10 @@ from .models.bert import (BertConfig, BertForMaskedLM, BertForPretraining,
                           BertForSequenceClassification, BertModel,
                           bert_config)
 from .models.vit import ViTConfig, VisionTransformer, vit_config
+from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
+                           ErnieForSequenceClassification, ErnieModel,
+                           ernie_config)
+from . import incubate
 from . import vision
 from .vision.models import SwinTransformer, swin_b, swin_l, swin_s, swin_t
 from .inference.kv_cache import BlockPool
@@ -67,4 +74,6 @@ __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "resnet34", "resnet50", "resnet101", "resnet152",
            "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
            "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
-           "wide_resnet50_2", "wide_resnet101_2"]
+           "wide_resnet50_2", "wide_resnet101_2", "ErnieConfig",
+           "ErnieModel", "ErnieForSequenceClassification",
+           "ErnieForMaskedLM", "ernie_config", "incubate"]

@@ -12,9 +12,13 @@ suffix) and everything else carry over as they are. The qkv output columns keep
 their ``[3, num_heads, head_dim]`` order, and a tied LM or MLM head stays
 tied: it is the embedding table itself, so there is no separate entry to
 carry. A ResNet's batch-norm buffers (``bn1._mean``, ``bn1._variance``)
-carry over by name like parameters. `model_state_from_paddle` maps onto
-any port model's own state dict; `state_dict_from_paddle` maps GPT from
-its config alone.
+carry over by name like parameters. Raw parameters that keep the JAX
+layout carry over as they are too: an MoE block's ``gate_weight``, ``w1``,
+``b1``, ``w2`` and ``b2``, the fused transformer layers' ``qkv_weight``,
+``linear_weight``, ... (no ``.weight`` suffix), and a `FusedLinear`'s
+``weight``, which is marked ``keeps_paddle_layout``. `model_state_from_paddle`
+maps onto any port model's own state dict; `state_dict_from_paddle` maps
+GPT (dense or MoE) from its config alone.
 """
 from __future__ import annotations
 
@@ -41,12 +45,19 @@ def _is_linear_weight(name: str, ndim: int) -> bool:
         not name.endswith(_TABLES)
 
 
+def _paddle_layout(model: torch.nn.Module) -> frozenset:
+    """Names of the parameters marked ``keeps_paddle_layout``."""
+    return frozenset(n for n, p in model.named_parameters()
+                     if getattr(p, "keeps_paddle_layout", False))
+
+
 def _map(np_state: Dict[str, np.ndarray],
-         expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+         expected: Dict[str, tuple],
+         keep: frozenset = frozenset()) -> Dict[str, torch.Tensor]:
     """Map ``{name: ndarray}`` by name onto the port-side `expected`
-    shapes, Linear weights transposed ``[in, out]`` -> ``[out, in]``.
-    Raises on a missing or unexpected name or a shape that does not
-    match."""
+    shapes, Linear weights transposed ``[in, out]`` -> ``[out, in]``
+    (the names in `keep` are not). Raises on a missing or unexpected name
+    or a shape that does not match."""
     missing = sorted(set(expected) - set(np_state))
     extra = sorted(set(np_state) - set(expected))
     if missing or extra:
@@ -55,7 +66,7 @@ def _map(np_state: Dict[str, np.ndarray],
     out = {}
     for name, shape in expected.items():
         arr = np.asarray(np_state[name])
-        if _is_linear_weight(name, arr.ndim):
+        if name not in keep and _is_linear_weight(name, arr.ndim):
             arr = arr.T
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} after "
@@ -83,7 +94,7 @@ def model_state_from_paddle(np_state: Dict[str, np.ndarray],
     """Map ``{name: ndarray}`` from a JAX-package model (GPT, BERT, ViT,
     Swin, ...) onto the state dict of the port `model` of the same
     architecture."""
-    return _map(np_state, _model_shapes(model))
+    return _map(np_state, _model_shapes(model), _paddle_layout(model))
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -109,9 +120,10 @@ def train_state_from_paddle(jax_state: Dict,
     trajectory. Like the JAX state, this holds trainable parameters only:
     buffers (a ResNet's running statistics) travel in the model's own
     state dict."""
+    keep = _paddle_layout(model)
     params = _map(jax_state["params"],
                   {n: tuple(p.shape) for n, p in model.named_parameters()
-                   if p.requires_grad})
+                   if p.requires_grad}, keep)
     out = {"step": int(jax_state.get("step", 0)), "params": params,
            "opt_extra": dict(jax_state.get("opt_extra", {}))}
     if "opt" in jax_state:
@@ -120,7 +132,8 @@ def train_state_from_paddle(jax_state: Dict,
             if name not in params:
                 raise KeyError(f"optimizer state for unknown parameter "
                                f"{name}")
-            flip = _is_linear_weight(name, params[name].dim())
+            flip = name not in keep and \
+                _is_linear_weight(name, params[name].dim())
             entry = {}
             nb = -(-params[name].numel() // _Q_BLOCK)
             for k, v in st.items():
@@ -146,8 +159,10 @@ def train_state_from_paddle(jax_state: Dict,
 
 
 def _expected_shapes(cfg) -> Dict[str, tuple]:
-    """Port-side (``nn.Linear`` layout) shape of every GPT parameter."""
+    """Port-side (``nn.Linear`` layout) shape of every GPT parameter; an
+    MoE block's experts and router keep the JAX shapes."""
     h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    e, n = cfg.moe_num_experts, max(1, cfg.moe_every_n_layers)
     shapes = {"gpt.wte.weight": (v, h),
               "gpt.wpe.weight": (cfg.max_position_embeddings, h),
               "gpt.ln_f.weight": (h,), "gpt.ln_f.bias": (h,)}
@@ -157,9 +172,16 @@ def _expected_shapes(cfg) -> Dict[str, tuple]:
             p + "ln_1.weight": (h,), p + "ln_1.bias": (h,),
             p + "attn.qkv.weight": (3 * h, h), p + "attn.qkv.bias": (3 * h,),
             p + "attn.out.weight": (h, h), p + "attn.out.bias": (h,),
-            p + "ln_2.weight": (h,), p + "ln_2.bias": (h,),
-            p + "mlp.up.weight": (m, h), p + "mlp.up.bias": (m,),
-            p + "mlp.down.weight": (h, m), p + "mlp.down.bias": (h,)})
+            p + "ln_2.weight": (h,), p + "ln_2.bias": (h,)})
+        if e and i % n == n - 1:
+            shapes.update({
+                p + "mlp.gate_weight": (h, e), p + "mlp.w1": (e, h, m),
+                p + "mlp.b1": (e, m), p + "mlp.w2": (e, m, h),
+                p + "mlp.b2": (e, h)})
+        else:
+            shapes.update({
+                p + "mlp.up.weight": (m, h), p + "mlp.up.bias": (m,),
+                p + "mlp.down.weight": (h, m), p + "mlp.down.bias": (h,)})
     if not cfg.tie_word_embeddings:
         shapes["lm_head.weight"] = (v, h)
     return shapes

@@ -33,7 +33,9 @@ Dropout masks drawn from an explicit ``torch.Generator`` (the models'
 stash, which saves the global generators only: each region saves the
 state of the ``generators`` it is given when its forward starts and
 replays it while it is recomputed, so the recomputed masks are the ones
-the forward drew.
+the forward drew. While a region is being recomputed, `replaying()` is
+True: code with a host-side effect per forward (the MoE drop-rate
+telemetry) skips it then, so a recomputed forward is not counted twice.
 """
 from __future__ import annotations
 
@@ -47,6 +49,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 TAGS = ("qkv_proj", "attn_ctx", "mlp_up")
 _NAMED = {"save_qkv": TAGS[:1], "save_attn": TAGS[:2], "save_big": TAGS}
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_REPLAYING = [0]
+
+
+def replaying() -> bool:
+    """True while a checkpoint region's forward runs again in the
+    backward."""
+    return _REPLAYING[0] > 0
 
 
 def resolve_policy(policy):
@@ -95,9 +104,11 @@ def checkpoint_segment(function, *args, generators=(), dots=False,
         now = [g.get_state() for g in generators]
         for g, s in zip(generators, states):
             g.set_state(s)
+        _REPLAYING[0] += 1
         try:
             return function(*a, **kw)
         finally:
+            _REPLAYING[0] -= 1
             for g, s in zip(generators, now):
                 g.set_state(s)
 

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..incubate.nn.functional import _drop, fused_linear_cross_entropy
 from ..nn.layers import LayerNorm
 from ..ops.attention import (attention_reference, functional_attention,
                              key_padding_mask, lens_to_mask)
@@ -101,11 +101,7 @@ class _Dropout:
         self.generator, self.p = generator, p
 
     def __call__(self, x):
-        if not self.p:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < 1.0 - self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return _drop(x, self.p, self.generator)
 
     def seed(self, device):
         """One int32 seed on the device for the fused kernel's mask."""
@@ -225,18 +221,20 @@ class BertPooler(nn.Module):
 
 class BertModel(nn.Module):
     """Backbone: embeddings + encoder + pooler. Holds the
-    ``dropout_generator`` the heads' train() mode draws from."""
+    ``dropout_generator`` the heads' train() mode draws from. ``device``
+    defaults to CUDA and raises when no card is present (the heads pass
+    theirs)."""
 
     def __init__(self, config: BertConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
+        device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.embeddings = BertEmbeddings(config, **kw)
         self.encoder = nn.ModuleList([BertLayer(config, **kw)
                                       for _ in range(config.num_layers)])
         self.pooler = BertPooler(config, **kw)
-        self.dropout_generator = torch.Generator(
-            device="cpu" if device is None else device)
+        self.dropout_generator = torch.Generator(device=device)
 
     def _dropout(self):
         """The train()-mode dropout, or None in eval()."""
@@ -264,7 +262,7 @@ def _init_params(module: nn.Module, cfg, generator: torch.Generator):
     Xavier-uniform for the plain Linear layers (pooler, transform, heads),
     zero biases and unit LayerNorm gains."""
     std = cfg.initializer_range
-    deep = std / math.sqrt(2 * cfg.num_layers)
+    deep = std / math.sqrt(2 * max(1, cfg.num_layers))
     for name, p in module.named_parameters():
         if name.endswith(".bias"):
             p.zero_()

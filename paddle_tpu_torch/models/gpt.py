@@ -36,6 +36,16 @@ donation); the JAX ``lax.scan`` over decode steps is a Python loop:
 Under ``weight_dtype="int8"`` every projection and the LM head run the
 weight-only int8 GEMM (`ops.int8_matmul`) on a payload quantized once per
 set of weights (`quantized_params`), passed down as ``q8``.
+
+Mixture of experts: with ``moe_num_experts`` > 0 every n-th block's MLP is
+an `incubate.distributed.models.moe.MoELayer` (router, dispatch, batched
+expert matmuls and combine in plain PyTorch: the JAX package has no Pallas
+kernel there). The cache-free forward sums the MoE blocks' load-balance
+losses into ``GPTModel.last_aux_loss``, which `loss` adds with weight
+``moe_aux_weight``. Serving runs the same layer; its capacity counts each
+step's b * s tokens, padded rows included, so decode can drop tokens as in
+the JAX package. Experts and router stay in the model dtype under
+``weight_dtype="int8"``.
 """
 from __future__ import annotations
 
@@ -64,7 +74,9 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
 from ..distributed.recompute import (TAGS, checkpoint_segment,
                                      checkpoint_tag, recompute,
                                      resolve_policy)
-from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..incubate.distributed.models.moe import MoELayer
+from ..incubate.nn.functional import _drop, fused_linear_cross_entropy
+from ..nn.initializer import xavier_uniform_
 from ..nn.layers import LayerNorm
 from ..ops.flash_attention import flash_attention_packed_qkv
 from ..ops.int8_matmul import int8_linear_nd
@@ -72,9 +84,13 @@ from ..ops.int8_matmul import int8_linear_nd
 
 @dataclass
 class GPTConfig:
-    """The fields of the JAX GPTConfig. MoE and sequence-parallel fields
-    are accepted for config compatibility but only at their defaults: this
-    port has no MoE block and no sequence-parallel mesh. `use_recompute`
+    """The fields of the JAX GPTConfig. With `moe_num_experts` > 0 every
+    `moe_every_n_layers`-th block (layer_idx % n == n - 1) is an MoE
+    block: its MLP is a routed-expert `MoELayer` (`moe_gate`,
+    `moe_top_k`, `moe_capacity_factor`), and `loss` adds `moe_aux_weight`
+    times the blocks' summed load-balance loss. `sequence_parallel` is
+    accepted only at its default: the port has no sequence-parallel mesh.
+    `use_recompute`
     recomputes each block in train() mode under `recompute_policy` (None,
     "save_qkv", "save_attn", "save_big" or "dots"; see
     `distributed.recompute`). `attention_dropout` is accepted and, as in
@@ -108,16 +124,16 @@ class GPTConfig:
             raise ValueError(f"hidden_size {self.hidden_size} is not a "
                              f"multiple of num_heads {self.num_heads}")
         resolve_policy(self.recompute_policy)
-        defaults = {"moe_num_experts": 0, "moe_every_n_layers": 2,
-                    "moe_gate": "gshard", "moe_top_k": None,
-                    "moe_aux_weight": 0.01, "moe_capacity_factor": 1.25,
-                    "sequence_parallel": "ring"}
-        for name, default in defaults.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"GPTConfig.{name}={getattr(self, name)!r}: the PyTorch "
-                    f"port runs dense single-device GPT only (MoE and "
-                    f"sequence parallelism are later slices)")
+        if self.sequence_parallel != "ring":
+            raise NotImplementedError(
+                f"GPTConfig.sequence_parallel={self.sequence_parallel!r}: "
+                f"the PyTorch port runs on one device (sequence "
+                f"parallelism is a later slice)")
+        if self.moe_num_experts:
+            if self.moe_gate not in ("naive", "gshard", "switch"):
+                raise ValueError(f"unknown moe_gate {self.moe_gate!r}")
+            if self.moe_gate == "switch" and self.moe_top_k not in (None, 1):
+                raise ValueError("switch gate is top-1 by definition")
 
     @property
     def head_dim(self):
@@ -351,25 +367,48 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block. An MoE block (`is_moe`, see GPTConfig)
+    has a routed-expert `MoELayer` as its ``mlp``; its output is dropped
+    by `drop` like the dense MLP's, and its aux loss is left on
+    ``mlp.aux_loss`` (returned as well under ``with_aux``)."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, device=None, dtype=None,
+                 layer_idx: int = 0):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_epsilon
         self.ln_1 = LayerNorm(h, eps=eps, device=device, dtype=dtype)
         self.attn = GPTSelfAttention(config, device, dtype)
         self.ln_2 = LayerNorm(h, eps=eps, device=device, dtype=dtype)
-        self.mlp = GPTMLP(config, device, dtype)
+        n = max(1, config.moe_every_n_layers)
+        self.is_moe = config.moe_num_experts > 0 and layer_idx % n == n - 1
+        if self.is_moe:
+            self.mlp = MoELayer(h, config.intermediate_size,
+                                config.moe_num_experts, gate=config.moe_gate,
+                                top_k=config.moe_top_k,
+                                capacity_factor=config.moe_capacity_factor,
+                                device=device, dtype=dtype)
+        else:
+            self.mlp = GPTMLP(config, device, dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None, prefill=False,
-                start=None, cache=None, q8=None, drop=None):
-        """Returns x, or (x, new cache) when `cache` is given."""
+                start=None, cache=None, q8=None, drop=None, with_aux=False):
+        """Returns x, or (x, new cache) when `cache` is given, or (x, the
+        MoE block's aux loss) under `with_aux`."""
         a = self.attn(self.ln_1(x), pools, tables, lens, prefill, start,
                       cache, q8, drop)
         a, new_cache = a if cache is not None else (a, None)
         x = x + a
-        x = x + self.mlp(self.ln_2(x), q8, drop)
+        x = x + self._ffn(self.ln_2(x), q8, drop)
+        if with_aux:
+            return x, self.mlp.aux_loss
         return x if cache is None else (x, new_cache)
+
+    def _ffn(self, x, q8=None, drop=None):
+        """The MLP, or the MoE layer (its weights never int8) then `drop`."""
+        if not self.is_moe:
+            return self.mlp(x, q8, drop)
+        y = self.mlp(x)
+        return y if drop is None else drop(y)
 
     # the cache-free training forward in stages, cut at the tags
     def _qkv(self, x):
@@ -378,27 +417,31 @@ class GPTBlock(nn.Module):
     def _attn_out(self, x, ctx, drop):
         return x + self.attn.project(ctx, drop=drop)
 
-    def _mlp_out(self, x, drop):
-        return x + self.mlp(self.ln_2(x), drop=drop)
+    def _mlp_out(self, x, drop, with_aux=False):
+        x = x + self._ffn(self.ln_2(x), drop=drop)
+        return (x, self.mlp.aux_loss) if with_aux else x
 
-    def recompute_segments(self, x, save, generators=(), drop=None):
+    def recompute_segments(self, x, save, generators=(), drop=None,
+                           with_aux=False):
         """The training forward as checkpoint regions cut after each tag
         in `save` (a prefix of qkv_proj, attn_ctx, mlp_up), so each tagged
         value is kept as the input of the next region, besides x, which
         every region that adds the residual keeps too (the JAX remat keeps
-        the block input as well). The results equal `forward(x,
-        drop=drop)`."""
+        the block input as well). An MoE block has no mlp_up: its last
+        region runs from the attention context (or qkv) through the MoE
+        layer, and returns the aux loss as an output under `with_aux`.
+        The results equal `forward(x, drop=drop, with_aux=with_aux)`."""
         if not save or tuple(save) != TAGS[:len(save)]:
             raise ValueError(f"save must be a prefix of {TAGS}; got {save}")
         seg = functools.partial(checkpoint_segment, generators=generators)
         qkv = seg(self._qkv, x)
         if len(save) == 1:
             return seg(lambda x, qkv: self._mlp_out(self._attn_out(
-                x, self.attn.attend(qkv), drop), drop), x, qkv)
+                x, self.attn.attend(qkv), drop), drop, with_aux), x, qkv)
         ctx = seg(self.attn.attend, qkv)
-        if len(save) == 2:
+        if len(save) == 2 or self.is_moe:
             return seg(lambda x, ctx: self._mlp_out(
-                self._attn_out(x, ctx, drop), drop), x, ctx)
+                self._attn_out(x, ctx, drop), drop, with_aux), x, ctx)
 
         def mid(x, ctx):
             x = self._attn_out(x, ctx, drop)
@@ -408,31 +451,29 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    """Backbone: embeddings + N blocks + final LN."""
+    """Backbone: embeddings + N blocks + final LN. ``device`` defaults to
+    CUDA (raising without a card)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
+        device = resolve_device(device)
         h = config.hidden_size
         self.wte = nn.Embedding(config.vocab_size, h, device=device,
                                 dtype=dtype)
         self.wpe = nn.Embedding(config.max_position_embeddings, h,
                                 device=device, dtype=dtype)
-        self.h = nn.ModuleList([GPTBlock(config, device, dtype)
-                                for _ in range(config.num_layers)])
+        self.h = nn.ModuleList([GPTBlock(config, device, dtype, layer_idx=i)
+                                for i in range(config.num_layers)])
         self.ln_f = LayerNorm(h, eps=config.layer_norm_epsilon,
                               device=device, dtype=dtype)
         # hidden dropout's masks; GPTForCausalLM seeds it
-        self.dropout_generator = torch.Generator(
-            device="cpu" if device is None else device)
+        self.dropout_generator = torch.Generator(device=device)
 
     def _drop(self, x):
         """Inverted dropout at hidden_dropout: keep with probability 1 - p
         (a draw from `dropout_generator`), scale kept entries by 1/(1-p)."""
-        p = self.config.hidden_dropout
-        keep = torch.rand(x.shape, generator=self.dropout_generator,
-                          device=x.device) < 1.0 - p
-        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+        return _drop(x, self.config.hidden_dropout, self.dropout_generator)
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
                 lens=None, prefill=False, start=None, caches=None, q8=None):
@@ -440,7 +481,10 @@ class GPTModel(nn.Module):
         per-layer `caches` are given. Default positions: a static cache's
         cursor onward, a growing cache's length onward, else 0..s-1.
         Hidden dropout runs in train() mode on the cache-free forward
-        only."""
+        only. The cache-free forward leaves the MoE blocks' summed aux loss
+        on ``last_aux_loss`` (None without MoE blocks or with pools or
+        caches); under recompute it is an output of each block's
+        checkpoint regions."""
         s = input_ids.shape[1]
         dev = input_ids.device
         if position_ids is None:
@@ -475,21 +519,28 @@ class GPTModel(nn.Module):
             x = drop(x)
         layers = q8.get("h")
         new_caches = [] if caches is not None else None
-        remat = (self.config.use_recompute and self.training
-                 and pools is None and caches is None and layers is None)
+        free = pools is None and caches is None
+        remat = (self.config.use_recompute and self.training and free
+                 and layers is None)
+        aux = None
         for i, block in enumerate(self.h):
             if remat:
                 x = recompute(block, x, policy=self.config.recompute_policy,
                               generators=(self.dropout_generator,),
-                              drop=drop)
-                continue
-            x = block(x, None if pools is None else pools[i], tables, lens,
-                      prefill, start,
-                      None if caches is None else caches[i],
-                      None if layers is None else layers[i], drop)
+                              drop=drop, with_aux=block.is_moe)
+            else:
+                x = block(x, None if pools is None else pools[i], tables,
+                          lens, prefill, start,
+                          None if caches is None else caches[i],
+                          None if layers is None else layers[i], drop,
+                          with_aux=block.is_moe and free)
             if caches is not None:
                 x, c = x
                 new_caches.append(c)
+            elif block.is_moe and free:
+                x, a = x
+                aux = a if aux is None else aux + a
+        self.last_aux_loss = aux
         x = self.ln_f(x)
         return x if caches is None else (x, new_caches)
 
@@ -500,10 +551,11 @@ class GPTForCausalLM(nn.Module):
     ``device`` defaults to CUDA and raises when no card is present; pass
     ``device="cpu"`` for the plain PyTorch path. Weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` using the JAX package's init:
-    Normal(initializer_range) for wte and the qkv/up projections, the
-    same scaled by 1/sqrt(2 * num_layers) for the out/down projections,
-    Normal(0, 1) for wpe, zeros for biases and ones for LayerNorm gains.
-    The model starts in eval() mode; call train() for hidden dropout,
+    Normal(initializer_range) for wte, the qkv/up projections and the
+    experts' w1, the same scaled by 1/sqrt(2 * num_layers) for the
+    out/down projections and the experts' w2, Xavier-uniform for the
+    router, Normal(0, 1) for wpe, zeros for biases and ones for LayerNorm
+    gains. The model starts in eval() mode; call train() for hidden dropout,
     whose masks come from ``dropout_generator`` (seeded with ``seed``)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None,
@@ -538,13 +590,16 @@ class GPTForCausalLM(nn.Module):
         std = cfg.initializer_range
         deep = std / math.sqrt(2 * cfg.num_layers)
         for name, p in self.named_parameters():
-            if name.endswith(".bias"):
+            if name.endswith((".bias", "mlp.b1", "mlp.b2")):
                 p.zero_()
             elif ".ln_" in name:
                 p.fill_(1.0)
             elif name == "gpt.wpe.weight":
                 p.normal_(0.0, 1.0, generator=generator)
-            elif name.endswith(("attn.out.weight", "mlp.down.weight")):
+            elif name.endswith("mlp.gate_weight"):
+                xavier_uniform_(p, generator)
+            elif name.endswith(("attn.out.weight", "mlp.down.weight",
+                                "mlp.w2")):
                 p.normal_(0.0, deep, generator=generator)
             else:
                 p.normal_(0.0, std, generator=generator)
@@ -573,14 +628,19 @@ class GPTForCausalLM(nn.Module):
         straight into `fused_linear_cross_entropy` (the kernel route where
         `use_linear_ce` holds), so the [B, S, vocab] logits never exist.
         Equals `GPTPretrainingCriterion()(model(ids), labels, loss_mask)`
-        for in-range labels."""
+        for in-range labels; an MoE model also adds moe_aux_weight times
+        the router aux loss (the criterion takes it as ``aux_loss``)."""
         x = self.gpt(input_ids, position_ids)
         tied = self.config.tie_word_embeddings
         w = self.gpt.wte.weight if tied else self.lm_head.weight
         # an untied head is nn.Linear [V, H]: the "vh" layout as it is
         per_tok = fused_linear_cross_entropy(x, w, labels,
                                              chunk_size=chunk_size)
-        return _masked_mean(per_tok, loss_mask)
+        loss = _masked_mean(per_tok, loss_mask)
+        aux = self.gpt.last_aux_loss
+        if aux is not None:
+            loss = loss + self.config.moe_aux_weight * aux
+        return loss
 
     # --------------------------------------------- weight-only int8 payload
     @torch.no_grad()
@@ -640,9 +700,9 @@ class GPTForCausalLM(nn.Module):
                 else (wpe[0].float() * wpe[1]).to(self.dtype),
                 "lm_head": pay("lm_head.weight"),
                 "h": [{k: pay(f"gpt.h.{i}.{k}.weight")
-                       for k in ("attn.qkv", "attn.out", "mlp.up",
-                                 "mlp.down")}
-                      for i in range(self.config.num_layers)]}
+                       for k in ("attn.qkv", "attn.out") + (
+                           () if block.is_moe else ("mlp.up", "mlp.down"))}
+                      for i, block in enumerate(self.gpt.h)]}
         self._q8_cache = (snap, tree)
         return tree
 
@@ -1082,6 +1142,8 @@ class GPTPretrainingCriterion(nn.Module):
         super().__init__()
 
     def forward(self, logits, labels, loss_mask=None, aux_loss=None):
+        """`aux_loss` (an MoE model's router loss, e.g.
+        ``model.gpt.last_aux_loss``) is added to the loss as given."""
         loss = _masked_mean(cross_entropy_per_token(logits, labels),
                             loss_mask)
         return loss if aux_loss is None else loss + aux_loss

@@ -14,7 +14,14 @@ class LayerNorm(torch.nn.LayerNorm):
     """`torch.nn.LayerNorm` (same parameters, state dict and isinstance)
     whose forward goes through `nn.functional.layer_norm`: the fused
     LayerNorm where the opt-in PADDLE_TPU_FUSED_LN=1 and its shape rule
-    hold, `torch.nn.functional.layer_norm` otherwise."""
+    hold, `torch.nn.functional.layer_norm` otherwise. ``device`` defaults
+    to CUDA (raising without a card)."""
+
+    def __init__(self, normalized_shape, eps=1e-5, elementwise_affine=True,
+                 bias=True, device=None, dtype=None):
+        super().__init__(normalized_shape, eps=eps,
+                         elementwise_affine=elementwise_affine, bias=bias,
+                         device=resolve_device(device), dtype=dtype)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,

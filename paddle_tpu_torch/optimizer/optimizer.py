@@ -237,7 +237,8 @@ def _jax_order(name, param) -> bool:
     ``nn.Linear`` weight, [in, out] there): its int8 moments are blocked
     in the JAX element order, so codes and scales carry over as they
     are."""
-    return name is not None and _is_linear_weight(name, param.dim())
+    return (name is not None and _is_linear_weight(name, param.dim())
+            and not getattr(param, "keeps_paddle_layout", False))
 
 
 class Adam(Optimizer):

@@ -56,6 +56,11 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.nn.layers.pooling\n"
             "import paddle_tpu_torch.nn.layout\n"
             "import paddle_tpu_torch.core.flags\n"
+            "import paddle_tpu_torch.models.ernie\n"
+            "import paddle_tpu_torch.incubate.nn\n"
+            "import paddle_tpu_torch.incubate.nn.fused_transformer\n"
+            "import paddle_tpu_torch.incubate.distributed.models.moe\n"
+            "import paddle_tpu_torch.nn.initializer\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -121,8 +126,57 @@ def test_training_modules_are_covered_by_the_source_check():
               "nn/functional.py", "nn/layers/norm.py",
               "distributed/recompute.py", "vision/models/resnet.py",
               "nn/layers/conv.py", "nn/layers/pooling.py", "nn/layout.py",
-              "core/flags.py", "core/__init__.py", "convert.py"):
+              "core/flags.py", "core/__init__.py", "convert.py",
+              "models/ernie.py", "incubate/nn/__init__.py",
+              "incubate/nn/fused_transformer.py",
+              "incubate/distributed/models/moe/__init__.py",
+              "incubate/distributed/models/moe/gate.py",
+              "incubate/distributed/models/moe/moe_layer.py",
+              "nn/initializer.py"):
         assert f in files, f
+
+
+def _tiny_ernie():
+    return pt.ErnieConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                          num_heads=2, max_position_embeddings=16)
+
+
+_DEFAULT_CUDA = {
+    "BertModel": lambda **kw: pt.BertModel(pt.BertConfig(
+        vocab_size=64, hidden_size=32, num_layers=1, num_heads=2), **kw),
+    "nn.LayerNorm": lambda **kw: pt.nn.LayerNorm(8, **kw),
+    "ErnieModel": lambda **kw: pt.ErnieModel(_tiny_ernie(), **kw),
+    "ErnieForMaskedLM": lambda **kw: pt.ErnieForMaskedLM(_tiny_ernie(),
+                                                         **kw),
+    "ErnieForSequenceClassification": lambda **kw:
+        pt.ErnieForSequenceClassification(_tiny_ernie(), **kw),
+    "MoELayer": lambda **kw: pt.incubate.moe.MoELayer(8, 16, 2, **kw),
+    "FusedLinear": lambda **kw: pt.incubate.nn.FusedLinear(8, 4, **kw),
+    "FusedBiasDropoutResidualLayerNorm": lambda **kw:
+        pt.incubate.nn.FusedBiasDropoutResidualLayerNorm(8, **kw),
+    "FusedMultiHeadAttention": lambda **kw:
+        pt.incubate.nn.FusedMultiHeadAttention(8, 2, **kw),
+    "FusedFeedForward": lambda **kw:
+        pt.incubate.nn.FusedFeedForward(8, 16, **kw),
+    "FusedTransformerEncoderLayer": lambda **kw:
+        pt.incubate.nn.FusedTransformerEncoderLayer(8, 2, 16, **kw),
+    "FusedMultiTransformer": lambda **kw:
+        pt.incubate.nn.FusedMultiTransformer(8, 2, 16, num_layers=2, **kw),
+    "FusedEcMoe": lambda **kw: pt.incubate.nn.FusedEcMoe(8, 16, 2, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DEFAULT_CUDA))
+def test_new_entry_points_default_to_cuda(name, monkeypatch):
+    """ERNIE and its heads, the MoE layer, every incubate.nn layer,
+    BertModel and nn.LayerNorm build on CUDA unless asked for another
+    device, and raise without a card rather than carry on on the CPU."""
+    build = _DEFAULT_CUDA[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    layer = build(device="cpu")
+    assert {t.device.type for t in layer.state_dict().values()} == {"cpu"}
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

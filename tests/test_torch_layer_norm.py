@@ -129,7 +129,7 @@ def test_default_route_is_torch_layer_norm_bitwise(shape, env,
     with torch.no_grad():
         ref.weight.normal_()
         ref.bias.normal_()
-    mod = pt.nn.LayerNorm(h)
+    mod = pt.nn.LayerNorm(h, device="cpu")
     mod.load_state_dict(ref.state_dict())
     assert isinstance(mod, torch.nn.LayerNorm)
     assert list(mod.state_dict()) == list(ref.state_dict())
@@ -154,13 +154,13 @@ def test_opt_in_routes_the_module_through_the_fused_layer_norm(
         calls.append(tuple(a[0].shape))
         return orig(*a, **k)
     monkeypatch.setattr(LN, "fused_layer_norm_reference", spy)
-    mod = pt.nn.LayerNorm(128)
+    mod = pt.nn.LayerNorm(128, device="cpu")
     x = torch.randn(2, 4, 128, requires_grad=True)
     mod(x).square().sum().backward()
     assert calls == [(8, 128)]
     assert x.grad is not None and mod.weight.grad is not None
     # over two axes the router keeps torch's LayerNorm
-    two = pt.nn.LayerNorm((4, 128))
+    two = pt.nn.LayerNorm((4, 128), device="cpu")
     calls.clear()
     two(x)
     assert calls == []
