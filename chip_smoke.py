@@ -43,7 +43,19 @@ paged ServingEngine with an fp and an int8 KV pool (phase 4), then through
 the prefix-cache, speculative-decode and chunked-prefill paths (phase 5),
 then through static decode (bf16, int8 weights, int8 weights + int8 KV),
 the padded engine, the paged engine with int8 weights and a spec engine
-drafted by gpt3-125m (phase 6). Phase 7 is training: the kernel route
+drafted by gpt3-125m (phase 6), then through the host spill tier and the
+serving ops surface (serving_ops_gpt3_1.3b: pool block round trips into
+pinned memory, bitwise, fp and int8; phase 5's shared-prefix traffic
+through a trie of 8 device blocks spilling into a 64-block host tier,
+every rehydrated block bitwise equal to its bytes before the spill,
+chains equal to an ample cache's or differing at a near-tie, the
+auditor clean and the pool conserved; phase 4's traffic through a
+prefix + spec + spill engine under serve_telemetry with an SLO, the
+prober and the audits, every route scraped over loopback meanwhile and
+linted, the memory ledger's sum and owners checked; three probe cycles
+passing or failing only at a near-tie; a corruption control that must
+fail prefix_hit outright; the graceful drain; the same traffic without
+the surface). Phase 7 is training: the kernel route
 against the plain route for the loss, every gradient and 5-step AdamW
 trajectories at gpt3-1.3b widths cut to 2 layers, for BERT MLM and ViT at
 bert-base and vit-l16 widths cut to 2 layers, and for Swin at swin-t's
@@ -103,6 +115,7 @@ import argparse
 import contextlib
 import importlib.util
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1605,6 +1618,488 @@ def phase_slice3(torch, model, card, launches, paged_runs):
 
 
 # ------------------------------------ phase 7: the training kernels
+# ------------------- phase 8: the spill tier and the serving ops surface
+SO_BASE = dict(max_batch=8, prompt_cap=128, max_new_tokens=128,
+               decode_chunk=32, paged=True, kv_block=16, prefix_cache=True)
+SO_KV_BLOCKS = 8 * 16 + 1 + 24 * 8     # phase 5's prefix pool
+SO_PREFIX_BLOCKS = 8                   # the trie's device budget: it spills
+SO_SPILL_BLOCKS = 64                   # the host tier (~200 MB at bf16)
+SO_PROBE_NEW = 16                      # tokens a probe variant decodes
+NEAR_TIE = 1e-3                        # argmax margin of a near-tie
+SO_ROUTES = ("/metrics", "/healthz", "/statusz", "/tracez", "/memz",
+             "/probez")
+
+
+def block_bytes(model, cache_dtype):
+    from paddle_tpu_torch import BlockPool
+    return BlockPool.for_model(model, num_blocks=2, block_size=16,
+                               cache_dtype=cache_dtype).bytes_per_block
+
+
+def flip_bytes(torch, eng, blk, n=64, seed=0):
+    """The JAX package's CorruptKVBlock: flip `n` seeded random bytes of
+    one block's first payload tensor through the pool's own read_block /
+    write_block round trip."""
+    import numpy as np
+    payload = eng._pool.read_block(eng._pools, blk)
+    flat = payload[0].view(torch.uint8).reshape(-1)
+    for i in np.random.RandomState(seed).randint(0, flat.numel(), size=n):
+        flat[int(i)] ^= 0xFF
+    eng._pool.write_block(eng._pools, blk, payload)
+
+
+def round_trip(torch, model, cache_dtype, n=8):
+    """read_block then write_block of `n` seeded random blocks of
+    gpt3-1.3b pools into other blocks: every layer's K and V (codes and
+    scales) equal bitwise; CUDA-event ms per block each way."""
+    from paddle_tpu_torch import BlockPool
+    pool = BlockPool.for_model(model, num_blocks=2 * n + 2, block_size=16,
+                               cache_dtype=cache_dtype)
+    pools = pool.make_pools()
+    g = torch.Generator(device=model.device).manual_seed(5)
+    for layer in pools:
+        for p in layer:
+            if p.dtype == torch.int8:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                      device=p.device, dtype=torch.int8))
+            else:
+                p.normal_(generator=g)
+    d2h, h2d = [], []
+    for i in range(n):
+        src, dst = 1 + i, 1 + n + i
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        e0.record()
+        payload = pool.read_block(pools, src)
+        e1.record()
+        pool.write_block(pools, dst, payload)
+        e2.record()
+        e2.synchronize()
+        d2h.append(e0.elapsed_time(e1))
+        h2d.append(e1.elapsed_time(e2))
+        check(all(t.is_pinned() for t in payload), "payload not pinned")
+        check(all(torch.equal(p[src], p[dst]) for layer in pools
+                  for p in layer),
+              f"round trip of block {src} ({cache_dtype}) not bitwise")
+    nbytes = pool.bytes_per_block
+    del pools
+    md, mh = statistics.median(d2h), statistics.median(h2d)
+    return {"blocks": n, "bytes_per_block": nbytes, "bitwise_equal": True,
+            "payload_tensors": len(payload),
+            "d2h_ms_per_block": md, "h2d_ms_per_block": mh,
+            "d2h_GBps": nbytes / md / 1e6, "h2d_GBps": nbytes / mh / 1e6}
+
+
+def watch_spill(torch, eng):
+    """Wrap the engine's spill reader and writer: a device copy of every
+    block as it spills, and of the block it rehydrates into, compared
+    after the run (no synchronisation inside the run); per admission, the
+    matched tokens and whether the match rehydrated."""
+    prefix, tier = eng._prefix, eng._spill
+    before, pairs, admits = {}, [], {}
+    read, write, match = prefix._read, prefix._write, prefix.match
+
+    def reader(blk):
+        planes = [p[blk].clone() for layer in eng._pools for p in layer]
+        payload = read(blk)
+        before[id(payload[0])] = planes
+        return payload
+
+    def writer(blk, payload):
+        write(blk, payload)
+        pairs.append((before[id(payload[0])],
+                      [p[blk].clone() for layer in eng._pools
+                       for p in layer]))
+
+    def matcher(tokens):
+        r0 = tier.rehydrated_total
+        blocks, t = match(tokens)
+        key = id(tokens)
+        if key not in admits:
+            admits[key] = (t, tier.rehydrated_total > r0)
+        return blocks, t
+
+    prefix._read, prefix._write, prefix.match = reader, writer, matcher
+
+    def bitwise():
+        return all(torch.equal(a, b) for pa, pb in pairs
+                   for a, b in zip(pa, pb))
+    return admits, pairs, bitwise
+
+
+def tie_margin(torch, model, prefix, a, b):
+    """The argmax margin between tokens a and b after `prefix`, from a
+    cache-free forward (divergences()'s logits), and the margin below
+    which the two are a near-tie: NEAR_TIE, or in bf16 two units in the
+    last place of the larger logit, since bf16 logits of magnitude 2-4
+    step by 2^-6 and cannot show a margin below it."""
+    import numpy as np
+    with torch.no_grad():
+        logits = model(torch.from_numpy(np.asarray(prefix)[None]).to(
+            model.device))[0, -1]
+    la, lb = float(logits[int(a)]), float(logits[int(b)])
+    limit = NEAR_TIE
+    if model.dtype == torch.bfloat16:
+        top = max(abs(la), abs(lb), 1e-30)
+        limit = max(limit, 2 * 2.0 ** (math.floor(math.log2(top)) - 7))
+    return abs(la - lb), limit
+
+
+def near_ties(torch, model, prompts, chains_a, chains_b):
+    """Requests whose chains differ, each with its first divergence, the
+    margin there and its near-tie limit; and whether every difference
+    starts at a near-tie."""
+    import numpy as np
+    div = []
+    for i, (a, b) in enumerate(zip(chains_a, chains_b)):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.nonzero(a != b)[0][0])
+        m, lim = tie_margin(torch, model,
+                            np.concatenate([prompts[i], a[:j]]), a[j], b[j])
+        div.append({"request": i, "position": j, "argmax_margin": m,
+                    "near_tie_limit": lim})
+    return div, all(d["argmax_margin"] < d["near_tie_limit"] for d in div)
+
+
+def probe_margin(torch, model, prompt, golden, res):
+    """(margin, near-tie limit) at a failed probe's first divergence: the
+    golden token against the served one after the prompt and the golden
+    prefix; (None, None) when the probe produced no token there."""
+    import numpy as np
+    pos = res.get("first_divergence")
+    if pos is None or res.get("got") is None:
+        return None, None
+    return tie_margin(torch, model, np.concatenate([prompt, golden[:pos]]),
+                      res["expected"], res["got"])
+
+
+def probe_verdicts(torch, model, pr, res):
+    """Per variant: status, first divergence and its margin; ok when
+    every variant passed or failed only at a near-tie."""
+    out, ok = {}, True
+    for name, r in res["results"].items():
+        row = {"status": r["status"], "first_divergence":
+               r.get("first_divergence")}
+        if r["status"] == "fail":
+            m, lim = probe_margin(torch, model, pr.variants[name],
+                                  pr.golden(name), r)
+            row.update(argmax_margin=m, near_tie_limit=lim)
+            ok = ok and m is not None and m < lim
+        elif r["status"] != "pass":
+            ok = False
+        out[name] = row
+    return out, ok
+
+
+def scraper(srv, pages, errors, stop, every=0.25):
+    """Scrape every route over loopback until `stop` is set."""
+    import urllib.request
+
+    def loop():
+        while not stop.is_set():
+            for route in SO_ROUTES:
+                try:
+                    with urllib.request.urlopen(srv.url(route),
+                                                timeout=30) as resp:
+                        pages.setdefault(route, []).append(
+                            (resp.status, resp.read().decode()))
+                except Exception as exc:            # noqa: BLE001
+                    errors.append(f"{route}: {exc}")
+            stop.wait(every)
+    import threading
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    return th
+
+
+def locked_traffic(torch, eng, prompts, lock):
+    """Phase 4's submission pattern with every engine call under `lock`
+    (the telemetry pollers share it). Returns (requests, seconds,
+    launches)."""
+    from paddle_tpu_torch.ops.cuda import build as KB
+    torch.cuda.synchronize()
+    KB.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = []
+    for p in prompts:
+        with lock:
+            reqs.append(eng.submit(p))
+        while True:
+            with lock:
+                if eng.queue_depth < eng.config.max_batch:
+                    break
+                eng.step()
+    while True:
+        with lock:
+            if not eng.busy:
+                break
+            eng.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(KB.LAUNCHES)
+    check(all(r.status == "done" and r.tokens.shape == (128,)
+              for r in reqs), "ops-surface traffic did not finish")
+    check(counts["paged_attention"] > 0,
+          f"ops-surface traffic never launched #1: {counts}")
+    return reqs, dt, counts
+
+
+def cost_line(eng, reqs, dt, first):
+    """tokens/s and ms per engine step of the batch monitor's records
+    from index `first` on (the measured window)."""
+    toks = sum(r.n_out for r in reqs)
+    steps = sorted(r["step_ms"] for r in eng.monitor.records[first:])
+    return {"tokens_out": toks, "seconds": dt, "tokens_per_s": toks / dt,
+            "engine_steps": len(steps),
+            "host_ms_per_step": dt * 1e3 / max(len(steps), 1),
+            "step_ms_median": statistics.median(steps)}
+
+
+def phase_serving_ops(torch, model, card, launches, paged_runs):
+    """gpt3-1.3b bf16: the host spill tier and the serving ops surface.
+    (1) pool block round trips, fp and int8; (2) phase 5's shared-prefix
+    traffic through a prefix engine whose trie holds 8 blocks and spills
+    into a 64-block host tier, against the same engine with an ample
+    cache, fp and int8: every rehydrated block bitwise, chains equal or
+    differing at a near-tie, the auditor clean, the pool conserved; (3)
+    phase 4's traffic through a prefix + spec engine with the spill tier
+    under serve_telemetry (SLO from phase 4's TTFT, prober, audits),
+    scraped over loopback throughout; probes; (4) a corruption control;
+    (5) the graceful drain; (6) the same traffic without the surface."""
+    out = {"phase": "serving_ops_gpt3_1.3b", "card": card,
+           "model": cfg_line(model.config, "bfloat16")}
+    t_phase = time.perf_counter()
+    try:
+        serving_ops(torch, model, launches, paged_runs, out)
+    except SmokeFailure as exc:
+        out.update(ok=False, failed=str(exc))
+        emit(out)
+        raise
+    out["seconds"] = time.perf_counter() - t_phase
+    out["ok"] = True
+    emit(out)
+
+
+def serving_ops(torch, model, launches, paged_runs, out):
+    """phase_serving_ops's body; fills `out` as it goes."""
+    import threading
+    from paddle_tpu_torch import (ServingConfig, ServingEngine,
+                                  shared_prefix_traffic, synthetic_traffic)
+    from paddle_tpu_torch.obs import (InvariantAuditor, Prober,
+                                      lint_exposition)
+    vocab = model.config.vocab_size
+
+    # (1) round trips
+    out["round_trip"] = {str(cd): round_trip(torch, model, cd)
+                         for cd in (None, "int8")}
+
+    # (2) the spill engine under rotation, against an ample cache
+    prompts = [t["prompt"] for t in shared_prefix_traffic(
+        24, n_prefixes=4, prefix_len=96, prompt_cap=128, vocab_size=vocab,
+        rate=1e9, seed=3)]
+    spill = {}
+    for cd in (None, "int8"):
+        bpb = block_bytes(model, cd)
+        spill_eng = ServingEngine(model, ServingConfig(
+            **SO_BASE, cache_dtype=cd, kv_blocks=SO_KV_BLOCKS,
+            prefix_cache_bytes=SO_PREFIX_BLOCKS * bpb,
+            spill_host_bytes=SO_SPILL_BLOCKS * bpb))
+        admits, pairs, bitwise = watch_spill(torch, spill_eng)
+        q8 = "_q8" if cd else ""
+        expect = ["paged_attention" + q8, "paged_prefix_attention" + q8]
+        reqs, dt, counts, peak = run_traffic(torch, spill_eng, prompts,
+                                             expect=expect)
+        add_launches(launches, counts)
+        check(bitwise(), f"a rehydrated block ({cd}) differs from its "
+                         f"bytes before the spill")
+        st = spill_eng._spill.stats()
+        n_pay = 2 if cd else 1
+        check(st["spilled_total"] >= 1 and st["rehydrated_total"] >= 1,
+              f"the spill engine ({cd}) did not spill and rehydrate: {st}")
+        check(st["h2d_copies"] == n_pay * st["rehydrated_total"],
+              f"h2d copies {st['h2d_copies']} != {n_pay} x rehydrated "
+              f"{st['rehydrated_total']}")
+        audit = InvariantAuditor(spill_eng).audit()
+        check(not audit["violating"], f"auditor: {audit['findings']}")
+        spill_eng._prefix.clear()
+        pool = spill_eng._pool
+        check(pool.free_blocks == pool.capacity_blocks and not pool._refs,
+              "pool not conserved after clear")
+        ample = ServingEngine(model, ServingConfig(
+            **SO_BASE, cache_dtype=cd, kv_blocks=SO_KV_BLOCKS))
+        areqs, adt, acounts, _ = run_traffic(torch, ample, prompts,
+                                             expect=expect)
+        add_launches(launches, acounts)
+        div, ties = near_ties(torch, model, prompts,
+                              [r.tokens for r in reqs],
+                              [r.tokens for r in areqs])
+        check(ties, f"spill chains ({cd}) differ beyond near-ties: {div}")
+        kind = {}
+        for r in reqs:
+            t, rehyd = admits.get(id(r.prompt), (0, False))
+            kind[r.id] = "rehydrated" if rehyd else ("hit" if t else "miss")
+        ttft = {k: [r.trace.ttft_s for r in reqs if kind[r.id] == k]
+                for k in ("rehydrated", "hit", "miss")}
+        s = spill_eng.summary()
+        spill[str(cd)] = {
+            "stats": st, "rehydrated_blocks_checked": len(pairs),
+            "requests": {k: len(v) for k, v in ttft.items()},
+            "ttft_p50_s": {k: (statistics.median(v) if v else None)
+                           for k, v in ttft.items()},
+            "tokens_per_s": s["tokens_out_total"] / dt,
+            "ample_tokens_per_s": ample.summary()["tokens_out_total"] / adt,
+            "chains_equal": len(reqs) - len(div), "near_ties": div,
+            "peak_mem_bytes": peak, "kernel_launches": counts}
+        del spill_eng, ample
+    out["spill"] = spill
+    torch.cuda.empty_cache()
+
+    # (3) the ops surface, live
+    traffic = [t["prompt"] for t in synthetic_traffic(
+        24, prompt_cap=128, vocab_size=vocab, rate=1e9, seed=3,
+        length_dist="longtail")]
+    ops_cfg = dict(**SO_BASE, spec_decode=True, spec_k=8,
+                   kv_blocks=SO_KV_BLOCKS)
+    ops_cfg["spill_host_bytes"] = SO_SPILL_BLOCKS * block_bytes(model, None)
+    eng = ServingEngine(model, ServingConfig(**ops_cfg))
+    ttft_thr = 2 * paged_runs["None"]["ttft_p99_s"]
+    pr = Prober(eng, max_new_tokens=SO_PROBE_NEW)
+    srv = eng.serve_telemetry(
+        prober=pr, slo=f"ttft_p99={ttft_thr:.6f},goodput=0.9",
+        poll_interval=0.5, invariant_interval=0.5)
+    rows = []
+    eng.metrics.on_record = rows.append
+    try:
+        pr.warm()
+        pages, errors, stop = {}, [], threading.Event()
+        th = scraper(srv, pages, errors, stop)
+        first = len(eng.monitor.records)
+        reqs, dt, counts = locked_traffic(torch, eng, traffic, pr.lock)
+        add_launches(launches, counts)
+        stop.set()
+        th.join(timeout=60)
+        with_surface = cost_line(eng, reqs, dt, first)
+        check(not errors, f"scrape errors: {errors[:3]}")
+        check(all(code == 200 for route in SO_ROUTES
+                  for code, _ in pages.get(route, [(0, "")])),
+              "a scrape did not answer 200")
+        n_pages = {r: len(pages.get(r, ())) for r in SO_ROUTES}
+        check(min(n_pages.values()) >= 2, f"too few scrapes: {n_pages}")
+        for _, text in pages["/metrics"]:
+            lint_exposition(text)
+        status = json.loads(pages["/statusz"][-1][1])
+        check({"kv", "prefix_cache", "spill", "memory"} <= set(status),
+              f"statusz blocks: {sorted(status)}")
+        # the ledger at rest: the sum, the pool and the parameters
+        with pr.lock:
+            m1, m2 = eng._memz.memz({}), eng._memz.memz({})
+        owners = {d["owner"]: d["bytes"] for d in m1["owners"]}
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for layer in eng._pools for t in layer)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        check(m1["attributed_bytes"] + m1["unattributed_bytes"] ==
+              m1["allocated_bytes"], "ledger sum does not hold")
+        check(owners["kv_pool"] == pool_bytes, "kv_pool bytes")
+        check(owners["model_params"] == param_bytes, "model_params bytes")
+        check(m1["unattributed_bytes"] == m2["unattributed_bytes"],
+              "unattributed moved at rest")
+        # three probe cycles
+        cycles = []
+        for _ in range(3):
+            v, ok = probe_verdicts(torch, model, pr, pr.probe_once())
+            check(ok, f"probe failed beyond a near-tie: {v}")
+            cycles.append(v)
+        out["ops"] = {
+            "config": {**ops_cfg, "spill_host_blocks": SO_SPILL_BLOCKS,
+                       "traffic": "synthetic_traffic longtail seed=3",
+                       "slo": f"ttft_p99={ttft_thr:.6f}s,goodput=0.9",
+                       "probe_new_tokens": SO_PROBE_NEW},
+            "scrapes": n_pages, "slo": srv.slo.summary()["last_eval"],
+            "memz": {"attributed_bytes": m1["attributed_bytes"],
+                     "unattributed_bytes": m1["unattributed_bytes"],
+                     "allocated_bytes": m1["allocated_bytes"],
+                     "owners": owners},
+            "compile": status["compile"], "probes": cycles,
+            "pollers": srv.pollers, "kernel_launches": counts,
+            "with_surface": with_surface}
+
+        # (4) corruption control
+        with pr.lock:
+            blocks = pr.probe_blocks("prefix_hit")
+            check(blocks, "prefix_hit maps no cached block")
+            for layer in eng._pools:
+                for plane in layer:
+                    plane[blocks] = 0
+        was = pr._vstates["prefix_hit"].failing
+        n0 = len(rows)
+        hit = pr.probe_once()["results"]["prefix_hit"]
+        margin, limit = probe_margin(torch, model,
+                                     pr.variants["prefix_hit"],
+                                     pr.golden("prefix_hit"), hit)
+        zero = {"status": hit["status"], "argmax_margin": margin,
+                "near_tie_limit": limit}
+        flipped = hit["status"] != "fail" or margin is None \
+            or margin < limit
+        if flipped:
+            # zeroed K/V barely moves a random-weight model's logits:
+            # the JAX package's own fault (CorruptKVBlock) flips bytes
+            was = pr._vstates["prefix_hit"].failing
+            with pr.lock:
+                for blk in blocks:
+                    flip_bytes(torch, eng, blk)
+            n0 = len(rows)
+            hit = pr.probe_once()["results"]["prefix_hit"]
+            margin, limit = probe_margin(torch, model,
+                                         pr.variants["prefix_hit"],
+                                         pr.golden("prefix_hit"), hit)
+        fails = [r["probe_fail"] for r in rows[n0:] if "probe_fail" in r]
+        check(hit["status"] == "fail", "corrupted prefix_hit blocks passed")
+        check(margin is not None and margin >= limit,
+              f"corrupted prefix_hit diverged at a near-tie ({margin})")
+        check([f["variant"] for f in fails
+               if f["variant"] == "prefix_hit"] == ([] if was else
+                                                    ["prefix_hit"]),
+              f"probe_fail rows: {fails}")
+        out["corruption"] = {"blocks": list(blocks), "zero_fill": zero,
+                             "bytes_flipped": flipped,
+                             "first_divergence": hit["first_divergence"],
+                             "argmax_margin": margin,
+                             "near_tie_limit": limit,
+                             "failing_before": was,
+                             "probe_fail_rows": [f["variant"]
+                                                 for f in fails]}
+        with pr.lock:
+            eng._prefix.clear()
+
+        # (5) graceful drain
+        with pr.lock:
+            eng.submit(traffic[0])
+            done = eng.drain(seal=True)
+            r = eng.submit(traffic[1])
+            check((r.status, r.reason, r.retriable) ==
+                  ("rejected", "draining", True), f"drain: {r.reason}")
+            check(eng.health()["status"] == "draining", "healthz")
+            eng.resume_admission()
+            check(eng.submit(traffic[1]).status == "queued", "resume")
+            eng.drain()
+        out["drain"] = {"served_before_seal": len(done),
+                        "flush_rows": len([x for x in rows if "drain"
+                                           in x])}
+        audit = pr.auditor.audit()
+        check(not audit["violating"], f"auditor: {audit['findings']}")
+    finally:
+        srv.close()
+
+    # (6) the same traffic without the surface
+    bare = ServingEngine(model, ServingConfig(**ops_cfg))
+    lock = threading.Lock()
+    breqs, bdt, bcounts = locked_traffic(torch, bare, traffic, lock)
+    add_launches(launches, bcounts)
+    out["ops"]["without_surface"] = cost_line(bare, breqs, bdt, 0)
+
+
 def rel_err(a, b):
     """max |a - b| / max |b| over the whole tensor."""
     return float((a.float() - b.float()).abs().max()
@@ -4759,6 +5254,7 @@ def main(argv=None) -> int:
     paged_runs = phase_serving(torch, model, card, launches)
     phase_prefix_spec(torch, model, card, launches)
     phase_slice3(torch, model, card, launches, paged_runs)
+    phase_serving_ops(torch, model, card, launches, paged_runs)
     del model
     torch.cuda.empty_cache()
     counts, default = phase_train_full(torch, card, device)

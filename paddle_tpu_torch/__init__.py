@@ -13,8 +13,10 @@ eleven optimizers of `optimizer` (`Momentum`, `AdamW`, ...), its fifteen
 schedulers, the three gradient clips, `GradScaler` and `TrainStep`, and
 it serves GPT through the
 static decode stack and the padded engine or the paged engine with the
-prefix cache, chunked prefill and speculative decoding, with bf16 or
-weight-only int8 weights. `incubate` holds the fused transformer layers
+prefix cache and its host spill tier, chunked prefill and speculative
+decoding, with bf16 or weight-only int8 weights, and the serving ops
+surface of `obs` (Prometheus /metrics, /healthz, /statusz, /tracez, /memz,
+/probez, SLO burn rates, golden-canary probes, invariant audits). `incubate` holds the fused transformer layers
 (`incubate.nn`) and the MoE layer (`incubate.distributed.models.moe`).
 
 The JAX package `paddle_tpu` is the reference; this package imports
@@ -34,7 +36,7 @@ from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
 from . import incubate
 from . import vision
 from .vision.models import SwinTransformer, swin_b, swin_l, swin_s, swin_t
-from .inference.kv_cache import BlockPool
+from .inference.kv_cache import BlockPool, HostSpillTier
 from .inference.prefix_cache import PrefixCache
 from .inference.serving import (Request, RequestTrace, ServingConfig,
                                 ServingEngine, ServingMetrics,
@@ -45,7 +47,7 @@ from .convert import (model_state_from_paddle, state_dict_from_paddle,
                       train_state_from_paddle)
 from .core import get_flags, set_flags
 from .jit import TrainStep
-from . import nn, optimizer
+from . import nn, obs, optimizer, profiler
 from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
                         DGCMomentum, Lamb, LarsMomentum, Momentum, RMSProp)
@@ -56,7 +58,8 @@ from .vision.models import (ResNet, resnet18, resnet34, resnet50, resnet101,
                             wide_resnet50_2, wide_resnet101_2)
 
 __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
-           "gpt_config", "BlockPool", "PrefixCache", "Request",
+           "gpt_config", "BlockPool", "HostSpillTier", "PrefixCache",
+           "Request", "obs", "profiler",
            "RequestTrace", "ServingConfig", "ServingEngine",
            "ServingMetrics", "model_draft_fn", "repeated_traffic",
            "shared_prefix_traffic", "synthetic_traffic",

@@ -21,8 +21,13 @@ slots) land there, so the scatters never need a mask. Usable capacity is
 Blocks are refcounted: the prefix cache (inference/prefix_cache.py)
 retains the blocks it caches, and a request admitted on a cached prefix
 maps them SHARED into its own reservation; a block returns to the free
-list when its last reference drops. The host spill tier (``read_block``/
-``write_block``, ``HostSpillTier``) is not ported yet.
+list when its last reference drops.
+
+The host spill tier: ``read_block`` copies one block's payload (every
+layer's K and V planes, and the int8 scales) to host memory, pinned when
+the pool lives on a CUDA device, and ``write_block`` copies it back into a
+pool block; ``HostSpillTier`` is the host byte budget and the counters of
+the prefix cache's spilled blocks.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import executables
 
 
 class BlockPool:
@@ -68,6 +74,10 @@ class BlockPool:
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._rows: Dict[int, List[int]] = {}
         self._refs: Dict[int, int] = {}     # block id -> reference count
+        # observer poked after every occupancy change (alloc, free, take,
+        # release, reset): the MemoryLedger's per-owner delta stream rides
+        # it, so it must stay host-side and cheap
+        self.on_change = None
 
     @classmethod
     def for_model(cls, model, *, num_blocks: int, block_size: int,
@@ -169,6 +179,7 @@ class BlockPool:
             self._refs[b] = 1
         blocks = shared + fresh
         self._rows[owner] = blocks
+        self._notify()
         return np.asarray(blocks, dtype=np.int32)
 
     def free(self, owner: int) -> int:
@@ -179,12 +190,16 @@ class BlockPool:
         blocks = self._rows.pop(owner, None)
         if not blocks:
             return 0
-        return self._deref(reversed(blocks))
+        freed = self._deref(reversed(blocks))
+        self._notify()
+        return freed
 
     def take(self, n: int = 1) -> Optional[List[int]]:
-        """Reserve `n` ownerless blocks at refcount 1 (blocks that belong
-        to the cache, not to a request); balanced by :meth:`release`.
-        Returns the block ids, or None when the free list is short."""
+        """Reserve `n` ownerless blocks at refcount 1: the rehydrate
+        path's allocation (a spilled prefix block coming back from host
+        memory belongs to the cache, not to a request); balanced by
+        :meth:`release`. Returns the block ids, or None when the free list
+        is short."""
         if n < 1 or n > len(self._free):
             return None
         out = []
@@ -192,6 +207,7 @@ class BlockPool:
             b = self._free.pop()
             self._refs[b] = 1
             out.append(b)
+        self._notify()
         return out
 
     # ------------------------------------------------- cache references
@@ -209,7 +225,9 @@ class BlockPool:
     def release(self, blocks) -> int:
         """Drop one reference per block (cache eviction); returns how many
         hit zero and went back to the free list."""
-        return self._deref(int(b) for b in blocks)
+        freed = self._deref(int(b) for b in blocks)
+        self._notify()
+        return freed
 
     def refcount(self, block: int) -> int:
         return self._refs.get(int(block), 0)
@@ -257,8 +275,150 @@ class BlockPool:
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._rows.clear()
         self._refs.clear()
+        self._notify()
+
+    def _notify(self):
+        cb = self.on_change
+        if cb is not None:
+            cb()
+
+    # ---------------------------------------------------- spill payloads
+    def read_block(self, pools, block: int) -> tuple:
+        """ONE block's payload copied to host memory: the spill tier's
+        device->host serialization. Every layer's planes for `block` are
+        stacked on the device into one tensor per storage dtype (fp
+        pools: one [2L, bs, H, D] stack, K then V per layer; int8 pools:
+        an int8 code stack and an f32 [2L, bs, H] scale stack) and each
+        stack moves to the host in ONE copy, into pinned memory when the
+        pool is on a CUDA device. The copy is a blocking one, so the
+        payload is complete when this returns. Returns the tuple of host
+        tensors `write_block` takes back verbatim: the round trip moves
+        bytes and never recomputes them."""
+        b = int(block)
+        if self.cache_dtype == "int8":
+            stacks = (torch.stack([layer[i][b] for layer in pools
+                                   for i in (0, 2)]),
+                      torch.stack([layer[i][b] for layer in pools
+                                   for i in (1, 3)]))
+        else:
+            stacks = (torch.stack([p[b] for layer in pools
+                                   for p in layer]),)
+        pin = stacks[0].device.type == "cuda"
+        out = []
+        for st in stacks:
+            host = torch.empty(st.shape, dtype=st.dtype, pin_memory=pin)
+            host.copy_(st)
+            out.append(host)
+        return tuple(out)
+
+    def write_block(self, pools, block: int, payload: tuple):
+        """Copy one spilled payload back into pool position `block`, in
+        place: one host->device copy per payload tensor (asynchronous from
+        pinned memory, on the current stream, so every later launch on
+        that stream reads the written block), then one multi-tensor copy
+        per payload tensor of its slices into every layer's planes (one
+        dtype a call). Returns the pools."""
+        executables.note_process(self._spill_sig())
+        b = int(block)
+        dev = pools[0][0].device
+        planes = (0, 2) if self.cache_dtype == "int8" else (0, 1)
+        for k, t in enumerate(payload):
+            stack = t.to(dev, non_blocking=True)
+            torch._foreach_copy_([layer[i + k][b] for layer in pools
+                                  for i in planes], list(stack.unbind(0)))
+        return pools
+
+    def _spill_sig(self) -> tuple:
+        return ("spill_scatter", self.num_blocks, self.block_size,
+                self.num_layers, self.num_heads, self.head_dim,
+                str(self.dtype), self.cache_dtype, 1)
 
     def __repr__(self):
         return (f"BlockPool(blocks={self.num_blocks}x{self.block_size}, "
                 f"free={self.free_blocks}/{self.capacity_blocks}, "
                 f"owners={len(self._rows)})")
+
+
+class HostSpillTier:
+    """Host-memory budget and counters of spilled prefix blocks.
+
+    The PrefixCache owns the trie-side mechanics (which node spills,
+    where payloads live, LRU ordering); this class is the accounting: a
+    byte budget charged at ``bytes_per_block`` per spilled block (the host
+    copy carries the same payload bytes as the device block), occupancy,
+    and the spill/rehydrate/drop/copy counters. An LRU-evicted full block
+    copies here instead of vanishing, and a later trie hit rehydrates it
+    with one host->device copy per payload tensor instead of recomputing
+    its prefill."""
+
+    def __init__(self, *, bytes_per_block: int, byte_budget: int):
+        if byte_budget < bytes_per_block:
+            raise ValueError(
+                f"spill byte_budget {byte_budget} holds zero blocks "
+                f"(one block = {bytes_per_block} bytes)")
+        self.bytes_per_block = int(bytes_per_block)
+        self.byte_budget = int(byte_budget)
+        self.spilled_blocks = 0       # resident in the tier right now
+        self.spilled_total = 0        # blocks ever copied to host
+        self.rehydrated_total = 0     # blocks copied back to the device
+        self.dropped_total = 0        # tier-LRU final deaths (payload
+        #                               discarded for good)
+        self.upgraded_total = 0       # spilled entries replaced in
+        #                               place by a recomputed device
+        #                               block (the prefix survives: not
+        #                               a drop)
+        self.d2h_copies = 0           # host tensors fetched (spill side)
+        self.h2d_copies = 0           # host tensors shipped (rehydrate)
+
+    @property
+    def capacity_blocks(self) -> int:
+        return self.byte_budget // self.bytes_per_block
+
+    @property
+    def host_bytes(self) -> int:
+        return self.spilled_blocks * self.bytes_per_block
+
+    @property
+    def over_budget_blocks(self) -> int:
+        """Blocks the tier must drop to get back under budget."""
+        return max(0, self.spilled_blocks - self.capacity_blocks)
+
+    def stats(self) -> dict:
+        return {"spilled_blocks": self.spilled_blocks,
+                "host_bytes": self.host_bytes,
+                "byte_budget": self.byte_budget,
+                "spilled_total": self.spilled_total,
+                "rehydrated_total": self.rehydrated_total,
+                "dropped_total": self.dropped_total,
+                "upgraded_total": self.upgraded_total,
+                "d2h_copies": self.d2h_copies,
+                "h2d_copies": self.h2d_copies}
+
+    def metrics_text(self, prefix: str = "paddle_tpu_spill") -> str:
+        """Prometheus exposition of the tier, registered beside the
+        serving producers in `ServingEngine.metrics_registry()`."""
+        from ..profiler._metrics import counter_lines, gauge_lines
+        lines: List[str] = []
+        for name, help_ in (
+                ("spilled", "prefix blocks serialized to host RAM"),
+                ("rehydrated", "spilled blocks copied back to device"),
+                ("dropped", "spilled blocks evicted from the host tier "
+                            "(payload lost for good)"),
+                ("upgraded", "spilled entries replaced in place by a "
+                             "recomputed device block"),
+                ("d2h_copies", "device->host payload arrays (spill)"),
+                ("h2d_copies", "host->device payload arrays (rehydrate)")):
+            attr = name if name.endswith("copies") else f"{name}_total"
+            lines.extend(counter_lines(prefix, f"{name}_total",
+                                       getattr(self, attr), help_))
+        lines.extend(gauge_lines(prefix, "host_blocks",
+                                 self.spilled_blocks,
+                                 "spilled blocks resident in host RAM"))
+        lines.extend(gauge_lines(prefix, "host_bytes", self.host_bytes,
+                                 "host RAM the spill tier pins"))
+        return "\n".join(lines) + "\n"
+
+    def __repr__(self):
+        return (f"HostSpillTier(blocks={self.spilled_blocks}/"
+                f"{self.capacity_blocks}, bytes={self.host_bytes}/"
+                f"{self.byte_budget})")

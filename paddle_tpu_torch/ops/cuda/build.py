@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -165,3 +165,10 @@ def load_library(name: str) -> ctypes.CDLL:
             lib.pt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+def loaded_libraries() -> List[str]:
+    """Names of the kernel libraries this process has loaded (the serving
+    engine's /statusz compile block)."""
+    with _lib_lock:
+        return sorted(_libs)

@@ -61,6 +61,16 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.incubate.nn.fused_transformer\n"
             "import paddle_tpu_torch.incubate.distributed.models.moe\n"
             "import paddle_tpu_torch.nn.initializer\n"
+            "import paddle_tpu_torch.profiler.monitor\n"
+            "import paddle_tpu_torch.profiler._metrics\n"
+            "import paddle_tpu_torch.obs.registry\n"
+            "import paddle_tpu_torch.obs.tracez\n"
+            "import paddle_tpu_torch.obs.server\n"
+            "import paddle_tpu_torch.obs.slo\n"
+            "import paddle_tpu_torch.obs.memz\n"
+            "import paddle_tpu_torch.obs.probez\n"
+            "import paddle_tpu_torch.analysis.findings\n"
+            "import paddle_tpu_torch.inference.executables\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -132,7 +142,12 @@ def test_training_modules_are_covered_by_the_source_check():
               "incubate/distributed/models/moe/__init__.py",
               "incubate/distributed/models/moe/gate.py",
               "incubate/distributed/models/moe/moe_layer.py",
-              "nn/initializer.py"):
+              "nn/initializer.py", "profiler/__init__.py",
+              "profiler/_metrics.py", "profiler/monitor.py",
+              "obs/__init__.py", "obs/registry.py", "obs/tracez.py",
+              "obs/server.py", "obs/slo.py", "obs/memz.py",
+              "obs/probez.py", "analysis/__init__.py",
+              "analysis/findings.py", "inference/executables.py"):
         assert f in files, f
 
 

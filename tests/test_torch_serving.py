@@ -136,7 +136,6 @@ def test_engine_eos_early_exit(models):
 
 
 @pytest.mark.parametrize("field, extra", [
-    ("spill_host_bytes", dict(spill_host_bytes=1 << 20, prefix_cache=True)),
     ("lint", dict(lint=True)), ("shards", dict(shards=2))])
 def test_later_slice_options_raise(field, extra):
     with pytest.raises(NotImplementedError, match=field):
