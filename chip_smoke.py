@@ -51,11 +51,12 @@ every rehydrated block bitwise equal to its bytes before the spill,
 chains equal to an ample cache's or differing at a near-tie, the
 auditor clean and the pool conserved; phase 4's traffic through a
 prefix + spec + spill engine under serve_telemetry with an SLO, the
-prober and the audits, every route scraped over loopback meanwhile and
-linted, the memory ledger's sum and owners checked; three probe cycles
-passing or failing only at a near-tie; a corruption control that must
-fail prefix_hit outright; the graceful drain; the same traffic without
-the surface). Phase 7 is training: the kernel route
+prober, the audits and a flight recorder, every route scraped over
+loopback meanwhile and linted, the memory ledger's sum and owners
+checked; three probe cycles passing or failing only at a near-tie; a
+corruption control that must fail prefix_hit outright and pin a capture
+that /profilez serves with #1 or #3 in its KernelView; the graceful
+drain; the same traffic without the surface). Phase 7 is training: the kernel route
 against the plain route for the loss, every gradient and 5-step AdamW
 trajectories at gpt3-1.3b widths cut to 2 layers, for BERT MLM and ViT at
 bert-base and vit-l16 widths cut to 2 layers, and for Swin at swin-t's
@@ -63,7 +64,14 @@ width cut to depths 2/2/2/2, and for GPT under the opt-ins
 PADDLE_TPU_FUSED_LN=1 and PADDLE_TPU_FLASH_PACKED=1 (#8, #7), also with
 save_qkv recompute and int8 moments; then bench_gpt's configuration at
 full width (gpt3-1.3b, bf16, B=3, S=2048, AdamW with bf16 moments), the
-same under both opt-ins, _bench_gpt27's (gpt3-2.7b, bf16, B=6, S=1024,
+same under both opt-ins, the same again with every telemetry option of
+TrainStep against none (observability_train_gpt3_1.3b: a Profiler
+window whose KernelView counts #6 and #11 as the launch counters do and
+whose DeviceView matches torch.profiler's key_averages() within 2%, the
+numerics stats tree, a poisoned parameter named, skipped bitwise,
+dumped and replayed, the flight recorder's pinned capture, the goodput
+report conserved, the memory ledger's exact owners, the cost a step),
+_bench_gpt27's (gpt3-2.7b, bf16, B=6, S=1024,
 save_qkv recompute, int8 moments), bench_bert's
 (bert-base, bf16, B=32, S=512, dropout), bench_vit's (vit-l16 at 224^2,
 bf16, B=64) and bench_swin's (swin-t at 224^2, bf16, B=32), each timed
@@ -96,8 +104,10 @@ cache; train_gpt_moe and train_gpt_moe_dense run bench_moe's
 configuration (gpt3-350m bf16, 8 experts every 2nd layer, B=8, S=1024,
 AdamW with bf16 moments) and its dense twin, with the active-parameter
 MFU, the routing overhead and the drop rate; train_ernie-3.0-medium runs
-ERNIE with bench_bert's settings; each timed and profiled. Each phase
-prints one JSON line; any failure exits non-zero
+ERNIE with bench_bert's settings; each timed and profiled. Every profiled
+table comes from the port's trace analysis of the capture's chrome trace
+(`profiler.trace_analysis`), held against torch.profiler's own
+key_averages() within 2%. Each phase prints one JSON line; any failure exits non-zero
 (resnet_parity prints its record, then names what failed last). The line
 before the last is the card's name and power limit from nvidia-smi; the
 last line is {"ok": true, "device": {...}} with the number of devices
@@ -115,6 +125,7 @@ import argparse
 import contextlib
 import importlib.util
 import json
+import logging
 import math
 import re
 import statistics
@@ -292,7 +303,14 @@ class SmokeFailure(Exception):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (`at_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1338,11 +1356,43 @@ def profile_decode(torch, model, traffic):
     return out
 
 
+def capture_analysis(prof, steps=None):
+    """The port's trace analysis (`profiler.trace_analysis`) of a stopped
+    torch.profiler capture, through its chrome trace in a temporary
+    directory."""
+    import os
+    import tempfile
+    from paddle_tpu_torch.profiler import trace_analysis as TTA
+    with tempfile.TemporaryDirectory() as d:
+        path = TTA.export_capture(prof, os.path.join(d, "call.trace.json"))
+        return TTA.analyze(path, steps=steps)
+
+
+def summer_device_us(torch, prof):
+    """The device time of a capture as torch.profiler's own key_averages()
+    sums it (kernel records only: a CPU op's device time repeats its
+    kernels'), the yardstick the trace analysis is held to."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return float(getattr(e, attr))
+        return 0.0
+    return sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+SUMMER_TOL = 0.02     # trace analysis vs key_averages() on one capture
+
+
 def profile_call(torch, fn, names=()):
     """Wall time, device busy time and share, and the largest kernels of
-    one call of fn under torch.profiler; with `names`, also every device
-    op whose name contains one of them."""
-    from torch.autograd import DeviceType
+    one call of fn under torch.profiler, read by the port's trace analysis
+    (the capture's GPU lanes); with `names`, also every device op whose
+    name contains one of them. The device sum is held against
+    torch.profiler's own key_averages() of the same capture within
+    SUMMER_TOL."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1351,29 +1401,30 @@ def profile_call(torch, fn, names=()):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return float(getattr(e, attr))
-        return 0.0
-
-    # kernel records only: a CPU op's device time repeats its kernels'
-    events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy_us = sum(t for _, t, _ in events)
-    top = sorted(events, key=lambda x: -x[1])[:8]
+    t_an = time.perf_counter()
+    an = capture_analysis(prof)
+    t_an = time.perf_counter() - t_an
+    busy_us = an.total_device_us()
+    summer = summer_device_us(torch, prof)
+    check(abs(busy_us - summer) <= SUMMER_TOL * max(summer, 1e-9),
+          f"trace analysis reads {busy_us} device us, key_averages() "
+          f"{summer}")
+    rows = an.op_totals()
     out = {"wall_s": wall,
            "device_busy_s": busy_us / 1e6 if busy_us else None,
            "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
            "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us
            else None,
-           "top_device_ops": [{"op": k, "device_ms": t / 1e3, "count": c}
-                              for k, t, c in top]}
+           "key_averages_device_s": summer / 1e6,
+           "trace_analysis_s": t_an,
+           "top_device_ops": [{"op": r["name"],
+                               "device_ms": r["dur_us"] / 1e3,
+                               "count": r["calls"]} for r in rows[:8]]}
     if names:
         out["named_device_ops"] = [
-            {"op": k, "device_ms": t / 1e3, "count": c}
-            for k, t, c in events if any(n in k for n in names)]
+            {"op": r["name"], "device_ms": r["dur_us"] / 1e3,
+             "count": r["calls"]}
+            for r in rows if any(n in r["name"] for n in names)]
     return out
 
 
@@ -1865,8 +1916,11 @@ def phase_serving_ops(torch, model, card, launches, paged_runs):
     differing at a near-tie, the auditor clean, the pool conserved; (3)
     phase 4's traffic through a prefix + spec engine with the spill tier
     under serve_telemetry (SLO from phase 4's TTFT, prober, audits),
-    scraped over loopback throughout; probes; (4) a corruption control;
-    (5) the graceful drain; (6) the same traffic without the surface."""
+    scraped over loopback throughout, with a flight recorder on the
+    engine's monitor and metrics; probes; (4) a corruption control, whose
+    probe failure must pin a capture that /profilez serves with #1 or #3
+    in its KernelView; (5) the graceful drain; (6) the same traffic
+    without the surface."""
     out = {"phase": "serving_ops_gpt3_1.3b", "card": card,
            "model": cfg_line(model.config, "bfloat16")}
     t_phase = time.perf_counter()
@@ -1883,11 +1937,15 @@ def phase_serving_ops(torch, model, card, launches, paged_runs):
 
 def serving_ops(torch, model, launches, paged_runs, out):
     """phase_serving_ops's body; fills `out` as it goes."""
+    import tempfile
     import threading
+    from urllib.request import urlopen
     from paddle_tpu_torch import (ServingConfig, ServingEngine,
                                   shared_prefix_traffic, synthetic_traffic)
-    from paddle_tpu_torch.obs import (InvariantAuditor, Prober,
+    from paddle_tpu_torch.obs import (FlightRecorder, InvariantAuditor,
+                                      Prober, TorchProfilerBackend,
                                       lint_exposition)
+    from paddle_tpu_torch.profiler import trace_analysis as TTA
     vocab = model.config.vocab_size
 
     # (1) round trips
@@ -1965,11 +2023,15 @@ def serving_ops(torch, model, launches, paged_runs, out):
     eng = ServingEngine(model, ServingConfig(**ops_cfg))
     ttft_thr = 2 * paged_runs["None"]["ttft_p99_s"]
     pr = Prober(eng, max_new_tokens=SO_PROBE_NEW)
+    rows = []
+    # the recorder chains onto this hook (serve_telemetry attaches it)
+    eng.metrics.on_record = rows.append
+    fr_dir = tempfile.TemporaryDirectory(prefix="smoke-flightrec-")
+    fr = FlightRecorder(fr_dir.name, trigger_steps=2, cooldown_s=0,
+                        backend=TorchProfilerBackend())
     srv = eng.serve_telemetry(
         prober=pr, slo=f"ttft_p99={ttft_thr:.6f},goodput=0.9",
-        poll_interval=0.5, invariant_interval=0.5)
-    rows = []
-    eng.metrics.on_record = rows.append
+        poll_interval=0.5, invariant_interval=0.5, flightrec=fr)
     try:
         pr.warm()
         pages, errors, stop = {}, [], threading.Event()
@@ -2032,7 +2094,11 @@ def serving_ops(torch, model, launches, paged_runs, out):
             for layer in eng._pools:
                 for plane in layer:
                     plane[blocks] = 0
+        # a failing variant emits no second probe_fail row: a near-tie
+        # failure of an earlier cycle is cleared, so that the corruption's
+        # own row is the one that must pin a capture
         was = pr._vstates["prefix_hit"].failing
+        pr._vstates["prefix_hit"].failing = False
         n0 = len(rows)
         hit = pr.probe_once()["results"]["prefix_hit"]
         margin, limit = probe_margin(torch, model,
@@ -2045,23 +2111,22 @@ def serving_ops(torch, model, launches, paged_runs, out):
         if flipped:
             # zeroed K/V barely moves a random-weight model's logits:
             # the JAX package's own fault (CorruptKVBlock) flips bytes
-            was = pr._vstates["prefix_hit"].failing
             with pr.lock:
                 for blk in blocks:
                     flip_bytes(torch, eng, blk)
+            pr._vstates["prefix_hit"].failing = False
             n0 = len(rows)
             hit = pr.probe_once()["results"]["prefix_hit"]
             margin, limit = probe_margin(torch, model,
                                          pr.variants["prefix_hit"],
                                          pr.golden("prefix_hit"), hit)
+        corrupt = [r for r in rows[n0:] if (r.get("probe_fail") or {})
+                   .get("variant") == "prefix_hit"]
         fails = [r["probe_fail"] for r in rows[n0:] if "probe_fail" in r]
         check(hit["status"] == "fail", "corrupted prefix_hit blocks passed")
         check(margin is not None and margin >= limit,
               f"corrupted prefix_hit diverged at a near-tie ({margin})")
-        check([f["variant"] for f in fails
-               if f["variant"] == "prefix_hit"] == ([] if was else
-                                                    ["prefix_hit"]),
-              f"probe_fail rows: {fails}")
+        check(len(corrupt) == 1, f"probe_fail rows: {fails}")
         out["corruption"] = {"blocks": list(blocks), "zero_fill": zero,
                              "bytes_flipped": flipped,
                              "first_divergence": hit["first_divergence"],
@@ -2072,6 +2137,44 @@ def serving_ops(torch, model, launches, paged_runs, out):
                                                  for f in fails]}
         with pr.lock:
             eng._prefix.clear()
+
+        # (4b) the corruption's probe_fail row pinned a flight-recorder
+        # capture of the next engine steps; /profilez serves its KernelView
+        with pr.lock:
+            for prompt in traffic[2:4]:
+                eng.submit(prompt)
+            eng.drain()
+        listing = json.loads(urlopen(srv.url("/profilez"),
+                                     timeout=60).read())
+        caps = [c for c in listing["captures"]
+                if any((t.get("row") or {}).get("ts") == corrupt[0]["ts"]
+                       and "probe_fail" in t["row"] for t in c["triggers"])]
+        check(caps and caps[0]["pinned"] and caps[0]["trace_path"],
+              f"the corruption's probe_fail row pinned no capture: "
+              f"{listing['summary']}")
+        page = json.loads(urlopen(srv.url(
+            f"/profilez?id={caps[0]['id']}&view=kernel"),
+            timeout=60).read())
+        check({"decode_part", "prefix_tc"} <= set(TTA.PORT_KERNELS),
+              "#1's or #3's kernel is not among the sources' kernels")
+        paged = [r for r in page["rows"]
+                 if re.search(r"(?<![A-Za-z_])(decode_part|prefix_tc)"
+                              r"(?![a-z0-9_])", r["name"])]
+        check(paged and ("decode_part" in page["table"]
+                         or "prefix_tc" in page["table"]),
+              "the pinned capture's KernelView lists neither #1 "
+              "(decode_part) nor #3 (prefix_tc)")
+        out["flightrec"] = {
+            "capture": caps[0]["id"],
+            "pinned_by": corrupt[0]["probe_fail"],
+            "steps": [caps[0]["step_first"], caps[0]["step_last"]],
+            "paged_kernels": [{"op": r["name"][:80], "calls": r["calls"],
+                               "device_ms": r["dur_us"] / 1e3}
+                              for r in paged],
+            "captures": [[c["id"], [t["kind"] for t in c["triggers"]]]
+                         for c in listing["captures"]],
+            "summary": {k: v for k, v in listing["summary"].items()
+                        if k != "dir"}}
 
         # (5) graceful drain
         with pr.lock:
@@ -2091,6 +2194,8 @@ def serving_ops(torch, model, launches, paged_runs, out):
         check(not audit["violating"], f"auditor: {audit['findings']}")
     finally:
         srv.close()
+        fr.detach()
+        fr_dir.cleanup()
 
     # (6) the same traffic without the surface
     bare = ServingEngine(model, ServingConfig(**ops_cfg))
@@ -2873,6 +2978,378 @@ def phase_train_full(torch, card, device, fused=False, default=None):
     del step, opt, model
     torch.cuda.empty_cache()
     return counts, summary
+
+
+# ----------------------- training observability at gpt3-1.3b's width
+OBS = {"B": 3, "S": 2048, "window": 3, "every": 5, "recorded": 2,
+       "poison": "gpt.h.12.mlp.up.weight"}
+# the port's kernels a gpt3-1.3b step runs, by the name the trace shows
+# and the launch count that counts them (#6's three passes, #11)
+OBS_KERNELS = {"fwd_wg": "flash_fwd", "dq_wg": "flash_bwd_dq",
+               "dkv_wg": "flash_bwd_dkv", "lce_wg": "linear_ce_fwd"}
+
+
+def numerics_paths(layers):
+    """The stats rows of TrainStep(numerics=...) on GPTForCausalLM: the
+    activation rows in forward order, then a grad row per layer group
+    (tests/test_torch_numerics.py holds the 2-layer list against the
+    JAX package's)."""
+    root = "GPTForCausalLM/gpt"
+    acts = [f"{root}/wte"]
+    for i in range(layers):
+        h = f"{root}/h/{i}"
+        acts += [f"{h}/ln_1", f"{h}/attn/qkv", f"{h}/attn/out",
+                 f"{h}/attn", f"{h}/ln_2", f"{h}/mlp/up", f"{h}/mlp/down",
+                 f"{h}/mlp", h]
+    acts += [f"{root}/ln_f", root]
+    grads = [f"grad:{root}/wte", f"grad:{root}/wpe"]
+    for i in range(layers):
+        h = f"grad:{root}/h/{i}"
+        grads += [f"{h}/ln_1", f"{h}/attn/qkv", f"{h}/attn/out",
+                  f"{h}/ln_2", f"{h}/mlp/up", f"{h}/mlp/down"]
+    grads.append(f"grad:{root}/ln_f")
+    return acts + grads
+
+
+def kernel_calls(an, name):
+    """Calls of the port kernel `name` (one of trace_analysis.PORT_KERNELS,
+    the `__global__` functions of the sources) in a trace analysis
+    (template instances summed)."""
+    from paddle_tpu_torch.profiler.trace_analysis import PORT_KERNELS
+    check(name in PORT_KERNELS, f"{name} is not a kernel of the sources")
+    pat = re.compile(r"(?<![A-Za-z_])" + name + r"(?![a-z0-9_])")
+    return sum(r["calls"] for r in an.op_totals() if pat.search(r["name"]))
+
+
+def phase_observability_train(torch, card, device):
+    """The training half of observability at full width: gpt3-1.3b bf16,
+    B=3, S=2048, AdamW with bf16 moments (phase 7's train_gpt3_1.3b), one
+    TrainStep with every telemetry option (a StepMonitor with a flight
+    recorder on torch.profiler, NumericsConfig with a dump directory, a
+    MemoryLedger, a SpanRecorder) and one with none, on the same model.
+    Gates: the ledger's owners equal the parameters' and moments' bytes;
+    a Profiler window of OBS["recorded"] steps whose KernelView counts
+    #6's three passes and #11 as the launch counters do and whose
+    DeviceView busy time is key_averages()'s within SUMMER_TOL; a clean
+    step's stats tree holds every row of `numerics_paths`, all finite; an
+    inf in OBS["poison"] is named by the tree and an inf/nan event, the
+    step is skipped bitwise, dumped, and the dump replays the event; the
+    event pins a flight-recorder capture that parses; the goodput report
+    conserves, one compile span then steps. Reported: ms a step with
+    every option on (numerics fetched every OBS["every"] steps) against
+    none, the goodput ratio, DeviceView's busy share. Returns the launch
+    counts."""
+    import gc
+    out = {"phase": "observability_train_gpt3_1.3b", "card": card}
+    t_phase = time.perf_counter()
+    try:
+        launches = observability_train(torch, device, out)
+    except SmokeFailure as exc:
+        out.update(ok=False, failed=str(exc))
+        emit(out)
+        raise
+    # the step, its ledger and its monitor refer to each other: collect
+    # them before a later phase reads its peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    out["ok"] = True
+    emit(out)
+    return launches
+
+
+def observability_train(torch, device, out):
+    """phase_observability_train's body; fills `out` as it goes and
+    returns the launch counts."""
+    import os
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep, gpt_config
+    from paddle_tpu_torch.debugging import NumericsConfig, load_dump, replay
+    from paddle_tpu_torch.obs import (FlightRecorder, MemoryLedger,
+                                      TorchProfilerBackend)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    from paddle_tpu_torch.profiler import (Profiler, StepMonitor,
+                                           make_scheduler)
+    from paddle_tpu_torch.profiler import trace_analysis as TTA
+    from paddle_tpu_torch.profiler.goodput import GoodputReport
+    from paddle_tpu_torch.profiler.timeline import SpanRecorder, from_recorder
+    B_, S_, W = OBS["B"], OBS["S"], OBS["window"]
+    cfg = gpt_config("gpt3-1.3b", max_position_embeddings=S_)
+    model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    model.train()
+    L = cfg.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    per_token = 6 * n_params + 12 * L * cfg.hidden_size * S_
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, B_, S_)).astype(np.int64)).to(device)
+
+    def loss_fn(a, b):
+        return model.loss(a, b)
+    tmp = tempfile.TemporaryDirectory(prefix="smoke-obs-")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, under `name` in out["sections_s"]."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+    out["sections_s"] = laps
+    out["model"] = cfg_line(cfg, "bfloat16")
+    out["config"] = {"B": B_, "S": S_,
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "numerics_every_n_steps": OBS["every"],
+                     "window_steps": W,
+                     "profiler_recorded_steps": OBS["recorded"],
+                     "poisoned": OBS["poison"] + "[0, 0]"}
+    launches = {}
+    try:
+        monitor = StepMonitor(items_per_step=B_ * S_,
+                              flops_per_item=per_token, unit="tokens/s")
+        ledger = MemoryLedger(device=device,
+                              postmortem_dir=os.path.join(tmp.name, "oom"))
+        spans = SpanRecorder(os.path.join(tmp.name, "seg.timeline.jsonl"))
+        rec = FlightRecorder(os.path.join(tmp.name, "flightrec"),
+                             trigger_steps=2, cooldown_s=0,
+                             backend=TorchProfilerBackend())
+        rec.attach(monitor=monitor)
+        events = []
+        ncfg = NumericsConfig(every_n_steps=OBS["every"],
+                              dump_dir=os.path.join(tmp.name, "dumps"),
+                              on_event=events.append)
+        opt_on = AdamW(learning_rate=1e-4,
+                       parameters=model.named_parameters(),
+                       moment_dtype="bfloat16", device=device)
+        opt_off = AdamW(learning_rate=1e-4,
+                        parameters=model.named_parameters(),
+                        moment_dtype="bfloat16", device=device)
+        on = TrainStep(model, opt_on, loss_fn, monitor=monitor,
+                       numerics=ncfg, memz=ledger, timeline=spans,
+                       device=device)
+        off = TrainStep(model, opt_off, loss_fn, device=device)
+        KB.reset_launch_counts()
+        on(ids[0], ids[0])
+        on(ids[1], ids[1])
+        off(ids[0], ids[0])
+        off(ids[1], ids[1])
+        torch.cuda.synchronize()
+        add_launches(launches, KB.LAUNCHES)
+        lap("model_and_first_steps")
+
+        # the memory ledger: exact byte sums of its two owners
+        owners = {o["owner"]: o["bytes"]
+                  for o in ledger.census()["owners"]}
+        p_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        m_bytes = sum(v.numel() * v.element_size()
+                      for st in on._opt_state for v in st.values())
+        check(owners.get("train_params") == p_bytes,
+              f"train_params {owners.get('train_params')} != {p_bytes}")
+        check(owners.get("train_opt_state") == m_bytes,
+              f"train_opt_state {owners.get('train_opt_state')} != "
+              f"{m_bytes}")
+        out["memz"] = {"train_params": p_bytes, "train_opt_state": m_bytes}
+
+        # the cost: ms a step, every option on against none, alternating
+        KB.reset_launch_counts()
+        wins = {"on": [], "off": []}
+        for _ in range(2):
+            for name, st in (("off", off), ("on", on)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(W):
+                    st(ids[2 + i % 6], ids[2 + i % 6])
+                torch.cuda.synchronize()
+                wins[name].append(time.perf_counter() - t0)
+        add_launches(launches, KB.LAUNCHES)
+        ms = {k: min(v) / W * 1e3 for k, v in wins.items()}
+        out["cost"] = {"ms_per_step_on": ms["on"],
+                       "ms_per_step_off": ms["off"],
+                       "ratio": ms["on"] / ms["off"], "windows_s": wins,
+                       "timing": f"best of 2 alternating windows of {W}"}
+        lap("cost_windows")
+
+        # the Profiler over torch.profiler: OBS["recorded"] steady steps
+        n_rec = OBS["recorded"]
+        prof = Profiler(scheduler=make_scheduler(closed=1, ready=0,
+                                                 record=n_rec, repeat=1),
+                        trace_dir=os.path.join(tmp.name, "profiler"))
+        prof.start()
+        on(ids[2], ids[2])
+        torch.cuda.synchronize()        # nothing of this step in the window
+        prof.step()                     # the tracer starts
+        KB.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(n_rec):
+            on(ids[3 + i], ids[3 + i])
+            if i < n_rec - 1:
+                prof.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(KB.LAUNCHES)
+        prof.step()                     # waits for the card, stops, writes
+        prof.stop()
+        add_launches(launches, counts)
+        lap("profiled_steps_and_export")
+        check(prof.last_capture is not None, "the Profiler wrote no capture")
+        an = TTA.analyze(prof.last_capture, steps=n_rec)
+        check(not an.host_lanes, "the capture holds no GPU lane")
+        kview = an.kernel_view(top=400)
+        calls = {k: kernel_calls(an, k) for k in OBS_KERNELS}
+        for k, count_name in OBS_KERNELS.items():
+            check(k in kview, f"KernelView does not list {k}")
+            check(calls[k] == counts.get(count_name, 0) and calls[k] > 0,
+                  f"KernelView counts {calls[k]} {k}, the launch counter "
+                  f"{counts.get(count_name, 0)} {count_name}")
+        busy_us = sum(r["busy_us"] for r in an.lane_busy())
+        lap("trace_analysis")
+        summer = summer_device_us(torch, prof.last_tracer)
+        lap("key_averages")
+        check(abs(busy_us - summer) <= SUMMER_TOL * summer,
+              f"DeviceView busy {busy_us} us, key_averages() {summer}")
+        out["profiler"] = {
+            "recorded_steps": n_rec, "kernel_calls": calls,
+            "launch_counts": {v: counts.get(v, 0)
+                              for v in OBS_KERNELS.values()},
+            "device_view_busy_ms_per_step": busy_us / n_rec / 1e3,
+            "key_averages_ms_per_step": summer / n_rec / 1e3,
+            "wall_ms_per_step": wall / n_rec * 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "category_ms_per_step": {k: v / n_rec / 1e3 for k, v in
+                                     an.category_totals().items()},
+            "lanes": len(an.lane_busy()),
+            "top": [{"op": r["name"][:90], "ms_per_step":
+                     r["dur_us"] / n_rec / 1e3, "calls": r["calls"]}
+                    for r in an.op_totals()[:8]]}
+
+        lap("profiler_tables")
+
+        # numerics on a clean step
+        ncfg.every_n_steps = 1
+        on(ids[6], ids[6])
+        tree = on.numerics_stats()
+        want = numerics_paths(L)
+        diff = [(a, b) for a, b in zip(tree.paths, want) if a != b]
+        check(tree.paths == want,
+              f"stats rows: {len(tree.paths)}, want {len(want)}; first "
+              f"difference {diff[:1]}")
+        check(not tree.nonfinite_rows() and not events,
+              f"a clean step has non-finite rows or events: "
+              f"{tree.nonfinite_rows()[:2]} {events[:2]}")
+        out["numerics"] = {"rows": len(tree.paths),
+                           "activation_rows": sum(
+                               not p.startswith("grad:") for p in tree.paths),
+                           "grad_norm": float(on._last_aux["grad_norm"])}
+
+        lap("clean_numerics_step")
+
+        # a poisoned step: named, skipped bitwise, dumped, replayed
+        params = dict(model.named_parameters())
+        w = params[OBS["poison"]]
+        kept = w[0, 0].clone()
+        with torch.no_grad():
+            w[0, 0] = float("inf")
+        snap = {n: p.detach().clone() for n, p in params.items()}
+        msnap = [{k: v.clone() for k, v in st.items()}
+                 for st in on._opt_state]
+        # one warning a non-finite row (hundreds) would bury stderr
+        quiet = logging.getLogger("paddle_tpu_torch")
+        level = quiet.level
+        quiet.setLevel(logging.ERROR)
+        t_bad = time.perf_counter()
+        on(ids[7], ids[7])             # fetch, detect, dump
+        torch.cuda.synchronize()
+        t_bad = time.perf_counter() - t_bad
+        lap("poisoned_step_with_dump")
+        path_row = "GPTForCausalLM/" + "/".join(
+            OBS["poison"].split(".")[:-1])
+        tree = on.numerics_stats()
+        first = tree.first_nonfinite()
+        check(first is not None and first[0] == path_row,
+              f"first non-finite row {first and first[0]}, want {path_row}")
+        bad = [e for e in events if e.kind in ("nan", "inf")]
+        check(bad and bad[0].path == path_row,
+              f"first nan/inf event {bad[:1]}, want one at {path_row}")
+        same = all(torch.equal(p, snap[n]) for n, p in params.items())
+        msame = all(torch.equal(st[k], m[k])
+                    for st, m in zip(on._opt_state, msnap) for k in st)
+        check(same and msame, "the skipped update moved a parameter "
+                              "or a moment")
+        del snap, msnap
+        dumps = sorted(os.listdir(ncfg.dump_dir))
+        check(len(dumps) == 1, f"dumps: {dumps}")
+        t_replay = time.perf_counter()
+        dump = load_dump(os.path.join(ncfg.dump_dir, dumps[0]))
+        res = replay(dump, model, loss_fn)
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter() - t_replay
+        lap("load_and_replay")
+        rbad = [e for e in res.events if e.kind in ("nan", "inf")]
+        check(rbad and (rbad[0].kind, rbad[0].path) ==
+              (bad[0].kind, bad[0].path),
+              f"replay fired {rbad[:1]}, the step {bad[:1]}")
+        quiet.setLevel(level)
+        with torch.no_grad():
+            w[0, 0] = kept          # the replay loaded the inf back too
+        out["poisoned"] = {
+            "parameter": OBS["poison"] + "[0, 0] = inf",
+            "first_nonfinite": first[0], "event": bad[0].kind,
+            "events": len(events), "skipped_bitwise": True,
+            "dump": dumps[0], "replay_event": [rbad[0].kind, rbad[0].path],
+            "replay_matches": res.matches, "replay_s": t_replay,
+            "step_with_dump_s": t_bad,
+            "dump_bytes": sum(os.path.getsize(os.path.join(
+                ncfg.dump_dir, dumps[0], f)) for f in os.listdir(
+                os.path.join(ncfg.dump_dir, dumps[0])))}
+
+        lap("poison_checks")
+
+        # the flight recorder: the event pinned a capture of next steps
+        ncfg.every_n_steps = OBS["every"]
+        check(rec.triggers_total >= 1, "no trigger reached the recorder")
+        for i in range(3):
+            on(ids[i], ids[i])
+        torch.cuda.synchronize()
+        lap("recorder_steps_and_export")
+        caps = [c for c in rec.captures
+                if any(t["kind"] == "numerics" for t in c["triggers"])]
+        check(caps and caps[0]["pinned"] and caps[0]["trace_path"]
+              and rec.capture_errors == 0,
+              f"no pinned numerics capture: {rec.summary()}")
+        fan = TTA.analyze(caps[0]["trace_path"], steps=2)
+        check(not fan.host_lanes and kernel_calls(fan, "fwd_wg") > 0,
+              "the pinned capture holds no flash attention kernel")
+        out["flightrec"] = {"capture": caps[0]["id"],
+                            "steps": [caps[0]["step_first"],
+                                      caps[0]["step_last"]],
+                            "device_ms_per_step":
+                                fan.total_device_us() / 2 / 1e3,
+                            "summary": {k: v for k, v in rec.summary()
+                                        .items() if k != "dir"}}
+
+        lap("capture_analysis")
+
+        # goodput over the recorder's segment
+        spans.close()
+        report = GoodputReport([from_recorder(spans)])
+        report.check_conservation()
+        cats = [s.cat for s in spans.spans()]
+        check(cats[0] == "compile" and set(cats[1:]) == {"step"},
+              f"span categories {cats[:3]}...")
+        out["goodput"] = {**report.summary(),
+                          "note": "wall includes the phase's other work "
+                                  "between steps (the plain step's "
+                                  "windows, the dump and the replay)"}
+        out["monitor"] = {k: v for k, v in monitor.report().items()
+                          if k in ("steps", "step_ms", "items_per_s", "mfu",
+                                   "compiles", "recompiles",
+                                   "numerics_events", "hbm_peak_bytes")}
+        rec.detach()
+    finally:
+        tmp.cleanup()
+        lap("goodput_and_cleanup")
+    return launches
 
 
 def phase_train_parity_fused(torch, device, card):
@@ -5262,6 +5739,7 @@ def main(argv=None) -> int:
     counts, _ = phase_train_full(torch, card, device, fused=True,
                                  default=default)
     add_launches(launches, counts)
+    add_launches(launches, phase_observability_train(torch, card, device))
     add_launches(launches, phase_train_gpt27(torch, card, device))
     add_launches(launches, phase_train_bert(torch, card, device))
     add_launches(launches, phase_train_vit(torch, card, device))

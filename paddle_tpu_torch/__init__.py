@@ -16,7 +16,13 @@ static decode stack and the padded engine or the paged engine with the
 prefix cache and its host spill tier, chunked prefill and speculative
 decoding, with bf16 or weight-only int8 weights, and the serving ops
 surface of `obs` (Prometheus /metrics, /healthz, /statusz, /tracez, /memz,
-/probez, SLO burn rates, golden-canary probes, invariant audits). `incubate` holds the fused transformer layers
+/probez, /profilez, SLO burn rates, golden-canary probes, invariant
+audits, the flight recorder). Training carries the JAX step's telemetry:
+`TrainStep(numerics=, monitor=, memz=, timeline=)`, `debugging` (the
+numerics sentinels, anomaly detectors and replayable dumps),
+`amp.debugging`, and `profiler` (the Paddle Profiler over
+`torch.profiler`, trace analysis, the goodput timeline).
+`incubate` holds the fused transformer layers
 (`incubate.nn`) and the MoE layer (`incubate.distributed.models.moe`).
 
 The JAX package `paddle_tpu` is the reference; this package imports
@@ -47,7 +53,7 @@ from .convert import (model_state_from_paddle, state_dict_from_paddle,
                       train_state_from_paddle)
 from .core import get_flags, set_flags
 from .jit import TrainStep
-from . import nn, obs, optimizer, profiler
+from . import amp, debugging, nn, obs, optimizer, profiler
 from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
                         DGCMomentum, Lamb, LarsMomentum, Momentum, RMSProp)
@@ -59,7 +65,7 @@ from .vision.models import (ResNet, resnet18, resnet34, resnet50, resnet101,
 
 __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "gpt_config", "BlockPool", "HostSpillTier", "PrefixCache",
-           "Request", "obs", "profiler",
+           "Request", "obs", "profiler", "debugging", "amp",
            "RequestTrace", "ServingConfig", "ServingEngine",
            "ServingMetrics", "model_draft_fn", "repeated_traffic",
            "shared_prefix_traffic", "synthetic_traffic",

@@ -69,9 +69,8 @@ model every attention call of the paged serving path runs a hand-written
 paged-attention kernel, and under weight_dtype="int8" every projection and
 the LM head of either engine run the hand-written int8 GEMM.
 
-Not ported yet: shards > 1 (the multi-GPU slice), the graph lint, the
-engine's chaos injector, and serve_telemetry's flight recorder (ROADMAP.md,
-queue A).
+Not ported yet: shards > 1 (the multi-GPU slice), the graph lint and the
+engine's chaos injector (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -1932,13 +1931,15 @@ class ServingEngine:
         poller runs its cycles. `invariant_interval` schedules the
         InvariantAuditor's audits (paged engines). Both of those pollers
         hold the prober's lock; a thread stepping the engine beside them
-        must share it (`srv.prober.lock`). `flightrec` is refused: the
-        flight recorder belongs to a later slice."""
-        if flightrec is not None:
-            raise NotImplementedError(
-                "serve_telemetry(flightrec=...) is not ported to PyTorch "
-                "yet: it needs obs/flightrec.py and trace analysis over "
-                "torch.profiler (ROADMAP.md, queue A item 5)")
+        must share it (`srv.prober.lock`).
+
+        `flightrec` is an obs.FlightRecorder: it attaches to this engine's
+        StepMonitor (captures advance at the engine's step brackets), taps
+        the metrics' structured rows (the SLO monitor's alerts and the
+        probes' failures among them) as capture triggers, exports its
+        counters on /metrics, and mounts the /profilez route. It rides
+        `srv.flightrec`; detaching at shutdown stays with the caller
+        (`flightrec.detach()`)."""
         from ..obs import (InvariantAuditor, Prober, SLOMonitor,
                            TelemetryServer, TraceBuffer)
         if self.metrics.trace_buffer is None:
@@ -1970,11 +1971,20 @@ class ServingEngine:
         routes = {"/memz": self._memz.memz}
         if prober is not None:
             routes["/probez"] = prober.probez
+        if flightrec is not None:
+            # monitor: step brackets + recompile/numerics rows; metrics:
+            # every structured row, slo_alert included (the SLO monitor
+            # emits through metrics._emit, so tapping on_alert too would
+            # count each alert twice)
+            flightrec.attach(monitor=self.monitor, metrics=self.metrics)
+            reg.register("flightrec", flightrec.metrics_text)
+            routes["/profilez"] = flightrec.profilez
         srv = TelemetryServer(reg, host=host, port=port,
                               health=self.health, status=self.statusz,
                               tracez=self.metrics.trace_buffer,
                               routes=routes)
         srv.slo = slo
+        srv.flightrec = flightrec
         srv.prober = prober
         srv.invariants = self._invariants
         if slo is not None and poll_interval is not None:

@@ -1,4 +1,5 @@
-"""The serving ops surface of the port (paddle_tpu/obs's serving half):
+"""The ops surface of the port (paddle_tpu/obs, less its multi-device
+readers):
 
   MetricsRegistry    composes every exposition producer into ONE
                      collision-checked, lint-clean Prometheus page
@@ -20,12 +21,16 @@
                      goldens (probez.py).
   InvariantAuditor   deep host-side audits of the block pool and the
                      radix trie (probez.py).
+  FlightRecorder     anomaly-triggered torch.profiler captures in a
+                     bounded ring, served on /profilez (flightrec.py).
 
 Every scrape reads host counters only: no device->host copy, no
 synchronisation. `ServingEngine.serve_telemetry()` wires them around a
-live engine. The fleet aggregator, the collective ledger and the flight
-recorder belong to later slices (ROADMAP.md, queue A).
+live engine. The fleet aggregator and the collective ledger belong to
+the multi-GPU slice (ROADMAP.md, queue A).
 """
+from .flightrec import (FixtureBackend, FlightRecorder,  # noqa: F401
+                        TorchProfilerBackend, TRIGGER_KEYS)
 from .memz import (MemoryLedger, load_postmortem,  # noqa: F401
                    looks_like_oom, render_report)
 from .probez import (GoldenStore, InvariantAuditor, Prober,  # noqa: F401
@@ -42,4 +47,5 @@ __all__ = ["ExpositionError", "MetricsCollisionError", "MetricsRegistry",
            "SLOTarget", "parse_slo", "evaluate_slo", "format_slo_table",
            "TraceBuffer", "chrome_trace", "MemoryLedger", "looks_like_oom",
            "load_postmortem", "render_report", "Prober", "GoldenStore",
-           "InvariantAuditor", "config_fingerprint"]
+           "InvariantAuditor", "config_fingerprint", "FlightRecorder",
+           "TorchProfilerBackend", "FixtureBackend", "TRIGGER_KEYS"]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -100,6 +101,23 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
                            "kernels are built from source")
     return found
+
+
+# a kernel's declaration: `__global__ void [__launch_bounds__(...)] name(`
+_GLOBAL_RE = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*"
+                        r"\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+
+
+def kernel_names() -> List[str]:
+    """The name of every `__global__` function of the sources and headers,
+    in file order: the names a device trace shows for the port's own
+    kernels."""
+    names: List[str] = []
+    for src in sorted(CSRC.glob("*.cu*")):
+        for name in _GLOBAL_RE.findall(src.read_text()):
+            if name not in names:
+                names.append(name)
+    return names
 
 
 def library_paths() -> Dict[str, Path]:

@@ -14,14 +14,18 @@ The serving engine keeps one as its batch monitor; any step loop can:
   - compile accounting and a recompilation detector: the step owner
     calls `record_compile` when a step built a new executable; one with
     a prior signature is a RECOMPILE, and its shape delta is logged and
-    recorded.
+    recorded;
+  - the compute/communication overlap of the latest captured trace
+    (`record_overlap`, fed `trace_analysis.TraceAnalysis.overlap()`);
+  - the step brackets of an attached `obs.FlightRecorder` (its capture
+    state machine advances at step boundaries, outside the timed window).
 
 Each step appends one JSONL row when `jsonl_path` is set, and `on_report`
 (if given) is called with the row dict (`_emit` is the shared path,
-mirroring ServingMetrics). The JAX monitor's trace-analysis and
-multi-device readers (`record_overlap`, `record_collectives`,
-`record_shard_steps`) wait for their slices and raise
-NotImplementedError naming them.
+mirroring ServingMetrics). `jit.TrainStep(monitor=...)` feeds it. The JAX
+monitor's multi-device readers (`record_collectives`,
+`record_shard_steps`) wait for the multi-GPU slice and raise
+NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -74,6 +78,7 @@ class StepMonitor:
                  jsonl_path: Optional[str] = None,
                  on_report: Optional[Callable[[dict], None]] = None,
                  track_memory: bool = True,
+                 memory_sample_every: Optional[int] = None,
                  log_recompiles: bool = True,
                  jsonl_flush_every: int = 1):
         self.flops_per_step = flops_per_step
@@ -89,22 +94,32 @@ class StepMonitor:
         self._jsonl_unflushed = 0
         self.on_report = on_report
         self.track_memory = track_memory
+        # allocator counters are cheap to read every step; without a card
+        # there are none, and the sample is taken every 10th step
+        self.memory_sample_every = memory_sample_every
+        self._mem_every = None
         self.log_recompiles = log_recompiles
         self.records = []          # one dict per end_step
         self.compiles = 0          # executables built in monitored steps
         self.recompiles = 0        # compiles beyond the first per kind
         self.recompile_events = []  # {step, kind, delta}
+        self.overlap = None        # latest compute/comm overlap (dict)
         self.numerics_events = []
         self._last_numerics = {}
         self._steps = 0
         self._t0 = None
         self._compiled_this_step = 0
+        # an attached obs.FlightRecorder rides the step brackets
+        self.flightrec = None
         # an attached MemoryLedger: per-step memory samples read its host
         # counters instead of the allocator's
         self.memz = None
 
     # ------------------------------------------------------------- steps
     def begin_step(self):
+        fr = self.flightrec
+        if fr is not None:
+            fr.begin_step()
         self._compiled_this_step = 0
         self._t0 = time.perf_counter()
 
@@ -113,6 +128,7 @@ class StepMonitor:
         """Close the step opened by begin_step (or record an externally
         timed window via `wall_s`). `steps` > 1 amortizes one multi-step
         launch over its step count."""
+        external = wall_s is not None
         if wall_s is None:
             if self._t0 is None:
                 return
@@ -134,13 +150,22 @@ class StepMonitor:
             if mfu is not None:
                 rec["mfu"] = round(mfu, 4)
         self._compiled_this_step = 0
-        if self.track_memory:
+        if self.track_memory and self._memory_due():
             mem = self._memory()
             if mem is not None:
                 rec["hbm_bytes_in_use"] = mem.get("bytes_in_use")
                 rec["hbm_peak_bytes"] = mem.get("peak_bytes_in_use")
         self.records.append(rec)
-        return self._emit(rec)
+        out = self._emit(rec)
+        fr = self.flightrec
+        if fr is not None:
+            fr.end_step()
+            if external:
+                # externally timed launches (TrainStep's wall_s path) never
+                # call begin_step: each end is the step boundary, so arm
+                # the recorder here for the next launch
+                fr.begin_step()
+        return out
 
     @contextlib.contextmanager
     def step(self, items: Optional[float] = None, steps: int = 1):
@@ -151,10 +176,13 @@ class StepMonitor:
             self.end_step(items=items, steps=steps)
 
     # ----------------------------------------------------------- emission
-    def _emit(self, row: dict, jsonl: bool = True) -> dict:
+    def _emit(self, row: dict, report: bool = True,
+              jsonl: bool = True) -> dict:
         """One emission path for every structured row: JSONL append and
-        the on_report hook stay in lockstep. `jsonl=False` keeps a row
-        hook-only (the JSONL stream stays one row per step)."""
+        the on_report hook stay in lockstep. `report=False` keeps a row
+        JSONL-only (the overlap row, as in the JAX monitor); `jsonl=False`
+        keeps a row hook-only (the JSONL stream stays one row per
+        step)."""
         if jsonl and self.jsonl_path:
             if self.jsonl_flush_every <= 1:
                 with open(self.jsonl_path, "a") as f:
@@ -166,7 +194,7 @@ class StepMonitor:
                 self._jsonl_unflushed += 1
                 if self._jsonl_unflushed >= self.jsonl_flush_every:
                     self.flush_jsonl()
-        if self.on_report is not None:
+        if report and self.on_report is not None:
             self.on_report(row)
         return row
 
@@ -210,10 +238,23 @@ class StepMonitor:
                                       "counted": bool(count)},
                         "ts": time.time()}, jsonl=False)
 
-    # ------------------------------------------------- later slices' inputs
+    # ------------------------------------------------------------ overlap
     def record_overlap(self, overlap):
-        _later("record_overlap", "trace analysis over torch.profiler "
-               "(ROADMAP.md, queue A item 5)")
+        """Adopt a compute/communication overlap measurement as a gauge:
+        `overlap` is `trace_analysis.TraceAnalysis.overlap()`'s dict (or a
+        bare ratio). It lands in report()'s and metrics_text()'s
+        `overlap_ratio` and, when it has a ratio, as one JSONL row."""
+        if overlap is None:
+            return
+        if not isinstance(overlap, dict):
+            overlap = {"ratio": float(overlap)}
+        self.overlap = dict(overlap)
+        if overlap.get("ratio") is not None:
+            self._emit({"overlap": self.overlap, "ts": time.time()},
+                       report=False)
+        return self.overlap
+
+    # ------------------------------------------------ the multi-GPU slice
 
     def record_collectives(self, rows):
         _later("record_collectives", "the multi-GPU slice (ROADMAP.md, "
@@ -270,6 +311,18 @@ class StepMonitor:
             return None
         return flops / step_s / peak
 
+    def _memory_due(self) -> bool:
+        if self.memz is not None:
+            return True               # the ledger's host counters are free
+        if self._mem_every is None:
+            every = self.memory_sample_every
+            if every is None:
+                import torch
+                every = 1 if torch.cuda.is_available() else 10
+            self._mem_every = max(1, int(every))
+        n = len(self.records) + 1   # this end_step call's ordinal
+        return n == 1 or n % self._mem_every == 0
+
     def _memory(self) -> Optional[dict]:
         if self.memz is not None:
             return self.memz.quick_stats()
@@ -319,6 +372,7 @@ class StepMonitor:
             num["grad_norm"] = self._last_numerics.get("grad_norm")
         return {"steps": self._steps,
                 **num,
+                "overlap_ratio": (self.overlap or {}).get("ratio"),
                 "step_ms": round(med, 3) if med is not None else None,
                 "items_per_s": round(items_s, 1) if items_s else None,
                 "unit": self.unit,
@@ -353,6 +407,9 @@ class StepMonitor:
         gauge("compiles_total", r["compiles"], "traced-step compiles")
         gauge("recompiles_total", r["recompiles"],
               "recompilations (shape-signature changes)")
+        gauge("overlap_ratio", r["overlap_ratio"],
+              "compute/comm overlap: fraction of collective time hidden "
+              "under device compute (latest captured trace)")
         gauge("numerics_events_total", r["numerics_events"],
               "numerics anomalies detected (nan/inf/grad/loss/dead-layer)")
         gauge("loss", r.get("loss"), "latest fetched training loss")

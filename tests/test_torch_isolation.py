@@ -71,6 +71,15 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.obs.probez\n"
             "import paddle_tpu_torch.analysis.findings\n"
             "import paddle_tpu_torch.inference.executables\n"
+            "import paddle_tpu_torch.debugging\n"
+            "import paddle_tpu_torch.debugging.sentinel\n"
+            "import paddle_tpu_torch.debugging.anomaly\n"
+            "import paddle_tpu_torch.debugging.dump\n"
+            "import paddle_tpu_torch.amp.debugging\n"
+            "import paddle_tpu_torch.profiler.trace_analysis\n"
+            "import paddle_tpu_torch.profiler.timeline\n"
+            "import paddle_tpu_torch.profiler.goodput\n"
+            "import paddle_tpu_torch.obs.flightrec\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -147,8 +156,30 @@ def test_training_modules_are_covered_by_the_source_check():
               "obs/__init__.py", "obs/registry.py", "obs/tracez.py",
               "obs/server.py", "obs/slo.py", "obs/memz.py",
               "obs/probez.py", "analysis/__init__.py",
-              "analysis/findings.py", "inference/executables.py"):
+              "analysis/findings.py", "inference/executables.py",
+              "debugging/__init__.py", "debugging/sentinel.py",
+              "debugging/anomaly.py", "debugging/dump.py",
+              "amp/debugging.py", "profiler/trace_analysis.py",
+              "profiler/timeline.py", "profiler/goodput.py",
+              "obs/flightrec.py"):
         assert f in files, f
+
+
+def test_observability_surface_is_exported():
+    """The training half of observability is reachable the way the JAX
+    package exposes it."""
+    for name in ("Profiler", "RecordEvent", "make_scheduler",
+                 "export_chrome_tracing", "annotate_layers",
+                 "trace_analysis", "timeline", "goodput", "SpanRecorder",
+                 "GoodputReport", "StepMonitor", "SummaryView"):
+        assert hasattr(pt.profiler, name), name
+    for name in ("NumericsConfig", "check_layer_numerics", "StatsTree",
+                 "AnomalyDetector", "write_dump", "load_dump", "replay"):
+        assert hasattr(pt.debugging, name), name
+    for name in ("check_numerics", "TensorCheckerConfig", "DebugMode",
+                 "enable_tensor_checker", "disable_tensor_checker"):
+        assert hasattr(pt.amp.debugging, name), name
+    assert pt.obs.FlightRecorder and pt.obs.TorchProfilerBackend
 
 
 def _tiny_ernie():

@@ -168,7 +168,7 @@ def test_step_monitor_counters_and_text_match():
                      for r in jmon.records]
 
 
-@pytest.mark.parametrize("what", ["record_overlap", "record_collectives",
+@pytest.mark.parametrize("what", ["record_collectives",
                                   "record_shard_steps"])
 def test_step_monitor_later_readers_raise(what):
     with pytest.raises(NotImplementedError, match="queue A"):

@@ -200,9 +200,14 @@ def test_bf16_moments_and_later_items():
         pt.AdamW(1e-3, parameters=[p], device="cpu", **kw).step()
     assert torch.equal(pa, pb) and not torch.equal(
         pa, torch.linspace(-1, 1, 6))
-    for kw in (dict(mesh=object()), dict(numerics=True),
-               dict(grad_comm="int8"), dict(monitor=object())):
-        with pytest.raises(NotImplementedError, match="slice"):
+    # the options later slices bring stay refused, naming their queue item
+    for kw, item in ((dict(mesh=object()), "A4"),
+                     (dict(grad_comm="int8"), "A4"),
+                     (dict(lint=True), "A8"),
+                     (dict(preemption=object()), "A6"),
+                     (dict(chaos=object()), "A6")):
+        with pytest.raises(NotImplementedError,
+                           match=f"slice .*queue item {item}"):
             pt.TrainStep(tm, opt, lambda a, b: tm.loss(a, b), device="cpu",
                          **kw)
 
