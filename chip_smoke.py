@@ -62,7 +62,13 @@ trajectories at gpt3-1.3b widths cut to 2 layers, for BERT MLM and ViT at
 bert-base and vit-l16 widths cut to 2 layers, and for Swin at swin-t's
 width cut to depths 2/2/2/2, and for GPT under the opt-ins
 PADDLE_TPU_FUSED_LN=1 and PADDLE_TPU_FLASH_PACKED=1 (#8, #7), also with
-save_qkv recompute and int8 moments; then bench_gpt's configuration at
+save_qkv recompute and int8 moments; dist_one_card runs the multi-GPU
+slice's paths one card can run: #11's vocab-parallel route at gpt3-1.3b's
+head over 2 and 4 in-process vocabulary shards in bf16 and f32 against
+whole-vocabulary #11 and the plain version (a control that drops a shard
+must fail), and TrainStep on a world-size-1 NCCL mesh {"dp": 1, "mp": 1}
+at gpt3-1.3b widths cut to 2 layers, bitwise equal to the same steps
+without a mesh; then bench_gpt's configuration at
 full width (gpt3-1.3b, bf16, B=3, S=2048, AdamW with bf16 moments), the
 same under both opt-ins, the same again with every telemetry option of
 TrainStep against none (observability_train_gpt3_1.3b: a Profiler
@@ -118,6 +124,24 @@ it exits 2 and prints no result.
 
 runs resnet_parity alone N times, each run's record followed by a line
 that lists its reruns and failures, and exits 1 if any run failed.
+
+    python3 chip_smoke.py --multi-gpu
+
+is the multi-GPU run (with fewer than 4 CUDA devices it exits 2 and
+prints no result). It builds the kernels, then starts 4 ranks with
+`distributed.spawn`, one a card, NCCL. Each rank holds TrainStep(mesh=...)
+at dp2 x mp2 and at dp1 x mp4 against the single-card step from the same
+weights (gpt3-1.3b widths cut to 2 layers, f32, 3 AdamW steps, the clip
+active, a loss mask uneven across the dp halves): losses within 1e-5
+relative, every gathered parameter within 1e-4 of its tensor's max,
+replicated parameters bitwise equal across mp ranks, #6 and #11 (through
+its vocab-parallel route) launched on every rank. Then it trains
+gpt3-6.7b at dp2 x mp2 (bf16, global B = 8, S = 2048, AdamW with bf16
+moments; bench_gpt_dp's DP+TP cell): tokens/s in all and a card, ms a
+step, MFU over 989 TFLOP/s a card, peak memory a card, and from one
+profiled step on rank 0 the NCCL kernels' device time and share and the
+device's idle share. No rank imports JAX. Its last line is the default
+run's with the count of devices it used.
 """
 from __future__ import annotations
 
@@ -304,14 +328,21 @@ class SmokeFailure(Exception):
 
 
 T_START = time.perf_counter()
+LOG = REPO / "chiprun_out" / "chip_smoke.jsonl"
 
 
 def emit(obj):
     """One JSON line; a phase's line also carries the seconds since the
-    script started (`at_s`)."""
+    script started (`at_s`). Each line is also appended to
+    chiprun_out/chip_smoke.jsonl in the checkout (a long run's output
+    outgrows what a terminal or a chip call's tail keeps)."""
     if "phase" in obj:
         obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with open(LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def check(cond, what):
@@ -5661,6 +5692,498 @@ def phase_train_ernie(torch, card, device):
     return counts
 
 
+# ------------------------------------------- multi-GPU training (slice 17)
+# dist_one_card (a): #11's vocab-parallel route at gpt3-1.3b's head, the
+# vocabulary split into 2 and 4 in-process shards
+DIST_CE = {"T": 6144, "H": 2048, "V": 50304, "shards": (2, 4)}
+# dist_one_card (b): a world of one rank, gpt3-1.3b widths cut to 2 layers
+DIST_STEP = {"preset": "gpt3-1.3b", "layers": 2, "B": 3, "S": 2048,
+             "steps": 3}
+# --multi-gpu: parity at gpt3-1.3b widths cut to 2 layers, f32, on each
+# mesh against the single-card step, and bench_gpt_dp's DP+TP cell at
+# gpt3-6.7b's full width on dp2 x mp2
+MG_WORLD = 4
+MG_PARITY = {"preset": "gpt3-1.3b", "layers": 2, "B": 4, "S": 512,
+             "steps": 3, "clip": 0.05, "meshes": ({"dp": 2, "mp": 2},
+                                                  {"dp": 1, "mp": 4})}
+MG_FULL = {"preset": "gpt3-6.7b", "mesh": {"dp": 2, "mp": 2}, "B": 8,
+           "S": 2048, "N": 5, "recompute": False}
+MG_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "linear_ce_fwd")
+
+
+def foreign_modules():
+    """The JAX or JAX-package modules this process imported."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "paddle_tpu"))
+
+
+def phase_dist_one_card(torch, device, card):
+    """The multi-GPU slice's paths that one card exercises. (a) #11's
+    vocab-parallel route at gpt3-1.3b's head (T = 3 x 2048, H 2048, V
+    50304) over 2 and 4 in-process shards (`linear_cross_entropy_shards`:
+    the kernel on each shard, labels shifted by its offset, then
+    `vocab_parallel_merge`), in bf16 and f32, held against whole-vocabulary
+    #11 and the plain version within #11's loss limit (CE_TOL); the
+    control merges all but the last shard and must fail that limit. (b)
+    `init_parallel_env` over NCCL at world size 1 (a file store in a
+    temporary directory) and `TrainStep(mesh=build_mesh({"dp": 1, "mp":
+    1}))` at gpt3-1.3b widths cut to 2 layers, bf16, 3 AdamW steps with
+    the clip: losses, parameters and launch counts bitwise equal to the
+    same steps without a mesh; the process group is destroyed after."""
+    import os
+    import tempfile
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import (AdamW, ClipGradByGlobalNorm,
+                                  GPTForCausalLM, TrainStep, gpt_config)
+    from paddle_tpu_torch.distributed import mpu
+    from paddle_tpu_torch.ops import linear_ce as LC
+    from paddle_tpu_torch.ops.cuda import build as KB
+    from paddle_tpu_torch.ops.cuda import linear_ce as KL
+    t0 = time.perf_counter()
+    run = timer(torch, device)
+    t, h, v = DIST_CE["T"], DIST_CE["H"], DIST_CE["V"]
+    rows, route_launches = [], 0
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        x, w, labels, _ = ce_inputs(torch, device, t, h, v, "vh", dtype)
+        whole, whole_lse = KL.linear_ce_fwd_cuda(x, w, labels)
+        plain = LC.linear_cross_entropy_reference(x, w, labels)
+        ltol = CE_TOL[dt][0]
+        for n in DIST_CE["shards"]:
+            vs = v // n
+            shards = [mpu.shard_of(w, 0, 1, r, n) for r in range(n)]
+            before = LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"]
+            loss, lse = LC.linear_cross_entropy_shards(x, shards, labels)
+            route_launches += LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"] \
+                - before
+            per = [KL.linear_ce_fwd_cuda(x, s, labels - r * vs)
+                   for r, s in enumerate(shards)]
+            ctl, _ = LC.vocab_parallel_merge(
+                torch.stack([p[1] for p in per[:-1]]),
+                torch.stack([p[0] for p in per[:-1]]))
+            torch.cuda.synchronize()
+            row = {"dtype": dt, "shards": n, "tol_loss_abs": ltol,
+                   "labels_in_every_shard":
+                       set((labels // vs).tolist()) == set(range(n)),
+                   "err_vs_plain": float((loss - plain).abs().max()),
+                   "err_vs_whole_kernel": float((loss - whole).abs().max()),
+                   "lse_err_vs_whole_kernel":
+                       float((lse - whole_lse).abs().max()),
+                   "control": "the merge without the last shard",
+                   "control_err_vs_plain": float((ctl - plain).abs().max())}
+            row["control_rejected"] = row["control_err_vs_plain"] > ltol
+            if dt == "bfloat16":
+                row["route_ms"] = run(lambda: LC.linear_cross_entropy_shards(
+                    x, shards, labels))
+                row["whole_kernel_ms"] = run(
+                    lambda: KL.linear_ce_fwd_cuda(x, w, labels))
+            check(row["labels_in_every_shard"]
+                  and row["err_vs_plain"] <= ltol
+                  and row["err_vs_whole_kernel"] <= ltol
+                  and row["control_rejected"],
+                  f"dist_one_card: the vocab-parallel merge: {row}")
+            rows.append(row)
+            del shards, per, ctl
+        del x, w, labels, whole, whole_lse, plain
+        torch.cuda.empty_cache()
+    # (b) the degenerate mesh
+    cfg = gpt_config(DIST_STEP["preset"], num_layers=DIST_STEP["layers"])
+    B_, S_, n = DIST_STEP["B"], DIST_STEP["S"], DIST_STEP["steps"]
+    ids = torch.from_numpy(np.random.RandomState(70).randint(
+        0, cfg.vocab_size, (n, B_, S_)).astype(np.int64)).to(device)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_set(RANK="0", WORLD_SIZE="1",
+                    LOCAL_RANK=str(device.index or 0)):
+        env = D.init_parallel_env(
+            init_method="file://" + os.path.join(tmp, "store"))
+        try:
+            backend, on = D.get_group().backend, str(env.device)
+            mesh = D.build_mesh({"dp": 1, "mp": 1})
+            for meshed in (False, True):
+                D.set_mesh(mesh if meshed else None)
+                model = GPTForCausalLM(cfg, device=device,
+                                       dtype=torch.bfloat16, seed=0)
+                model.train()
+                opt = AdamW(1e-4, parameters=model.named_parameters(),
+                            moment_dtype="bfloat16",
+                            grad_clip=ClipGradByGlobalNorm(1.0),
+                            device=device)
+                step = TrainStep(model, opt, lambda a, b: model.loss(a, b),
+                                 mesh=mesh if meshed else None,
+                                 device=device)
+                KB.reset_launch_counts()
+                losses = torch.stack([step(ids[i], ids[i])
+                                      for i in range(n)])
+                torch.cuda.synchronize()
+                runs[meshed] = (losses, {k: p.detach().clone() for k, p in
+                                         model.named_parameters()},
+                                dict(KB.LAUNCHES))
+                D.set_mesh(None)
+                del step, opt, model
+        finally:
+            D.destroy_parallel_env()
+    (l0, p0, c0), (l1, p1, c1) = runs[False], runs[True]
+    step_rec = {"config": {**DIST_STEP, "dtype": "bfloat16",
+                           "optimizer": "AdamW(1e-4, bf16 moments), "
+                                        "ClipGradByGlobalNorm(1.0)"},
+                "backend": backend, "world_size": 1,
+                "device": on,
+                "losses_no_mesh": l0.tolist(), "losses_mesh": l1.tolist(),
+                "losses_bitwise": torch.equal(l0, l1),
+                "params_bitwise": all(torch.equal(p0[k], p1[k]) for k in p0),
+                "launches_equal": c0 == c1,
+                "launches": {k: c1[k] for k in MG_KERNELS},
+                "group_destroyed": not D.is_initialized()}
+    out = {"phase": "dist_one_card", "ok": True, "card": card,
+           "vocab_parallel_merge": rows,
+           # the route's #11 launches in the checks above (not the timing)
+           "vocab_parallel_route_launches": route_launches,
+           "degenerate_mesh": step_rec,
+           "seconds": time.perf_counter() - t0}
+    check(backend == "nccl" and step_rec["losses_bitwise"]
+          and step_rec["params_bitwise"] and step_rec["launches_equal"]
+          and all(c1[k] > 0 for k in MG_KERNELS)
+          and step_rec["group_destroyed"],
+          f"dist_one_card: the world-size-1 mesh step: {step_rec}")
+    emit(out)
+    del runs, p0, p1
+    torch.cuda.empty_cache()
+    return route_launches
+
+
+def profile_dist_step(torch, fn, names=()):
+    """`profile_call` for a step with collectives: one call of fn under
+    torch.profiler, read by the port's trace analysis. NCCL kernels run on
+    their own streams and may overlap compute, so the device's busy time
+    is the union of every lane's intervals, the NCCL time is the trace
+    analysis' collective ledger (`collective_rows`, `overlap`), and the
+    2% cross-check against key_averages() covers the other kernels; both
+    readers' NCCL sums are reported. The record is printed before the
+    check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    an = capture_analysis(prof)
+    is_nccl = lambda n: "nccl" in n.lower()      # noqa: E731
+    trace_nccl = sum(e["dur"] for e in an.device_events if is_nccl(e["name"]))
+    trace_other = an.total_device_us() - trace_nccl
+    ka_nccl = ka_other = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+        if is_nccl(e.key):
+            ka_nccl += us
+        else:
+            ka_other += us
+    ov = an.overlap()
+    union = ov["collective_us"] + ov["compute_busy_us"] - ov["overlapped_us"]
+    rows = an.op_totals()
+    out = {"wall_s": wall, "device_busy_union_s": union / 1e6,
+           "device_idle_share": 1 - union / 1e6 / wall,
+           "nccl_union_ms": ov["collective_us"] / 1e3,
+           "nccl_share_of_busy": ov["collective_us"] / union if union
+           else None,
+           "nccl_overlapped_ms": ov["overlapped_us"] / 1e3,
+           "compute_busy_union_ms": ov["compute_busy_us"] / 1e3,
+           "nccl_sum_ms": {"trace_analysis": trace_nccl / 1e3,
+                           "key_averages": ka_nccl / 1e3},
+           "other_kernels_sum_ms": {"trace_analysis": trace_other / 1e3,
+                                    "key_averages": ka_other / 1e3},
+           "collectives": [{k: r[k] for k in ("name", "calls", "dur_us",
+                                              "busy_us", "exposed_us")}
+                           for r in an.collective_rows()[:6]],
+           "top_device_ops": [{"op": r["name"],
+                               "device_ms": r["dur_us"] / 1e3,
+                               "count": r["calls"]} for r in rows[:8]],
+           "named_device_ops": [{"op": r["name"],
+                                 "device_ms": r["dur_us"] / 1e3,
+                                 "count": r["calls"]} for r in rows
+                                if any(n in r["name"] for n in names)]}
+    emit({"phase": "multi_gpu_profile_rank0", "profile": out})
+    check(abs(trace_other - ka_other) <= SUMMER_TOL * max(ka_other, 1e-9),
+          f"trace analysis reads {trace_other} device us of non-NCCL "
+          f"kernels, key_averages() {ka_other}")
+    return out
+
+
+def mg_gpt(torch, device, cfg, dtype, seed, mesh, **opt_kw):
+    """A GPT (a TP shard under `mesh`), its AdamW and its TrainStep whose
+    loss takes an optional loss mask."""
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    import paddle_tpu_torch.distributed as D
+    D.set_mesh(mesh)
+    model = GPTForCausalLM(cfg, device=device, dtype=dtype, seed=seed)
+    model.train()
+    opt = AdamW(parameters=model.named_parameters(), device=device,
+                **opt_kw)
+    step = TrainStep(model, opt, lambda *b: model.loss(*b[:2], loss_mask=(
+        b[2] if len(b) > 2 else None)), mesh=mesh, device=device)
+    return model, step
+
+
+def mg_parity(torch, device, axes):
+    """One rank's parity leg on mesh `axes`: the single-card step (every
+    rank runs it from the same seed), then the mesh step from the same
+    weights (the sharded init is the single-card one, cut), MG_PARITY's
+    steps on a global batch whose loss mask is uneven across the dp
+    halves; returns this rank's record."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import ClipGradByGlobalNorm, gather_state, \
+        gpt_config
+    from paddle_tpu_torch.ops import linear_ce as LC
+    from paddle_tpu_torch.ops.cuda import build as KB
+    p = MG_PARITY
+    cfg = gpt_config(p["preset"], num_layers=p["layers"])
+    rs = np.random.RandomState(60)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+        p["steps"], p["B"], p["S"])).astype(np.int64)).to(device)
+    mask = torch.ones(p["B"], p["S"], device=device)
+    mask[p["B"] // 2:, p["S"] // 8:] = 0.0
+    # epsilon 1e-6: the k projection's bias has a zero gradient in exact
+    # arithmetic, and at 1e-8 AdamW would turn its roundoff into steps of
+    # lr (as in the repo's CPU parity tests of steps)
+    opt_kw = dict(learning_rate=1e-4, weight_decay=0.01, epsilon=1e-6,
+                  grad_clip=ClipGradByGlobalNorm(p["clip"]))
+    ref, step = mg_gpt(torch, device, cfg, torch.float32, 1, None, **opt_kw)
+    ref.zero_grad(set_to_none=True)
+    ref.loss(ids[0], ids[0], loss_mask=mask).backward()
+    norm = float(torch.sqrt(sum(q.grad.double().square().sum()
+                                for q in ref.parameters())))
+    ref.zero_grad(set_to_none=True)
+    want = [float(step(ids[i], ids[i], mask)) for i in range(p["steps"])]
+    want_p = {k: q.detach().clone() for k, q in ref.named_parameters()}
+    del ref, step
+    torch.cuda.empty_cache()
+    mesh = D.build_mesh(axes)
+    model, step = mg_gpt(torch, device, cfg, torch.float32, 1, mesh,
+                         **opt_kw)
+    KB.reset_launch_counts()
+    LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"] = 0
+    got = [float(step(ids[i], ids[i], mask)) for i in range(p["steps"])]
+    torch.cuda.synchronize()
+    counts = {k: KB.LAUNCHES[k] for k in MG_KERNELS}
+    vp = LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"]
+    full = gather_state({k: q.detach() for k, q in
+                         model.named_parameters()}, mesh)
+    errs = {k: rel_err(full[k], want_p[k]) for k in want_p}
+    worst = max(errs, key=errs.get)
+    g = mesh.group("mp")
+    replicated = [k for k, q in model.named_parameters()
+                  if getattr(q, "mp_split", None) is None]
+    rep_bitwise = all(
+        all(torch.equal(parts[0], parts[i]) for i in range(1, len(parts)))
+        for parts in (D.all_gather(dict(model.named_parameters())[k]
+                                   .detach(), group=g)
+                      for k in replicated))
+    D.set_mesh(None)
+    rec = {"mesh": axes, "rank": mesh.rank, "coords": mesh.coords,
+           "losses": got, "single_card_losses": want,
+           "loss_max_rel_err": max(abs(a - b) / abs(b)
+                                   for a, b in zip(got, want)),
+           "param_worst": worst, "param_worst_rel_to_max": errs[worst],
+           "replicated_params": len(replicated),
+           "replicated_bitwise_across_mp": rep_bitwise,
+           "first_grad_norm": norm, "clip": p["clip"],
+           "launches": counts, "vocab_parallel_launches": vp}
+    check(rec["loss_max_rel_err"] <= 1e-5 and errs[worst] <= 1e-4
+          and rep_bitwise and norm > p["clip"]
+          and all(c > 0 for c in counts.values()) and vp > 0,
+          f"multi-GPU parity on {axes}, rank {mesh.rank}: {rec}")
+    del model, step, full, want_p
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mg_full(torch, device):
+    """One rank's share of bench_gpt_dp's DP+TP cell at full width
+    (MG_FULL): gpt3-6.7b, dp2 x mp2, bf16, AdamW(1e-4, bf16 moments), the
+    global batch of B rows (each dp rank its B / 2), 2 warm steps, the
+    best of 2 windows of N, then one step profiled on rank 0."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gpt_config
+    from paddle_tpu_torch.ops import linear_ce as LC
+    from paddle_tpu_torch.ops.cuda import build as KB
+    f = MG_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = gpt_config(f["preset"], max_position_embeddings=S_,
+                     use_recompute=f["recompute"])
+    mesh = D.build_mesh(f["mesh"])
+    t_init = time.perf_counter()
+    model, step = mg_gpt(torch, device, cfg, torch.bfloat16, 0, mesh,
+                         learning_rate=1e-4, moment_dtype="bfloat16")
+    t_init = time.perf_counter() - t_init
+    mp = mesh.axis_size("mp")
+    n_params = sum(q.numel() * (mp if getattr(q, "mp_split", None)
+                                else 1) for q in model.parameters())
+    local_params = sum(q.numel() for q in model.parameters())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (N + 2, B_, S_)).astype(np.int64)).to(device)
+    warm = [float(step(ids[i], ids[i])) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KB.reset_launch_counts()
+    LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"] = 0
+    windows, losses = [], []
+    for _ in range(2):
+        D.barrier()
+        t0 = time.perf_counter()
+        ls = [step(ids[2 + i], ids[2 + i]) for i in range(N)]
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        losses = [float(x) for x in ls]
+    counts = {k: KB.LAUNCHES[k] for k in MG_KERNELS}
+    vp = LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    D.barrier()
+    if mesh.rank == 0:
+        prof = profile_dist_step(torch, lambda: step(ids[2], ids[2]),
+                                 names=("fwd_wg", "dq_wg", "dkv_wg",
+                                        "lce_wg"))
+    else:
+        step(ids[2], ids[2])
+        torch.cuda.synchronize()
+        prof = None
+    best = min(windows)
+    L = cfg.num_layers
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "linear_ce_fwd": 1}
+    per_step = {k: counts[k] / (2 * N) for k in want}
+    rec = {"rank": mesh.rank, "coords": mesh.coords, "init_s": t_init,
+           "params": n_params, "params_this_card": local_params,
+           "warm_losses": warm, "last_window_losses": losses,
+           "window_s": windows, "best_window_s": best,
+           "peak_mem_bytes": peak, "launches_per_step": per_step,
+           "vocab_parallel_launches": vp, "profile_step": prof}
+    if prof is not None:
+        rec.update(nccl_device_ms=prof["nccl_union_ms"],
+                   nccl_share_of_busy=prof["nccl_share_of_busy"],
+                   nccl_share_of_wall=prof["nccl_union_ms"]
+                   / (prof["wall_s"] * 1e3),
+                   device_idle_share=prof["device_idle_share"])
+    check(all(math.isfinite(x) for x in warm + losses)
+          and abs(warm[0] - math.log(cfg.vocab_size)) < 1.0
+          and per_step == want and vp == 2 * N,
+          f"gpt3-6.7b dp2 x mp2, rank {mesh.rank}: {rec}")
+    D.set_mesh(None)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def multi_gpu_rank(work_dir):
+    """One rank of `--multi-gpu` (started by distributed.spawn with the
+    rank environment set): NCCL on cuda:LOCAL_RANK, the parity legs, the
+    full-width run; its record goes to work_dir/rank{r}.json."""
+    import torch
+    import paddle_tpu_torch.distributed as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = D.init_parallel_env()
+    device = env.device
+    rec = {"rank": env.rank, "device": str(device),
+           "backend": D.get_group().backend}
+    path = Path(work_dir, f"rank{env.rank}.json")
+    rec["parity"] = []
+    for axes in MG_PARITY["meshes"]:
+        rec["parity"].append(mg_parity(torch, device, axes))
+        path.write_text(json.dumps(rec))       # what a failure leaves
+    rec["full"] = mg_full(torch, device)
+    rec["foreign_modules"] = foreign_modules()
+    check(rec["backend"] == "nccl" and not rec["foreign_modules"],
+          f"rank {env.rank}: {rec['backend']}, {rec['foreign_modules']}")
+    D.barrier()
+    rec["complete"] = True
+    path.write_text(json.dumps(rec))
+    D.destroy_parallel_env()
+
+
+def multi_gpu(torch, card) -> int:
+    """`--multi-gpu`: MG_WORLD ranks on MG_WORLD cards (exits 2 with fewer
+    cards): the kernels built once here, then the ranks spawned; their
+    records become the phase lines."""
+    import tempfile
+    import paddle_tpu_torch.distributed as D
+    n = torch.cuda.device_count()
+    if n < MG_WORLD:
+        print(f"chip_smoke.py --multi-gpu: {n} CUDA devices, needs "
+              f"{MG_WORLD}", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    phase_build(torch, card)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            D.spawn(multi_gpu_rank, args=(work,), nprocs=MG_WORLD,
+                    timeout=1000)
+        except BaseException:
+            # what the ranks finished, then the failure
+            emit({"phase": "multi_gpu_partial", "ok": False, "ranks": [
+                json.loads(Path(work, f"rank{r}.json").read_text())
+                if Path(work, f"rank{r}.json").exists() else None
+                for r in range(MG_WORLD)]})
+            raise
+        recs = [json.loads(Path(work, f"rank{r}.json").read_text())
+                for r in range(MG_WORLD)]
+    for i, axes in enumerate(MG_PARITY["meshes"]):
+        legs = [r["parity"][i] for r in recs]
+        emit({"phase": "multi_gpu_parity", "ok": True, "card": card,
+              "mesh": axes, "config": {**MG_PARITY, "meshes": None,
+                                       "dtype": "float32",
+                                       "optimizer": "AdamW(1e-4, wd 0.01, eps 1e-6)"},
+              "limits": {"loss_rel": 1e-5, "param_rel_to_max": 1e-4,
+                         "replicated": "bitwise across mp"},
+              "ranks": legs})
+    full = [r["full"] for r in recs]
+    r0 = full[0]
+    best = max(r["best_window_s"] for r in full)
+    B_, S_, N = MG_FULL["B"], MG_FULL["S"], MG_FULL["N"]
+    cfg_p = r0["params"]
+    from paddle_tpu_torch import gpt_config
+    cfg = gpt_config(MG_FULL["preset"], max_position_embeddings=S_)
+    per_token = 6 * cfg_p + 12 * cfg.num_layers * cfg.hidden_size * S_
+    tok_s = B_ * S_ * N / best
+    emit({"phase": "train_gpt3_6.7b_dp2_mp2", "ok": True, "cards": cards,
+          "model": cfg_line(cfg, "bfloat16"),
+          "config": {**MG_FULL, "dtype": "bfloat16",
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "loss": "model.loss (vocab-parallel #11)",
+                     "ids": "np.random.RandomState(0), labels = ids",
+                     "timing": "2 warm steps, best of 2 windows of 5, "
+                               "the slowest rank's"},
+          "params": cfg_p, "ms_per_step": best / N * 1e3,
+          "tokens_per_s": tok_s, "tokens_per_s_per_card": tok_s / MG_WORLD,
+          "mfu": per_token * tok_s / (MG_WORLD * TENSOR_FLOPS_PER_S),
+          "mfu_peak": "989 TFLOP/s dense bf16 a card (H100 SXM data sheet)",
+          "peak_mem_bytes_per_card": [r["peak_mem_bytes"] for r in full],
+          "nccl_device_ms_rank0": r0.get("nccl_device_ms"),
+          "nccl_share_of_busy_rank0": r0.get("nccl_share_of_busy"),
+          "nccl_share_of_wall_rank0": r0.get("nccl_share_of_wall"),
+          "device_idle_share_rank0": r0.get("device_idle_share"),
+          "ranks": full})
+    check(not foreign_modules(), "JAX or the JAX package was imported")
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": MG_WORLD}})
+    return 0
+
+
 def parity_repeats(torch, device, card, n) -> int:
     """resnet_parity alone, n times: after each run's record, one line
     with the cases that ran again and the gates that failed."""
@@ -5685,7 +6208,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-repeats", type=int, default=0, metavar="N",
                     help="run resnet_parity alone N times")
-    repeats = ap.parse_args(argv).parity_repeats
+    ap.add_argument("--multi-gpu", action="store_true",
+                    help=f"the multi-GPU run on {MG_WORLD} cards")
+    args = ap.parse_args(argv)
+    repeats = args.parity_repeats
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: paddle_tpu_torch/ not found beside this "
               "script; run it from a checkout", file=sys.stderr)
@@ -5703,6 +6229,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if repeats:
         return parity_repeats(torch, device, card, repeats)
+    if args.multi_gpu:
+        return multi_gpu(torch, card)
 
     phase_build(torch, card)
     kern = phase_kernels(torch, device, card)
@@ -5721,6 +6249,7 @@ def main(argv=None) -> int:
     phase_engine_parity(torch, device, card)
     phase_engine_parity(torch, device, card, preset="gpt3-2.7b")
     phase_train_parity(torch, device, card)
+    vocab_parallel = phase_dist_one_card(torch, device, card)
     phase_train_parity_fused(torch, device, card)
     phase_encoder_parity(torch, device, card)
     phase_swin_parity(torch, device, card)
@@ -5774,13 +6303,16 @@ def main(argv=None) -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+        if name == "linear_ce_fwd":
+            # the vocab-parallel route's launches of #11 (dist_one_card)
+            rows[-1]["vocab_parallel_launches"] = vocab_parallel
     check(not any(m == "jax" or m.startswith(("jax.", "paddle_tpu."))
                   or m == "paddle_tpu" for m in sys.modules),
           "JAX or the JAX package was imported")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(card_line(), flush=True)
-    # the smoke runs on exactly one device, cuda:0
+    # the default run uses one device, cuda:0 (--multi-gpu uses four)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": 1}})

@@ -24,6 +24,10 @@ numerics sentinels, anomaly detectors and replayable dumps),
 `torch.profiler`, trace analysis, the goodput timeline).
 `incubate` holds the fused transformer layers
 (`incubate.nn`) and the MoE layer (`incubate.distributed.models.moe`).
+`distributed` runs GPT training across GPUs, one process per card:
+`init_parallel_env` (NCCL), the mesh and the collectives, `fleet.init`
+with `DistributedStrategy(hybrid_configs=...)`, the tensor-parallel `mpu`
+layers, `spawn`, and `TrainStep(mesh=...)` over ``dp`` x ``mp``.
 
 The JAX package `paddle_tpu` is the reference; this package imports
 neither it nor JAX. Entry points run on CUDA unless the caller passes
@@ -49,11 +53,13 @@ from .inference.serving import (Request, RequestTrace, ServingConfig,
                                 model_draft_fn, repeated_traffic,
                                 shared_prefix_traffic, synthetic_traffic)
 from .amp import GradScaler
-from .convert import (model_state_from_paddle, state_dict_from_paddle,
+from .convert import (gather_state, model_state_from_paddle,
+                      shard_state_from_paddle, state_dict_from_paddle,
                       train_state_from_paddle)
 from .core import get_flags, set_flags
 from .jit import TrainStep
-from . import amp, debugging, nn, obs, optimizer, profiler
+from . import amp, debugging, distributed, nn, obs, optimizer, profiler
+from .distributed import fleet
 from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
                         DGCMomentum, Lamb, LarsMomentum, Momentum, RMSProp)
@@ -85,4 +91,5 @@ __all__ = ["resolve_device", "GPTConfig", "GPTForCausalLM", "PRESETS",
            "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
            "wide_resnet50_2", "wide_resnet101_2", "ErnieConfig",
            "ErnieModel", "ErnieForSequenceClassification",
-           "ErnieForMaskedLM", "ernie_config", "incubate"]
+           "ErnieForMaskedLM", "ernie_config", "incubate", "distributed",
+           "fleet", "shard_state_from_paddle", "gather_state"]

@@ -19,6 +19,17 @@ layout carry over as they are too: an MoE block's ``gate_weight``, ``w1``,
 ``weight``, which is marked ``keeps_paddle_layout``. `model_state_from_paddle`
 maps onto any port model's own state dict; `state_dict_from_paddle` maps
 GPT (dense or MoE) from its config alone.
+
+Tensor parallelism: `shard_state_from_paddle` gives one ``mp`` rank's
+shard of a GPT state (the port model built under that mesh loads it), and
+`gather_state` joins the ranks' shards back into the full state. The
+split (`tp_split`) is the mpu layers': qkv's 3H rows are ``[3, nh, hd]``,
+so rank r takes heads [r nh / mp, (r + 1) nh / mp) of q, of k and of v
+(and the same rows of the bias), not a contiguous third of 3H, which is
+how the JAX PartitionSpec tiles the global array (XLA reshards there, and
+the port has no partitioner to do so); mlp.up's rows and bias and the
+vocabulary rows of wte and an untied head are cut contiguously, attn.out's
+and mlp.down's columns too; everything else is replicated.
 """
 from __future__ import annotations
 
@@ -75,6 +86,68 @@ def _map(np_state: Dict[str, np.ndarray],
     return out
 
 
+# name suffix -> (dim, groups) of the tensor-parallel split, port layouts
+_TP_SPLIT = (("attn.qkv.weight", (0, 3)), ("attn.qkv.bias", (0, 3)),
+             ("attn.out.weight", (1, 1)), ("mlp.up.weight", (0, 1)),
+             ("mlp.up.bias", (0, 1)), ("mlp.down.weight", (1, 1)),
+             ("gpt.wte.weight", (0, 1)), ("lm_head.weight", (0, 1)))
+
+
+def tp_split(name: str):
+    """(dim, groups) of a GPT parameter's split over ``mp`` (see
+    `distributed.mpu.shard_of`), or None for a replicated one."""
+    for suffix, rule in _TP_SPLIT:
+        if name == suffix or name.endswith("." + suffix):
+            return rule
+    return None
+
+
+def _mp(mesh):
+    if mesh is None:
+        return 1, 0
+    return mesh.axis_size("mp"), mesh.axis_rank("mp")
+
+
+def _shard(name, t, n, r):
+    from .distributed.mpu import shard_of
+    rule = tp_split(name)
+    if n == 1 or rule is None:
+        return t
+    return shard_of(t, rule[0], rule[1], r, n)
+
+
+def shard_state_from_paddle(np_state: Dict[str, np.ndarray], cfg,
+                            mesh=None) -> Dict[str, torch.Tensor]:
+    """`state_dict_from_paddle`, then this rank's ``mp`` shard of every
+    split parameter (`tp_split`) of `mesh` (the active mesh when None):
+    the state the tensor-parallel model built under that mesh loads."""
+    from .distributed.mesh import get_mesh
+    n, r = _mp(mesh if mesh is not None else get_mesh())
+    return {k: _shard(k, v, n, r)
+            for k, v in state_dict_from_paddle(np_state, cfg).items()}
+
+
+def gather_state(state: Dict[str, torch.Tensor],
+                 mesh=None) -> Dict[str, torch.Tensor]:
+    """The full state from this rank's shards: every split parameter
+    (`tp_split`) all-gathered over the ``mp`` group of `mesh` (the active
+    one) and rejoined; replicated entries as they are. Every rank of the
+    group must call it; the tensors must lie on the group's device."""
+    from .distributed.collective import all_gather
+    from .distributed.mesh import axis_group
+    from .distributed.mpu import gather_shards
+    g = axis_group("mp", mesh)
+    out = {}
+    for k, v in state.items():
+        rule = tp_split(k)
+        if g is None or rule is None:
+            out[k] = v
+            continue
+        parts = all_gather(v.detach().contiguous(), group=g)
+        out[k] = gather_shards(list(parts.unbind(0)), rule[0], rule[1])
+    return out
+
+
 def _model_shapes(model: torch.nn.Module) -> Dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
@@ -106,8 +179,8 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def train_state_from_paddle(jax_state: Dict,
-                            model: torch.nn.Module) -> Dict:
+def train_state_from_paddle(jax_state: Dict, model: torch.nn.Module,
+                            mesh=None) -> Dict:
     """Map a JAX-package ``TrainStep.state_dict()`` (step, the trainable
     parameters, per-parameter optimizer state, optimizer scalars, scaler)
     onto the port's ``TrainStep.set_state_dict`` layout for the port
@@ -119,11 +192,23 @@ def train_state_from_paddle(jax_state: Dict,
     the JAX element order), so a port run resumes a JAX run on the same
     trajectory. Like the JAX state, this holds trainable parameters only:
     buffers (a ResNet's running statistics) travel in the model's own
-    state dict."""
+    state dict. For a tensor-parallel GPT (`mesh`, else the active mesh,
+    with ``mp`` > 1) the parameters and their parameter-shaped optimizer
+    state (AdamW's moments, ...) are this rank's shards (`tp_split`);
+    blockwise int8 moments are refused there."""
+    from .distributed.mesh import get_mesh
+    n_mp, r_mp = _mp(mesh if mesh is not None else get_mesh())
     keep = _paddle_layout(model)
-    params = _map(jax_state["params"],
-                  {n: tuple(p.shape) for n, p in model.named_parameters()
-                   if p.requires_grad}, keep)
+    full = {}
+    for n, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        shape = list(p.shape)
+        rule = getattr(p, "mp_split", None)
+        if rule is not None:
+            shape[rule[0]] *= n_mp
+        full[n] = tuple(shape)
+    params = _map(jax_state["params"], full, keep)
     out = {"step": int(jax_state.get("step", 0)), "params": params,
            "opt_extra": dict(jax_state.get("opt_extra", {}))}
     if "opt" in jax_state:
@@ -140,6 +225,10 @@ def train_state_from_paddle(jax_state: Dict,
                 if k in _PARAM_SHAPED_KEYS:
                     t = _to_torch(np.asarray(v).T if flip else v)
                     want = tuple(params[name].shape)
+                elif k in _Q8_KEYS and n_mp > 1:
+                    raise NotImplementedError(
+                        f"{name}.{k}: blockwise int8 moments do not shard "
+                        f"over mp")
                 elif k in _Q8_KEYS:
                     t = _to_torch(v)
                     want = _Q8_KEYS[k](nb)
@@ -150,9 +239,11 @@ def train_state_from_paddle(jax_state: Dict,
                     raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} "
                                      f"!= {want} for parameter "
                                      f"{tuple(params[name].shape)}")
-                entry[k] = t
+                entry[k] = _shard(name, t, n_mp, r_mp) \
+                    if k in _PARAM_SHAPED_KEYS else t
             opt[name] = entry
         out["opt"] = opt
+    out["params"] = {k: _shard(k, v, n_mp, r_mp) for k, v in params.items()}
     if "scaler" in jax_state:
         out["scaler"] = dict(jax_state["scaler"])
     return out

@@ -239,7 +239,8 @@ class MoELayer(nn.Module):
         if moe_group is not None:
             raise NotImplementedError(
                 "MoELayer(moe_group=...): expert parallelism across devices "
-                "is not ported; the layer runs all experts on one device")
+                "comes with a later multi-GPU slice (ROADMAP.md, queue item "
+                "A4); the layer runs all experts on one device")
         if isinstance(gate, BaseGate):
             if top_k is None:
                 top_k = gate.top_k

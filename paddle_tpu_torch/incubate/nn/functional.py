@@ -14,14 +14,19 @@ fused kernel route (`ops.linear_ce.linear_cross_entropy`: kernel #11 on
 CUDA, its plain version on the CPU). Otherwise the sequence is cut into
 chunks whose f32 logits are recomputed in the backward
 (`torch.utils.checkpoint` per chunk, in place of `jax.checkpoint`), so one
-chunk of logits is live at a time.
+chunk of logits is live at a time. With an ``mp_group`` of more than one
+rank, `weight` is this rank's contiguous vocabulary shard and the loss runs
+the vocab-parallel route (`ops.linear_ce.vocab_parallel_linear_cross_entropy`:
+the same forward per shard, kernel #11 on CUDA, merged over the group) at
+any shape.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.linear_ce import linear_cross_entropy, use_linear_ce
+from ...ops.linear_ce import (linear_cross_entropy, use_linear_ce,
+                              vocab_parallel_linear_cross_entropy)
 
 
 def _ln(x, scale, bias, eps):
@@ -86,10 +91,17 @@ def _chunk_loss(xc, weight, lc):
 
 
 def fused_linear_cross_entropy_array(x, weight, labels, *, chunk_size=128,
-                                     transpose_weight=False):
-    """x [B, S, H]; weight [V, H] ([H, V] with transpose_weight); labels
-    [B, S] integer. Returns the per-token loss [B, S] float32."""
+                                     transpose_weight=False, mp_group=None):
+    """x [B, S, H]; weight [V, H] ([H, V] with transpose_weight), or this
+    rank's vocabulary shard of it under an `mp_group` of more than one
+    rank; labels [B, S] integer. Returns the per-token loss [B, S]
+    float32."""
     B, S, H = x.shape
+    if mp_group is not None and mp_group.nranks > 1:
+        per_tok = vocab_parallel_linear_cross_entropy(
+            x.reshape(B * S, H), weight, labels.reshape(B * S), mp_group,
+            w_layout="hv" if transpose_weight else "vh")
+        return per_tok.reshape(B, S)
     V = weight.shape[-1] if transpose_weight else weight.shape[0]
     if weight.dim() == 2 and use_linear_ce(B * S, H, V):
         per_tok = linear_cross_entropy(
@@ -108,8 +120,9 @@ def fused_linear_cross_entropy_array(x, weight, labels, *, chunk_size=128,
 
 
 def fused_linear_cross_entropy(x, weight, labels, chunk_size=128,
-                               transpose_weight=False, name=None):
+                               transpose_weight=False, name=None,
+                               mp_group=None):
     """Tensor-level entry point of fused_linear_cross_entropy_array."""
     return fused_linear_cross_entropy_array(
         x, weight, labels, chunk_size=chunk_size,
-        transpose_weight=transpose_weight)
+        transpose_weight=transpose_weight, mp_group=mp_group)

@@ -69,7 +69,7 @@ model every attention call of the paged serving path runs a hand-written
 paged-attention kernel, and under weight_dtype="int8" every projection and
 the LM head of either engine run the hand-written int8 GEMM.
 
-Not ported yet: shards > 1 (the multi-GPU slice), the graph lint and the
+Not ported yet: shards > 1 (a later multi-GPU slice), the graph lint and the
 engine's chaos injector (ROADMAP.md, queue A).
 """
 from __future__ import annotations
@@ -609,8 +609,8 @@ class ServingConfig:
             raise ValueError(f"weight_dtype must be None or 'int8' (weight-"
                              f"only int8 GEMMs); got {self.weight_dtype!r}")
         later = (
-            ("shards", (self.shards or 1) > 1, "the multi-GPU slice "
-             "(ROADMAP.md, queue A item 4)"),
+            ("shards", (self.shards or 1) > 1, "a later multi-GPU slice, "
+             "sharded serving (ROADMAP.md, queue A item 4)"),
             ("lint", self.lint is not None,
              "the graph lint, which reads XLA HLO (ROADMAP.md, queue A "
              "item 8)"))

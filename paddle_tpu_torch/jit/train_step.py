@@ -49,10 +49,33 @@ Telemetry, as in the JAX step:
     out-of-memory error leaves a post-mortem before it propagates.
 `state_dict()` / `set_state_dict()` carry the step, parameters, optimizer
 state, optimizer scalars and the scaler, in the JAX layout (`params` and
-`opt` keyed by parameter name). The JAX step's meshes and gradient-sync
-modes, graph lint, preemption and chaos hooks are later slices; asking
-for one raises. Options that only tune the JAX compilation (data axes,
-donation, the gradient-sync chunking) are not accepted at all.
+`opt` keyed by parameter name).
+
+With ``mesh`` (a `distributed.Mesh` with axes ``dp`` and/or ``mp``, the
+model built under it), each process is one rank of the run:
+  * every call takes the GLOBAL batch, as the JAX step does, and each
+    ``dp`` rank uses its rows (dim 0 cut into dp equal parts; with
+    accumulation, each microbatch of the global batch is cut);
+  * a `loss_mask` mean inside GPT's loss is the global masked mean: the
+    mask's count is all-reduced over ``dp`` (`distributed.mesh.
+    data_parallel_loss`), so the ranks' mean is neither a mean of
+    per-rank means nor different from the single-process loss; every
+    rank returns the global loss;
+  * after the backward and the accumulation the gradients are averaged
+    over ``dp`` in flattened buckets of at most `BUCKET_BYTES`;
+  * the gradient clip sums the squares of ``mp``-sharded gradients over
+    ``mp`` and counts replicated ones once; the GradScaler's found-inf
+    flag is max-reduced over all ranks, so every rank skips the same
+    steps;
+  * the telemetry options see this rank's own view: the numerics rows
+    and grad norm are of its shards, the monitor, timeline and memory
+    ledger time and count its own process; `state_dict()` holds its
+    shards (`convert.gather_state` joins them).
+A mesh whose axes have one rank each changes nothing: the step is
+bitwise the step without it. The JAX step's gradient-sync modes
+(`grad_comm`, queue item A4), graph lint, preemption and chaos hooks are
+later slices; asking for one raises. Options that only tune the JAX
+compilation (donation, the gradient-sync chunking) are not accepted.
 """
 from __future__ import annotations
 
@@ -65,17 +88,22 @@ import torch
 
 from ..amp.grad_scaler import GradScaler, found_inf
 from ..device import resolve_device
+from ..distributed.collective import ReduceOp, all_reduce, get_group
+from ..distributed.mesh import axis_group, data_parallel_loss
 from ..optimizer.lr import LRScheduler
 from ..profiler.timeline import current as _tl_current
 
 _logger = logging.getLogger("paddle_tpu_torch.jit.train_step")
 
 # option -> (what brings it, ROADMAP.md queue item)
-_LATER = {"mesh": ("the multi-GPU slice", "A4"),
-          "grad_comm": ("the multi-GPU slice", "A4"),
+_LATER = {"grad_comm": ("a later multi-GPU slice", "A4"),
           "preemption": ("the resilience slice", "A6"),
           "chaos": ("the resilience slice", "A6"),
           "lint": ("the tooling slice", "A8")}
+
+
+# the largest flattened bucket of gradients one dp all-reduce carries
+BUCKET_BYTES = 64 << 20
 
 
 def _dtype_name(dtype) -> str:
@@ -109,12 +137,12 @@ class TrainStep:
     card); the model must live on it."""
 
     def __init__(self, model, optimizer, loss_fn: Callable, mesh=None,
-                 grad_accum_steps: int = 1, monitor=None, numerics=None,
-                 scaler: GradScaler = None, lint=None, preemption=None,
-                 chaos=None, timeline=None, memz=None, grad_comm=None,
-                 device=None):
-        asked = dict(mesh=mesh, lint=lint, preemption=preemption,
-                     chaos=chaos, grad_comm=grad_comm)
+                 data_axes=("dp",), grad_accum_steps: int = 1, monitor=None,
+                 numerics=None, scaler: GradScaler = None, lint=None,
+                 preemption=None, chaos=None, timeline=None, memz=None,
+                 grad_comm=None, device=None):
+        asked = dict(lint=lint, preemption=preemption, chaos=chaos,
+                     grad_comm=grad_comm)
         for opt_name, value in asked.items():
             if value is not None and value is not False:
                 what, item = _LATER[opt_name]
@@ -143,6 +171,7 @@ class TrainStep:
                                      f"{p.device.type!r}")
                 self._param_names.append(name)
                 self._params.append(p)
+        self._set_mesh(mesh, data_axes)
         self._scaler = scaler if (scaler is not None
                                   and scaler.is_enable()) else None
         self._opt_state = None
@@ -161,6 +190,36 @@ class TrainStep:
         self._last_gen_state = None
         if numerics is not None:
             self.set_numerics(numerics)
+
+    def _set_mesh(self, mesh, data_axes):
+        """The mesh's groups: dp (batch rows, gradient average, the loss
+        count), mp (the clip) and the world (found-inf); None where an
+        axis has one rank."""
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self._dp = self._mp = self._world = None
+        self._sharded = [getattr(p, "mp_split", None) is not None
+                         for p in self._params]
+        if mesh is None:
+            if any(self._sharded):
+                raise ValueError("the model holds tensor-parallel shards; "
+                                 "pass its mesh: TrainStep(mesh=...)")
+            return
+        if self.data_axes != ("dp",):
+            raise ValueError(f"TrainStep(data_axes={data_axes!r}): the port "
+                             f"splits the batch over ('dp',) only")
+        extra = set(mesh.axis_names) - {"dp", "mp"}
+        if extra:
+            raise NotImplementedError(
+                f"TrainStep(mesh=...) with axes {sorted(extra)}: only dp and "
+                f"mp are ported; the others come with a later multi-GPU "
+                f"slice (ROADMAP.md, queue item A4)")
+        self._dp = axis_group("dp", mesh)
+        self._mp = axis_group("mp", mesh)
+        if mesh.size > 1:
+            self._world = get_group()
+            if self.device.type == "cuda" and self._world.backend != "nccl":
+                raise ValueError("a CUDA step needs an NCCL process group")
 
     def set_numerics(self, numerics):
         """(Re)configure the numerics mode after construction: installs the
@@ -209,19 +268,22 @@ class TrainStep:
                                      f"divisible by grad_accum_steps="
                                      f"{accum}")
             micro = list(zip(*(a.chunk(accum, dim=0) for a in batch)))
+        if self._dp is not None:
+            micro = [tuple(self._dp_rows(a) for a in mb) for mb in micro]
         loss_sum, acc, micro_rows = None, None, []
         for mb in micro:
             if numerics is not None:
                 from ..debugging.sentinel import collect_stats
                 # the scope closes before the backward: a recomputed
                 # region's second forward records no rows
-                with collect_stats() as col:
+                with collect_stats() as col, data_parallel_loss(self._dp):
                     loss = self.loss_fn(*mb).float()
                 micro_rows.append(col.stacked())
                 if col.paths and not self._act_paths:
                     self._act_paths.extend(col.paths)
             else:
-                loss = self.loss_fn(*mb).float()
+                with data_parallel_loss(self._dp):
+                    loss = self.loss_fn(*mb).float()
             scaled = loss * scale if scale is not None else loss
             grads = torch.autograd.grad(scaled, self._params,
                                         allow_unused=True)
@@ -229,6 +291,7 @@ class TrainStep:
                      for p, g in zip(self._params, grads)]
             loss = loss.detach()
             if accum == 1:
+                loss, grads = self._dp_reduce(loss, grads)
                 return loss, grads, micro_rows[0] if micro_rows else None
             loss_sum = loss / accum if loss_sum is None \
                 else loss_sum + loss / accum
@@ -239,7 +302,48 @@ class TrainStep:
         if micro_rows and all(r is not None for r in micro_rows):
             from ..debugging.sentinel import merge_stacked
             rows = merge_stacked(torch.stack(micro_rows))
+        loss_sum, acc = self._dp_reduce(loss_sum, acc)
         return loss_sum, acc, rows
+
+    def _dp_rows(self, a):
+        """This dp rank's rows of a batch leaf (dim 0 cut into dp equal
+        parts); scalars and non-tensors pass as they are."""
+        if not torch.is_tensor(a) or a.dim() == 0:
+            return a
+        n, r = self._dp.nranks, self._dp.rank
+        if a.shape[0] % n:
+            raise ValueError(f"batch size {a.shape[0]} does not split over "
+                             f"the {n} dp ranks")
+        k = a.shape[0] // n
+        return a[r * k:(r + 1) * k]
+
+    def _dp_reduce(self, loss, grads):
+        """The loss and the gradients averaged over dp, the gradients in
+        flattened buckets of one dtype and at most BUCKET_BYTES. The
+        entries of the list `grads` are released as their bucket forms,
+        so the gradients are held about once."""
+        g = self._dp
+        if g is None:
+            return loss, grads
+        n = g.nranks
+        loss = loss.clone()
+        all_reduce(loss, group=g)
+        out, i = [None] * len(grads), 0
+        while i < len(grads):
+            j, size = i, 0
+            while j < len(grads) and grads[j].dtype == grads[i].dtype and (
+                    j == i or size + grads[j].nbytes <= BUCKET_BYTES):
+                size += grads[j].nbytes
+                j += 1
+            shapes = [t.shape for t in grads[i:j]]
+            flat = torch.cat([t.reshape(-1) for t in grads[i:j]])
+            grads[i:j] = [None] * (j - i)
+            all_reduce(flat, group=g)
+            flat.div_(n)
+            out[i:j] = [part.view(sh) for part, sh in zip(
+                flat.split([sh.numel() for sh in shapes]), shapes)]
+            i = j
+        return loss / n, out
 
     def _step(self, batch, lr: float, step_i: int):
         """One step; returns (loss, aux), aux holding the numerics tensors
@@ -289,9 +393,15 @@ class TrainStep:
                     found = bool(found_t)      # the one read a step
             elif need_found:
                 found = found_inf(grads)
+            if found is not None and self._world is not None:
+                # every rank skips the same steps
+                flag = torch.tensor(float(found), device=grads[0].device)
+                all_reduce(flag, ReduceOp.MAX, group=self._world)
+                found = bool(flag)
             clip = self.optimizer._grad_clip
             if clip is not None:
-                grads = clip(grads)
+                grads = clip(grads) if self._mp is None else \
+                    clip(grads, sharded=self._sharded, group=self._mp)
             if not found:
                 opt = self.optimizer
                 for name, p, g, st in zip(self._param_names, self._params,

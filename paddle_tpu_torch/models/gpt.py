@@ -4,10 +4,20 @@ points).
 
 Module and parameter names mirror the JAX package (``gpt.wte.weight``,
 ``gpt.h.{i}.attn.qkv.weight``, ...), so `paddle_tpu_torch.convert` maps a
-JAX state dict across by name. The mpu layers of the JAX package become
-plain single-device modules: VocabParallelEmbedding -> nn.Embedding,
-Column/RowParallelLinear -> nn.Linear (weights stored ``[out, in]``, the
-transpose of the JAX ``[in, out]`` layout). The LM head is tied to wte.
+JAX state dict across by name. The projections, wte and an untied LM head
+are the port's mpu layers (`distributed.mpu`), which store Linear weights
+``[out, in]`` (the transpose of the JAX ``[in, out]`` layout). Without a
+mesh, or with one rank on its ``mp`` axis, they are exactly nn.Linear /
+nn.Embedding. Built under a mesh with ``mp`` > 1 (`distributed.set_mesh`,
+`fleet.init`), the model is this rank's tensor-parallel shard: qkv and
+mlp.up split their out features (qkv head by head within each of q, k and
+v), attn.out and mlp.down their in features, wte (and the LM head) its
+vocabulary rows; attention runs #6 over the rank's num_heads / mp heads
+and `loss` the vocab-parallel route of #11. Weights drawn from a seed are
+the single-device model's, cut into shards. Such a model trains (`loss`,
+the cache-free `forward`, whose logits are gathered); serving and
+weight-only int8 on it are a later slice and raise. The LM head is tied
+to wte.
 
 Training: the cache-free forward attends through
 `ops.attention.functional_attention` (flash attention, kernel #6 on CUDA)
@@ -71,6 +81,12 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              paged_prefix_attention_q8, quantize_kv,
                              static_cache_mask, static_cache_update,
                              static_cache_update_q8)
+from ..distributed.mesh import loss_group, mesh_axis_size
+from ..distributed.collective import all_reduce
+from ..distributed.mpu import (ColumnParallelLinear, RowParallelLinear,
+                               VocabParallelEmbedding, _c_concat,
+                               _c_identity, get_rng_state_tracker,
+                               replicated_seed, resolve_mp_group, shard_of)
 from ..distributed.recompute import (TAGS, checkpoint_segment,
                                      checkpoint_tag, recompute,
                                      resolve_policy)
@@ -90,6 +106,8 @@ class GPTConfig:
     `moe_top_k`, `moe_capacity_factor`), and `loss` adds `moe_aux_weight`
     times the blocks' summed load-balance loss. `sequence_parallel` is
     accepted only at its default: the port has no sequence-parallel mesh.
+    Under a mesh, `num_heads` and `vocab_size` must divide by its ``mp``
+    degree (`check_mp`).
     `use_recompute`
     recomputes each block in train() mode under `recompute_policy` (None,
     "save_qkv", "save_attn", "save_big" or "dots"; see
@@ -127,8 +145,9 @@ class GPTConfig:
         if self.sequence_parallel != "ring":
             raise NotImplementedError(
                 f"GPTConfig.sequence_parallel={self.sequence_parallel!r}: "
-                f"the PyTorch port runs on one device (sequence "
-                f"parallelism is a later slice)")
+                f"sequence parallelism is a later multi-GPU slice "
+                f"(ROADMAP.md, queue item A4)")
+        self.check_mp(mesh_axis_size("mp"))
         if self.moe_num_experts:
             if self.moe_gate not in ("naive", "gshard", "switch"):
                 raise ValueError(f"unknown moe_gate {self.moe_gate!r}")
@@ -138,6 +157,14 @@ class GPTConfig:
     @property
     def head_dim(self):
         return self.hidden_size // self.num_heads
+
+    def check_mp(self, mp: int):
+        """Raise unless the heads and the vocabulary split over `mp`."""
+        for what in ("num_heads", "vocab_size"):
+            if getattr(self, what) % mp:
+                raise ValueError(f"GPTConfig.{what}={getattr(self, what)} "
+                                 f"does not divide by the mesh's mp degree "
+                                 f"{mp}")
 
 
 PRESETS = {
@@ -158,14 +185,18 @@ def gpt_config(preset: str, **overrides) -> GPTConfig:
 
 class GPTSelfAttention(nn.Module):
     """Fused-QKV attention; the qkv output columns keep the JAX package's
-    ``[3, num_heads, head_dim]`` order."""
+    ``[3, num_heads, head_dim]`` order (under ``mp`` > 1, this rank's
+    heads of each of q, k and v: ``num_heads`` is the rank's count)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         h = config.hidden_size
-        self.num_heads, self.head_dim = config.num_heads, config.head_dim
-        self.qkv = nn.Linear(h, 3 * h, device=device, dtype=dtype)
-        self.out = nn.Linear(h, h, device=device, dtype=dtype)
+        self.num_heads = config.num_heads // mesh_axis_size("mp")
+        self.head_dim = config.head_dim
+        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                        groups=3, device=device, dtype=dtype)
+        self.out = RowParallelLinear(h, h, input_is_parallel=True,
+                                     device=device, dtype=dtype)
 
     def forward(self, x, pools=None, tables=None, lens=None,
                 prefill=False, start=None, cache=None, q8=None, drop=None):
@@ -350,8 +381,10 @@ class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.up = nn.Linear(h, m, device=device, dtype=dtype)
-        self.down = nn.Linear(m, h, device=device, dtype=dtype)
+        self.up = ColumnParallelLinear(h, m, gather_output=False,
+                                       device=device, dtype=dtype)
+        self.down = RowParallelLinear(m, h, input_is_parallel=True,
+                                      device=device, dtype=dtype)
 
     def forward(self, x, q8=None, drop=None):
         return self.down_proj(self.up_proj(x, q8), q8, drop)
@@ -459,8 +492,11 @@ class GPTModel(nn.Module):
         self.config = config
         device = resolve_device(device)
         h = config.hidden_size
-        self.wte = nn.Embedding(config.vocab_size, h, device=device,
-                                dtype=dtype)
+        config.check_mp(mesh_axis_size("mp"))
+        # this model's tensor-parallel group (None: not sharded)
+        self.mp_group = resolve_mp_group(None)
+        self.wte = VocabParallelEmbedding(config.vocab_size, h,
+                                          device=device, dtype=dtype)
         self.wpe = nn.Embedding(config.max_position_embeddings, h,
                                 device=device, dtype=dtype)
         self.h = nn.ModuleList([GPTBlock(config, device, dtype, layer_idx=i)
@@ -487,6 +523,12 @@ class GPTModel(nn.Module):
         checkpoint regions."""
         s = input_ids.shape[1]
         dev = input_ids.device
+        if self.mp_group is not None and (pools is not None or caches
+                                          is not None or q8):
+            raise NotImplementedError(
+                "a tensor-parallel GPT trains only: serving and weight-only "
+                "int8 on it come with a later multi-GPU slice (ROADMAP.md, "
+                "queue item A4)")
         if position_ids is None:
             past = 0
             if caches is not None:
@@ -526,7 +568,9 @@ class GPTModel(nn.Module):
         for i, block in enumerate(self.h):
             if remat:
                 x = recompute(block, x, policy=self.config.recompute_policy,
-                              generators=(self.dropout_generator,),
+                              generators=(self.dropout_generator,
+                                          *get_rng_state_tracker()
+                                          .generators()),
                               drop=drop, with_aux=block.is_moe)
             else:
                 x = block(x, None if pools is None else pools[i], tables,
@@ -566,10 +610,13 @@ class GPTForCausalLM(nn.Module):
         self.config = config
         self.gpt = GPTModel(config, dev, dtype)
         if not config.tie_word_embeddings:
-            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                     bias=False, device=dev, dtype=dtype)
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, device=dev, dtype=dtype)
         self.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
-        self.gpt.dropout_generator.manual_seed(seed)
+        # hidden dropout's stream: the same on every mp rank, its own on
+        # each dp rank
+        self.gpt.dropout_generator.manual_seed(replicated_seed(seed))
         self.eval()
 
     @property
@@ -584,25 +631,44 @@ class GPTForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.gpt.wte.weight.dtype
 
+    @property
+    def mp_group(self):
+        return self.gpt.mp_group
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
+        """Draw every parameter from `generator` in name order; a
+        tensor-parallel shard is cut from the full tensor drawn as the
+        single-device model draws it, so a sharded model from a seed is
+        the single-device one, sharded."""
         cfg = self.config
         std = cfg.initializer_range
         deep = std / math.sqrt(2 * cfg.num_layers)
+        g = self.mp_group
         for name, p in self.named_parameters():
             if name.endswith((".bias", "mlp.b1", "mlp.b2")):
                 p.zero_()
-            elif ".ln_" in name:
+                continue
+            if ".ln_" in name:
                 p.fill_(1.0)
-            elif name == "gpt.wpe.weight":
-                p.normal_(0.0, 1.0, generator=generator)
+                continue
+            split = getattr(p, "mp_split", None) if g is not None else None
+            t = p
+            if split is not None:
+                full = list(p.shape)
+                full[split[0]] *= g.nranks
+                t = torch.empty(full, dtype=p.dtype, device=p.device)
+            if name == "gpt.wpe.weight":
+                t.normal_(0.0, 1.0, generator=generator)
             elif name.endswith("mlp.gate_weight"):
-                xavier_uniform_(p, generator)
+                xavier_uniform_(t, generator)
             elif name.endswith(("attn.out.weight", "mlp.down.weight",
                                 "mlp.w2")):
-                p.normal_(0.0, deep, generator=generator)
+                t.normal_(0.0, deep, generator=generator)
             else:
-                p.normal_(0.0, std, generator=generator)
+                t.normal_(0.0, std, generator=generator)
+            if split is not None:
+                p.copy_(shard_of(t, split[0], split[1], g.rank, g.nranks))
 
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
                 lens=None, prefill=False, start=None, caches=None, q8=None):
@@ -616,6 +682,12 @@ class GPTForCausalLM(nn.Module):
             "wte" if self.config.tie_word_embeddings else "lm_head")
         if head is not None:
             logits = int8_linear_nd(x, head[0], head[1], w_layout="nk")
+        elif self.mp_group is not None:
+            # this rank's vocabulary columns, gathered
+            local = F.linear(_c_identity(x, self.mp_group),
+                             self.gpt.wte.weight) \
+                if self.config.tie_word_embeddings else self.lm_head(x)
+            logits = _c_concat(local, self.mp_group)
         elif self.config.tie_word_embeddings:
             logits = x @ self.gpt.wte.weight.t()
         else:
@@ -629,13 +701,17 @@ class GPTForCausalLM(nn.Module):
         `use_linear_ce` holds), so the [B, S, vocab] logits never exist.
         Equals `GPTPretrainingCriterion()(model(ids), labels, loss_mask)`
         for in-range labels; an MoE model also adds moe_aux_weight times
-        the router aux loss (the criterion takes it as ``aux_loss``)."""
+        the router aux loss (the criterion takes it as ``aux_loss``). A
+        tensor-parallel model runs the vocab-parallel route on its head
+        shard. Inside `TrainStep(mesh=...)` a `loss_mask` mean is the
+        global one over the data-parallel ranks (`_masked_mean`)."""
         x = self.gpt(input_ids, position_ids)
         tied = self.config.tie_word_embeddings
         w = self.gpt.wte.weight if tied else self.lm_head.weight
         # an untied head is nn.Linear [V, H]: the "vh" layout as it is
         per_tok = fused_linear_cross_entropy(x, w, labels,
-                                             chunk_size=chunk_size)
+                                             chunk_size=chunk_size,
+                                             mp_group=self.mp_group)
         loss = _masked_mean(per_tok, loss_mask)
         aux = self.gpt.last_aux_loss
         if aux is not None:
@@ -1116,11 +1192,23 @@ class GPTForCausalLM(nn.Module):
 
 def _masked_mean(per_tok, loss_mask):
     """Mean of per-token losses, or their loss_mask-weighted sum over
-    max(sum(mask), 1e-8): the one reduction both loss paths share."""
+    max(sum(mask), 1e-8): the one reduction both loss paths share.
+
+    Under a data-parallel loss group (`distributed.mesh.loss_group`, set
+    by TrainStep(mesh=...) around the forward) the mask's count is
+    all-reduced over the group and the result scaled by its size: the
+    mean of the ranks' results is then the global masked mean, and so is
+    the mean of their gradients (not the mean of per-rank means, which
+    differs when the mask is uneven across the ranks)."""
     if loss_mask is None:
         return per_tok.mean()
     per_tok = per_tok * loss_mask
-    return per_tok.sum() / torch.clamp(loss_mask.sum(), min=1e-8)
+    g = loss_group()
+    if g is None:
+        return per_tok.sum() / torch.clamp(loss_mask.sum(), min=1e-8)
+    count = loss_mask.detach().sum().float()
+    all_reduce(count, group=g)
+    return per_tok.sum() * g.nranks / torch.clamp(count, min=1e-8)
 
 
 def cross_entropy_per_token(logits, labels, ignore_index: int = -100):

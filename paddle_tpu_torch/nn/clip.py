@@ -1,12 +1,21 @@
 """Gradient clipping (the port of paddle_tpu/nn/__init__.py's
 ClipGradByGlobalNorm, ClipGradByNorm and ClipGradByValue, with the JAX
 eager `Optimizer.step`'s arithmetic). An optimizer or TrainStep applies
-the clip as `clip(grads)`; the object carries its thresholds."""
+the clip as `clip(grads)`; the object carries its thresholds.
+
+Under a tensor-parallel mesh, TrainStep calls ``clip(grads, sharded,
+group)``: `sharded` flags the gradients of parameters split over the
+``mp`` group (`group`, a `distributed.Group`). Their squares are summed
+over the group, as the reference's HybridParallelOptimizer does, while a
+replicated gradient, the same on every rank, counts once. The JAX package
+needs no such rule: its gradients are global arrays."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence
 
 import torch
+
+from ..distributed.collective import all_reduce
 
 
 def _norm_scale(sq_sum, clip_norm):
@@ -23,12 +32,22 @@ class ClipGradByGlobalNorm:
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = clip_norm
 
-    def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The clipped gradients, each in its own dtype."""
+    def __call__(self, grads: List[torch.Tensor],
+                 sharded: Optional[Sequence[bool]] = None,
+                 group=None) -> List[torch.Tensor]:
+        """The clipped gradients, each in its own dtype (see the module
+        docstring for `sharded` and `group`)."""
         if not grads:
             return grads
-        scale = _norm_scale(sum(g.float().square().sum() for g in grads),
-                            self.clip_norm)
+        if group is None or not sharded or not any(sharded):
+            sq = sum(g.float().square().sum() for g in grads)
+        else:
+            sq = sum(g.float().square().sum()
+                     for g, s in zip(grads, sharded) if s)
+            all_reduce(sq, group=group)
+            sq = sq + sum(g.float().square().sum()
+                          for g, s in zip(grads, sharded) if not s)
+        scale = _norm_scale(sq, self.clip_norm)
         return [g * scale.to(g.dtype) for g in grads]
 
 
@@ -39,9 +58,16 @@ class ClipGradByNorm:
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
-    def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [g * _norm_scale(g.float().square().sum(),
-                                self.clip_norm).to(g.dtype) for g in grads]
+    def __call__(self, grads: List[torch.Tensor],
+                 sharded: Optional[Sequence[bool]] = None,
+                 group=None) -> List[torch.Tensor]:
+        out = []
+        for i, g in enumerate(grads):
+            sq = g.float().square().sum()
+            if group is not None and sharded and sharded[i]:
+                all_reduce(sq, group=group)
+            out.append(g * _norm_scale(sq, self.clip_norm).to(g.dtype))
+        return out
 
 
 class ClipGradByValue:
@@ -52,5 +78,6 @@ class ClipGradByValue:
         self.max = max
         self.min = -max if min is None else min
 
-    def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    def __call__(self, grads: List[torch.Tensor], sharded=None,
+                 group=None) -> List[torch.Tensor]:
         return [torch.clamp(g, self.min, self.max) for g in grads]

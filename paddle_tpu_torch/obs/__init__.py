@@ -27,7 +27,7 @@ readers):
 Every scrape reads host counters only: no device->host copy, no
 synchronisation. `ServingEngine.serve_telemetry()` wires them around a
 live engine. The fleet aggregator and the collective ledger belong to
-the multi-GPU slice (ROADMAP.md, queue A).
+a later multi-GPU slice (ROADMAP.md, queue A).
 """
 from .flightrec import (FixtureBackend, FlightRecorder,  # noqa: F401
                         TorchProfilerBackend, TRIGGER_KEYS)

@@ -24,7 +24,7 @@ Each step appends one JSONL row when `jsonl_path` is set, and `on_report`
 (if given) is called with the row dict (`_emit` is the shared path,
 mirroring ServingMetrics). `jit.TrainStep(monitor=...)` feeds it. The JAX
 monitor's multi-device readers (`record_collectives`,
-`record_shard_steps`) wait for the multi-GPU slice and raise
+`record_shard_steps`) wait for a later multi-GPU slice and raise
 NotImplementedError naming it.
 """
 from __future__ import annotations
@@ -254,14 +254,14 @@ class StepMonitor:
                        report=False)
         return self.overlap
 
-    # ------------------------------------------------ the multi-GPU slice
+    # ------------------------------------------------ a later multi-GPU slice
 
     def record_collectives(self, rows):
-        _later("record_collectives", "the multi-GPU slice (ROADMAP.md, "
+        _later("record_collectives", "a later multi-GPU slice (ROADMAP.md, "
                "queue A item 4)")
 
     def record_shard_steps(self, walls, step: Optional[int] = None):
-        _later("record_shard_steps", "the multi-GPU slice (ROADMAP.md, "
+        _later("record_shard_steps", "a later multi-GPU slice (ROADMAP.md, "
                "queue A item 4)")
 
     # ----------------------------------------------------------- numerics

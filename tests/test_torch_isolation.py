@@ -80,6 +80,10 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.profiler.timeline\n"
             "import paddle_tpu_torch.profiler.goodput\n"
             "import paddle_tpu_torch.obs.flightrec\n"
+            "import paddle_tpu_torch.distributed\n"
+            "import paddle_tpu_torch.distributed.fleet\n"
+            "import paddle_tpu_torch.distributed.mpu\n"
+            "import paddle_tpu_torch.distributed.spawn\n"
             "print(json.dumps(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -161,7 +165,12 @@ def test_training_modules_are_covered_by_the_source_check():
               "debugging/anomaly.py", "debugging/dump.py",
               "amp/debugging.py", "profiler/trace_analysis.py",
               "profiler/timeline.py", "profiler/goodput.py",
-              "obs/flightrec.py"):
+              "obs/flightrec.py", "distributed/__init__.py",
+              "distributed/parallel.py", "distributed/mesh.py",
+              "distributed/collective.py", "distributed/topology.py",
+              "distributed/mpu.py", "distributed/spawn.py",
+              "distributed/fleet/__init__.py",
+              "distributed/fleet/strategy.py"):
         assert f in files, f
 
 

@@ -201,7 +201,8 @@ def test_bf16_moments_and_later_items():
     assert torch.equal(pa, pb) and not torch.equal(
         pa, torch.linspace(-1, 1, 6))
     # the options later slices bring stay refused, naming their queue item
-    for kw, item in ((dict(mesh=object()), "A4"),
+    from paddle_tpu_torch.distributed.mesh import Mesh
+    for kw, item in ((dict(mesh=Mesh({"dp": 1, "pp": 1}, 0, {})), "A4"),
                      (dict(grad_comm="int8"), "A4"),
                      (dict(lint=True), "A8"),
                      (dict(preemption=object()), "A6"),
