@@ -268,6 +268,11 @@ GEMM_CASES = ([(m, name, k, n, "nk") for m in (8, 72, 128, 1024)
               + [(8, "qkv_kn", 2048, 6144, "kn"), (3, "ragged", 48, 100,
                                                     "nk")])
 GEMM_LINE = (8, "qkv")             # the case the kernels line reports
+# gpt3-1.3b's row-parallel shards at mp 2 and 4 (K = H / mp for attn.out,
+# 4H / mp for mlp.down), decode and prefill widths, f32 y
+GEMM_SHARD_CASES = [(m, f"{name}_mp{mp}", k // mp, 2048)
+                    for m in (8, 128) for mp in (2, 4)
+                    for name, k in (("out", 2048), ("down", 8192))]
 # the main path's decode shapes: gpt3-1.3b heads, ServingConfig(max_batch=8,
 # prompt_cap=128, max_new_tokens=128, kv_block=16) -> 16-block table rows
 # and 8 * 16 + 1 pool blocks
@@ -439,7 +444,8 @@ def redesigned(name):
     'kernel<first template argument>' (the tile kernel's pool form after a
     comma: 'prefix_tc<128,bf16>', 'prefix_tc<128,int8>'; #9's
     instantiations of #6's kernels ',mha', its r pass ',mha,r'; #5's
-    'i8_wg<tokens a CTA>'; #10's 'mhb_fwd<head dim bucket>' and its
+    'i8_wg<tokens a CTA,y dtype>' (a build whose i8_wg has no y type
+    parameter: 'i8_wg<tokens a CTA>'); #10's 'mhb_fwd<head dim bucket>' and its
     siblings), or the bare name of #11's kernel and of #10's plan pass,
     which are no templates; #1/#2's partition
     kernel 'decode_part<NV,pool form,q dtype>'; #8's kernels by their
@@ -459,7 +465,11 @@ def redesigned(name):
     if m:
         return (f"decode_part<{m.group(1)},{('fp', 'int8')[int(m.group(2))]}"
                 f",{'f32' if m.group(3) == 'f' else 'bf16'}>")
-    m = re.search(r"\d(i8_wg|mhb_fwd|mhb_dq|mhb_db|mhb_dkv)ILi(\d+)E", name)
+    m = re.search(r"\di8_wgILi(\d+)E(?:Li\d+E)*(f|13__nv_bfloat16)?E", name)
+    if m:
+        y = {"f": ",f32", "13__nv_bfloat16": ",bf16", None: ""}[m.group(2)]
+        return f"i8_wg<{m.group(1)}{y}>"
+    m = re.search(r"\d(mhb_fwd|mhb_dq|mhb_db|mhb_dkv)ILi(\d+)E", name)
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
     if re.search(r"\dmhb_planE", name):
@@ -946,7 +956,7 @@ def phase_int8_matmul(torch, device, card):
                        bound_ms=bms, bound_by=by)
             if dtype == torch.bfloat16 and layout == "nk":
                 nt, nwg, cs, ctas = KM.wg_plan(m, n, k, sms)
-                row["kernel"] = {"name": f"i8_wg<{nt}>", "tokens": nt,
+                row["kernel"] = {"name": f"i8_wg<{nt},bf16>", "tokens": nt,
                                  "warpgroups": nwg, "cluster": cs,
                                  "ctas": ctas}
                 if m in GEMM_AIMS:
@@ -963,6 +973,59 @@ def phase_int8_matmul(torch, device, card):
           "aims": "ms / library_ms at or below GEMM_AIMS by M (reported, "
                   "not gated)", "cases": rows})
     return {"int8_matmul": line}
+
+
+def phase_int8_matmul_shards(torch, device, card):
+    """#5's f32-y form at the row-parallel shards of tensor-parallel
+    serving (GEMM_SHARD_CASES: gpt3-1.3b's attn.out and mlp.down at mp 2
+    and 4, decode and prefill widths): bf16 x, the f32 partial product
+    the serving forward all-reduces before its one rounding, against its
+    plain version (within 1e-4 of the largest output), two launches
+    bitwise equal; times of kernel, plain version and the yardstick (one
+    torch.mm with an f32 result on the weight dequantized to bf16
+    beforehand, as the fp serving forward's row-parallel GEMM runs), and
+    the bound."""
+    from paddle_tpu_torch.ops.cuda import int8_matmul as KM
+    from paddle_tpu_torch.ops.int8_matmul import int8_matmul_reference
+    run = timer(torch, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for m, name, k, n in GEMM_SHARD_CASES:
+        x, q, s = gemm_inputs(torch, device, m, k, n, "nk", torch.bfloat16)
+        got = KM.int8_matmul_cuda(x, q, s, w_layout="nk",
+                                  out_dtype=torch.float32)
+        got2 = KM.int8_matmul_cuda(x, q, s, w_layout="nk",
+                                   out_dtype=torch.float32)
+        want = int8_matmul_reference(x, q, s, "nk", torch.float32)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-4 * float(want.abs().max())
+        nt, nwg, cs, ctas = KM.wg_plan(m, n, k, sms)
+        bms, by = gemm_bound(m, k, n, torch.bfloat16)
+        wd = (q.float().t() * s).to(torch.bfloat16)   # outside timing
+        row = {"shape": name, "M": m, "K": k, "N": n, "layout": "nk",
+               "dtype": "bfloat16", "out_dtype": "float32",
+               "tol": tol, "max_abs_err": err,
+               "bitwise_repeat": bool(torch.equal(got, got2)),
+               "kernel": {"name": f"i8_wg<{nt},f32>", "tokens": nt,
+                          "warpgroups": nwg, "cluster": cs, "ctas": ctas},
+               "ms": run(lambda: KM.int8_matmul_cuda(
+                   x, q, s, w_layout="nk", out_dtype=torch.float32)),
+               "plain_ms": run(lambda: int8_matmul_reference(
+                   x, q, s, "nk", torch.float32)),
+               "library_ms": run(lambda: torch.mm(
+                   x, wd, out_dtype=torch.float32)),
+               "bound_ms": bms, "bound_by": by}
+        del wd
+        check(got.dtype == torch.float32 and err <= tol
+              and row["bitwise_repeat"],
+              f"int8_matmul f32 y {row}: kernel disagrees with its plain "
+              f"version")
+        rows.append(row)
+    emit({"phase": "int8_matmul_shards_vs_plain", "ok": True, "card": card,
+          "timing": "median of 50 launches, CUDA events, L2 flushed",
+          "cases": rows})
+    return rows
 
 
 # ------------------------------------------- phase 3: engine parity
@@ -993,8 +1056,8 @@ def plain_route():
                 if not n.endswith("q8")
                 else getattr(A, n[:-3] + "_reference_q8"))
     mm = M.int8_matmul
-    M.int8_matmul = lambda x, q, s, *, w_layout="kn": \
-        M.int8_matmul_reference(x, q, s, w_layout)
+    M.int8_matmul = lambda x, q, s, *, w_layout="kn", out_dtype=None, \
+        plan_n=None: M.int8_matmul_reference(x, q, s, w_layout, out_dtype)
     fa, ce = FA.flash_attention, FF.linear_cross_entropy
     mha = FM.fused_mha_fwd_cuda, FM.fused_mha_bwd_cuda
     FM.fused_mha_fwd_cuda = lambda qkv, nh, **kw: (
@@ -5709,6 +5772,20 @@ MG_PARITY = {"preset": "gpt3-1.3b", "layers": 2, "B": 4, "S": 512,
 MG_FULL = {"preset": "gpt3-6.7b", "mesh": {"dp": 2, "mp": 2}, "B": 8,
            "S": 2048, "N": 5, "recompute": False}
 MG_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "linear_ce_fwd")
+# --multi-gpu, tensor-parallel paged serving: parity at gpt3-1.3b widths
+# cut to 2 layers (f32 and bf16, seed 0) on mp4 and on a dp2 x mp2 mesh
+# (two engines, leaders 0 and 2) against the one-card engine on the
+# leader's card, then bench_decode_paged_mp's cell at full width
+MG_SERVE = {"preset": "gpt3-1.3b", "layers": 2, "B": 8, "cap": 128,
+            "new": 32, "chunk": 16, "requests": 8}
+MG_SERVE_FULL = {"preset": "gpt3-1.3b", "mp": 4, "B": 8, "cap": 128,
+                 "new": 128, "chunk": 32, "requests": 48, "seed": 3}
+SERVE_KERNELS = ("paged_attention", "paged_attention_q8",
+                 "paged_prefix_attention", "paged_prefix_attention_q8",
+                 "int8_matmul")
+# the default run's world-of-one serving leg (dist_one_card)
+DIST_SERVE = {"preset": "gpt3-1.3b", "layers": 2, "B": 8, "cap": 128,
+              "new": 32, "chunk": 16, "requests": 8}
 
 
 def foreign_modules():
@@ -5822,6 +5899,8 @@ def phase_dist_one_card(torch, device, card):
                                 dict(KB.LAUNCHES))
                 D.set_mesh(None)
                 del step, opt, model
+            torch.cuda.empty_cache()
+            serve_rec = world_of_one_serving(torch, device, mesh)
         finally:
             D.destroy_parallel_env()
     (l0, p0, c0), (l1, p1, c1) = runs[False], runs[True]
@@ -5840,7 +5919,7 @@ def phase_dist_one_card(torch, device, card):
            "vocab_parallel_merge": rows,
            # the route's #11 launches in the checks above (not the timing)
            "vocab_parallel_route_launches": route_launches,
-           "degenerate_mesh": step_rec,
+           "degenerate_mesh": step_rec, "world_of_one_serving": serve_rec,
            "seconds": time.perf_counter() - t0}
     check(backend == "nccl" and step_rec["losses_bitwise"]
           and step_rec["params_bitwise"] and step_rec["launches_equal"]
@@ -5853,7 +5932,70 @@ def phase_dist_one_card(torch, device, card):
     return route_launches
 
 
-def profile_dist_step(torch, fn, names=()):
+def world_of_one_serving(torch, device, mesh):
+    """The sharded serving engine over a world of one (`shards=1` under a
+    mesh with an mp axis of 1): every device op packed, unpacked and run
+    through the runner's handlers (its header broadcast is a no-op at one
+    rank) on a serving table copied from wte. At mp 1 the model is the
+    one-card model, so the row-parallel f32 reduction, the max-reduced
+    int8 scales and #5's f32-y form do not run here (`--multi-gpu`'s
+    serving_parity_mp holds them). Its chains must equal the one-card
+    engine's bit for bit, fp and int8 weights, with #1 (and #5)
+    launched."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import (GPTForCausalLM, ServingConfig,
+                                  ServingEngine, gpt_config,
+                                  synthetic_traffic)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t0 = time.perf_counter()
+    p = DIST_SERVE
+    cfg = gpt_config(p["preset"], num_layers=p["layers"])
+    prompts = [t["prompt"] for t in synthetic_traffic(
+        p["requests"], prompt_cap=p["cap"], vocab_size=cfg.vocab_size,
+        rate=1e9, seed=3, length_dist="longtail")]
+    legs = {}
+    for wd in (None, "int8"):
+        chains, launches = {}, {}
+        for sharded in (False, True):
+            D.set_mesh(mesh if sharded else None)
+            model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                                   seed=0)
+            eng = ServingEngine(model, ServingConfig(
+                max_batch=p["B"], prompt_cap=p["cap"], max_new_tokens=p["new"],
+                decode_chunk=p["chunk"], paged=True, weight_dtype=wd,
+                shards=1 if sharded else None))
+            D.set_mesh(None)
+            KB.reset_launch_counts()
+            reqs = [eng.submit(q) for q in prompts]
+            eng.drain()
+            torch.cuda.synchronize()
+            launches[sharded] = {k: KB.LAUNCHES[k] for k in
+                                 ("paged_attention", "int8_matmul")}
+            chains[sharded] = np.stack([r.tokens for r in reqs])
+            if sharded:
+                runner = eng.runner_summary()
+                through = eng._runner is not None and \
+                    model.gpt.serving_wte is not None
+            eng.close()
+            del eng, model
+        legs[str(wd)] = {"chains_bitwise": bool(np.array_equal(
+            chains[False], chains[True])), "launches": launches[True],
+            "launches_equal": launches[False] == launches[True],
+            "through_runner": through, "runner_ops": runner}
+    rec = {"config": {**p, "dtype": "bfloat16",
+                      "traffic": "synthetic_traffic longtail seed=3"},
+           "legs": legs, "seconds": time.perf_counter() - t0}
+    check(all(r["chains_bitwise"] and r["launches_equal"]
+              and r["through_runner"] and r["launches"]["paged_attention"] > 0
+              for r in legs.values())
+          and legs["int8"]["launches"]["int8_matmul"] > 0,
+          f"dist_one_card: the world-of-one sharded engine: {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_dist_step(torch, fn, names=(), phase="multi_gpu_profile_rank0"):
     """`profile_call` for a step with collectives: one call of fn under
     torch.profiler, read by the port's trace analysis. NCCL kernels run on
     their own streams and may overlap compute, so the device's busy time
@@ -5909,7 +6051,7 @@ def profile_dist_step(torch, fn, names=()):
                                  "device_ms": r["dur_us"] / 1e3,
                                  "count": r["calls"]} for r in rows
                                 if any(n in r["name"] for n in names)]}
-    emit({"phase": "multi_gpu_profile_rank0", "profile": out})
+    emit({"phase": phase, "profile": out})
     check(abs(trace_other - ka_other) <= SUMMER_TOL * max(ka_other, 1e-9),
           f"trace analysis reads {trace_other} device us of non-NCCL "
           f"kernels, key_averages() {ka_other}")
@@ -6082,10 +6224,332 @@ def mg_full(torch, device):
     return rec
 
 
-def multi_gpu_rank(work_dir):
+def watch_runner(torch, eng, group):
+    """Wrap this rank's runner ops: each op's start time and this rank's
+    serving-kernel launch counts at that moment, its forwards and the mp
+    all-reduces it made, and a digest of every token tensor it returned
+    (every rank's must be the same)."""
+    import hashlib
+    from paddle_tpu_torch.ops.cuda import build as KB
+    rec = {"ops": [], "t": [], "counts": [], "digest": hashlib.sha256()}
+    h = eng._runner.handlers
+    fwd = {"prefill": lambda a: 1, "decode": lambda a: int(a[4]),
+           "verify": lambda a: 1}
+
+    def wrap(op, f):
+        def run(*a, extra=None):
+            rec["t"].append(time.perf_counter())
+            rec["counts"].append({k: KB.LAUNCHES[k] for k in SERVE_KERNELS})
+            before = group.all_reduces
+            res = f(*a, extra=extra)
+            rec["ops"].append((op, fwd.get(op, lambda a: 0)(a),
+                               group.all_reduces - before))
+            if op in fwd:
+                t = res if torch.is_tensor(res) else res[0]
+                rec["digest"].update(t.cpu().numpy().tobytes())
+            return res
+        return run
+    for op in list(h):
+        h[op] = wrap(op, h[op])
+    return rec
+
+
+def serve_legs(cfg, p):
+    """mg_serving_parity's legs: (name, engine options, prompts, passes)."""
+    from paddle_tpu_torch import (repeated_traffic, shared_prefix_traffic,
+                                  synthetic_traffic)
+    n, cap, v = p["requests"], p["cap"], cfg.vocab_size
+    longtail = [t["prompt"] for t in synthetic_traffic(
+        n, prompt_cap=cap, vocab_size=v, rate=1e9, seed=3,
+        length_dist="longtail")]
+    shared = [t["prompt"] for t in shared_prefix_traffic(
+        n, n_prefixes=2, prefix_len=64, prompt_cap=cap, vocab_size=v,
+        seed=3)]
+    repeated = [t["prompt"] for t in repeated_traffic(
+        n, n_prompts=2, prompt_len=64, vocab_size=v, seed=3)]
+    return (("plain", {}, longtail, 1),
+            ("prefix", dict(prefix_cache=True), shared, 2),
+            ("chunked", dict(prefill_chunk=32), longtail, 1),
+            ("spec", dict(prefix_cache=True, spec_decode=True, spec_k=4),
+             repeated, 2),
+            ("int8_kv", dict(cache_dtype="int8", prefix_cache=True,
+                             prefill_chunk=32), shared, 2),
+            ("int8_weights", dict(weight_dtype="int8"), longtail, 1))
+
+
+def serve_chains(eng, prompts, passes):
+    out = []
+    for _ in range(passes):
+        reqs = [eng.submit(q) for q in prompts]
+        eng.drain()
+        out.append([r.tokens.tolist() for r in reqs])
+    return out
+
+
+def mg_serving_parity(torch, device):
+    """One rank's `serving_parity_mp`: for f32 and bf16 and each leg of
+    `serve_legs`, the sharded engine on mp4 and on a dp2 x mp2 mesh (the
+    leaders serve, the followers follow), then on each leader's card the
+    one-card engine from the same seed on the same traffic. Records the
+    chains' agreement (exact, or first divergence at a near-tie of the
+    one-card model), the all-reduces a forward, a digest of the rank's
+    tokens, a spill round trip and a cross-count rehydrate, and #1-#5's
+    launches by the sharded engines on this rank."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import (GPTForCausalLM, ServingConfig,
+                                  ServingEngine, gpt_config)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    p = MG_SERVE
+    t0 = time.perf_counter()
+    cfg = gpt_config(p["preset"], num_layers=p["layers"])
+    legs = serve_legs(cfg, p)
+    meshes = {"mp4": D.build_mesh({"mp": 4}),
+              "dp2_mp2": D.build_mesh({"dp": 2, "mp": 2})}
+    base = dict(max_batch=p["B"], prompt_cap=p["cap"],
+                max_new_tokens=p["new"], decode_chunk=p["chunk"], paged=True)
+    launches = {k: 0 for k in SERVE_KERNELS}
+    rank = D.get_rank()
+    rec = {"rank": rank, "runs": []}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        single = None
+        for mname, mesh in meshes.items():
+            g = mesh.group("mp")
+            leader = g.rank == 0
+            D.set_mesh(mesh)
+            model = GPTForCausalLM(cfg, device=device, dtype=dtype, seed=0)
+            D.set_mesh(None)
+            if leader and single is None:
+                single = GPTForCausalLM(cfg, device=device, dtype=dtype,
+                                        seed=0)
+            for name, kw, prompts, passes in legs:
+                D.set_mesh(mesh)
+                eng = ServingEngine(model, ServingConfig(
+                    **base, shards=mesh.axis_size("mp"), **kw))
+                D.set_mesh(None)
+                w = watch_runner(torch, eng, g)
+                KB.reset_launch_counts()
+                run = {"dtype": dt, "mesh": mname, "leg": name}
+                if leader:
+                    got = serve_chains(eng, prompts, passes)
+                    spill = None
+                    if name == "prefix":
+                        blk = int(eng._prefix.match(prompts[0])[0][0])
+                        pay = eng.read_block(blk)
+                        dst = eng._pool.take(1)[0]
+                        eng._spill_write(dst, pay)
+                        back = eng.read_block(dst)
+                        eng._pool.release([dst])
+                        spill = {"round_trip_bitwise": all(
+                            torch.equal(a, b) for a, b in zip(pay, back)),
+                            "payload_shapes": [list(t.shape) for t in pay]}
+                    eng.close()
+                else:
+                    eng.follow()
+                torch.cuda.synchronize()
+                for k in SERVE_KERNELS:
+                    launches[k] += KB.LAUNCHES[k]
+                ar_ok = all(made == 2 * cfg.num_layers * f for op, f, made
+                            in w["ops"] if op in ("prefill", "decode",
+                                                  "verify")) and \
+                    all(made == 0 for op, f, made in w["ops"]
+                        if op not in ("prefill", "decode", "verify"))
+                run.update(ops=len(w["ops"]), allreduce_2L_per_forward=ar_ok,
+                           forwards=sum(f for _, f, _ in w["ops"]),
+                           token_digest=w["digest"].hexdigest())
+                if leader:
+                    one = ServingEngine(single, ServingConfig(**base, **kw))
+                    want = serve_chains(one, prompts, passes)
+                    div, ok = [], True
+                    for a, b in zip(got, want):
+                        d, o = near_ties(torch, single, prompts,
+                                         [np.asarray(x) for x in a],
+                                         [np.asarray(x) for x in b])
+                        div += d
+                        ok = ok and o
+                    run.update(equal_chains=sum(
+                        x == y for a, b in zip(got, want)
+                        for x, y in zip(a, b)),
+                        chains=sum(len(a) for a in got), diverged=div,
+                        near_tie_ok=ok)
+                    if spill is not None:
+                        # a block spilled at this shard count rehydrates
+                        # bitwise into the one-card pool
+                        dst = one._pool.take(1)[0]
+                        one._spill_write(dst, pay)
+                        spill["cross_count_bitwise"] = all(
+                            torch.equal(a, b) for a, b in
+                            zip(pay, one.read_block(dst)))
+                        one._pool.release([dst])
+                        spill["payload_bytes"] = sum(
+                            t.numel() * t.element_size() for t in pay)
+                        run["spill"] = spill
+                    del one
+                rec["runs"].append(run)
+                del eng
+            del model
+            torch.cuda.empty_cache()
+        del single
+        torch.cuda.empty_cache()
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    for run in rec["runs"]:
+        check(run["allreduce_2L_per_forward"],
+              f"serving parity: an op's all-reduces are not 2L a forward: "
+              f"{run}")
+        if "near_tie_ok" in run:
+            check(run["near_tie_ok"], f"serving parity: chains diverge "
+                                      f"beyond a near-tie: {run}")
+            if "spill" in run:
+                check(run["spill"]["round_trip_bitwise"]
+                      and run["spill"]["cross_count_bitwise"],
+                      f"serving parity: a spilled block moved: {run}")
+    check(all(v > 0 for v in launches.values()),
+          f"serving parity, rank {rank}: a serving kernel never launched: "
+          f"{launches}")
+    return rec
+
+
+def mg_serving_full(torch, device):
+    """One rank's `serving_gpt3_1.3b_mp4`: bench_decode_paged_mp's cell
+    (MG_SERVE_FULL): gpt3-1.3b bf16 at mp 4, B=8, cap 128, 128 new,
+    chunks of 32, 48 longtail requests from seed 3, warmed with the first
+    8; then one pure decode chunk profiled on rank 0; then on rank 0 the
+    one-card twin under the same warmup. Every rank sets the launch counts
+    to 0 right after building its engine; each rank's wall and launches
+    of the timed window (from its ops' start times and counts, the
+    window's op indices broadcast by the leader) exclude the warmup, the
+    profiled chunk and the drain. The walls go to rank 0's
+    record_shard_steps."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import (GPTForCausalLM, ServingConfig,
+                                  ServingEngine, ServingMetrics, gpt_config,
+                                  synthetic_traffic)
+    from paddle_tpu_torch.ops.cuda import build as KB
+    from paddle_tpu_torch.profiler import StepMonitor
+    f = MG_SERVE_FULL
+    cfg = gpt_config(f["preset"])
+    traffic = [t["prompt"] for t in synthetic_traffic(
+        f["requests"], prompt_cap=f["cap"], vocab_size=cfg.vocab_size,
+        rate=1e9, seed=f["seed"], length_dist="longtail")]
+    conf = dict(max_batch=f["B"], prompt_cap=f["cap"],
+                max_new_tokens=f["new"], decode_chunk=f["chunk"], paged=True)
+    mesh = D.build_mesh({"mp": f["mp"]})
+    g = mesh.group("mp")
+    D.set_mesh(mesh)
+    # peak memory a card: weights, tables, pools and the run, every rank
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    eng = ServingEngine(model, ServingConfig(**conf, shards=f["mp"]))
+    D.set_mesh(None)
+    w = watch_runner(torch, eng, g)
+    KB.reset_launch_counts()          # every rank, before any op
+    B = f["B"]
+
+    def timed(e, marks=None):
+        """The bench's run: warm with the first B requests, then every
+        request with the queue kept below B; `marks` receives this
+        rank's op count at the window's start and end. Its launches are
+        the window's (the counts' difference across it)."""
+        for q in traffic[:B]:
+            e.submit(q)
+        e.drain()
+        e.metrics = ServingMetrics()
+        rc0 = e.monitor.recompiles
+        torch.cuda.synchronize()
+        before = {k: KB.LAUNCHES[k] for k in SERVE_KERNELS}
+        if marks is not None:
+            marks.append(len(w["t"]))
+        t0 = time.perf_counter()
+        for q in traffic:
+            e.submit(q)
+            while e.queue_depth >= B:
+                e.step()
+        while e.busy:
+            e.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if marks is not None:
+            marks.append(len(w["t"]))
+        s = e.summary()
+        return {"tokens_out": e.metrics.counters["tokens_out"],
+                "seconds": dt,
+                "tokens_per_s": e.metrics.counters["tokens_out"] / dt,
+                "ttft_p50_s": s["ttft_seconds"]["p50"],
+                "tpot_p50_s": s["tpot_seconds"]["p50"],
+                "steady_recompiles": e.monitor.recompiles - rc0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "pool_bytes": e._pool.num_blocks * e._pool.bytes_per_block,
+                "launches": {k: KB.LAUNCHES[k] - before[k]
+                             for k in SERVE_KERNELS}}
+    window = torch.zeros(2, dtype=torch.int64, device=device)
+    prof = None
+    if eng.is_leader:
+        marks = []
+        res = timed(eng, marks)
+        # one pure decode chunk, profiled: admit B (prefills and a first
+        # chunk), then the next step decodes only
+        for q in traffic[:B]:
+            eng.submit(q)
+        eng.step()
+        prof = profile_dist_step(torch, eng.step, names=("decode_part",),
+                                 phase="serving_mp4_profile_rank0")
+        eng.drain()
+        eng.close()
+        window[0], window[1] = marks[0], marks[1]
+    else:
+        eng.follow()
+        res = {}
+    torch.cuda.synchronize()
+    res.update(peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               pool_bytes=eng._pool.num_blocks * eng._pool.bytes_per_block,
+               tables_bytes=eng._tables_bytes,
+               runner=eng.runner_summary(),
+               allreduce_2L_per_forward=all(
+                   made == 2 * cfg.num_layers * n for op, n, made in w["ops"]
+                   if op in ("prefill", "decode")))
+    D.broadcast(window, src=g.ranks[0], group=g)
+    i0, i1 = (int(x) for x in window.tolist())
+    # the window's ops are i0 .. i1 - 1; op i1 (the profiled chunk's
+    # first) starts after them on every rank
+    res["launches"] = {k: w["counts"][i1][k] - w["counts"][i0][k]
+                       for k in SERVE_KERNELS}
+    res["window_ops"] = i1 - i0
+    wall = torch.tensor([w["t"][i1] - w["t"][i0]], dtype=torch.float64,
+                        device=device)
+    walls = D.all_gather(wall, group=g).view(-1).tolist()
+    res["window_wall_s"] = walls[g.rank]
+    rec = {"rank": D.get_rank(), "full": res}
+    del eng, model
+    torch.cuda.empty_cache()
+    if g.rank == 0:
+        mon = StepMonitor(track_memory=False)
+        rec["shard_skew"] = mon.record_shard_steps(
+            {r: x for r, x in enumerate(walls)}, step=0)
+        rec["straggling"] = mon.straggling
+        rec["profile"] = prof
+        # the one-card twin on this card, under the same warmup
+        torch.cuda.reset_peak_memory_stats()
+        single = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                                seed=0)
+        rec["single"] = timed(ServingEngine(single, ServingConfig(**conf)))
+        del single
+        torch.cuda.empty_cache()
+    D.barrier()
+    # the cell (fp weights and KV, whole-prompt prefills) runs #1 alone
+    check(res["allreduce_2L_per_forward"]
+          and res["launches"]["paged_attention"] > 0,
+          f"serving mp4, rank {D.get_rank()}: {res}")
+    return rec
+
+
+def multi_gpu_rank(work_dir, training=True):
     """One rank of `--multi-gpu` (started by distributed.spawn with the
-    rank environment set): NCCL on cuda:LOCAL_RANK, the parity legs, the
-    full-width run; its record goes to work_dir/rank{r}.json."""
+    rank environment set): NCCL on cuda:LOCAL_RANK, the training parity
+    legs and full-width run (unless `training` is False), then the
+    serving ones; its record goes to work_dir/rank{r}.json."""
     import torch
     import paddle_tpu_torch.distributed as D
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6095,11 +6559,16 @@ def multi_gpu_rank(work_dir):
     rec = {"rank": env.rank, "device": str(device),
            "backend": D.get_group().backend}
     path = Path(work_dir, f"rank{env.rank}.json")
-    rec["parity"] = []
-    for axes in MG_PARITY["meshes"]:
-        rec["parity"].append(mg_parity(torch, device, axes))
-        path.write_text(json.dumps(rec))       # what a failure leaves
-    rec["full"] = mg_full(torch, device)
+    if training:
+        rec["parity"] = []
+        for axes in MG_PARITY["meshes"]:
+            rec["parity"].append(mg_parity(torch, device, axes))
+            path.write_text(json.dumps(rec))   # what a failure leaves
+        rec["full"] = mg_full(torch, device)
+        path.write_text(json.dumps(rec))
+    rec["serving_parity"] = mg_serving_parity(torch, device)
+    path.write_text(json.dumps(rec))
+    rec["serving_full"] = mg_serving_full(torch, device)
     rec["foreign_modules"] = foreign_modules()
     check(rec["backend"] == "nccl" and not rec["foreign_modules"],
           f"rank {env.rank}: {rec['backend']}, {rec['foreign_modules']}")
@@ -6109,10 +6578,12 @@ def multi_gpu_rank(work_dir):
     D.destroy_parallel_env()
 
 
-def multi_gpu(torch, card) -> int:
+def multi_gpu(torch, card, which="all") -> int:
     """`--multi-gpu`: MG_WORLD ranks on MG_WORLD cards (exits 2 with fewer
     cards): the kernels built once here, then the ranks spawned; their
-    records become the phase lines."""
+    records become the phase lines. `which` "serving" leaves out the
+    training phases (multi_gpu_parity, train_gpt3_6.7b_dp2_mp2)."""
+    training = which == "all"
     import tempfile
     import paddle_tpu_torch.distributed as D
     n = torch.cuda.device_count()
@@ -6122,13 +6593,14 @@ def multi_gpu(torch, card) -> int:
         return 2
     t0 = time.perf_counter()
     phase_build(torch, card)
+    phase_int8_matmul_shards(torch, torch.device("cuda", 0), card)
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     with tempfile.TemporaryDirectory() as work:
         try:
-            D.spawn(multi_gpu_rank, args=(work,), nprocs=MG_WORLD,
+            D.spawn(multi_gpu_rank, args=(work, training), nprocs=MG_WORLD,
                     timeout=1000)
         except BaseException:
             # what the ranks finished, then the failure
@@ -6139,6 +6611,20 @@ def multi_gpu(torch, card) -> int:
             raise
         recs = [json.loads(Path(work, f"rank{r}.json").read_text())
                 for r in range(MG_WORLD)]
+    if training:
+        mg_training_lines(recs, card, cards)
+    serving_lines(recs, card, cards)
+    check(not foreign_modules(), "JAX or the JAX package was imported")
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": MG_WORLD}})
+    return 0
+
+
+def mg_training_lines(recs, card, cards):
+    """The training phases' lines from the ranks' records."""
     for i, axes in enumerate(MG_PARITY["meshes"]):
         legs = [r["parity"][i] for r in recs]
         emit({"phase": "multi_gpu_parity", "ok": True, "card": card,
@@ -6175,13 +6661,89 @@ def multi_gpu(torch, card) -> int:
           "nccl_share_of_wall_rank0": r0.get("nccl_share_of_wall"),
           "device_idle_share_rank0": r0.get("device_idle_share"),
           "ranks": full})
-    check(not foreign_modules(), "JAX or the JAX package was imported")
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
-    print(card_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": MG_WORLD}})
-    return 0
+
+
+def serving_lines(recs, card, cards):
+    """The serving phases' lines from the ranks' records, and their
+    cross-rank gates."""
+    from paddle_tpu_torch import gpt_config
+    sp = [r["serving_parity"] for r in recs]
+    digests = {}
+    for rr in sp:
+        for run in rr["runs"]:
+            key = (run["dtype"], run["mesh"], run["leg"])
+            digests.setdefault(key, []).append(run["token_digest"])
+    same = {"/".join(k): len(set(v[:2])) == 1 and len(set(v[2:])) == 1
+            if k[1] == "dp2_mp2" else len(set(v)) == 1
+            for k, v in digests.items()}
+    emit({"phase": "serving_parity_mp", "ok": True, "card": card,
+          "config": {**MG_SERVE, "dtypes": ["float32", "bfloat16"],
+                     "meshes": ["mp4", "dp2_mp2"], "seed": 0},
+          "limits": {"chains": "equal, or first divergence at a near-tie "
+                               "of the one-card model (f32 1e-3; bf16 two "
+                               "units of the larger logit)",
+                     "tokens": "bitwise across the ranks of an engine",
+                     "all_reduces": "2 * num_layers a forward",
+                     "spill": "bitwise round trip and cross-count "
+                              "rehydrate"},
+          "runs": [run for rr in sp for run in rr["runs"]
+                   if "near_tie_ok" in run],
+          "tokens_bitwise_across_ranks": same,
+          "launches_per_rank": [rr["launches"] for rr in sp],
+          "seconds": [rr["seconds"] for rr in sp]})
+    check(all(same.values()), f"serving parity: ranks' tokens differ: "
+                              f"{same}")
+    sf = [r["serving_full"] for r in recs]
+    s0 = sf[0]
+    full, single = s0["full"], s0["single"]
+    prof = s0["profile"]
+    coll = [c for c in prof["collectives"] if "AllReduce" in c["name"]
+            or "all_reduce" in c["name"].lower()]
+    n_ar = sum(c["calls"] for c in coll)
+    emit({"phase": "serving_gpt3_1.3b_mp4", "ok": True, "cards": cards,
+          "model": cfg_line(gpt_config(MG_SERVE_FULL["preset"]), "bfloat16"),
+          "config": {**MG_SERVE_FULL, "paged": True, "kv_block": 16,
+                     "traffic": "synthetic_traffic longtail seed=3",
+                     "source": "bench.py:652-738 bench_decode_paged_mp"},
+          "tokens_per_s": full["tokens_per_s"],
+          "single_card_tokens_per_s": single["tokens_per_s"],
+          "mp_vs_single": full["tokens_per_s"] / single["tokens_per_s"],
+          "ttft_p50_s": full["ttft_p50_s"], "tpot_p50_s": full["tpot_p50_s"],
+          "single_card_ttft_p50_s": single["ttft_p50_s"],
+          "single_card_tpot_p50_s": single["tpot_p50_s"],
+          "steady_recompiles": full["steady_recompiles"],
+          "single_card_steady_recompiles": single["steady_recompiles"],
+          "peak_mem_bytes_per_card": [r["full"]["peak_mem_bytes"]
+                                      for r in sf],
+          "single_card_peak_mem_bytes": single["peak_mem_bytes"],
+          "pool_bytes_per_card": full["pool_bytes"],
+          "single_card_pool_bytes": single["pool_bytes"],
+          "serving_tables_bytes_per_card": full["tables_bytes"],
+          "runner_leader": full["runner"],
+          "runner_followers": [r["full"]["runner"] for r in sf[1:]],
+          "profiled_decode_chunk_rank0": {
+              "tokens": MG_SERVE_FULL["chunk"],
+              "nccl_all_reduce_calls": n_ar,
+              "nccl_all_reduce_calls_per_token": n_ar
+              / MG_SERVE_FULL["chunk"],
+              "nccl_device_ms": prof["nccl_union_ms"],
+              "nccl_share_of_busy": prof["nccl_share_of_busy"],
+              "nccl_share_of_wall": prof["nccl_union_ms"]
+              / (prof["wall_s"] * 1e3),
+              "device_idle_share": prof["device_idle_share"],
+              "wall_s": prof["wall_s"]},
+          "shard_skew": s0["shard_skew"], "straggling": s0["straggling"],
+          "window_ops_per_rank": [r["full"]["window_ops"] for r in sf],
+          "launches_per_rank": [r["full"]["launches"] for r in sf]})
+    check(full["steady_recompiles"] == 0 and
+          n_ar == 2 * 24 * MG_SERVE_FULL["chunk"],
+          f"serving mp4: recompiles {full['steady_recompiles']}, "
+          f"{n_ar} NCCL all-reduces in a {MG_SERVE_FULL['chunk']}-token "
+          f"chunk")
+    # every rank ran the window's ops, so every rank launched the same
+    check(all(r["full"]["launches"] == full["launches"] for r in sf),
+          f"serving mp4: the ranks' window launches differ: "
+          f"{[r['full']['launches'] for r in sf]}")
 
 
 def parity_repeats(torch, device, card, n) -> int:
@@ -6208,8 +6770,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-repeats", type=int, default=0, metavar="N",
                     help="run resnet_parity alone N times")
-    ap.add_argument("--multi-gpu", action="store_true",
-                    help=f"the multi-GPU run on {MG_WORLD} cards")
+    ap.add_argument("--multi-gpu", nargs="?", const="all",
+                    choices=("all", "serving"),
+                    help=f"the multi-GPU run on {MG_WORLD} cards ("
+                         f"'serving': its serving phases alone)")
     args = ap.parse_args(argv)
     repeats = args.parity_repeats
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
@@ -6230,7 +6794,7 @@ def main(argv=None) -> int:
     if repeats:
         return parity_repeats(torch, device, card, repeats)
     if args.multi_gpu:
-        return multi_gpu(torch, card)
+        return multi_gpu(torch, card, args.multi_gpu)
 
     phase_build(torch, card)
     kern = phase_kernels(torch, device, card)

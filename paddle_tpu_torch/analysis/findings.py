@@ -98,3 +98,13 @@ class Findings:
 
     def to_dicts(self) -> List[dict]:
         return [f.to_dict() for f in self.items]
+
+
+class ConfigValidationError(ValueError):
+    """A configuration the engine cannot serve, carrying the Finding that
+    says why (a ValueError, so `except ValueError` callers keep
+    working)."""
+
+    def __init__(self, finding: Finding):
+        self.finding = finding
+        super().__init__(str(finding))

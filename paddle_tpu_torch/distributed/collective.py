@@ -12,7 +12,10 @@ card's tensor never falls back to gloo. Where gloo lacks a collective
 (reduce-scatter), the CPU path computes it from an all-reduce.
 
 `sync_op=False` returns the backend's work handle (``wait()``); the
-default waits and returns None.
+default waits and returns None. Each group counts the all-reduces it ran
+over more than one rank (`Group.all_reduces`): the tensor-parallel
+serving plan is exactly two a layer a forward, and the tests and the
+smoke read it there.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ class Group:
         self.process_group = pg
         self.id = next(_ids) if gid is None else gid
         self.axis = axis
+        # all-reduces run over this group with more than one rank
+        self.all_reduces = 0
         me = dist.get_rank() if dist.is_initialized() else 0
         self.rank = self.ranks.index(me) if me in self.ranks else -1
 
@@ -111,10 +116,13 @@ def new_group(ranks: Optional[Sequence[int]] = None, backend=None,
             raise RuntimeError("new_group(axis=...): no mesh is set")
         return m.group(axis)
     world = _world_group()
-    if ranks is None:
+    if ranks is None and backend is None:
         return world
-    ranks = sorted(int(r) for r in ranks)
-    return Group(ranks, dist.new_group(ranks, backend=backend))
+    ranks = sorted(int(r) for r in (range(world.nranks) if ranks is None
+                                    else ranks))
+    from .parallel import group_timeout
+    return Group(ranks, dist.new_group(ranks, backend=backend,
+                                       timeout=group_timeout()))
 
 
 def get_group(gid: int = 0) -> Group:
@@ -153,6 +161,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
     _check(tensor, group, "all_reduce")
     if group.nranks == 1:
         return None
+    group.all_reduces += 1
     if op == ReduceOp.AVG:
         dist.all_reduce(tensor, dist.ReduceOp.SUM,
                         group=group.process_group)

@@ -6,7 +6,10 @@ row-major order: the LAST axis varies fastest, so with
 and 2 one ``dp`` group, as in the JAX package (where the last axis runs
 over adjacent devices). Each process holds its coordinates and one
 process group per axis (`Mesh.group`), built with `collective.new_group`
-by every rank in the same order.
+by every rank in the same order. Beside each ``mp`` group stands a gloo
+group over the same ranks (`Mesh.control_group`): host messages travel
+there without touching the card's stream (the sharded serving engine's
+op headers).
 
 The JAX helpers `filter_spec`, `named_sharding` and `shard_constraint`
 only steer XLA's partitioner (PartitionSpecs and sharding constraints on
@@ -34,7 +37,8 @@ class Mesh:
     coordinates (`coords`) and its group along each axis."""
 
     def __init__(self, axes: Dict[str, int], rank: int,
-                 groups: Dict[str, Group]):
+                 groups: Dict[str, Group],
+                 controls: Optional[Dict[str, Group]] = None):
         self.shape = dict(axes)
         self.axis_names = tuple(axes)
         self.rank = rank
@@ -42,6 +46,7 @@ class Mesh:
             rank, tuple(axes.values())) if axes else ()))
         self.coords = {k: int(v) for k, v in self.coords.items()}
         self._groups = groups
+        self._controls = controls or {}
 
     @property
     def size(self) -> int:
@@ -56,6 +61,11 @@ class Mesh:
     def group(self, axis: str) -> Optional[Group]:
         """This rank's group along `axis` (None if the mesh lacks it)."""
         return self._groups.get(axis)
+
+    def control_group(self, axis: str) -> Optional[Group]:
+        """The gloo twin of `group(axis)`: the same ranks, host tensors
+        (built for the ``mp`` axis only; None for the others)."""
+        return self._controls.get(axis)
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"
@@ -77,7 +87,8 @@ def axis_groups(axes: Dict[str, int], axis: str) -> Tuple[Tuple[int, ...],
 def build_mesh(axes: Dict[str, int]) -> Mesh:
     """The mesh `axes` ({name: degree}) over the initialised world; the
     degrees must multiply to the world size. Every rank must call it (it
-    creates the axes' process groups)."""
+    creates the axes' process groups and the ``mp`` groups' gloo
+    twins)."""
     axes = {str(k): int(v) for k, v in axes.items()}
     world = get_world_size()
     n = int(np.prod(list(axes.values()))) if axes else 1
@@ -85,14 +96,18 @@ def build_mesh(axes: Dict[str, int]) -> Mesh:
         raise ValueError(f"mesh axes {axes} need {n} ranks; the world has "
                          f"{world}")
     rank = get_rank()
-    groups = {}
+    groups, controls = {}, {}
     for ax in axes:
         for ranks in axis_groups(axes, ax):
             g = new_group(ranks)
+            c = new_group(ranks, backend="gloo") if ax == "mp" else None
             if rank in ranks:
                 g.axis = ax
                 groups[ax] = g
-    return Mesh(axes, rank, groups)
+                if c is not None:
+                    c.axis = ax
+                    controls[ax] = c
+    return Mesh(axes, rank, groups, controls)
 
 
 def set_mesh(mesh: Optional[Mesh]):

@@ -7,7 +7,8 @@ world size from ``WORLD_SIZE`` (or ``PADDLE_TRAINERS_NUM``), its card from
 ``MASTER_ADDR`` / ``MASTER_PORT`` or an explicit ``init_method``
 (``tcp://host:port``, ``file:///path``). On the card the process group is
 NCCL on ``cuda:LOCAL_RANK``; gloo is used only when the caller asks for
-the CPU (``device="cpu"``). A failed initialisation raises: the JAX
+the CPU (``device="cpu"``). `timeout_s` bounds every wait of the world
+group and of every group made on it. A failed initialisation raises: the JAX
 package's warn-and-carry-on-single-process has no counterpart.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-_state = types.SimpleNamespace(device=None, backend=None)
+_state = types.SimpleNamespace(device=None, backend=None, timeout=None)
 
 
 def _env_int(*names, default=None):
@@ -97,10 +98,10 @@ def init_parallel_env(init_method: Optional[str] = None, device=None,
             raise RuntimeError("init_parallel_env: set MASTER_ADDR and "
                                "MASTER_PORT, or pass init_method=")
         init_method = "env://"
+    timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    _state.device, _state.backend = dev, backend
+                            world_size=world, timeout=timeout)
+    _state.device, _state.backend, _state.timeout = dev, backend, timeout
     return ParallelEnv()
 
 
@@ -110,7 +111,13 @@ def destroy_parallel_env():
     _mesh.set_mesh(None)
     if dist.is_initialized():
         dist.destroy_process_group()
-    _state.device, _state.backend = None, None
+    _state.device, _state.backend, _state.timeout = None, None, None
+
+
+def group_timeout() -> Optional[datetime.timedelta]:
+    """The timeout the process group was initialised with: every group
+    made on it (`collective.new_group`) waits no longer."""
+    return _state.timeout
 
 
 def get_rank(group=None) -> int:

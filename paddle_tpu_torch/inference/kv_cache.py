@@ -18,6 +18,12 @@ nowhere (right-padded prompt columns past a row's blocks, dummy batch
 slots) land there, so the scatters never need a mask. Usable capacity is
 ``(num_blocks - 1) * block_size`` tokens.
 
+Tensor-parallel serving shards the pools' HEAD axis: each rank's pool
+holds its ``num_heads / shards`` heads (`for_model` takes the model's mp
+degree), int8 scales with their codes, so ``bytes_per_block`` is one
+card's. Block ids, tables, refcounts and the free list are the same on
+every rank; only the leader's allocator is used.
+
 Blocks are refcounted: the prefix cache (inference/prefix_cache.py)
 retains the blocks it caches, and a request admitted on a cached prefix
 maps them SHARED into its own reservation; a block returns to the free
@@ -27,7 +33,11 @@ The host spill tier: ``read_block`` copies one block's payload (every
 layer's K and V planes, and the int8 scales) to host memory, pinned when
 the pool lives on a CUDA device, and ``write_block`` copies it back into a
 pool block; ``HostSpillTier`` is the host byte budget and the counters of
-the prefix cache's spilled blocks.
+the prefix cache's spilled blocks. A payload is always full-width
+(``[2L, bs, num_heads * shards, D]``): the sharded engine gathers the
+ranks' head slices into it on the leader and scatters it back
+(`inference/sharded.py`), so a block spilled at one shard count
+rehydrates bitwise at any other.
 """
 from __future__ import annotations
 
@@ -49,11 +59,13 @@ class BlockPool:
     the pool geometry, normally from the model via :meth:`for_model`;
     device None is CUDA (``resolve_device``: it raises where there is
     none, like the models and the optimizers). cache_dtype None keeps the model dtype, "int8" stores (codes int8,
-    scale f32) with one factored scale per (row, head)."""
+    scale f32) with one factored scale per (row, head). `shards` > 1:
+    this pool is one rank's head slice, `num_heads` the rank's heads."""
 
     def __init__(self, *, num_blocks: int, block_size: int,
                  num_layers: int, num_heads: int, head_dim: int,
-                 dtype=torch.float32, device=None, cache_dtype=None):
+                 dtype=torch.float32, device=None, cache_dtype=None,
+                 shards: int = 1):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved trash block)")
@@ -70,6 +82,7 @@ class BlockPool:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.cache_dtype = cache_dtype
+        self.shards = int(shards)
         # LIFO free list: recently freed blocks are re-issued first
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._rows: Dict[int, List[int]] = {}
@@ -82,12 +95,16 @@ class BlockPool:
     @classmethod
     def for_model(cls, model, *, num_blocks: int, block_size: int,
                   cache_dtype=None):
-        """Geometry, dtype and device from a GPTForCausalLM."""
+        """Geometry, dtype and device from a GPTForCausalLM; a
+        tensor-parallel model's pool holds the rank's heads."""
         cfg = model.config
+        group = getattr(model, "mp_group", None)
+        shards = 1 if group is None else group.nranks
         return cls(num_blocks=num_blocks, block_size=block_size,
-                   num_layers=cfg.num_layers, num_heads=cfg.num_heads,
-                   head_dim=cfg.head_dim, dtype=model.dtype,
-                   device=model.device, cache_dtype=cache_dtype)
+                   num_layers=cfg.num_layers,
+                   num_heads=cfg.num_heads // shards, head_dim=cfg.head_dim,
+                   dtype=model.dtype, device=model.device,
+                   cache_dtype=cache_dtype, shards=shards)
 
     def make_pools(self) -> List[tuple]:
         """Fresh zeroed pools on the pool's device. Per layer ``(k, v)``
@@ -131,6 +148,12 @@ class BlockPool:
         else:
             per = rows * self.head_dim * self.dtype.itemsize
         return 2 * per * self.num_layers
+
+    @property
+    def payload_bytes(self) -> int:
+        """Host bytes of one spilled block: the full-width payload, every
+        shard's heads (the spill tier's unit)."""
+        return self.bytes_per_block * self.shards
 
     @property
     def free_blocks(self) -> int:
@@ -294,22 +317,17 @@ class BlockPool:
         payload is complete when this returns. Returns the tuple of host
         tensors `write_block` takes back verbatim: the round trip moves
         bytes and never recomputes them."""
+        return to_host(self.block_stacks(pools, block))
+
+    def block_stacks(self, pools, block: int) -> tuple:
+        """`read_block`'s stacks, left on the device (this rank's heads)."""
         b = int(block)
         if self.cache_dtype == "int8":
-            stacks = (torch.stack([layer[i][b] for layer in pools
-                                   for i in (0, 2)]),
-                      torch.stack([layer[i][b] for layer in pools
-                                   for i in (1, 3)]))
-        else:
-            stacks = (torch.stack([p[b] for layer in pools
-                                   for p in layer]),)
-        pin = stacks[0].device.type == "cuda"
-        out = []
-        for st in stacks:
-            host = torch.empty(st.shape, dtype=st.dtype, pin_memory=pin)
-            host.copy_(st)
-            out.append(host)
-        return tuple(out)
+            return (torch.stack([layer[i][b] for layer in pools
+                                 for i in (0, 2)]),
+                    torch.stack([layer[i][b] for layer in pools
+                                 for i in (1, 3)]))
+        return (torch.stack([p[b] for layer in pools for p in layer]),)
 
     def write_block(self, pools, block: int, payload: tuple):
         """Copy one spilled payload back into pool position `block`, in
@@ -319,24 +337,43 @@ class BlockPool:
         per payload tensor of its slices into every layer's planes (one
         dtype a call). Returns the pools."""
         executables.note_process(self._spill_sig())
-        b = int(block)
         dev = pools[0][0].device
+        return self.write_stacks(pools, block, tuple(
+            t.to(dev, non_blocking=True) for t in payload))
+
+    def write_stacks(self, pools, block: int, stacks: tuple):
+        """Copy device stacks of `block_stacks`' form (this rank's heads)
+        into every layer's planes at `block`: one multi-tensor copy a
+        stack. Returns the pools."""
+        b = int(block)
         planes = (0, 2) if self.cache_dtype == "int8" else (0, 1)
-        for k, t in enumerate(payload):
-            stack = t.to(dev, non_blocking=True)
+        for k, stack in enumerate(stacks):
             torch._foreach_copy_([layer[i + k][b] for layer in pools
                                   for i in planes], list(stack.unbind(0)))
         return pools
 
     def _spill_sig(self) -> tuple:
         return ("spill_scatter", self.num_blocks, self.block_size,
-                self.num_layers, self.num_heads, self.head_dim,
-                str(self.dtype), self.cache_dtype, 1)
+                self.num_layers, self.num_heads * self.shards, self.head_dim,
+                str(self.dtype), self.cache_dtype, self.shards)
 
     def __repr__(self):
         return (f"BlockPool(blocks={self.num_blocks}x{self.block_size}, "
                 f"free={self.free_blocks}/{self.capacity_blocks}, "
                 f"owners={len(self._rows)})")
+
+
+def to_host(stacks) -> tuple:
+    """Device stacks copied to host memory, pinned when they live on a
+    CUDA device; the copies block, so the payload is complete on
+    return."""
+    out = []
+    for st in stacks:
+        host = torch.empty(st.shape, dtype=st.dtype,
+                           pin_memory=st.device.type == "cuda")
+        host.copy_(st)
+        out.append(host)
+    return tuple(out)
 
 
 class HostSpillTier:

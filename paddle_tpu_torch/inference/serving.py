@@ -63,14 +63,26 @@ surface).
   model_draft_fn  turns a (small) GPT into a `spec_draft` callable that
                   drafts through its `generate_static_ragged`.
 
+  shards=N        tensor-parallel paged serving on N ranks, one process a
+                  card: every rank builds the model under a mesh with an
+                  ``mp`` axis of N (`distributed.build_mesh`, `fleet.init`)
+                  and the same engine; the pools hold the rank's
+                  num_heads / N heads. Rank 0 of the mp group is the
+                  LEADER and drives the engine (submit / step / drain and
+                  everything on the host); the others call `follow()`,
+                  which runs each device op the leader sends
+                  (inference/sharded.py) and returns when the leader's
+                  engine is `close()`d. Greedy chains equal the
+                  single-card engine's.
+
 Greedy engine output equals the JAX engine's and the JAX
 `generate_static_ragged`'s token chains per request (tests). On a CUDA
 model every attention call of the paged serving path runs a hand-written
 paged-attention kernel, and under weight_dtype="int8" every projection and
 the LM head of either engine run the hand-written int8 GEMM.
 
-Not ported yet: shards > 1 (a later multi-GPU slice), the graph lint and the
-engine's chaos injector (ROADMAP.md, queue A).
+Not ported yet: the graph lint and the engine's chaos injector
+(ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -86,12 +98,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..analysis.findings import Finding, Findings
+from ..analysis.findings import ConfigValidationError, Finding, Findings
 from ..profiler import StepMonitor
 from ..profiler._metrics import (LogHistogram, counter_lines, gauge_lines,
                                  histogram_lines)
 from . import executables
-from .kv_cache import BlockPool, HostSpillTier
+from .kv_cache import BlockPool, HostSpillTier, to_host
 from .prefix_cache import PrefixCache
 
 _logger = logging.getLogger("paddle_tpu_torch.inference.serving")
@@ -520,6 +532,9 @@ class ServingConfig:
     kv_block: int = 16              # KV rows per pool block
     kv_blocks: Optional[int] = None  # total pool blocks INCL. trash block;
     #                            default = worst case for max_batch rows
+    # tensor-parallel serving: the pools' head axis over the active mesh's
+    # mp axis of this many ranks (one process a card; module docstring).
+    # None/1 without a mesh = one card. Requires paged=True.
     shards: Optional[int] = None
     # prefix cache: cached full blocks of a prompt map shared into the new
     # request's table; a full hit skips prefill, a partial hit prefills
@@ -558,6 +573,18 @@ class ServingConfig:
             raise ValueError(
                 f"queue_high_watermark must be in [1, queue_capacity="
                 f"{self.queue_capacity}], got {self.queue_high_watermark}")
+        if self.shards is not None:
+            if self.shards < 1:
+                raise ValueError(f"shards must be >= 1, got {self.shards}")
+            if self.shards > 1 and not self.paged:
+                raise ConfigValidationError(Finding(
+                    "config", "sharded_requires_paged", "error",
+                    f"shards={self.shards} requires paged=True: tensor-"
+                    f"parallel serving shards the paged block pools' head "
+                    f"axis over the mp mesh; the padded static engine has "
+                    f"no pools to shard",
+                    executable="ServingConfig",
+                    data={"shards": self.shards, "paged": False}))
         if self.prefix_cache and not self.paged:
             raise ValueError("prefix_cache=True requires paged=True (the "
                              "trie shares BLOCK-pool blocks; the padded "
@@ -608,17 +635,11 @@ class ServingConfig:
         if self.weight_dtype not in (None, "int8"):
             raise ValueError(f"weight_dtype must be None or 'int8' (weight-"
                              f"only int8 GEMMs); got {self.weight_dtype!r}")
-        later = (
-            ("shards", (self.shards or 1) > 1, "a later multi-GPU slice, "
-             "sharded serving (ROADMAP.md, queue A item 4)"),
-            ("lint", self.lint is not None,
-             "the graph lint, which reads XLA HLO (ROADMAP.md, queue A "
-             "item 8)"))
-        for name, on, where in later:
-            if on:
-                raise NotImplementedError(
-                    f"ServingConfig.{name} is not ported to PyTorch yet: it "
-                    f"comes with {where}")
+        if self.lint is not None:
+            raise NotImplementedError(
+                "ServingConfig.lint is not ported to PyTorch yet: it comes "
+                "with the graph lint, which reads XLA HLO (ROADMAP.md, "
+                "queue A item 8)")
         if self.paged:
             # the padded engine checks cache_dtype (None, the model dtype
             # or "int8") at its first prefill, as the JAX engine does
@@ -678,7 +699,14 @@ class ServingEngine:
     beside them must share it, so that one thread at a time launches on
     the device, on the current stream). The engine runs on the model's
     device; caches and pools are allocated there and updated in place.
-    `clock` is injectable (tests drive deadlines deterministically)."""
+    `clock` is injectable (tests drive deadlines deterministically).
+
+    Sharded (`ServingConfig(paged=True, shards=N)`): construct it on every
+    rank of the mesh's mp group, after the model; the leader (the group's
+    first rank) serves and `close()`s it, the others `follow()`. Every
+    device call of the paged engine is one op of the runner
+    (`inference/sharded.py`). shards=1 under a mesh with an ``mp`` axis is
+    the same engine over a world of one."""
 
     def __init__(self, model, config: ServingConfig, *,
                  metrics: Optional[ServingMetrics] = None,
@@ -714,13 +742,20 @@ class ServingEngine:
         self._shape_sig = (((config.max_batch, config.prompt_cap), "int64"),
                            ((config.max_batch,), "int32"))
         self._spill = None
+        self._shards = int(config.shards or 1)
+        self._runner = None
+        self._group = None
+        self._tables_bytes = 0
         if not config.paged:
             return
+        group, control = self._mp_groups(model, config)
         B, MB = config.max_batch, config.table_width
         self._pool = BlockPool.for_model(model, num_blocks=config.kv_blocks,
                                          block_size=config.kv_block,
                                          cache_dtype=config.cache_dtype)
         self._pools = self._pool.make_pools()
+        if group is not None:
+            self._start_sharded(group, control)
         self._slots: List[Optional[Request]] = [None] * B
         self._tables = np.zeros((B, MB), np.int32)
         self._lens = np.zeros((B,), np.int32)
@@ -741,12 +776,10 @@ class ServingEngine:
             # the cache owns the trie mechanics, the engine owns the
             # device pools: both copy directions are closures over it
             self._spill = HostSpillTier(
-                bytes_per_block=self._pool.bytes_per_block,
+                bytes_per_block=self._pool.payload_bytes,
                 byte_budget=config.spill_host_bytes)
-            self._prefix.attach_spill(
-                self._spill,
-                reader=lambda blk: self._pool.read_block(self._pools, blk),
-                writer=self._spill_write)
+            self._prefix.attach_spill(self._spill, reader=self.read_block,
+                                      writer=self._spill_write)
         # chunked prefill: next prompt position to prefill per slot; -1 =
         # not mid-prefill (a decode row)
         self._prefill_pos = np.full((B,), -1, np.int64)
@@ -754,6 +787,204 @@ class ServingEngine:
         # its misses
         self._draft_fn = config.spec_draft \
             if callable(config.spec_draft) else None
+
+    # -- tensor-parallel serving: the mp group and the runner -------------
+    def _mp_groups(self, model, config):
+        """The engine's mp group and its gloo twin, or (None, None) for the
+        one-card engine (shards None or 1 without a mesh). Checks the
+        configuration against the process group, the model and the
+        mesh."""
+        import torch.distributed as dist
+        from ..distributed.mesh import get_mesh
+        n = self._shards
+        mesh = get_mesh()
+        if n == 1 and (mesh is None or "mp" not in mesh.shape):
+            return None, None
+        if not dist.is_initialized():
+            raise ValueError(
+                f"shards={n} needs an initialised process group, one rank "
+                f"a device (distributed.init_parallel_env or spawn)")
+        world = dist.get_world_size()
+        if n > world:
+            raise ValueError(
+                f"shards={n} needs {n} ranks (one device each); the "
+                f"process group has {world}")
+        nh = model.config.num_heads
+        if nh % n != 0:
+            raise ValueError(f"shards={n} must divide num_heads={nh} (pools "
+                             f"shard the head axis)")
+        if mesh is None or mesh.axis_size("mp") != n:
+            raise ValueError(
+                f"shards={n} needs the active mesh's mp axis of {n} "
+                f"(distributed.build_mesh or fleet.init); the mesh is "
+                f"{None if mesh is None else mesh.shape}")
+        mg = getattr(model, "mp_group", None)
+        if (1 if mg is None else mg.nranks) != n:
+            raise ValueError(
+                f"the model's mp degree is {1 if mg is None else mg.nranks}, "
+                f"shards={n}: build the model under the mesh")
+        return mesh.group("mp"), mesh.control_group("mp")
+
+    def _start_sharded(self, group, control):
+        """Gather the replicated serving tables, quantize once (int8
+        weights: the row-parallel scales' max all-reduces), check that
+        every rank holds the same configuration, then start the runner.
+        Every rank of the group runs this, in the same order."""
+        from ..distributed.collective import all_gather
+        from .sharded import ShardRunner
+        cfg, model = self.config, self.model
+        self._group = group
+        self._tables_bytes = model.gather_serving_tables(group)
+        model._q8(cfg.weight_dtype)
+        digest = _config_digest(model.config, cfg)
+        seen = all_gather(torch.tensor([digest], dtype=torch.int64),
+                          group=control)
+        if len(set(seen.view(-1).tolist())) != 1:
+            raise ValueError("sharded engine: the ranks hold different "
+                             "model or serving configurations")
+        B, MB = cfg.max_batch, cfg.table_width
+        words = B * MB + B * (4 + cfg.spec_k) + cfg.prompt_cap + MB + 64
+        self._runner = ShardRunner(group, control, self._handlers(), words)
+
+    @property
+    def is_leader(self) -> bool:
+        """True on the rank that drives the engine (always, unsharded)."""
+        return self._runner is None or self._runner.is_leader
+
+    def _leader_only(self, what: str):
+        if not self.is_leader:
+            raise RuntimeError(
+                f"{what}() on a follower: rank {self._group.ranks[0]} leads "
+                f"this sharded engine; the other ranks call follow()")
+
+    def follow(self):
+        """A follower's whole part: run the leader's device ops on this
+        rank's pools until the leader closes the engine (returns) or fails
+        (raises)."""
+        if self._runner is None:
+            raise RuntimeError("follow() is for the followers of a sharded "
+                               "engine (ServingConfig(shards=N))")
+        self._runner.follow()
+
+    def close(self):
+        """Release the followers (sharded leader; a no-op otherwise)."""
+        if self._runner is not None:
+            self._runner.close()
+
+    def runner_summary(self) -> Optional[dict]:
+        """The runner's ops and their host cost a call (None unsharded)."""
+        return None if self._runner is None else self._runner.summary()
+
+    def _dev(self, op: str, *arrays, extra=None):
+        """Run one device op: on every rank through the runner, or here."""
+        if self._runner is None:
+            return getattr(self, "_op_" + op)(*arrays, extra=extra)
+        return self._runner.call(op, *arrays, extra=extra)
+
+    def _handlers(self):
+        from .sharded import OPS
+        return {op: getattr(self, "_op_" + op) for op in OPS
+                if hasattr(self, "_op_" + op)}
+
+    # the device ops: host vectors in (int64 when they came through the
+    # runner), the model's entry points on this rank's pools
+    def _op_prefill(self, ids, lens, table, start, seed, extra=None):
+        cfg = self.config
+        self._pools, first = self.model.prefill_paged(
+            ids, lens, self._pools, table, temperature=cfg.temperature,
+            top_k=cfg.top_k, top_p=cfg.top_p, seed=int(seed),
+            weight_dtype=cfg.weight_dtype, cache_dtype=cfg.cache_dtype,
+            start=None if int(start[0]) < 0 else start)
+        return first
+
+    def _op_decode(self, tables, lens, pending, done, chunk, seed,
+                   extra=None):
+        cfg = self.config
+        toks, self._pools, _, done_d = self.model.decode_paged(
+            self._pools, tables, lens, pending, done, int(chunk),
+            temperature=cfg.temperature, top_k=cfg.top_k, top_p=cfg.top_p,
+            seed=int(seed), eos_token_id=cfg.eos_token_id,
+            weight_dtype=cfg.weight_dtype, cache_dtype=cfg.cache_dtype)
+        return toks, done_d
+
+    def _op_verify(self, tables, lens, pending, drafts, done, extra=None):
+        cfg = self.config
+        toks, n_acc, self._pools, done_d = self.model.verify_paged(
+            self._pools, tables, lens, pending, drafts, done,
+            eos_token_id=cfg.eos_token_id, weight_dtype=cfg.weight_dtype,
+            cache_dtype=cfg.cache_dtype)
+        return toks, n_acc, done_d
+
+    def _op_cow(self, src, dst, extra=None):
+        s, d = int(src), int(dst)
+        for layer in self._pools:
+            for plane in layer:
+                plane[d] = plane[s]
+
+    def _op_reset(self, extra=None):
+        self._pools = self._pool.make_pools()
+
+    def _op_reference(self, ids, lens, new, extra=None):
+        cfg = self.config
+        return self.model.generate_static_ragged(
+            ids, lens, max_new_tokens=int(new), temperature=cfg.temperature,
+            top_k=cfg.top_k, top_p=cfg.top_p, seed=cfg.seed,
+            eos_token_id=cfg.eos_token_id, weight_dtype=cfg.weight_dtype,
+            cache_dtype=cfg.cache_dtype)
+
+    def _op_spill_read(self, block, extra=None):
+        """One block's full-width host payload: this rank's head slice, or
+        every rank's gathered on the leader (followers return None)."""
+        from ..distributed.collective import all_gather
+        stacks = self._pool.block_stacks(self._pools, int(block))
+        if self._shards == 1:
+            return to_host(stacks)
+        parts = [all_gather(st, group=self._group) for st in stacks]
+        if not self.is_leader:
+            return None
+        # [n, 2L, bs, h(, D)] -> [2L, bs, n * h(, D)], rank-major heads
+        return to_host(tuple(p.movedim(0, 2).flatten(2, 3) for p in parts))
+
+    def _op_spill_write(self, block, extra=None):
+        """Write one full-width payload into pool block `block`: the
+        leader's host payload, broadcast over the mp group, each rank
+        keeping its head slice."""
+        from ..distributed.collective import broadcast
+        pool = self._pool
+        if self._shards == 1:
+            self._pools = pool.write_block(self._pools, int(block), extra)
+            return
+        from . import executables
+        executables.note_process(pool._spill_sig())
+        dev, h = self._pools[0][0].device, pool.num_heads
+        full = (2 * pool.num_layers, pool.block_size, h * self._shards,
+                pool.head_dim)
+        specs = ((full, torch.int8), (full[:3], torch.float32)) \
+            if pool.cache_dtype == "int8" else ((full, pool.dtype),)
+        bufs = [t.to(dev, non_blocking=True) for t in extra] \
+            if self.is_leader else \
+            [torch.empty(shp, dtype=dt, device=dev) for shp, dt in specs]
+        r = self._group.rank
+        stacks = []
+        for b in bufs:
+            broadcast(b, src=self._group.ranks[0], group=self._group)
+            stacks.append(b[:, :, r * h:(r + 1) * h])
+        self._pools = pool.write_stacks(self._pools, int(block),
+                                        tuple(stacks))
+
+    def read_block(self, block: int) -> tuple:
+        """Pool block `block`'s full-width host payload (the spill tier's
+        serialization; on a sharded engine the ranks' head slices
+        gathered)."""
+        return self._dev("spill_read", np.asarray(int(block)))
+
+    def generate_reference(self, ids, lens, max_new_tokens: int):
+        """The model's `generate_static_ragged` under the engine's
+        sampling and dtype envelope (the probes' goldens); on a sharded
+        engine every rank runs it."""
+        return self._dev("reference", np.asarray(ids, np.int64),
+                         np.asarray(lens, np.int64),
+                         np.asarray(int(max_new_tokens)))
 
     # -- compile accounting ---------------------------------------------
     def _sig_common(self):
@@ -773,16 +1004,17 @@ class ServingEngine:
         samp = (float(cfg.temperature), int(cfg.top_k), float(cfg.top_p))
         if kind == "paged_prefill":
             width, ofs = shape
-            sig = (kind, 1, width) + geo + samp + (cdt, q8, c8, ofs, 1)
+            sig = (kind, 1, width) + geo + samp + (cdt, q8, c8, ofs,
+                                                   self._shards)
         elif kind == "paged_decode":
             sig = (kind, len(self._slots)) + geo + (shape[0],) + samp \
-                + (eos, cdt, q8, c8, 1)
+                + (eos, cdt, q8, c8, self._shards)
         elif kind == "paged_verify":
             sig = (kind, len(self._slots), shape[0]) + geo \
-                + (eos, cdt, q8, c8, 1)
+                + (eos, cdt, q8, c8, self._shards)
         else:                                   # paged_cow
             sig = (kind, pool.num_blocks, pool.block_size, pool.num_layers,
-                   cdt, pool.cache_dtype, 1)
+                   cdt, pool.cache_dtype, self._shards)
         executables.note(self.model, sig)
 
     def _note_static(self, kind: str, chunk: int = 0,
@@ -864,6 +1096,7 @@ class ServingEngine:
         measured from the scheduled arrival; a future time clamps to now.
         `probe=True` tags a golden-canary request, accounted apart from
         user traffic."""
+        self._leader_only("submit")
         cfg = self.config
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         want = cfg.max_new_tokens if max_new_tokens is None \
@@ -925,6 +1158,7 @@ class ServingEngine:
         rebuilt) and the exception propagates. Each step is one record of
         the batch monitor; a step whose device calls include one never
         run before records a compile (executables.py)."""
+        self._leader_only("step")
         if not self.config.paged:
             return self._step_padded()
         b0 = executables.builds()
@@ -980,7 +1214,10 @@ class ServingEngine:
             if self._prefix is not None:
                 self._prefix.clear(release=False)
             self._pool.reset()
-            self._pools = self._pool.make_pools()
+            if self._runner is not None and self._runner.broken:
+                self._op_reset()    # the followers are gone
+            else:
+                self._dev("reset")
             self.metrics.gauges["inflight"] = 0
             self.monitor.end_step(items=0)
             raise
@@ -1037,6 +1274,7 @@ class ServingEngine:
         (begin_drain), and once empty flush the liveness gauges and emit
         the terminal summary row; the engine then refuses traffic until
         resume_admission()."""
+        self._leader_only("drain")
         if seal:
             self.begin_drain()
         out: List[Request] = []
@@ -1224,11 +1462,11 @@ class ServingEngine:
         return [i for i in self._live() if self._prefill_pos[i] < 0]
 
     def _ship_decode_state(self):
-        """The per-slot vectors a decode or verify call takes, as device
-        tensors: tables [B, MB], lens [B], pending [B], done [B]. Empty
-        slots and rows still mid-chunked-prefill ship a trash table row,
-        lens 0 and done=True, so the fixed-[B] call cannot write into (or
-        attend) their blocks; their host state is untouched."""
+        """The per-slot host vectors a decode or verify call takes:
+        tables [B, MB], lens [B], pending [B], done [B]. Empty slots and
+        rows still mid-chunked-prefill ship a trash table row, lens 0 and
+        done=True, so the fixed-[B] call cannot write into (or attend)
+        their blocks; their host state is untouched."""
         tables, lens = self._tables, self._lens
         pending, done = self._pending, self._done
         pf = self._prefill_pos >= 0
@@ -1239,9 +1477,7 @@ class ServingEngine:
             lens[pf] = 0
             pending[pf] = 0
             done[pf] = True
-        dev = self.model.device
-        return tuple(torch.from_numpy(a).to(dev)
-                     for a in (tables, lens, pending, done))
+        return tables, lens, pending, done
 
     def _kv_physical(self):
         """(physical live tokens, logical shared tokens) over live slots.
@@ -1292,6 +1528,7 @@ class ServingEngine:
         cached block then goes through the host tier and back (the spill
         and rehydrate copies). `clear=True` then drops the warmup's cached
         prefixes so measured traffic starts cold."""
+        self._leader_only("warmup_prefix_cache")
         if self._prefix is None:
             raise ValueError("warmup_prefix_cache needs "
                              "ServingConfig(prefix_cache=True)")
@@ -1319,19 +1556,19 @@ class ServingEngine:
         return self
 
     def _spill_write(self, blk: int, payload):
-        """Rehydrate one spilled payload into pool block `blk` (the pools
-        are updated in place)."""
-        self._pools = self._pool.write_block(self._pools, blk, payload)
+        """Rehydrate one spilled full-width payload into pool block `blk`
+        (the pools are updated in place; sharded, every rank writes its
+        head slice)."""
+        self._dev("spill_write", np.asarray(int(blk)), extra=payload)
 
     def _cow_copy(self, src: int, dst: int):
         """Copy pool block `src` into private block `dst` in every layer's
         planes (codes and scales for int8): the copy-on-write an aligned
         full-prefix hit needs before its re-decode of the last prompt
-        token writes inside the last shared block."""
+        token writes inside the last shared block. Shard-local: each rank
+        copies its heads, no collective."""
         self._note_paged("paged_cow")
-        for layer in self._pools:
-            for plane in layer:
-                plane[dst] = plane[src]
+        self._dev("cow", np.asarray(int(src)), np.asarray(int(dst)))
 
     def _admit_paged(self):
         """Fill every free slot from the queue: consult the prefix trie,
@@ -1443,14 +1680,10 @@ class ServingEngine:
                 t_pf0 = self.clock()
                 self._note_paged("paged_prefill", cfg.prompt_cap,
                                  "abs" if t == 0 else "ofs")
-                self._pools, first = self.model.prefill_paged(
-                    ids, np.asarray([suffix], np.int32), self._pools,
-                    table_row[None], temperature=cfg.temperature,
-                    top_k=cfg.top_k, top_p=cfg.top_p,
-                    seed=cfg.seed + self._calls,
-                    weight_dtype=cfg.weight_dtype,
-                    cache_dtype=cfg.cache_dtype,
-                    start=None if t == 0 else np.asarray([t], np.int32))
+                first = self._dev(
+                    "prefill", ids, np.asarray([suffix], np.int32),
+                    table_row[None], np.asarray([t if t else -1], np.int32),
+                    np.asarray(cfg.seed + self._calls))
                 tok = int(first.cpu()[0])         # host sync: TTFT is known
                 self._calls += 1
                 ran.add("prefill" if t == 0 else "prefix_prefill")
@@ -1496,13 +1729,10 @@ class ServingEngine:
             ids[0, :clen] = req.prompt[off:off + clen]
             t_pf0 = self.clock()
             self._note_paged("paged_prefill", pc, "ofs")
-            self._pools, first = self.model.prefill_paged(
-                ids, np.asarray([clen], np.int32), self._pools,
-                self._tables[slot][None], temperature=cfg.temperature,
-                top_k=cfg.top_k, top_p=cfg.top_p,
-                seed=cfg.seed + self._calls, weight_dtype=cfg.weight_dtype,
-                cache_dtype=cfg.cache_dtype,
-                start=np.asarray([off], np.int32))
+            first = self._dev(
+                "prefill", ids, np.asarray([clen], np.int32),
+                self._tables[slot][None], np.asarray([off], np.int32),
+                np.asarray(cfg.seed + self._calls))
             # only the final window's token is used: syncing the others
             # would put a host round trip on every window
             tok = int(first.cpu()[0]) if final else 0
@@ -1551,11 +1781,9 @@ class ServingEngine:
         tables, lens, pending, done = self._ship_decode_state()
         t_c0 = self.clock()
         self._note_paged("paged_decode", c)
-        toks, self._pools, _, done_d = self.model.decode_paged(
-            self._pools, tables, lens, pending, done, c,
-            temperature=cfg.temperature, top_k=cfg.top_k, top_p=cfg.top_p,
-            seed=cfg.seed + self._calls, eos_token_id=cfg.eos_token_id,
-            weight_dtype=cfg.weight_dtype, cache_dtype=cfg.cache_dtype)
+        toks, done_d = self._dev("decode", tables, lens, pending, done,
+                                 np.asarray(c),
+                                 np.asarray(cfg.seed + self._calls))
         arr = toks.cpu().numpy()                     # host sync per chunk
         self._calls += 1
         t = self.clock()
@@ -1641,10 +1869,8 @@ class ServingEngine:
         tables, lens, pending, done = self._ship_decode_state()
         t_c0 = self.clock()
         self._note_paged("paged_verify", cfg.spec_k + 1)
-        toks, n_acc, self._pools, done_d = self.model.verify_paged(
-            self._pools, tables, lens, pending, drafts, done,
-            eos_token_id=cfg.eos_token_id, weight_dtype=cfg.weight_dtype,
-            cache_dtype=cfg.cache_dtype)
+        toks, n_acc, done_d = self._dev("verify", tables, lens, pending,
+                                        drafts, done)
         arr = toks.cpu().numpy()                    # host sync per window
         acc = n_acc.cpu().numpy()
         done_new = done_d.cpu().numpy()
@@ -1803,10 +2029,12 @@ class ServingEngine:
         this engine's owners and return it. Reader-backed owners over
         accounting the engine already keeps (a ledger read never syncs):
 
-          model_params   the parameters' bytes
+          model_params   the parameters' bytes (a rank's shard)
+          serving_tables the replicated wte (and untied head) a sharded
+                         engine gathered
           kv_pool        the pool's full reservation (num_blocks x
                          bytes_per_block: the sum of the pool tensors'
-                         bytes), `used_bytes` as detail
+                         bytes, a rank's heads), `used_bytes` as detail
           prefix_cache   retained-block bytes, an OVERLAY (they live
                          inside kv_pool's reservation)
           spill_host     the host spill tier (device=False: never summed
@@ -1825,6 +2053,9 @@ class ServingEngine:
                            for p in self.model.parameters()))
         ledger.register("model_params", _params_bytes, kind="params",
                         replace=True)
+        if self._runner is not None:
+            ledger.register("serving_tables", lambda: self._tables_bytes,
+                            kind="params", replace=True)
         if self.config.paged:
             pool = self._pool
 
@@ -1835,7 +2066,7 @@ class ServingEngine:
                         "used_blocks": pool.used_blocks,
                         "free_blocks": pool.free_blocks}
             ledger.register("kv_pool", _pool_bytes, kind="kv",
-                            meta={"shards": 1,
+                            meta={"shards": self._shards,
                                   "block_size": pool.block_size,
                                   "num_blocks": pool.num_blocks},
                             replace=True)
@@ -1997,6 +2228,19 @@ class ServingEngine:
             srv.add_poller(self._invariants.audit, invariant_interval,
                            name="invariants")
         return srv.start()
+
+
+def _config_digest(model_config, config) -> int:
+    """An int64 digest of the model's and the engine's configuration
+    (callables by name only: their reprs differ between processes)."""
+    import hashlib
+
+    def clean(v):
+        return getattr(v, "__qualname__", "callable") if callable(v) else v
+    text = repr((sorted(vars(model_config).items()),
+                 sorted((k, clean(v)) for k, v in vars(config).items())))
+    return int.from_bytes(hashlib.sha256(text.encode()).digest()[:8],
+                          "little", signed=True)
 
 
 def _hit_eos(row: np.ndarray, eos: Optional[int]) -> bool:

@@ -15,9 +15,17 @@ v), attn.out and mlp.down their in features, wte (and the LM head) its
 vocabulary rows; attention runs #6 over the rank's num_heads / mp heads
 and `loss` the vocab-parallel route of #11. Weights drawn from a seed are
 the single-device model's, cut into shards. Such a model trains (`loss`,
-the cache-free `forward`, whose logits are gathered); serving and
-weight-only int8 on it are a later slice and raise. The LM head is tied
-to wte.
+the cache-free `forward`, whose logits are gathered) and serves: every
+call with pools or caches reads wte (and an untied head) from a
+replicated table gathered once (`gather_serving_tables`, which the
+sharded `ServingEngine` calls), so the embedding needs no all-reduce and
+the logits are whole on every rank; the rank's heads attend its own
+pools, and a forward communicates exactly the two row-parallel
+all-reduces of each layer (attn.out, mlp.down). Weight-only int8 on a
+shard quantizes each row as the single-device model does: the
+row-parallel weights' row absmax is a max over the mp group, so every
+rank's codes are the single-device codes, cut. The LM head is tied to
+wte.
 
 Training: the cache-free forward attends through
 `ops.attention.functional_attention` (flash attention, kernel #6 on CUDA)
@@ -82,11 +90,12 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              static_cache_mask, static_cache_update,
                              static_cache_update_q8)
 from ..distributed.mesh import loss_group, mesh_axis_size
-from ..distributed.collective import all_reduce
+from ..distributed.collective import ReduceOp, all_gather, all_reduce
 from ..distributed.mpu import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding, _c_concat,
-                               _c_identity, get_rng_state_tracker,
-                               replicated_seed, resolve_mp_group, shard_of)
+                               _c_identity, _mp_allreduce,
+                               get_rng_state_tracker, replicated_seed,
+                               resolve_mp_group, shard_of)
 from ..distributed.recompute import (TAGS, checkpoint_segment,
                                      checkpoint_tag, recompute,
                                      resolve_policy)
@@ -96,6 +105,7 @@ from ..nn.initializer import xavier_uniform_
 from ..nn.layers import LayerNorm
 from ..ops.flash_attention import flash_attention_packed_qkv
 from ..ops.int8_matmul import int8_linear_nd
+from ..ops.linear_ce import _mm_f32
 
 
 @dataclass
@@ -283,7 +293,7 @@ class GPTSelfAttention(nn.Module):
                 paged_cache_write(vp, v, tables, lens)
                 ctx = paged_attention(q.contiguous(), kp, vp, tables,
                                       lens + 1, score_dtype=q.dtype)
-        out = self.project(ctx, q8, drop)
+        out = self.project(ctx, q8, drop, serve=True)
         return out if cache is None else (out, new_cache)
 
     def attend(self, qkv3h):
@@ -304,12 +314,13 @@ class GPTSelfAttention(nn.Module):
                                        qkv[:, :, 2], is_causal=True)
         return checkpoint_tag(ctx, "attn_ctx")
 
-    def project(self, ctx, q8=None, drop=None):
-        """The output projection of the context (then `drop`, if given)."""
+    def project(self, ctx, q8=None, drop=None, serve=False):
+        """The output projection of the context (then `drop`, if given);
+        `serve`: a call with pools or caches (see `_linear`)."""
         b, s = ctx.shape[0], ctx.shape[1]
         out = _linear(self.out,
                       ctx.reshape(b, s, self.num_heads * self.head_dim),
-                      (q8 or {}).get("attn.out"))
+                      (q8 or {}).get("attn.out"), serve)
         return out if drop is None else drop(out)
 
 
@@ -319,12 +330,42 @@ def _use_packed_flash() -> bool:
     return os.environ.get("PADDLE_TPU_FLASH_PACKED") == "1"
 
 
-def _linear(mod: nn.Linear, x, pay):
+def _linear(mod: nn.Linear, x, pay, serve: bool = False):
     """`mod`, or under weight_dtype="int8" its payload (codes [out, in],
-    scale [out]) through the weight-only int8 GEMM, bias added after."""
+    scale [out]) through the weight-only int8 GEMM, bias added after. A
+    row-parallel shard's partial product is all-reduced over mp before
+    the bias (as `RowParallelLinear` does); when serving a bf16 model it
+    stays f32 through the all-reduce and is rounded once after, as the
+    one-card GEMM rounds its f32 accumulator once (the fp form adds the
+    bias before that rounding, as addmm's epilogue does; the int8 form
+    after, as `int8_linear_nd` does)."""
+    group = getattr(mod, "group", None)
+    if isinstance(mod, RowParallelLinear) and group is not None and (
+            pay is not None or serve):
+        wide = serve and x.dtype != torch.float32
+        if pay is not None:
+            y = int8_linear_nd(x, pay[0], pay[1], None, w_layout="nk",
+                               out_dtype=torch.float32 if wide else None)
+        elif wide:
+            y = _mm_f32(x.reshape(-1, x.shape[-1]), mod.weight.t()).reshape(
+                *x.shape[:-1], mod.out_features)
+        else:
+            y = F.linear(x, mod.weight)
+        if serve:
+            # no autograd under serving: reduce the fresh product in place
+            all_reduce(y, group=group)
+        else:
+            y = _mp_allreduce(y, group)
+        if wide and pay is None and mod.bias is not None:
+            return (y + mod.bias).to(x.dtype)    # bf16 bias promoted: exact
+        y = y.to(x.dtype)
+        return y if mod.bias is None else y + mod.bias
     if pay is None:
         return mod(x)
-    return int8_linear_nd(x, pay[0], pay[1], mod.bias, w_layout="nk")
+    # a column shard plans its launch as its whole layer does, so its
+    # outputs are the one-card GEMM's, sliced, bit for bit
+    return int8_linear_nd(x, pay[0], pay[1], mod.bias, w_layout="nk",
+                          plan_n=getattr(mod, "full_out_features", None))
 
 
 def _is_q8_cache(cache) -> bool:
@@ -386,16 +427,16 @@ class GPTMLP(nn.Module):
         self.down = RowParallelLinear(m, h, input_is_parallel=True,
                                       device=device, dtype=dtype)
 
-    def forward(self, x, q8=None, drop=None):
-        return self.down_proj(self.up_proj(x, q8), q8, drop)
+    def forward(self, x, q8=None, drop=None, serve=False):
+        return self.down_proj(self.up_proj(x, q8), q8, drop, serve)
 
     def up_proj(self, x, q8=None):
         return checkpoint_tag(_linear(self.up, x, (q8 or {}).get("mlp.up")),
                               "mlp_up")
 
-    def down_proj(self, u, q8=None, drop=None):
+    def down_proj(self, u, q8=None, drop=None, serve=False):
         y = _linear(self.down, F.gelu(u, approximate="tanh"),
-                    (q8 or {}).get("mlp.down"))
+                    (q8 or {}).get("mlp.down"), serve)
         return y if drop is None else drop(y)
 
 
@@ -431,15 +472,16 @@ class GPTBlock(nn.Module):
                       cache, q8, drop)
         a, new_cache = a if cache is not None else (a, None)
         x = x + a
-        x = x + self._ffn(self.ln_2(x), q8, drop)
+        x = x + self._ffn(self.ln_2(x), q8, drop,
+                          serve=pools is not None or cache is not None)
         if with_aux:
             return x, self.mlp.aux_loss
         return x if cache is None else (x, new_cache)
 
-    def _ffn(self, x, q8=None, drop=None):
+    def _ffn(self, x, q8=None, drop=None, serve=False):
         """The MLP, or the MoE layer (its weights never int8) then `drop`."""
         if not self.is_moe:
-            return self.mlp(x, q8, drop)
+            return self.mlp(x, q8, drop, serve)
         y = self.mlp(x)
         return y if drop is None else drop(y)
 
@@ -505,6 +547,10 @@ class GPTModel(nn.Module):
                               device=device, dtype=dtype)
         # hidden dropout's masks; GPTForCausalLM seeds it
         self.dropout_generator = torch.Generator(device=device)
+        # the replicated wte serving reads (gather_serving_tables) and the
+        # (data pointer, version) of the shard it was gathered from
+        self.serving_wte = None
+        self._serving_src = None
 
     def _drop(self, x):
         """Inverted dropout at hidden_dropout: keep with probability 1 - p
@@ -523,12 +569,17 @@ class GPTModel(nn.Module):
         checkpoint regions."""
         s = input_ids.shape[1]
         dev = input_ids.device
-        if self.mp_group is not None and (pools is not None or caches
-                                          is not None or q8):
-            raise NotImplementedError(
-                "a tensor-parallel GPT trains only: serving and weight-only "
-                "int8 on it come with a later multi-GPU slice (ROADMAP.md, "
-                "queue item A4)")
+        serving = pools is not None or caches is not None
+        table = self.serving_wte if serving else None
+        if self.mp_group is not None and (serving or q8) and table is None:
+            raise ValueError(
+                "a tensor-parallel GPT serves from its replicated tables: "
+                "call GPTForCausalLM.gather_serving_tables(group) on every "
+                "rank first (the sharded ServingEngine does)")
+        if table is not None and self._serving_src != _source(self.wte):
+            raise ValueError(
+                "wte changed since gather_serving_tables: gather the "
+                "serving tables again (rebuild the serving engine)")
         if position_ids is None:
             past = 0
             if caches is not None:
@@ -543,7 +594,8 @@ class GPTModel(nn.Module):
         q8 = q8 or {}
         wte = q8.get("wte")
         if wte is None:
-            tok = self.wte(input_ids)
+            tok = self.wte(input_ids) if table is None \
+                else F.embedding(input_ids, table)
         else:
             # int8 row gather times the row scale: a row of the
             # dequantized table, which is never built whole
@@ -609,6 +661,10 @@ class GPTForCausalLM(nn.Module):
         dtype = dtype or getattr(torch, config.param_dtype)
         self.config = config
         self.gpt = GPTModel(config, dev, dtype)
+        # an untied head's replicated table, and which gather of the
+        # serving tables is current (gather_serving_tables)
+        self.serving_head = None
+        self._serving_token = 0
         if not config.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(
                 config.hidden_size, config.vocab_size, has_bias=False,
@@ -634,6 +690,38 @@ class GPTForCausalLM(nn.Module):
     @property
     def mp_group(self):
         return self.gpt.mp_group
+
+    @property
+    def local_heads(self) -> int:
+        """The attention heads this rank computes (num_heads / mp)."""
+        return self.config.num_heads // (1 if self.mp_group is None
+                                         else self.mp_group.nranks)
+
+    @torch.no_grad()
+    def gather_serving_tables(self, group=None):
+        """Gather wte (and an untied LM head) over `group` (the model's mp
+        group, or a group of one rank) into replicated tables that every
+        call with pools or caches reads: the embedding lookup and the head
+        then need no collective, and the logits are whole on every rank.
+        Every rank of the group calls it (an all-gather). Returns the
+        tables' bytes on this rank."""
+        group = self.mp_group if group is None else group
+        if self.mp_group is not None and (
+                group is None or group.ranks != self.mp_group.ranks):
+            raise ValueError("gather_serving_tables: the group must be the "
+                             "model's mp group")
+
+        def gather(w):
+            w = w.detach().contiguous()
+            return w.clone() if group is None else \
+                all_gather(w, group=group).flatten(0, 1)
+        self.gpt.serving_wte = gather(self.gpt.wte.weight)
+        self.gpt._serving_src = _source(self.gpt.wte)
+        self.serving_head = None if self.config.tie_word_embeddings \
+            else gather(self.lm_head.weight)
+        self._serving_token += 1
+        return sum(t.numel() * t.element_size() for t in
+                   (self.gpt.serving_wte, self.serving_head) if t is not None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -678,10 +766,16 @@ class GPTForCausalLM(nn.Module):
         x = self.gpt(input_ids, position_ids, pools, tables, lens, prefill,
                      start, caches, q8)
         x, new_caches = x if caches is not None else (x, None)
-        head = (q8 or {}).get(
-            "wte" if self.config.tie_word_embeddings else "lm_head")
+        tied = self.config.tie_word_embeddings
+        head = (q8 or {}).get("wte" if tied else "lm_head")
+        table = None
+        if pools is not None or caches is not None:
+            table = self.gpt.serving_wte if tied else self.serving_head
         if head is not None:
             logits = int8_linear_nd(x, head[0], head[1], w_layout="nk")
+        elif table is not None:
+            # the replicated table: whole logits, no collective
+            logits = x @ table.t() if tied else F.linear(x, table)
         elif self.mp_group is not None:
             # this rank's vocabulary columns, gathered
             local = F.linear(_c_identity(x, self.mp_group),
@@ -729,16 +823,33 @@ class GPTForCausalLM(nn.Module):
         127) in f32, rounding half to even. The reduction axis is the JAX
         package's, in the port's layouts: per row for the [out, in]
         projections, the untied LM head and wte (its lookup and the tied
-        head both contract over H); per column for wpe."""
+        head both contract over H); per column for wpe.
+
+        On a tensor-parallel shard the gate judges the full parameter's
+        size, wte and an untied head are quantized from their gathered
+        serving tables when those exist, and where the reduction runs
+        along the split dimension (attn.out, mlp.down: split along `in`)
+        each row's absmax is a max all-reduce of the shards' absmaxes over
+        the mp group, so the codes are the single-device codes, cut."""
         min_size = int(os.environ.get("PADDLE_TPU_Q8_DECODE_MIN",
                                       str(1 << 20)))
+        g = self.mp_group
+        tables = {"gpt.wte.weight": self.gpt.serving_wte,
+                  "lm_head.weight": self.serving_head}
         out = {}
         for name, p in self.named_parameters():
-            if p.dim() != 2 or p.numel() < min_size:
+            split = getattr(p, "mp_split", None) if g is not None else None
+            if tables.get(name) is not None:
+                p, split = tables[name], None
+            full = p.numel() * (1 if split is None else g.nranks)
+            if p.dim() != 2 or full < min_size:
                 continue
             w = p.float()
             dim = 0 if name == "gpt.wpe.weight" else 1
-            s = (w.abs().amax(dim=dim, keepdim=True) / 127.0).clamp_min(1e-12)
+            amax = w.abs().amax(dim=dim, keepdim=True)
+            if split is not None and split[0] == dim:
+                all_reduce(amax, ReduceOp.MAX, group=g)
+            s = (amax / 127.0).clamp_min(1e-12)
             q = torch.round(w / s).clamp(-127, 127).to(torch.int8)
             out[name] = (q, s)
         return out
@@ -746,8 +857,10 @@ class GPTForCausalLM(nn.Module):
     def _param_snapshot(self) -> tuple:
         """(data pointer, version) of every parameter: changes when any
         weight is replaced or updated in place (an optimizer step, a
-        load_state_dict, a .to(dtype))."""
-        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+        load_state_dict, a .to(dtype)); and which gather of the serving
+        tables is current."""
+        return tuple((p.data_ptr(), p._version) for p in
+                     self.parameters()) + (self._serving_token,)
 
     def _q8(self, weight_dtype):
         """The payload a forward consumes under weight_dtype="int8" (None
@@ -788,7 +901,7 @@ class GPTForCausalLM(nn.Module):
         (k_codes, k_scale, v_codes, v_scale, 0) with f32 scales per (row,
         head); `ragged` = (prompt lens [B], prompt cap) rides last."""
         cfg, dev = self.config, self.device
-        shape = (b, L, cfg.num_heads, cfg.head_dim)
+        shape = (b, L, self.local_heads, cfg.head_dim)
         tail = () if ragged is None else (ragged,)
         out = []
         for _ in range(cfg.num_layers):
@@ -1020,7 +1133,7 @@ class GPTForCausalLM(nn.Module):
         cfg, dev = self.config, self.device
         ids = _on(input_ids, torch.int64, dev)
         b = ids.shape[0]
-        empty = torch.zeros((b, 0, cfg.num_heads, cfg.head_dim),
+        empty = torch.zeros((b, 0, self.local_heads, cfg.head_dim),
                             dtype=self.dtype, device=dev)
         caches = [(empty, empty) for _ in range(cfg.num_layers)]
         gen = _generator(dev, secrets.randbits(62) if seed is None else seed,
@@ -1188,6 +1301,11 @@ class GPTForCausalLM(nn.Module):
             emitted = torch.arange(k, device=dev)[None] <= n_acc[:, None]
             done_out = dn | ((e == eos_token_id) & emitted).any(dim=1)
         return e.to(torch.int64), n_acc.to(torch.int32), pools, done_out
+
+
+def _source(mod) -> tuple:
+    """(data pointer, version) of a module's weight."""
+    return (mod.weight.data_ptr(), mod.weight._version)
 
 
 def _masked_mean(per_tok, loss_mask):

@@ -276,12 +276,8 @@ class Prober:
         cap = int(cfg.prompt_cap)
         ids = np.zeros((1, cap), np.int64)
         ids[0, :prompt.shape[0]] = prompt
-        out = self.engine.model.generate_static_ragged(
-            ids, [int(prompt.shape[0])], max_new_tokens=self.k,
-            temperature=cfg.temperature, top_k=cfg.top_k,
-            top_p=cfg.top_p, seed=cfg.seed,
-            eos_token_id=cfg.eos_token_id,
-            weight_dtype=cfg.weight_dtype, cache_dtype=cfg.cache_dtype)
+        out = self.engine.generate_reference(ids, [int(prompt.shape[0])],
+                                             self.k)
         return out[0, cap:cap + self.k].cpu().numpy()
 
     def golden(self, variant: str) -> np.ndarray:

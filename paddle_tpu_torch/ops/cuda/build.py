@@ -52,7 +52,7 @@ _ENTRY_POINTS = {
         "pt_paged_prefix_attention": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
         "pt_paged_prefix_attention_q8": [_p] * 8 + [_i] * 7 + [_f, _i, _p]},
     "int8_matmul": {
-        "pt_int8_matmul": [_p] * 4 + [_i] * 7 + [_p]},
+        "pt_int8_matmul": [_p] * 4 + [_i] * 8 + [_p]},
     "flash_attention": {
         "pt_flash_fwd": [_p] * 6 + [_i] * 7 + [_f, _i, _p],
         "pt_flash_bwd_dq": [_p] * 9 + [_i] * 7 + [_f, _i, _p],

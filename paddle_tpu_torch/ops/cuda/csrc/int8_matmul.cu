@@ -11,6 +11,9 @@
 //   q   [K, N]  int8 (layout "kn")  or  [N, K] int8 (layout "nk")
 //   s   [N]     f32 scale per output channel
 //   y   [M, N]  x's dtype:  y[m, n] = cast((sum_k x[m, k] * q(k, n)) * s[n])
+//               or, bf16 x with the "nk" layout only, f32: the sum times
+//               the scale uncast (a tensor-parallel rank's partial product
+//               of a row-parallel layer, summed over the ranks in f32)
 //
 // Bound: device-memory bytes up to M of about 150 (the K x N codes
 // dominate: 2 M operations a code against the card's 295 a byte), so at
@@ -49,9 +52,9 @@
 //   * Prefill widths: two consumer warpgroups (128 channels) x 128 tokens
 //     a CTA on m64n128k16 MMAs where N gives enough such tiles, else one
 //     warpgroup x 64 tokens.
-//   * Epilogue: the scale multiplies the f32 sum, then the cast to bf16;
-//     the [channel, token] tile goes through shared memory so y [token,
-//     channel] is written along its rows.
+//   * Epilogue: the scale multiplies the f32 sum, then the cast to bf16
+//     (or none, for f32 y); the [channel, token] tile goes through shared
+//     memory so y [token, channel] is written along its rows.
 // The other forms serve no main path and keep the first design (simple,
 // mma.sync and CUDA cores): bf16 x with the "kn" layout (int8_mm_tc, a
 // 64 x 64 or 16 x 32 output tile a CTA, 4 warps of mma.sync m16n8k16,
@@ -117,12 +120,37 @@ __device__ __forceinline__ uint32_t lds16(const unsigned char* p) {
 // grid (ceil(N / CH) * cs, ceil(M / NT)), clusters of cs CTAs along x:
 // channel tile blockIdx.x / cs, cluster rank r takes code chunks [r * per,
 // min(nkc, (r + 1) * per)) of 128 columns.
-template <int NT, int NWG, int KS, int ST>
+// four consecutive outputs of a row: n is a multiple of 4, so with N a
+// multiple of 4 the row's 4 values are 8 (bf16) or 16 (f32) bytes aligned
+__device__ __forceinline__ void store4(bf16* yr, float4 v, int n, int N) {
+  if (n + 3 < N && (N & 3) == 0) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(yr) = u;
+  } else {
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    for (int u = 0; u < 4 && n + u < N; ++u) yr[u] = __float2bfloat16(vs[u]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* yr, float4 v, int n, int N) {
+  if (n + 3 < N && (N & 3) == 0) {
+    *reinterpret_cast<float4*>(yr) = v;
+  } else {
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    for (int u = 0; u < 4 && n + u < N; ++u) yr[u] = vs[u];
+  }
+}
+
+template <int NT, int NWG, int KS, int ST, typename YT>
 __global__ void
 __launch_bounds__(WgCfg<NT, NWG, KS, ST>::THREADS, NWG == 1 ? 2 : 1)
     i8_wg(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tx, const float* __restrict__ s,
-          bf16* __restrict__ y, int M, int N, int K, int per, int cs) {
+          YT* __restrict__ y, int M, int N, int K, int per, int cs) {
   using C = WgCfg<NT, NWG, KS, ST>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = hopper::align1k(smem_raw);
@@ -238,23 +266,12 @@ __launch_bounds__(WgCfg<NT, NWG, KS, ST>::THREADS, NWG == 1 ? 2 : 1)
     v.y *= sc.y;
     v.z *= sc.z;
     v.w *= sc.w;
-    bf16* yr = y + (size_t)m * N + n;
-    if (n + 3 < N && (N & 3) == 0) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      uint2 u;
-      u.x = *reinterpret_cast<const uint32_t*>(&lo);
-      u.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(yr) = u;
-    } else {
-      const float vs[4] = {v.x, v.y, v.z, v.w};
-      for (int u = 0; u < 4 && n + u < N; ++u) yr[u] = __float2bfloat16(vs[u]);
-    }
+    store4(y + (size_t)m * N + n, v, n, N);
   }
   if (cs > 1) hopper::cluster_sync();  // no CTA leaves while read
 }
 
-template <int NT, int NWG, int KS, int ST>
+template <int NT, int NWG, int KS, int ST, typename YT>
 cudaError_t launch_wg(const void* x, const void* q, const float* s, void* y,
                       int M, int N, int K, int cs, cudaStream_t stream) {
   using C = WgCfg<NT, NWG, KS, ST>;
@@ -266,7 +283,7 @@ cudaError_t launch_wg(const void* x, const void* q, const float* s, void* y,
     return cudaErrorInvalidValue;
   const int nkc = (K + KC - 1) / KC;
   const int per = (nkc + cs - 1) / cs;
-  auto kern = i8_wg<NT, NWG, KS, ST>;
+  auto kern = i8_wg<NT, NWG, KS, ST, YT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
@@ -282,23 +299,24 @@ cudaError_t launch_wg(const void* x, const void* q, const float* s, void* y,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, tq, tx, s, static_cast<bf16*>(y), M, N,
+  e = cudaLaunchKernelEx(&cfg, kern, tq, tx, s, static_cast<YT*>(y), M, N,
                          K, per, cs);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // NT (tokens a CTA) and the cluster size come from the host's plan
+template <typename YT>
 cudaError_t launch_nk_bf16(const void* x, const void* q, const float* s,
                            void* y, int M, int N, int K, int nt, int cs,
                            cudaStream_t st) {
   if (cs != 1 && cs != 2 && cs != 4) return cudaErrorInvalidValue;
   switch (nt) {
-    case 8: return launch_wg<8, 1, 2, 8>(x, q, s, y, M, N, K, cs, st);
-    case 16: return launch_wg<16, 1, 2, 8>(x, q, s, y, M, N, K, cs, st);
-    case 32: return launch_wg<32, 1, 2, 6>(x, q, s, y, M, N, K, cs, st);
-    case 64: return launch_wg<64, 1, 2, 4>(x, q, s, y, M, N, K, cs, st);
-    case 128: return launch_wg<128, 2, 1, 4>(x, q, s, y, M, N, K, cs, st);
+    case 8: return launch_wg<8, 1, 2, 8, YT>(x, q, s, y, M, N, K, cs, st);
+    case 16: return launch_wg<16, 1, 2, 8, YT>(x, q, s, y, M, N, K, cs, st);
+    case 32: return launch_wg<32, 1, 2, 6, YT>(x, q, s, y, M, N, K, cs, st);
+    case 64: return launch_wg<64, 1, 2, 4, YT>(x, q, s, y, M, N, K, cs, st);
+    case 128: return launch_wg<128, 2, 1, 4, YT>(x, q, s, y, M, N, K, cs, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -565,21 +583,24 @@ cudaError_t launch_f32(const void* x, const void* q, const float* s, void* y,
 extern "C" {
 
 // layout: 0 = "kn" (q [K, N]), 1 = "nk" (q [N, K]);
-// dtype: 0 = float32, 1 = bfloat16 (x and y share it);
+// dtype: 0 = float32, 1 = bfloat16 (x's; y shares it unless y_f32);
 // nt, cs: bf16 "nk" only, the tokens a CTA (8, 16, 32, 64, 128) and the
-// cluster size (1, 2, 4) of the host's plan; ignored otherwise
+// cluster size (1, 2, 4) of the host's plan; ignored otherwise;
+// y_f32: 1 writes an f32 y from bf16 x ("nk" only)
 int pt_int8_matmul(const void* x, const void* q, const float* s, void* y,
                    int M, int N, int K, int layout, int dtype, int nt, int cs,
-                   void* stream) {
+                   int y_f32, void* stream) {
   // an error an earlier runtime call left pending is returned (and so
   // cleared), never dropped: the wrapper raises it
   if (cudaError_t pending = cudaGetLastError()) return pending;
   if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || M > 65535 * 16)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return layout == 1 ? launch_nk_bf16(x, q, s, y, M, N, K, nt, cs, st)
-                       : launch_kn_bf16(x, q, s, y, M, N, K, st);
+  if (y_f32 && (dtype != 1 || layout != 1)) return cudaErrorInvalidValue;
+  if (dtype == 1 && layout == 1)
+    return y_f32 ? launch_nk_bf16<float>(x, q, s, y, M, N, K, nt, cs, st)
+                 : launch_nk_bf16<bf16>(x, q, s, y, M, N, K, nt, cs, st);
+  if (dtype == 1) return launch_kn_bf16(x, q, s, y, M, N, K, st);
   if (dtype == 0)
     return layout == 1 ? launch_f32<true>(x, q, s, y, M, N, K, st)
                        : launch_f32<false>(x, q, s, y, M, N, K, st);

@@ -9,8 +9,10 @@ launch reports an error. It never falls back to another implementation.
 Each launch adds one to ``LAUNCHES["int8_matmul"]``.
 
 bf16 x with the "nk" layout runs the warpgroup kernel `i8_wg`, whose
-tokens a CTA and K split over a cluster `wg_plan` chooses here; the other
-forms run the first design's kernels.
+tokens a CTA and K split over a cluster `wg_plan` chooses here, and can
+write y in f32 (`out_dtype`: a tensor-parallel partial product, reduced
+over the ranks before its one rounding); the other forms run the first
+design's kernels.
 """
 from __future__ import annotations
 
@@ -110,19 +112,31 @@ def _check(x, q, s, w_layout):
     return M, N, K
 
 
-def int8_matmul_cuda(x, q, s, *, w_layout="kn"):
+def int8_matmul_cuda(x, q, s, *, w_layout="kn", out_dtype=None,
+                     plan_n=None):
     """Kernel route of `ops.int8_matmul.int8_matmul`: x [M, K] fp32/bf16;
     q int8 [K, N] ("kn") or [N, K] ("nk"); s [N] f32. Returns
-    ``cast((x @ widen(q)) * s)`` as [M, N] in x's dtype."""
+    ``cast((x @ widen(q)) * s)`` as [M, N] in x's dtype, or in f32 from
+    bf16 x with the "nk" layout when `out_dtype` is torch.float32.
+    `plan_n`: the out features `wg_plan` plans for (default N): a
+    column-parallel shard passes its whole layer's, so its K extent is
+    split as the whole layer's is and its outputs are the whole GEMM's,
+    sliced, bit for bit."""
     M, N, K = _check(x, q, s, w_layout)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    y_f32 = out_dtype != x.dtype
+    if y_f32 and not (out_dtype == torch.float32 and x.dtype ==
+                      torch.bfloat16 and w_layout == "nk"):
+        raise ValueError(f"out_dtype {out_dtype} from {x.dtype} x is only "
+                         f"float32 from bfloat16 in the 'nk' layout")
     lib = load_library("int8_matmul")
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     nt, cs = 0, 0
     if x.dtype == torch.bfloat16 and w_layout == "nk":
-        nt, _, cs, _ = wg_plan(M, N, K, _sms(x.device))
+        nt, _, cs, _ = wg_plan(M, plan_n or N, K, _sms(x.device))
     rc = lib.pt_int8_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N, K,
-        _LAYOUT_CODE[w_layout], _DTYPE_CODE[x.dtype], nt, cs,
+        _LAYOUT_CODE[w_layout], _DTYPE_CODE[x.dtype], nt, cs, int(y_f32),
         torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(lib, rc, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1

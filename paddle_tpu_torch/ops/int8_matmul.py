@@ -18,31 +18,36 @@ from .attention import _on_cuda
 from .cuda.int8_matmul import int8_matmul_cuda
 
 
-def int8_matmul_reference(x, q, s, w_layout="kn"):
+def int8_matmul_reference(x, q, s, w_layout="kn", out_dtype=None):
     """Plain version: the codes widened to f32 (exact), one f32 matmul,
-    the per-channel scale on the accumulator, then the cast to x's dtype.
-    Computes what the JAX fallback computes."""
+    the per-channel scale on the accumulator, then the cast to x's dtype
+    (or `out_dtype`). Computes what the JAX fallback computes."""
     w = q.float() if w_layout == "kn" else q.float().t()
     acc = x.float() @ w
-    return (acc * s).to(x.dtype)
+    return (acc * s).to(x.dtype if out_dtype is None else out_dtype)
 
 
-def int8_matmul(x, q, s, *, w_layout="kn"):
+def int8_matmul(x, q, s, *, w_layout="kn", out_dtype=None, plan_n=None):
     """y = (x @ widen(q)) * s for x [M, K]: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. `out_dtype` float32 keeps
+    a bf16 x's result unrounded (the "nk" layout); `plan_n` is the kernel
+    launch's (see `int8_matmul_cuda`), which the plain version's one f32
+    product does not need."""
     if w_layout not in ("kn", "nk"):
         raise ValueError(f"w_layout must be 'kn' or 'nk'; got {w_layout!r}")
     if _on_cuda(x):
-        return int8_matmul_cuda(x, q, s, w_layout=w_layout)
-    return int8_matmul_reference(x, q, s, w_layout)
+        return int8_matmul_cuda(x, q, s, w_layout=w_layout,
+                                out_dtype=out_dtype, plan_n=plan_n)
+    return int8_matmul_reference(x, q, s, w_layout, out_dtype)
 
 
-def int8_linear_nd(x, q, s, bias=None, *, w_layout="kn"):
+def int8_linear_nd(x, q, s, bias=None, *, w_layout="kn", out_dtype=None,
+                   plan_n=None):
     """N-d wrapper: flattens the leading dims of x [..., K] into one matmul
     M; the bias is added after the cast, as in the JAX package."""
     lead = x.shape[:-1]
     y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), q, s,
-                    w_layout=w_layout)
+                    w_layout=w_layout, out_dtype=out_dtype, plan_n=plan_n)
     y = y.reshape(*lead, y.shape[-1])
     if bias is not None:
         y = y + bias

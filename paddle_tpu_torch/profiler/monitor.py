@@ -16,16 +16,20 @@ The serving engine keeps one as its batch monitor; any step loop can:
     a prior signature is a RECOMPILE, and its shape delta is logged and
     recorded;
   - the compute/communication overlap of the latest captured trace
-    (`record_overlap`, fed `trace_analysis.TraceAnalysis.overlap()`);
+    (`record_overlap`, fed `trace_analysis.TraceAnalysis.overlap()`) and
+    its per-collective ledger (`record_collectives`, fed
+    `collective_rows()`);
+  - shard skew: `record_shard_steps` takes one step's wall per shard
+    (rank), keeps the slowest-shard and skew-ratio gauges and runs the
+    straggler state machine: one {"straggler"} row when the skew reaches
+    `straggler_threshold`, one {"straggler_clear"} row when it recovers,
+    never a row a step;
   - the step brackets of an attached `obs.FlightRecorder` (its capture
     state machine advances at step boundaries, outside the timed window).
 
 Each step appends one JSONL row when `jsonl_path` is set, and `on_report`
 (if given) is called with the row dict (`_emit` is the shared path,
-mirroring ServingMetrics). `jit.TrainStep(monitor=...)` feeds it. The JAX
-monitor's multi-device readers (`record_collectives`,
-`record_shard_steps`) wait for a later multi-GPU slice and raise
-NotImplementedError naming it.
+mirroring ServingMetrics). `jit.TrainStep(monitor=...)` feeds it.
 """
 from __future__ import annotations
 
@@ -56,12 +60,6 @@ def shape_delta(old_sig, new_sig) -> str:
     return "; ".join(diffs) if diffs else "signature changed (non-shape key)"
 
 
-def _later(what: str, where: str):
-    raise NotImplementedError(
-        f"StepMonitor.{what} is not ported to PyTorch yet: it comes with "
-        f"{where}")
-
-
 class StepMonitor:
     """Record per-step metrics; see module docstring.
 
@@ -80,6 +78,7 @@ class StepMonitor:
                  track_memory: bool = True,
                  memory_sample_every: Optional[int] = None,
                  log_recompiles: bool = True,
+                 straggler_threshold: float = 1.5,
                  jsonl_flush_every: int = 1):
         self.flops_per_step = flops_per_step
         self.flops_per_item = flops_per_item
@@ -104,6 +103,15 @@ class StepMonitor:
         self.recompiles = 0        # compiles beyond the first per kind
         self.recompile_events = []  # {step, kind, delta}
         self.overlap = None        # latest compute/comm overlap (dict)
+        self.collectives = []      # latest per-collective ledger rows
+        # shard skew: at or above `straggler_threshold` (slowest shard's
+        # wall over the median of the others) a shard is straggling; a row
+        # goes out at each transition into and out of that state
+        self.straggler_threshold = float(straggler_threshold)
+        self.shard_skew = None     # latest record_shard_steps figures
+        self.straggler_events = []  # straggler / straggler_clear rows
+        self.stragglers_total = 0   # transitions into straggling
+        self._straggling = False
         self.numerics_events = []
         self._last_numerics = {}
         self._steps = 0
@@ -254,15 +262,66 @@ class StepMonitor:
                        report=False)
         return self.overlap
 
-    # ------------------------------------------------ a later multi-GPU slice
-
     def record_collectives(self, rows):
-        _later("record_collectives", "a later multi-GPU slice (ROADMAP.md, "
-               "queue A item 4)")
+        """Adopt a per-collective ledger (`trace_analysis.TraceAnalysis
+        .collective_rows()`) as gauges: per op its seconds, exposed
+        seconds, bytes and bus bandwidth land in report() and
+        metrics_text(), labeled by op, and the rows go out as one JSONL
+        row."""
+        self.collectives = [dict(r) for r in (rows or [])]
+        if self.collectives:
+            self._emit({"collectives": self.collectives,
+                        "ts": time.time()}, report=False)
+        return self.collectives
 
     def record_shard_steps(self, walls, step: Optional[int] = None):
-        _later("record_shard_steps", "a later multi-GPU slice (ROADMAP.md, "
-               "queue A item 4)")
+        """One step's wall seconds per shard ({shard: wall}). In a step
+        the collectives synchronise, every shard waits for the slowest,
+        so the skew ratio (slowest over the median of the others) says
+        what the straggler costs. Updates the `shard_skew` gauges and runs
+        the straggler state machine (one row a transition, flushed at
+        once). Returns the figures."""
+        walls = {str(k): float(v) for k, v in dict(walls).items()}
+        if not walls:
+            return None
+        slowest = max(walls, key=walls.get)
+        # the baseline leaves the slowest out: with two shards a median of
+        # all would let the straggler judge itself
+        rest = sorted(v for k, v in walls.items() if k != slowest) \
+            or [walls[slowest]]
+        n = len(rest)
+        median = rest[n // 2] if n % 2 \
+            else (rest[n // 2 - 1] + rest[n // 2]) / 2.0
+        skew = walls[slowest] / median if median > 0 else 1.0
+        self.shard_skew = {"step": step, "shards": len(walls),
+                           "walls": walls,
+                           "slowest_shard": slowest,
+                           "slowest_wall_s": walls[slowest],
+                           "median_wall_s": median,
+                           "skew_ratio": skew}
+        straggling = len(walls) > 1 and skew >= self.straggler_threshold
+        if straggling != self._straggling:
+            self._straggling = straggling
+            kind = "straggler" if straggling else "straggler_clear"
+            if straggling:
+                self.stragglers_total += 1
+            event = {kind: dict(self.shard_skew,
+                                threshold=self.straggler_threshold),
+                     "ts": time.time()}
+            self.straggler_events.append(event)
+            if straggling:
+                logger.warning(
+                    "straggler at step %s: shard %s at %.4fs vs median "
+                    "%.4fs (skew %.2fx >= %.2fx)", step, slowest,
+                    walls[slowest], median, skew,
+                    self.straggler_threshold)
+            self._emit(event)
+            self.flush_jsonl()
+        return self.shard_skew
+
+    @property
+    def straggling(self) -> bool:
+        return self._straggling
 
     # ----------------------------------------------------------- numerics
     def record_numerics(self, step: int, loss: Optional[float] = None,
@@ -337,12 +396,14 @@ class StepMonitor:
         """Counter continuity across a resume: steps keep accumulating and
         the compile counters keep their baseline."""
         return {"steps": int(self._steps), "compiles": int(self.compiles),
-                "recompiles": int(self.recompiles)}
+                "recompiles": int(self.recompiles),
+                "stragglers": int(self.stragglers_total)}
 
     def set_state_dict(self, state: dict):
         self._steps = int(state.get("steps", 0))
         self.compiles = int(state.get("compiles", 0))
         self.recompiles = int(state.get("recompiles", 0))
+        self.stragglers_total = int(state.get("stragglers", 0))
         return self
 
     # ------------------------------------------------------------- report
@@ -370,9 +431,27 @@ class StepMonitor:
         if self._last_numerics:
             num["loss"] = self._last_numerics.get("loss")
             num["grad_norm"] = self._last_numerics.get("grad_norm")
+        shard = {}
+        if self.shard_skew is not None:
+            shard = {"shard_skew_ratio": round(
+                         self.shard_skew["skew_ratio"], 4),
+                     "slowest_shard": self.shard_skew["slowest_shard"],
+                     "stragglers_total": self.stragglers_total,
+                     "straggling": self._straggling}
+        coll = {}
+        if self.collectives:
+            coll = {"collectives": [
+                {"name": r["name"],
+                 "ms": round(r["dur_us"] / 1e3, 3),
+                 "exposed_ms": round(r["exposed_us"] / 1e3, 3),
+                 "bytes": r.get("bytes"),
+                 "bus_gbps": (round(r["bus_gbps"], 2)
+                              if r.get("bus_gbps") is not None else None)}
+                for r in self.collectives]}
         return {"steps": self._steps,
                 **num,
                 "overlap_ratio": (self.overlap or {}).get("ratio"),
+                **shard, **coll,
                 "step_ms": round(med, 3) if med is not None else None,
                 "items_per_s": round(items_s, 1) if items_s else None,
                 "unit": self.unit,
@@ -410,6 +489,27 @@ class StepMonitor:
         gauge("overlap_ratio", r["overlap_ratio"],
               "compute/comm overlap: fraction of collective time hidden "
               "under device compute (latest captured trace)")
+        if self.collectives:
+            from .trace_analysis import collective_series_lines
+            lines += collective_series_lines(self.collectives, prefix)
+        if self.shard_skew is not None:
+            from ._metrics import labeled_gauge_lines
+            lines += labeled_gauge_lines(
+                prefix, "shard_step_seconds", "shard",
+                sorted(self.shard_skew["walls"].items()),
+                "latest per-shard step wall time")
+            gauge("shard_skew_ratio", r.get("shard_skew_ratio"),
+                  "slowest shard step wall / median shard step wall")
+            slowest = self.shard_skew["slowest_shard"]
+            try:
+                gauge("slowest_shard", int(slowest),
+                      "shard id with the slowest latest step wall")
+            except (TypeError, ValueError):
+                pass          # a named shard: the labeled walls say which
+            gauge("straggling", 1 if self._straggling else 0,
+                  "a shard is currently straggling (skew over threshold)")
+            gauge("stragglers_total", self.stragglers_total,
+                  "transitions into straggling state")
         gauge("numerics_events_total", r["numerics_events"],
               "numerics anomalies detected (nan/inf/grad/loss/dead-layer)")
         gauge("loss", r.get("loss"), "latest fetched training loss")

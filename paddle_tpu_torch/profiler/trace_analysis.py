@@ -175,6 +175,44 @@ def _overlap_us(a: List[Tuple[float, float]],
     return total
 
 
+# the exposition series of collective_rows(), as the JAX package names them
+# (StepMonitor.record_collectives adopts them as gauges); a None getter
+# value drops the sample
+_COLLECTIVE_SERIES = (
+    ("collective_seconds", "device seconds per collective op",
+     lambda r: r["dur_us"] / 1e6 if r.get("dur_us") is not None else None),
+    ("collective_exposed_seconds", "collective seconds NOT hidden under "
+     "compute — the wall the step pays",
+     lambda r: r["exposed_us"] / 1e6
+     if r.get("exposed_us") is not None else None),
+    ("collective_bytes", "bytes moved per collective op",
+     lambda r: r.get("bytes")),
+    ("collective_bus_gbps", "achieved bus bandwidth per collective op",
+     lambda r: r.get("bus_gbps")),
+)
+
+
+def collective_series_lines(rows: List[dict], prefix: str) -> List[str]:
+    """Per-op labeled gauge families for a set of collective_rows(), and
+    the bytes summed per wire dtype where rows carry one."""
+    from ._metrics import labeled_gauge_lines
+    lines: List[str] = []
+    for name, help_, get in _COLLECTIVE_SERIES:
+        lines += labeled_gauge_lines(
+            prefix, name, "op", [(r["name"], get(r)) for r in rows],
+            help_)
+    by_dt: Dict[str, int] = {}
+    for r in rows:
+        dt, b = r.get("dtype"), r.get("bytes")
+        if dt and b is not None:
+            by_dt[dt] = by_dt.get(dt, 0) + int(b)
+    lines += labeled_gauge_lines(
+        prefix, "collective_bytes_by_dtype", "dtype",
+        sorted(by_dt.items()),
+        "bytes moved per collective wire dtype")
+    return lines
+
+
 def format_collective_rows(rows: List[dict],
                            steps: Optional[int] = None,
                            top: int = 20) -> List[str]:

@@ -71,6 +71,7 @@ def test_package_imports_no_jax_and_no_paddle_tpu():
             "import paddle_tpu_torch.obs.probez\n"
             "import paddle_tpu_torch.analysis.findings\n"
             "import paddle_tpu_torch.inference.executables\n"
+            "import paddle_tpu_torch.inference.sharded\n"
             "import paddle_tpu_torch.debugging\n"
             "import paddle_tpu_torch.debugging.sentinel\n"
             "import paddle_tpu_torch.debugging.anomaly\n"
@@ -170,7 +171,7 @@ def test_training_modules_are_covered_by_the_source_check():
               "distributed/collective.py", "distributed/topology.py",
               "distributed/mpu.py", "distributed/spawn.py",
               "distributed/fleet/__init__.py",
-              "distributed/fleet/strategy.py"):
+              "distributed/fleet/strategy.py", "inference/sharded.py"):
         assert f in files, f
 
 

@@ -135,8 +135,7 @@ def test_engine_eos_early_exit(models):
         r.n_out for r in got.values())
 
 
-@pytest.mark.parametrize("field, extra", [
-    ("lint", dict(lint=True)), ("shards", dict(shards=2))])
+@pytest.mark.parametrize("field, extra", [("lint", dict(lint=True))])
 def test_later_slice_options_raise(field, extra):
     with pytest.raises(NotImplementedError, match=field):
         pt.ServingConfig(**_config(**extra))

@@ -160,16 +160,9 @@ def test_step_monitor_counters_and_text_match():
     assert tmon.metrics_text(prefix="s") == jmon.metrics_text(prefix="s")
     jr, tr = jmon.report(), tmon.report()
     assert {k: jr[k] for k in tr} == tr
-    assert tmon.state_dict() == {k: v for k, v in jmon.state_dict().items()
-                                 if k != "stragglers"}
+    assert tmon.state_dict() == jmon.state_dict()
     strip = [{k: v for k, v in r.items() if k != "ts"}
              for r in tmon.records]
     assert strip == [{k: v for k, v in r.items() if k != "ts"}
                      for r in jmon.records]
 
-
-@pytest.mark.parametrize("what", ["record_collectives",
-                                  "record_shard_steps"])
-def test_step_monitor_later_readers_raise(what):
-    with pytest.raises(NotImplementedError, match="queue A"):
-        getattr(TStepMonitor(), what)({})

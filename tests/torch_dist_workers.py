@@ -1,5 +1,5 @@
 """The ranks of the port's multi-process CPU tests (test_torch_collective,
-test_torch_mpu, test_torch_gpt_tp).
+test_torch_mpu, test_torch_gpt_tp, test_torch_sharded_serving).
 
 This module imports torch, numpy and the port only: the spawned ranks
 never import JAX or the tests' conftest. Each rank runs on one CPU
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -315,3 +316,323 @@ def gpt_tp(run_dir):
         D.all_reduce(lc, group=mesh.group("dp"))
     out["control_loss"] = np.array(float(lc) / 2)
     _save(run_dir, r, out)
+
+
+# ------------------------------------------------ sharded paged serving
+SERVE_BASE = dict(max_batch=2, prompt_cap=8, max_new_tokens=6,
+                  decode_chunk=2, paged=True, kv_block=4)
+# (leg, engine options, traffic seed, prompt lengths, passes): the JAX
+# sharded-serving suite's traffic, plus int8 KV, int8 weights and sampling
+SERVE_LEGS = (
+    ("plain", {}, 3, (8, 7, 3, 5), 1),
+    ("prefix", dict(prefix_cache=True, kv_blocks=48), 7, (8, 8, 5), 2),
+    ("chunked", dict(prefill_chunk=3), 11, (8, 7, 8), 1),
+    ("spec", dict(prefix_cache=True, kv_blocks=64, spec_decode=True,
+                  spec_k=3), 13, (8, 8), 2),
+    ("int8_kv", dict(cache_dtype="int8"), 3, (8, 7, 3, 5), 1),
+    ("int8_weights", dict(weight_dtype="int8"), 3, (8, 7, 3, 5), 1),
+    ("sampled", dict(temperature=0.9, top_k=20, seed=5), 3, (8, 7, 3, 5),
+     1),
+)
+# bf16 legs, held to the port's one-card engine: the row-parallel partial
+# products are summed over the ranks in f32 and rounded once
+BF16_LEGS = (
+    ("bf16_plain", {}, 3, (8, 7, 3, 5), 1),
+    ("bf16_int8_weights", dict(weight_dtype="int8"), 3, (8, 7, 3, 5), 1),
+)
+
+
+def serve_prompts(vocab, lens, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, (n,)).astype(np.int64) for n in lens]
+
+
+def serve_pass(eng, prompts):
+    """Submit every prompt, drain; the chains in submission order."""
+    reqs = [eng.submit(p) for p in prompts]
+    eng.drain()
+    return [[int(t) for t in r.tokens] for r in reqs]
+
+
+def _watch(eng, group, rec):
+    """Wrap the runner's ops on this rank: count forwards, the mp
+    all-reduces each op made, and keep every token tensor an op returned
+    (the leader's and a follower's must be bitwise equal)."""
+    h = eng._runner.handlers
+    forwards = {"prefill": lambda a: 1, "decode": lambda a: int(a[4]),
+                "verify": lambda a: 1, "reference": lambda a: int(a[2])}
+
+    def wrap(op, f):
+        def run(*a, extra=None):
+            before = group.all_reduces
+            res = f(*a, extra=extra)
+            made = group.all_reduces - before
+            rec.setdefault("ops", []).append(
+                [op, forwards.get(op, lambda a: 0)(a), made])
+            if op in ("prefill", "decode", "verify"):
+                t = res if torch.is_tensor(res) else res[0]
+                rec.setdefault("tokens", []).append(t.tolist())
+            return res
+        return run
+    for op in list(h):
+        h[op] = wrap(op, h[op])
+
+
+def _serve_model(cfg, np_state, mesh=None):
+    m = pt.GPTForCausalLM(cfg, device="cpu")
+    m.load_state_dict(pt.shard_state_from_paddle(np_state, cfg, mesh))
+    return m
+
+
+def _engine(model, n, **kw):
+    return pt.ServingEngine(model, pt.ServingConfig(
+        **dict(SERVE_BASE, shards=n, **kw)))
+
+
+def _save_json(run_dir, rank, out):
+    import sys
+    out["foreign_modules"] = sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu"))
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    D.destroy_parallel_env()
+
+
+def _raises(fn):
+    try:
+        fn()
+    except Exception as exc:            # the kind and the words
+        return [type(exc).__name__, str(exc)]
+    return None
+
+
+def _spill_legs(eng, prompt, out, tag):
+    """On the leader: a cached block's full-width payload, written into a
+    fresh block and read back; the payload is kept for the parent."""
+    serve_pass(eng, [prompt])
+    blk = int(eng._prefix.match(prompt)[0][0])
+    payload = eng.read_block(blk)
+    dst = eng._pool.take(1)[0]
+    eng._spill_write(dst, payload)
+    back = eng.read_block(dst)
+    eng._pool.release([dst])
+    out[f"spill_{tag}"] = {
+        "shapes": [list(t.shape) for t in payload],
+        "dtypes": [str(t.dtype) for t in payload],
+        "payload": [t.float().tolist() for t in payload],
+        "round_trip_bitwise": all(torch.equal(a, b)
+                                  for a, b in zip(payload, back))}
+
+
+def sharded_serving(run_dir):
+    """The sharded engine on a mesh of mp = the world size, from the JAX
+    weights: the validation errors, a follower's submit, then every leg
+    of SERVE_LEGS (the leader serves, the followers follow), the spill
+    legs, an evict -> spill -> rehydrate engine, the int8 payload's
+    scales, the compile counters, the pools' shapes; on four ranks also
+    two engines of a dp2 x mp2 mesh at once (leaders 0 and 2)."""
+    r, inp = _join(run_dir)
+    n = D.get_world_size()
+    cfg = _gpt_cfg(inp)
+    np_state = _np_state(inp)
+    out = {"rank": r}
+    # validation: no mesh, the model's degree, more shards than ranks,
+    # heads that do not split, a mesh of another mp
+    plain = _serve_model(cfg, np_state)
+    mesh = D.build_mesh({"mp": n})
+    D.set_mesh(mesh)
+    g = mesh.group("mp")
+    out["errors"] = {
+        "model_degree": _raises(lambda: _engine(plain, n)),
+        "more_than_ranks": _raises(lambda: _engine(plain, 2 * n)),
+        "heads": _raises(lambda: _engine(plain, 3)),
+    }
+    model = _serve_model(cfg, np_state)
+    if n == 4:
+        out["errors"]["mesh_mp"] = _raises(lambda: _engine(model, 2))
+    # an idle leader keeps its followers waiting, not timing out: the
+    # keepalive sends NOOP headers while it sits idle
+    from paddle_tpu_torch.inference import sharded
+    keep = sharded.KEEPALIVE_S
+    sharded.KEEPALIVE_S = 0.1
+    eng = _engine(model, n)
+    if eng.is_leader:
+        time.sleep(0.5)
+        serve_pass(eng, serve_prompts(cfg.vocab_size, (3,), 1))
+        eng.close()
+    else:
+        eng.follow()
+    out["noops"] = eng._runner.stats["noop"]["calls"]
+    sharded.KEEPALIVE_S = keep
+    # the legs
+    vocab = cfg.vocab_size
+    legs = {}
+    bf16 = _serve_model(cfg, np_state).to(torch.bfloat16)
+    for name, kw, seed, lens, passes in SERVE_LEGS + BF16_LEGS:
+        rec = {}
+        env = {"PADDLE_TPU_Q8_DECODE_MIN": "1"} \
+            if kw.get("weight_dtype") else {}
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        eng = _engine(bf16 if name.startswith("bf16") else model, n, **kw)
+        _watch(eng, g, rec)
+        rec["pool_shapes"] = [list(t.shape) for t in eng._pools[0]]
+        if eng.is_leader:
+            prompts = serve_prompts(vocab, lens, seed)
+            rec["chains"] = [serve_pass(eng, prompts)
+                             for _ in range(passes)]
+            c = eng.metrics.counters
+            rec["counters"] = {k: c[k] for k in ("spec_windows",
+                                                 "prefix_hit")}
+            if name == "prefix":
+                # a full hit's copy-on-write: no collective
+                rec["cow_ops"] = sum(1 for o in rec["ops"] if o[0] == "cow")
+            if name == "plain":
+                # the probes' goldens: the static generator on every rank
+                ids = np.zeros((len(prompts), 8), np.int64)
+                for i, p in enumerate(prompts):
+                    ids[i, :len(p)] = p
+                rec["reference"] = eng.generate_reference(
+                    ids, [len(p) for p in prompts], 6)[:, 8:].tolist()
+            eng.close()
+        else:
+            if name == "plain":
+                out["follower_submit"] = _raises(
+                    lambda: eng.submit(np.ones(3, np.int64)))
+                out["follower_step"] = _raises(eng.step)
+            eng.follow()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        legs[name] = rec
+    out["legs"] = legs
+    out["L"] = cfg.num_layers
+    # the spill codec: full-width payloads, round trips, rehydrates
+    prompt = serve_prompts(vocab, (8,), 29)[0]
+    for cd in (None, "int8"):
+        eng = _engine(model, n, prefix_cache=True, kv_blocks=48,
+                      cache_dtype=cd)
+        if eng.is_leader:
+            _spill_legs(eng, prompt, out, str(cd))
+            eng.close()
+        else:
+            eng.follow()
+    # evict -> spill -> rehydrate: a 2-block device budget of this rank's
+    # blocks, against an engine that never evicts
+    ids = serve_prompts(vocab, (8, 8, 8), 3)
+    for cd in (None, "int8"):
+        bpb = pt.BlockPool.for_model(model, num_blocks=2, block_size=4,
+                                     cache_dtype=cd).bytes_per_block
+        for tag, kw in (("spill", dict(prefix_cache_bytes=2 * bpb,
+                                       spill_host_bytes=(1 << 10) * bpb)),
+                        ("never", {})):
+            eng = _engine(model, n, prefix_cache=True, kv_blocks=40,
+                          cache_dtype=cd, **kw)
+            if eng.is_leader:
+                chains = [serve_pass(eng, [p])[0] for p in ids]
+                chains.append(serve_pass(eng, [ids[0]])[0])
+                out[f"evict_{tag}_{cd}"] = {
+                    "chains": chains,
+                    "stats": None if eng._spill is None
+                    else eng._spill.stats()}
+                eng.close()
+            else:
+                eng.follow()
+    # the int8 payload: codes and scales of every projection, gathered,
+    # and the local-absmax control on attn.out
+    os.environ["PADDLE_TPU_Q8_DECODE_MIN"] = "1"
+    model.gather_serving_tables(g)
+    qp = model.quantized_params()
+    q8 = {}
+    for name in ("gpt.h.0.attn.qkv.weight", "gpt.h.0.attn.out.weight",
+                 "gpt.h.1.mlp.up.weight", "gpt.h.1.mlp.down.weight",
+                 "gpt.wte.weight"):
+        codes, scale = qp[name]
+        p = dict(model.named_parameters())[name]
+        split = None if name == "gpt.wte.weight" else p.mp_split
+        if split is not None:
+            codes = mpu.gather_shards(list(D.all_gather(
+                codes, group=g).unbind(0)), split[0], split[1])
+            if split[0] == 0:
+                scale = mpu.gather_shards(list(D.all_gather(
+                    scale, group=g).unbind(0)), 0, split[1])
+        q8[name] = {"codes": codes.tolist(), "scale": scale.view(-1).tolist()}
+    w = dict(model.named_parameters())["gpt.h.0.attn.out.weight"].float()
+    s = (w.abs().amax(dim=1, keepdim=True) / 127.0).clamp_min(1e-12)
+    local = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+    q8["control_local_absmax_codes"] = mpu.gather_shards(list(D.all_gather(
+        local, group=g).unbind(0)), 1, 1).tolist()
+    os.environ.pop("PADDLE_TPU_Q8_DECODE_MIN")
+    out["q8"] = q8
+    # compile counters on a fresh model: one pass of traffic warms every
+    # executable, a second pass of the same length profile builds none
+    fresh = _serve_model(cfg, np_state)
+    eng = _engine(fresh, n, prefix_cache=True, kv_blocks=48)
+    if eng.is_leader:
+        serve_pass(eng, serve_prompts(vocab, (8, 7, 3), 19))
+        c1 = (eng.monitor.compiles, eng.monitor.recompiles)
+        serve_pass(eng, serve_prompts(vocab, (8, 7, 3), 23))
+        out["compile"] = {"warm": list(c1),
+                          "after": [eng.monitor.compiles,
+                                    eng.monitor.recompiles],
+                          "statusz": eng.statusz()["compile"]["compiles"]}
+        led = eng.attach_memory_ledger(pt.obs.MemoryLedger(device="cpu"))
+        out["memz"] = {"owners": sorted(led._owners),
+                       "kv_meta": led._owners["kv_pool"].meta,
+                       "tables": led._owners["serving_tables"].bytes}
+        eng.close()
+    else:
+        eng.follow()
+    if n == 4:
+        # two sharded engines at once on a dp2 x mp2 mesh: leaders 0 and 2
+        mesh2 = D.build_mesh({"dp": 2, "mp": 2})
+        D.set_mesh(mesh2)
+        m2 = _serve_model(cfg, np_state, mesh2)
+        eng = _engine(m2, 2)
+        if eng.is_leader:
+            out["dp2_chains"] = serve_pass(eng, serve_prompts(
+                vocab, (8, 7, 3, 5), 3))
+            eng.close()
+        else:
+            eng.follow()
+    D.set_mesh(None)
+    _save_json(run_dir, r, out)
+
+
+def sharded_leader_fails(run_dir, where):
+    """Two ranks; the leader's decode op raises `where` its collectives
+    ("after": the follower finishes the op and reads the abort header;
+    "before": the follower waits in an all-reduce the leader never joins,
+    until the leader's process is gone). Each rank records what it saw
+    and exits non-zero."""
+    import sys
+    torch.set_num_threads(1)
+    D.init_parallel_env(init_method="file://" + os.path.join(run_dir,
+                                                             "store"),
+                        device="cpu", timeout_s=30)
+    r = D.get_rank()
+    inputs = dict(np.load(os.path.join(run_dir, "inputs.npz")))
+    cfg = _gpt_cfg(inputs)
+    D.set_mesh(D.build_mesh({"mp": 2}))
+    eng = _engine(_serve_model(cfg, _np_state(inputs)), 2)
+    seen = None
+    try:
+        if eng.is_leader:
+            f = eng._runner.handlers["decode"]
+
+            def broken(*a, extra=None):
+                if where == "after":
+                    f(*a, extra=extra)
+                raise RuntimeError("injected leader failure")
+            eng._runner.handlers["decode"] = broken
+            serve_pass(eng, serve_prompts(cfg.vocab_size, (5,), 3))
+        else:
+            eng.follow()
+    except Exception as exc:
+        seen = [type(exc).__name__, str(exc)[:300]]
+    with open(os.path.join(run_dir, f"rank{r}.json"), "w") as fh:
+        json.dump({"rank": r, "seen": seen}, fh)
+    sys.stdout.flush()
+    os._exit(3 if seen else 0)
