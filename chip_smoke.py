@@ -68,7 +68,9 @@ head over 2 and 4 in-process vocabulary shards in bf16 and f32 against
 whole-vocabulary #11 and the plain version (a control that drops a shard
 must fail), and TrainStep on a world-size-1 NCCL mesh {"dp": 1, "mp": 1}
 at gpt3-1.3b widths cut to 2 layers, bitwise equal to the same steps
-without a mesh; then bench_gpt's configuration at
+without a mesh, and on {"dp": 1} with grad_comm="f32" and ZeRO "os_g"
+(bitwise equal too) and grad_comm="int8" (the first step's gradients
+within half a chunk scale); then bench_gpt's configuration at
 full width (gpt3-1.3b, bf16, B=3, S=2048, AdamW with bf16 moments), the
 same under both opt-ins, the same again with every telemetry option of
 TrainStep against none (observability_train_gpt3_1.3b: a Profiler
@@ -141,7 +143,33 @@ moments; bench_gpt_dp's DP+TP cell): tokens/s in all and a card, ms a
 step, MFU over 989 TFLOP/s a card, peak memory a card, and from one
 profiled step on rank 0 the NCCL kernels' device time and share and the
 device's idle share. No rank imports JAX. Its last line is the default
-run's with the count of devices it used.
+run's with the count of devices it used. `--multi-gpu serving` runs the
+serving phases alone.
+
+    python3 chip_smoke.py --multi-gpu dp
+    python3 chip_smoke.py --multi-gpu zero
+
+run the data-parallel phases alone. `dp`: multi_gpu_dp_parity holds
+dp4 with grad_comm None, "f32" and "int8" against the single card
+(gpt3-1.3b widths cut to 2 layers, f32, 3 AdamW steps, the clip active;
+the first step's synced gradients within f32 roundoff of the single
+card's, int8's within half a chunk scale of the exact mean; "f32"
+bitwise equal to None or within DP_LIMITS, every rank's parameters
+bitwise equal after every step, the int8 f32 lane the 1-d leaves only)
+and DGC's sparse all-reduce against the dense all-reduce of the same
+top-k; train_gpt3_2.7b_dp4_gradcomm runs bench_gpt_dp's cell (gpt3-2.7b,
+bf16, B=6 a card, S=1024, save_qkv, AdamW with int8 moments) on one card
+and at dp4 with grad_comm None, "f32" and "int8": tokens/s, scaling
+efficiency, NCCL and exposed ms and the overlap ratio of rank 0's
+profiled step, and the gradient sync's wire bytes by dtype (int8 at
+least 3.5x under the f32 twin and within 1% of comm_group_stats).
+`zero`: multi_gpu_zero_parity holds plain dp4, "os" (bitwise plain dp4),
+"os_g", "p_g_os", ZeRO-1 over {"sdp": 2, "mp": 2} through fleet and
+{"dp": 2, "sdp": 2} at "p_g_os" against the single card (losses,
+parameters, and the first step's gradients a rank keeps);
+train_gpt3_6.7b_zero_dp4 runs the dp2 x mp2 cell's model and batch at
+dp4 under "os_g" and "p_g_os": tokens/s a card, MFU, peak memory and
+the memory ledger's owners a card, NCCL and exposed ms.
 """
 from __future__ import annotations
 
@@ -334,15 +362,20 @@ class SmokeFailure(Exception):
 
 T_START = time.perf_counter()
 LOG = REPO / "chiprun_out" / "chip_smoke.jsonl"
+_LAST_PHASE = [T_START]
 
 
 def emit(obj):
     """One JSON line; a phase's line also carries the seconds since the
-    script started (`at_s`). Each line is also appended to
-    chiprun_out/chip_smoke.jsonl in the checkout (a long run's output
-    outgrows what a terminal or a chip call's tail keeps)."""
+    script started (`at_s`) and its own seconds (`seconds`: the phase's
+    own figure where it gives one, else the time since the previous phase
+    line). Each line is also appended to the checkout's `LOG` file (a
+    long run's output outgrows what a terminal keeps)."""
     if "phase" in obj:
-        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
+        now = time.perf_counter()
+        obj = {"seconds": now - _LAST_PHASE[0], **obj,
+               "at_s": round(now - T_START, 1)}
+        _LAST_PHASE[0] = now
     line = json.dumps(obj)
     print(line, flush=True)
     LOG.parent.mkdir(exist_ok=True)
@@ -5878,8 +5911,16 @@ def phase_dist_one_card(torch, device, card):
         try:
             backend, on = D.get_group().backend, str(env.device)
             mesh = D.build_mesh({"dp": 1, "mp": 1})
-            for meshed in (False, True):
-                D.set_mesh(mesh if meshed else None)
+            # (c) slice 19's data-parallel paths on a mesh of one rank: the
+            # in-backward exchange (grad_comm) and ZeRO's runtime
+            dp1 = D.build_mesh({"dp": 1})
+            for key, m, mode, level in (
+                    (False, None, None, None), (True, mesh, None, None),
+                    ("grad_comm_f32", dp1, "f32", None),
+                    ("zero_os_g", dp1, None, "os_g"),
+                    ("grad_comm_int8", dp1, "int8", None)):
+                t_run = time.perf_counter()
+                D.set_mesh(m)
                 model = GPTForCausalLM(cfg, device=device,
                                        dtype=torch.bfloat16, seed=0)
                 model.train()
@@ -5887,23 +5928,42 @@ def phase_dist_one_card(torch, device, card):
                             moment_dtype="bfloat16",
                             grad_clip=ClipGradByGlobalNorm(1.0),
                             device=device)
+                if level is not None:
+                    model, opt, _ = D.group_sharded_parallel(model, opt,
+                                                             level=level)
+                # the first step's synced gradients, as the clip sees them
+                opt._grad_clip = FirstGrads(opt._grad_clip)
                 step = TrainStep(model, opt, lambda a, b: model.loss(a, b),
-                                 mesh=mesh if meshed else None,
-                                 device=device)
+                                 mesh=m, grad_comm=mode, device=device)
                 KB.reset_launch_counts()
                 losses = torch.stack([step(ids[i], ids[i])
                                       for i in range(n)])
                 torch.cuda.synchronize()
-                runs[meshed] = (losses, {k: p.detach().clone() for k, p in
-                                         model.named_parameters()},
-                                dict(KB.LAUNCHES))
+                runs[key] = (losses, {k: p.detach().clone() for k, p in
+                                      model.named_parameters()},
+                             dict(KB.LAUNCHES), opt._grad_clip.first,
+                             (step._comm_groups, step._comm_flip),
+                             time.perf_counter() - t_run)
                 D.set_mesh(None)
                 del step, opt, model
             torch.cuda.empty_cache()
             serve_rec = world_of_one_serving(torch, device, mesh)
         finally:
             D.destroy_parallel_env()
-    (l0, p0, c0), (l1, p1, c1) = runs[False], runs[True]
+    (l0, p0, c0, g0, _, s0), (l1, p1, c1, _, _, _) = runs[False], runs[True]
+    dp_legs = {}
+    for key in ("grad_comm_f32", "zero_os_g", "grad_comm_int8"):
+        lk, pk, ck, gk, plan, sk = runs.pop(key)
+        leg = {"losses": lk.tolist(), "seconds": sk,
+               "losses_bitwise": torch.equal(l0, lk),
+               "params_bitwise": all(torch.equal(p0[k], pk[k])
+                                     for k in p0),
+               "launches_equal": c0 == ck}
+        if key == "grad_comm_int8":
+            leg["grad_err_over_half_scale"] = int8_grad_err(
+                torch, g0, gk, *plan)
+            leg["groups"] = len(plan[0])
+        dp_legs[key] = leg
     step_rec = {"config": {**DIST_STEP, "dtype": "bfloat16",
                            "optimizer": "AdamW(1e-4, bf16 moments), "
                                         "ClipGradByGlobalNorm(1.0)"},
@@ -5914,7 +5974,12 @@ def phase_dist_one_card(torch, device, card):
                 "params_bitwise": all(torch.equal(p0[k], p1[k]) for k in p0),
                 "launches_equal": c0 == c1,
                 "launches": {k: c1[k] for k in MG_KERNELS},
-                "group_destroyed": not D.is_initialized()}
+                "group_destroyed": not D.is_initialized(),
+                "no_mesh_seconds": s0,
+                # slice 19: "f32" and os_g bitwise; int8's first-step
+                # gradients within half a chunk scale (and the bf16
+                # rounding of the synced value) of the unsynced ones
+                "data_parallel_world_of_one": dp_legs}
     out = {"phase": "dist_one_card", "ok": True, "card": card,
            "vocab_parallel_merge": rows,
            # the route's #11 launches in the checks above (not the timing)
@@ -5924,12 +5989,72 @@ def phase_dist_one_card(torch, device, card):
     check(backend == "nccl" and step_rec["losses_bitwise"]
           and step_rec["params_bitwise"] and step_rec["launches_equal"]
           and all(c1[k] > 0 for k in MG_KERNELS)
-          and step_rec["group_destroyed"],
+          and step_rec["group_destroyed"]
+          and all(dp_legs[k]["losses_bitwise"] and
+                  dp_legs[k]["params_bitwise"] and
+                  dp_legs[k]["launches_equal"]
+                  for k in ("grad_comm_f32", "zero_os_g"))
+          and dp_legs["grad_comm_int8"]["grad_err_over_half_scale"] <= 1.0
+          and dp_legs["grad_comm_int8"]["launches_equal"],
           f"dist_one_card: the world-size-1 mesh step: {step_rec}")
     emit(out)
     del runs, p0, p1
     torch.cuda.empty_cache()
     return route_launches
+
+
+class FirstGrads:
+    """A gradient clip that keeps a copy of the gradients of its first
+    call (the step's synced gradients before the clip) and applies the
+    clip it wraps."""
+
+    def __init__(self, clip):
+        self.clip, self.first = clip, None
+
+    def __call__(self, grads, *args, **kwargs):
+        if self.first is None:
+            self.first = [g.detach().clone() for g in grads]
+        return self.clip(grads, *args, **kwargs)
+
+
+def int8_grad_err(torch, g0, g8, plan, flip, local=None, group=None,
+                  unit=2.0 ** -8, f32_bitwise=True):
+    """The largest |g8 - g0| of the int8 lane over its bound; g0 is the
+    exact mean the exchange stands for, g8 its result (lists by parameter
+    index). A group's quantized leaves are flattened in the JAX element
+    order (those in `flip`, TrainStep._comm_flip, transposed) and joined,
+    as the exchange joins them, in chunks of 256; a chunk's scale is the
+    amax of each rank's own gradients (`local`; g0 at one rank) MAX over
+    `group`, over 127 // D. The bound: half the element's scale, plus
+    `unit` of the larger of the two values (half a bf16 unit when the
+    synced value is rounded back to bf16) and 2^-20 of the chunk's amax
+    (f32 roundoff). With `f32_bitwise` the f32 lane must be bitwise (inf
+    when it is not); otherwise it is not read here."""
+    import paddle_tpu_torch.distributed as D
+    d = 1 if group is None else group.nranks
+    levels = max(127 // d, 1)
+    local = g0 if local is None else local
+
+    def flat(g, idxs):
+        return torch.cat([(g[i].t() if i in flip else g[i]).reshape(-1)
+                          .float() for i in idxs])
+    worst = 0.0
+    for _, q_idxs, f_idxs in plan:
+        if f32_bitwise and not all(torch.equal(g0[i], g8[i])
+                                   for i in f_idxs):
+            return float("inf")
+        if not q_idxs:
+            continue
+        a, b, own = flat(g0, q_idxs), flat(g8, q_idxs), flat(local, q_idxs)
+        amax = torch.cat([own.abs(), own.new_zeros(-own.numel() % 256)]) \
+            .view(-1, 256).amax(dim=1)
+        if d > 1:
+            D.all_reduce(amax, D.ReduceOp.MAX, group=group)
+        amax = amax.repeat_interleave(256)[:a.numel()]
+        bound = amax.clamp_min(1e-30) / levels * (0.5 + 1e-6) + \
+            torch.maximum(a.abs(), b.abs()) * unit + amax * 2.0 ** -20
+        worst = max(worst, float(((b - a).abs() / bound).max()))
+    return worst
 
 
 def world_of_one_serving(torch, device, mesh):
@@ -6222,6 +6347,571 @@ def mg_full(torch, device):
     del model, step
     torch.cuda.empty_cache()
     return rec
+
+
+# --------------------------- multi-GPU data-parallel training (slice 19)
+# --multi-gpu dp: TrainStep(grad_comm=) and DGC's exchange at MG_PARITY's
+# widths, then bench_gpt_dp's cell (bench.py:1113-1120) four ways
+MG_DP_LEGS = (("dp4", {"dp": 4}, None), ("f32", {"dp": 4}, "f32"),
+              ("int8", {"dp": 4}, "int8"))
+MG_DP_FULL = {"preset": "gpt3-2.7b", "B": 6, "S": 1024, "N": 4,
+              "recompute": "save_qkv", "moments": "int8", "chunk": 512}
+DGC_CASE = {"shape": (6144, 2048), "sparsity": 0.999}
+# --multi-gpu zero: ZeRO's levels and meshes at MG_PARITY's widths, then
+# the dp2 x mp2 gpt3-6.7b cell's model and batch (MG_FULL) at dp4 under ZeRO
+MG_ZERO_LEGS = (("dp4", {"dp": 4}, None), ("os", {"dp": 4}, "os"),
+                ("os_g", {"dp": 4}, "os_g"), ("p_g_os", {"dp": 4}, "p_g_os"),
+                ("sdp2_mp2_zero1", {"sdp": 2, "mp": 2}, "fleet"),
+                ("dp2_sdp2_p_g_os", {"dp": 2, "sdp": 2}, "p_g_os"))
+MG_ZERO_FULL = {"preset": "gpt3-6.7b", "mesh": {"dp": 4}, "B": 8,
+                "S": 2048, "N": 3, "levels": ("os_g", "p_g_os")}
+# the gates of the parity legs against the single card: MG_PARITY's
+# (loss relative, parameter relative to its tensor's max); the first
+# step's synced gradients before the clip, relative to each tensor's max
+# (f32 roundoff: a weight's gradient sums the batch's B x S = 2048 rows,
+# split over the ranks and added in another order; 2048 x 2^-24 = 1.2e-4
+# bounds it; a wrong mean is off by 0.5 or more), and int8's quantized
+# leaves against the exact mean of the ranks' own gradients within half
+# a chunk scale (int8_grad_err at 127 // 4 levels). The clip and AdamW
+# are blind to a uniform scale of the gradients, and AdamW's first steps
+# move a parameter by about lr whatever its gradient, so only the
+# gradient gates see a wrong mean; int8's parameters are reported.
+DP_LIMITS = {"loss_rel": 1e-5, "param_rel_to_max": 1e-4,
+             "f32_vs_dp4_rel_to_max": 1e-4, "grad_rel_to_max": 1e-4,
+             "int8_loss_rel": 1e-3, "int8_grad_over_half_scale": 1.0}
+
+
+def release(torch):
+    """Free what the last leg held: a step, its model and a memory ledger
+    can hold each other in a cycle, which only the collector breaks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dp_gpt(torch, device, cfg, dtype, mesh, mode=None, level=None,
+           fleet=False, memz=None, chunk=None, **opt_kw):
+    """A GPT built under `mesh` (its TP shard where the mesh has mp), its
+    AdamW and its TrainStep: grad_comm `mode`, ZeRO `level` through
+    group_sharded_parallel, or ZeRO-1 through fleet.distributed_optimizer
+    under the strategy fleet.init was given (`fleet`)."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as D
+    D.set_mesh(mesh)
+    model = pt.GPTForCausalLM(cfg, device=device, dtype=dtype, seed=1
+                              if dtype == torch.float32 else 0)
+    model.train()
+    opt = pt.AdamW(parameters=model.named_parameters(), device=device,
+                   **opt_kw)
+    if level is not None:
+        model, opt, _ = D.group_sharded_parallel(model, opt, level=level)
+    if fleet:
+        opt = pt.fleet.distributed_optimizer(opt)
+    kw = {} if chunk is None else {"chunk_size": chunk}
+    step = pt.TrainStep(model, opt, lambda a, b: model.loss(a, b, **kw),
+                        mesh=mesh, grad_comm=mode, memz=memz, device=device)
+    return model, step
+
+
+def same_on_ranks(torch, step, group) -> bool:
+    """Every rank of `group` holds bitwise the same whole parameters
+    (rank 0 of the group broadcasts each, every rank compares; ZeRO
+    stage 3 gathers them first)."""
+    import paddle_tpu_torch.distributed as D
+    if group is None or group.nranks == 1:
+        return True
+    ok = True
+    with step.gathered():
+        for p in step._params:
+            ref = p.detach().clone()
+            D.broadcast(ref, src=group.ranks[0], group=group)
+            ok = ok and torch.equal(ref, p.detach())
+    flag = torch.tensor([1.0 if ok else 0.0], device=step.device)
+    D.all_reduce(flag, op=D.ReduceOp.MIN, group=group)
+    return bool(flag.item() == 1.0)
+
+
+def wire_delta(before, group):
+    """The group's payload bytes by "op/dtype" since `before` (a copy of
+    its wire_bytes)."""
+    out = {}
+    for (op, dt), b in group.wire_bytes.items():
+        b -= before.get((op, dt), 0)
+        if b:
+            out[f"{op}/{dt}"] = b
+    return out
+
+
+def dp_reference(torch, device, cfg, ids):
+    """The single-card steps every leg is held against: losses, the final
+    parameters and the first step's gradients before the clip (on the
+    card)."""
+    _, step = dp_gpt(torch, device, cfg, torch.float32, None,
+                     **parity_opt_kw())
+    clip = step.optimizer._grad_clip = FirstGrads(step.optimizer._grad_clip)
+    losses = [float(step(ids[i], ids[i])) for i in range(ids.shape[0])]
+    params = {k: q.detach().clone()
+              for k, q in zip(step._param_names, step._params)}
+    grads = dict(zip(step._param_names, clip.first))
+    del step, clip
+    release(torch)
+    return losses, params, grads
+
+
+def parity_opt_kw():
+    from paddle_tpu_torch import ClipGradByGlobalNorm
+    # MG_PARITY's: epsilon 1e-6 (see mg_parity)
+    return dict(learning_rate=1e-4, weight_decay=0.01, epsilon=1e-6,
+                grad_clip=ClipGradByGlobalNorm(MG_PARITY["clip"]))
+
+
+def dp_leg(torch, device, cfg, ids, ref, tag, axes, how):
+    """One parity leg: `how` is a grad_comm mode (None, "f32", "int8"), a
+    ZeRO level, or "fleet" (ZeRO-1 through fleet.init's
+    strategy.sharding); MG_PARITY's steps from the reference's weights;
+    returns this rank's record."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gather_state
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t0 = time.perf_counter()
+    if how == "fleet":
+        st = pt.fleet.DistributedStrategy()
+        st.sharding = True
+        st.sharding_configs = {"stage": 1}
+        st.hybrid_configs = {"sharding_degree": axes["sdp"],
+                             "mp_degree": axes["mp"]}
+        pt.fleet.init(strategy=st)
+        mesh = D.get_mesh()
+    else:
+        mesh = D.build_mesh(axes)
+    mode = how if how in ("f32", "int8") else None
+    level = how if how in ("os", "os_g", "p_g_os") else None
+    model, step = dp_gpt(torch, device, cfg, torch.float32, mesh, mode=mode,
+                         level=level, fleet=how == "fleet",
+                         **parity_opt_kw())
+    # the first step's synced gradients, as the clip sees them; under
+    # int8 also this rank's own, as the exchange takes them
+    clip = step.optimizer._grad_clip = FirstGrads(step.optimizer._grad_clip)
+    own = {}
+    if mode == "int8":
+        start = step._landing._start
+
+        def keep(k, got, seed):
+            for i, g in got.items():
+                if i not in own:
+                    own[i] = g.detach().clone()
+            return start(k, got, seed)
+        step._landing._start = keep
+    shard_axis = None if step.zero is None else (
+        "sdp" if "sdp" in axes else "dp")
+    same_group = mesh.group("sdp") if "mp" in axes else D.get_group()
+    groups = {ax: mesh.group(ax) for ax in axes}
+    if mode == "int8":
+        groups["scale"] = mesh.twin("dp")
+    if step.zero is not None and step.zero.stage >= 3:
+        groups["gather"] = mesh.twin(shard_axis)
+    before = {k: dict(g.wire_bytes) for k, g in groups.items()}
+    KB.reset_launch_counts()
+    got, same = [], []
+    for i in range(ids.shape[0]):
+        got.append(float(step(ids[i], ids[i])))
+        same.append(same_on_ranks(torch, step, same_group))
+    torch.cuda.synchronize()
+    counts = {k: KB.LAUNCHES[k] for k in MG_KERNELS}
+    wire = {k: wire_delta(before[k], g) for k, g in groups.items()}
+    with step.gathered():
+        full = gather_state({k: q.detach().clone() for k, q in
+                             zip(step._param_names, step._params)}, mesh)
+    want_l, want_p, want_g = ref
+    errs = {k: rel_err(full[k], want_p[k]) for k in want_p}
+    worst = max(errs, key=errs.get)
+    rec = {"leg": tag, "mesh": axes, "how": how, "rank": mesh.rank,
+           "losses": got, "single_card_losses": want_l,
+           "loss_max_rel_err": max(abs(a - b) / abs(b)
+                                   for a, b in zip(got, want_l)),
+           "param_worst": worst, "param_worst_rel_to_max": errs[worst],
+           "param_max_abs_err": max(float((full[k] - want_p[k]).abs().max())
+                                    for k in want_p),
+           "bitwise_across_ranks_each_step": same, "launches": counts,
+           "wire_bytes": wire}
+    rec.update(first_grads(torch, step, mesh, clip.first, own, want_g))
+    if step.zero is not None:
+        z = step.zero
+        rec["zero"] = {"stage": z.stage, "axis": shard_axis,
+                       "degree": z.degree, "owned_params": sum(z.owned),
+                       "owned_bytes": sum(
+                           p.numel() * p.element_size()
+                           for p, o in zip(z.params, z.owned) if o)}
+    if mode is not None:
+        from paddle_tpu_torch.distributed.quant_collectives import \
+            comm_group_stats
+        rec["comm_group_stats"] = comm_group_stats(
+            step._comm_groups, [tuple(q.shape) for q in step._params])
+        rec["groups"] = len(step._comm_groups)
+    D.set_mesh(None)
+    rec["full"] = full             # dropped before the record is saved
+    rec["seconds"] = time.perf_counter() - t0
+    del model, step, clip, own
+    release(torch)
+    return rec
+
+
+def first_grads(torch, step, mesh, first, own, want):
+    """The first step's synced gradients before the clip (`first`: the
+    ones this rank keeps, its own parameters' under ZeRO stage >= 2; mp
+    shards joined) against the single card's (`want`), relative to each
+    tensor's max. Under int8 (`own`: this rank's gradients by index) the
+    quantized leaves are held against the exact mean of the ranks' own
+    gradients within half a chunk scale, and that mean (the f32 lane's
+    leaves: their synced values) against the single card's."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gather_state
+    z, names = step.zero, step._param_names
+    kept = [i for i in range(len(names))
+            if z is None or z.stage < 2 or z.owned[i]]
+    synced = dict(zip(kept, first))
+    out = {"grads_compared": len(kept)}
+    if own:
+        g, n = step._dp, len(names)
+        mean = [None] * n
+        for i, t in own.items():
+            mean[i] = t.clone()
+            D.all_reduce(mean[i], group=g)
+            mean[i].div_(g.nranks)
+        plan = step._comm_groups
+        out["int8_grad_over_half_scale"] = int8_grad_err(
+            torch, mean, [synced.get(i) for i in range(n)], plan,
+            step._comm_flip, local=[own.get(i) for i in range(n)], group=g,
+            unit=0.0, f32_bitwise=False)
+        quant = {i for _, q, _ in plan for i in q}
+        synced = {i: mean[i] if i in quant else synced[i] for i in kept}
+    whole = gather_state({names[i]: t for i, t in synced.items()}, mesh)
+    errs = {k: rel_err(v, want[k]) for k, v in whole.items()}
+    # a rank may own no parameter under ZeRO (wte is half of the 2-layer
+    # model's bytes): then it keeps no gradient to compare
+    worst = max(errs, key=errs.get, default=None)
+    out.update(grad_worst=worst, grad_worst_rel_to_max=errs.get(worst, 0.0))
+    return out
+
+
+def dp_parity_checks(recs):
+    """The gates between a selector's legs on this rank: each against the
+    single card (DP_LIMITS: losses, the first step's gradients, and but
+    for int8 the parameters), int8's quantized gradients within half a
+    chunk scale of the exact mean, "os" bitwise equal to plain dp4, "f32"
+    bitwise equal to plain dp4 or within f32_vs_dp4_rel_to_max (NCCL's
+    sums of other buffer sizes may add in another order), every rank
+    bitwise equal after every step, #6 and #11 launched."""
+    base = recs.get("dp4")
+    for tag, r in recs.items():
+        ok = r["grad_worst_rel_to_max"] <= DP_LIMITS["grad_rel_to_max"]
+        if r["how"] == "int8":
+            ok = ok and r["loss_max_rel_err"] <= \
+                DP_LIMITS["int8_loss_rel"] and \
+                r["int8_grad_over_half_scale"] <= \
+                DP_LIMITS["int8_grad_over_half_scale"]
+        else:
+            ok = ok and r["loss_max_rel_err"] <= DP_LIMITS["loss_rel"] and \
+                r["param_worst_rel_to_max"] <= DP_LIMITS["param_rel_to_max"]
+        if base is not None and r is not base and r["mesh"] == base["mesh"]:
+            diffs = {k: rel_err(r["full"][k], base["full"][k])
+                     for k in base["full"]}
+            r["vs_dp4"] = {
+                "losses_bitwise": r["losses"] == base["losses"],
+                "params_bitwise": all(v == 0.0 for v in diffs.values()),
+                "param_max_rel_to_max": max(diffs.values())}
+            if r["how"] == "os":
+                ok = ok and r["vs_dp4"]["losses_bitwise"] and \
+                    r["vs_dp4"]["params_bitwise"]
+            if r["how"] == "f32":
+                ok = ok and (r["vs_dp4"]["params_bitwise"] or
+                             r["vs_dp4"]["param_max_rel_to_max"]
+                             <= DP_LIMITS["f32_vs_dp4_rel_to_max"])
+        ok = ok and all(r["bitwise_across_ranks_each_step"]) and \
+            all(c > 0 for c in r["launches"].values())
+        if r["how"] == "int8":
+            st = r["comm_group_stats"]
+            dp = r["wire_bytes"]["dp"]
+            n = len(r["losses"])
+            # the f32 lane carries the 1-d leaves and the loss, no more
+            ok = ok and dp.get("all_reduce/float32", 0) == n * (
+                4 + 4 * st["f32_elems"]) and dp.get("all_reduce/int8", 0) \
+                > 0
+        r["ok"] = bool(ok)
+        check(ok, f"parity leg {tag}, rank {r['rank']}: "
+                  f"{ {k: v for k, v in r.items() if k != 'full'} }")
+
+
+def dgc_leg(torch, device):
+    """DGC's sparse all-reduce at gpt3-1.3b's qkv weight shape (each
+    rank's tensor from its own seed, a residual of zeros) against the
+    dense all-reduce of the same top-k entries; wire bytes of both and
+    their times (host clock over 5 calls each)."""
+    import paddle_tpu_torch.distributed as D
+    g = D.get_group()
+    gen = torch.Generator(device=device).manual_seed(100 + g.rank)
+    x = torch.randn(DGC_CASE["shape"], generator=gen, device=device)
+    sp = DGC_CASE["sparsity"]
+    before = dict(g.wire_bytes)
+    s, kept = D.sparse_allreduce(x, g, sp)
+    sparse_wire = wire_delta(before, g)
+    flat = x.reshape(-1)
+    k = max(1, int(flat.numel() * (1 - sp)))
+    idx = torch.topk(flat.abs(), k).indices
+    dense = torch.zeros_like(flat)
+    dense[idx] = flat[idx]
+    before = dict(g.wire_bytes)
+    D.all_reduce(dense, group=g)
+    dense_wire = wire_delta(before, g)
+    diff = float((s.reshape(-1) - dense).abs().max())
+    times = {}
+    for name, fn in (("sparse_allreduce", lambda: D.sparse_allreduce(
+            x, g, sp)), ("dense_all_reduce", lambda: D.all_reduce(
+                x.clone(), group=g))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / 5 * 1e3
+    # the error feedback: what the rank sent plus what it kept is its
+    # tensor, bit for bit
+    sent = torch.zeros_like(flat)
+    sent[idx] = flat[idx]
+    rec = {"shape": list(DGC_CASE["shape"]), "sparsity": sp, "k": k,
+           "rank": g.rank, "bitwise_vs_dense": diff == 0.0,
+           "max_abs_diff_vs_dense": diff,
+           "sent_plus_kept_bitwise": torch.equal(
+               sent + kept.reshape(-1), flat),
+           "sparse_wire_bytes": sparse_wire, "dense_wire_bytes": dense_wire,
+           "ms_host": times}
+    # where two ranks picked one index, a sum of up to 4 values in another
+    # order: one unit in the last place of the largest
+    check(diff <= 2 * 2.0 ** -23 * float(s.abs().max()) and
+          rec["sent_plus_kept_bitwise"],
+          f"DGC's sparse all-reduce against the dense one: {rec}")
+    return rec
+
+
+def mg_dp_parity(torch, device):
+    """`--multi-gpu dp`'s parity legs (MG_DP_LEGS)."""
+    import numpy as np
+    from paddle_tpu_torch import gpt_config
+    p = MG_PARITY
+    cfg = gpt_config(p["preset"], num_layers=p["layers"])
+    ids = torch.from_numpy(np.random.RandomState(61).randint(
+        0, cfg.vocab_size, (p["steps"], p["B"], p["S"])).astype(
+            np.int64)).to(device)
+    ref = dp_reference(torch, device, cfg, ids)
+    recs = {tag: dp_leg(torch, device, cfg, ids, ref, tag, axes, how)
+            for tag, axes, how in MG_DP_LEGS}
+    dp_parity_checks(recs)
+    out = [{k: v for k, v in r.items() if k != "full"}
+           for r in recs.values()]
+    del recs, ref
+    release(torch)
+    return out
+
+
+def mg_zero_parity(torch, device):
+    """`--multi-gpu zero`'s parity legs (MG_ZERO_LEGS)."""
+    import numpy as np
+    from paddle_tpu_torch import gpt_config
+    p = MG_PARITY
+    cfg = gpt_config(p["preset"], num_layers=p["layers"])
+    ids = torch.from_numpy(np.random.RandomState(61).randint(
+        0, cfg.vocab_size, (p["steps"], p["B"], p["S"])).astype(
+            np.int64)).to(device)
+    ref = dp_reference(torch, device, cfg, ids)
+    recs = {tag: dp_leg(torch, device, cfg, ids, ref, tag, axes, how)
+            for tag, axes, how in MG_ZERO_LEGS}
+    dp_parity_checks(recs)
+    out = [{k: v for k, v in r.items() if k != "full"}
+           for r in recs.values()]
+    del recs, ref
+    release(torch)
+    return out
+
+
+def dp_window(torch, step, batch, n, groups):
+    """2 warm steps, then one window of n steps on fresh batches, every
+    rank starting together: (warm losses, window losses, seconds,
+    launches, peak memory, wire bytes a step by group)."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.ops.cuda import build as KB
+    warm = [float(step(*batch(i))) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KB.reset_launch_counts()
+    before = {k: dict(g.wire_bytes) for k, g in groups.items()}
+    D.barrier()
+    t0 = time.perf_counter()
+    ls = [step(*batch(2 + i)) for i in range(n)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    wire = {k: {o: b / n for o, b in wire_delta(before[k], g).items()}
+            for k, g in groups.items()}
+    return (warm, [float(x) for x in ls], dt, dict(KB.LAUNCHES),
+            torch.cuda.max_memory_allocated(), wire)
+
+
+def profiled(torch, step, batch, rank, names=()):
+    """One more step, profiled on rank 0 (profile_dist_step), run plainly
+    on the others."""
+    import paddle_tpu_torch.distributed as D
+    D.barrier()
+    if rank == 0:
+        return profile_dist_step(torch, lambda: step(*batch),
+                                 names=names)
+    step(*batch)
+    torch.cuda.synchronize()
+    return None
+
+
+def mg_dp_full(torch, device):
+    """One rank's share of bench_gpt_dp's cell (MG_DP_FULL): gpt3-2.7b,
+    bf16, B rows a card, S 1024, save_qkv recompute, AdamW(1e-4, int8
+    moments), model.loss(chunk_size=512): on one card (every rank on its
+    own card, no collective), then at dp4 with grad_comm None (the
+    bucketed bf16 all-reduce after the backward), "f32" and "int8" (one
+    exchange a layer group, started in the backward), each 2 warm steps
+    and one window of N, then a step profiled on rank 0."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gpt_config
+    from paddle_tpu_torch.distributed.quant_collectives import \
+        comm_group_stats
+    f = MG_DP_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = gpt_config(f["preset"], max_position_embeddings=S_,
+                     use_recompute=True, recompute_policy=f["recompute"])
+    rank = D.get_rank()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (N + 3, MG_WORLD * B_, S_)).astype(
+            np.int64)).to(device)
+    mesh = D.build_mesh({"dp": MG_WORLD})
+    out = {"rank": rank}
+    for tag, mode in (("one_card", "one"), ("dp4_none", None),
+                      ("dp4_f32", "f32"), ("dp4_int8", "int8")):
+        t0 = time.perf_counter()
+        m = None if mode == "one" else mesh
+        model, step = dp_gpt(torch, device, cfg, torch.bfloat16, m,
+                             mode=None if mode == "one" else mode,
+                             chunk=f["chunk"], learning_rate=1e-4,
+                             moment_dtype=f["moments"])
+        D.set_mesh(None)
+        if m is None:
+            batch = (lambda i: (ids[i][:B_], ids[i][:B_]))
+            groups = {}
+        else:
+            batch = (lambda i: (ids[i], ids[i]))
+            groups = {"dp": mesh.group("dp")}
+            if mode == "int8":
+                groups["scale"] = mesh.twin("dp")
+        warm, losses, dt, counts, peak, wire = dp_window(
+            torch, step, batch, N, groups)
+        prof = profiled(torch, step, batch(N + 2), rank) \
+            if m is not None else None
+        rec = {"warm_losses": warm, "window_losses": losses,
+               "window_s": dt, "ms_per_step": dt / N * 1e3,
+               "tokens_per_s_this_card": B_ * S_ * N / dt,
+               "params": sum(q.numel() for q in step._params),
+               "peak_mem_bytes": peak, "launches_per_step": {
+                   k: counts[k] / N for k in MG_KERNELS},
+               "wire_bytes_per_step": wire,
+               "seconds": time.perf_counter() - t0}
+        if mode in ("f32", "int8"):
+            rec["comm_group_stats"] = comm_group_stats(
+                step._comm_groups, [tuple(q.shape) for q in step._params])
+            rec["groups"] = len(step._comm_groups)
+        if prof is not None:
+            ov = prof["nccl_union_ms"]
+            rec["profile_step"] = prof
+            rec.update(nccl_device_ms=ov,
+                       nccl_exposed_ms=ov - prof["nccl_overlapped_ms"],
+                       overlap_ratio=prof["nccl_overlapped_ms"] / ov
+                       if ov else None,
+                       device_idle_share=prof["device_idle_share"])
+        check(all(math.isfinite(x) for x in warm + losses)
+              and abs(warm[0] - math.log(cfg.vocab_size)) < 1.0
+              and all(rec["launches_per_step"][k] > 0 for k in MG_KERNELS),
+              f"gpt3-2.7b {tag}, rank {rank}: {rec}")
+        out[tag] = rec
+        del model, step
+        release(torch)
+    return out
+
+
+def mg_zero_full(torch, device):
+    """One rank's share of the dp2 x mp2 gpt3-6.7b cell (MG_FULL's model, batch
+    and optimizer: bf16, global B = 8, S = 2048, AdamW(1e-4, bf16
+    moments), no recompute) at dp4 under group_sharded_parallel at each
+    of MG_ZERO_FULL's levels: 2 warm steps, one window of N, a step
+    profiled on rank 0, the peak memory and the memory ledger's owners a
+    card."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gpt_config
+    f = MG_ZERO_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = gpt_config(f["preset"], max_position_embeddings=S_)
+    rank = D.get_rank()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (N + 3, B_, S_)).astype(np.int64)).to(device)
+    mesh = D.build_mesh(f["mesh"])
+    out = {"rank": rank}
+    for level in f["levels"]:
+        t0 = time.perf_counter()
+        memz = pt.obs.MemoryLedger(device=device)
+        torch.cuda.reset_peak_memory_stats()
+        model, step = dp_gpt(torch, device, cfg, torch.bfloat16, mesh,
+                             level=level, memz=memz, learning_rate=1e-4,
+                             moment_dtype="bfloat16")
+        D.set_mesh(None)
+        n_params = sum(q.numel() for q in step._params)
+        t_init = time.perf_counter() - t0
+        groups = {"dp": mesh.group("dp")}
+        if level == "p_g_os":
+            groups["gather"] = mesh.twin("dp")
+        batch = (lambda i: (ids[i], ids[i]))
+        warm, losses, dt, counts, peak, wire = dp_window(
+            torch, step, batch, N, groups)
+        census = memz.census(reconcile=False)
+        owners = {o["owner"]: o["bytes"] for o in census["owners"]}
+        prof = profiled(torch, step, batch(N + 2), rank)
+        z = step.zero
+        rec = {"level": level, "stage": z.stage, "init_s": t_init,
+               "params": n_params, "owned_params": sum(
+                   q.numel() for q, o in zip(z.params, z.owned) if o),
+               "warm_losses": warm, "window_losses": losses,
+               "window_s": dt, "ms_per_step": dt / N * 1e3,
+               "peak_mem_bytes": peak, "memz_owners": owners,
+               "launches_per_step": {k: counts[k] / N
+                                     for k in MG_KERNELS},
+               "wire_bytes_per_step": wire,
+               "seconds": time.perf_counter() - t0}
+        if prof is not None:
+            ov = prof["nccl_union_ms"]
+            rec["profile_step"] = prof
+            rec.update(nccl_device_ms=ov,
+                       nccl_exposed_ms=ov - prof["nccl_overlapped_ms"],
+                       overlap_ratio=prof["nccl_overlapped_ms"] / ov
+                       if ov else None,
+                       device_idle_share=prof["device_idle_share"])
+        L = cfg.num_layers
+        want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "linear_ce_fwd": 1}
+        check(all(math.isfinite(x) for x in warm + losses)
+              and abs(warm[0] - math.log(cfg.vocab_size)) < 1.0
+              and rec["launches_per_step"] == want,
+              f"gpt3-6.7b dp4 {level}, rank {rank}: {rec}")
+        out[level] = rec
+        del model, step, memz, z      # z holds the parameters too
+        release(torch)
+    return out
 
 
 def watch_runner(torch, eng, group):
@@ -6545,11 +7235,14 @@ def mg_serving_full(torch, device):
     return rec
 
 
-def multi_gpu_rank(work_dir, training=True):
+def multi_gpu_rank(work_dir, which="all"):
     """One rank of `--multi-gpu` (started by distributed.spawn with the
-    rank environment set): NCCL on cuda:LOCAL_RANK, the training parity
-    legs and full-width run (unless `training` is False), then the
-    serving ones; its record goes to work_dir/rank{r}.json."""
+    rank environment set): NCCL on cuda:LOCAL_RANK; `which` "all" runs
+    the training parity legs and full-width run, then the serving ones,
+    "serving" the serving ones alone, "dp" the data-parallel gradient
+    exchange's (mg_dp_parity, mg_dp_full) and "zero" ZeRO's
+    (mg_zero_parity, mg_zero_full); its record goes to
+    work_dir/rank{r}.json."""
     import torch
     import paddle_tpu_torch.distributed as D
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6559,16 +7252,27 @@ def multi_gpu_rank(work_dir, training=True):
     rec = {"rank": env.rank, "device": str(device),
            "backend": D.get_group().backend}
     path = Path(work_dir, f"rank{env.rank}.json")
-    if training:
+    if which == "all":
         rec["parity"] = []
         for axes in MG_PARITY["meshes"]:
             rec["parity"].append(mg_parity(torch, device, axes))
             path.write_text(json.dumps(rec))   # what a failure leaves
         rec["full"] = mg_full(torch, device)
         path.write_text(json.dumps(rec))
-    rec["serving_parity"] = mg_serving_parity(torch, device)
-    path.write_text(json.dumps(rec))
-    rec["serving_full"] = mg_serving_full(torch, device)
+    if which in ("all", "serving"):
+        rec["serving_parity"] = mg_serving_parity(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["serving_full"] = mg_serving_full(torch, device)
+    if which == "dp":
+        rec["dp_parity"] = mg_dp_parity(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["dgc"] = dgc_leg(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["dp_full"] = mg_dp_full(torch, device)
+    if which == "zero":
+        rec["zero_parity"] = mg_zero_parity(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["zero_full"] = mg_zero_full(torch, device)
     rec["foreign_modules"] = foreign_modules()
     check(rec["backend"] == "nccl" and not rec["foreign_modules"],
           f"rank {env.rank}: {rec['backend']}, {rec['foreign_modules']}")
@@ -6582,8 +7286,10 @@ def multi_gpu(torch, card, which="all") -> int:
     """`--multi-gpu`: MG_WORLD ranks on MG_WORLD cards (exits 2 with fewer
     cards): the kernels built once here, then the ranks spawned; their
     records become the phase lines. `which` "serving" leaves out the
-    training phases (multi_gpu_parity, train_gpt3_6.7b_dp2_mp2)."""
-    training = which == "all"
+    training phases (multi_gpu_parity, train_gpt3_6.7b_dp2_mp2); "dp"
+    and "zero" run slice 19's data-parallel phases alone
+    (multi_gpu_dp_parity and train_gpt3_2.7b_dp4_gradcomm;
+    multi_gpu_zero_parity and train_gpt3_6.7b_zero_dp4)."""
     import tempfile
     import paddle_tpu_torch.distributed as D
     n = torch.cuda.device_count()
@@ -6593,14 +7299,15 @@ def multi_gpu(torch, card, which="all") -> int:
         return 2
     t0 = time.perf_counter()
     phase_build(torch, card)
-    phase_int8_matmul_shards(torch, torch.device("cuda", 0), card)
+    if which in ("all", "serving"):
+        phase_int8_matmul_shards(torch, torch.device("cuda", 0), card)
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     with tempfile.TemporaryDirectory() as work:
         try:
-            D.spawn(multi_gpu_rank, args=(work, training), nprocs=MG_WORLD,
+            D.spawn(multi_gpu_rank, args=(work, which), nprocs=MG_WORLD,
                     timeout=1000)
         except BaseException:
             # what the ranks finished, then the failure
@@ -6611,9 +7318,14 @@ def multi_gpu(torch, card, which="all") -> int:
             raise
         recs = [json.loads(Path(work, f"rank{r}.json").read_text())
                 for r in range(MG_WORLD)]
-    if training:
+    if which == "all":
         mg_training_lines(recs, card, cards)
-    serving_lines(recs, card, cards)
+    if which in ("all", "serving"):
+        serving_lines(recs, card, cards)
+    if which == "dp":
+        dp_lines(recs, card, cards)
+    if which == "zero":
+        zero_lines(recs, card, cards)
     check(not foreign_modules(), "JAX or the JAX package was imported")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card_line(), flush=True)
@@ -6621,6 +7333,158 @@ def multi_gpu(torch, card, which="all") -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": MG_WORLD}})
     return 0
+
+
+def dp_lines(recs, card, cards):
+    """`--multi-gpu dp`'s lines from the ranks' records, and the gates
+    that read every rank: the int8 exchange's wire bytes against the f32
+    twin's and comm_group_stats', and no quantizable leaf on the f32
+    lane."""
+    from paddle_tpu_torch import gpt_config
+    emit({"phase": "multi_gpu_dp_parity", "ok": True, "card": card,
+          "config": {**MG_PARITY, "meshes": None, "dtype": "float32",
+                     "ids": "np.random.RandomState(61)",
+                     "optimizer": "AdamW(1e-4, wd 0.01, eps 1e-6), "
+                                  "ClipGradByGlobalNorm(0.05)"},
+          "limits": {**DP_LIMITS, "os": "bitwise equal to plain dp4",
+                     "ranks": "bitwise equal after every step"},
+          "legs": [r["dp_parity"] for r in recs],
+          "dgc": [r["dgc"] for r in recs],
+          "seconds": max(sum(x["seconds"] for x in r["dp_parity"])
+                         for r in recs)})
+    f = MG_DP_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = gpt_config(f["preset"], max_position_embeddings=S_)
+    full = [r["dp_full"] for r in recs]
+    r0 = full[0]
+    n_params = r0["one_card"]["params"]
+    per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * S_
+    one_s = max(r["one_card"]["window_s"] for r in full)
+    one_tok = B_ * S_ * N / one_s
+    modes = {"one_card": {"tokens_per_s": one_tok,
+                          "tokens_per_s_per_card": one_tok,
+                          "ms_per_step": one_s / N * 1e3,
+                          "scaling_efficiency": 1.0,
+                          "loss_after_window": r0["one_card"][
+                              "window_losses"][-1],
+                          "peak_mem_bytes_per_card": [
+                              r["one_card"]["peak_mem_bytes"]
+                              for r in full]}}
+    for tag in ("dp4_none", "dp4_f32", "dp4_int8"):
+        s = max(r[tag]["window_s"] for r in full)
+        tok = MG_WORLD * B_ * S_ * N / s
+        x = r0[tag]
+        modes[tag] = {
+            "tokens_per_s": tok, "tokens_per_s_per_card": tok / MG_WORLD,
+            "ms_per_step": s / N * 1e3,
+            "scaling_efficiency": tok / (MG_WORLD * one_tok),
+            "mfu": per_token * tok / (MG_WORLD * TENSOR_FLOPS_PER_S),
+            "loss_after_window": x["window_losses"][-1],
+            "peak_mem_bytes_per_card": [r[tag]["peak_mem_bytes"]
+                                        for r in full],
+            "nccl_device_ms_rank0": x.get("nccl_device_ms"),
+            "nccl_exposed_ms_rank0": x.get("nccl_exposed_ms"),
+            "overlap_ratio_rank0": x.get("overlap_ratio"),
+            "device_idle_share_rank0": x.get("device_idle_share"),
+            "wire_bytes_per_step_rank0": x["wire_bytes_per_step"],
+            "comm_group_stats": x.get("comm_group_stats"),
+            "launches_per_step_rank0": x["launches_per_step"]}
+    f32w, i8w = modes["dp4_f32"], modes["dp4_int8"]
+    st = i8w["comm_group_stats"]
+    f32_dp = f32w["wire_bytes_per_step_rank0"]["dp"]
+    i8_dp = i8w["wire_bytes_per_step_rank0"]["dp"]
+    scale = i8w["wire_bytes_per_step_rank0"]["scale"].get(
+        "all_reduce/float32", 0)
+    twin_bytes = f32_dp.get("all_reduce/float32", 0) - 4
+    int8_bytes = i8_dp.get("all_reduce/int8", 0) + i8_dp.get(
+        "all_reduce/float32", 0) - 4 + scale
+    sync = {"f32_twin_payload_bytes": twin_bytes,
+            "int8_payload_bytes": int8_bytes,
+            "int8_codes_bytes": i8_dp.get("all_reduce/int8", 0),
+            "int8_scale_bytes": scale,
+            "int8_f32_lane_bytes": i8_dp.get("all_reduce/float32", 0) - 4,
+            "ratio": twin_bytes / max(int8_bytes, 1),
+            "static_int8_payload_bytes": st["int8_bytes"] / 2,
+            "static_f32_twin_payload_bytes": st["f32_twin_bytes"] / 2,
+            "static_ratio": st["ratio"],
+            "int8_vs_static": int8_bytes / (st["int8_bytes"] / 2),
+            "f32_lane_is_1d_leaves_only":
+                i8_dp.get("all_reduce/float32", 0) == 4 + 4 * st[
+                    "f32_elems"]}
+    emit({"phase": "train_gpt3_2.7b_dp4_gradcomm", "ok": True,
+          "cards": cards, "model": cfg_line(cfg, "bfloat16"),
+          "config": {**f, "dtype": "bfloat16",
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=int8)",
+                     "loss": "model.loss(chunk_size=512)",
+                     "source": "bench.py:1113-1120 bench_gpt_dp",
+                     "ids": "np.random.RandomState(0), labels = ids; one "
+                            "card takes the first B rows",
+                     "timing": "2 warm steps, one window of N, the "
+                               "slowest rank's; rank 0's profiled step"},
+          "params": n_params, "modes": modes, "grad_sync": sync,
+          "ranks": full,
+          "seconds": max(sum(r[t]["seconds"] for t in modes) for r in full)})
+    check(sync["ratio"] >= 3.5 and abs(sync["int8_vs_static"] - 1) <= 0.01
+          and sync["f32_lane_is_1d_leaves_only"]
+          and sync["int8_codes_bytes"] > 0,
+          f"the int8 gradient exchange's wire bytes: {sync}")
+
+
+def zero_lines(recs, card, cards):
+    """`--multi-gpu zero`'s lines from the ranks' records."""
+    from paddle_tpu_torch import gpt_config
+    emit({"phase": "multi_gpu_zero_parity", "ok": True, "card": card,
+          "config": {**MG_PARITY, "meshes": None, "dtype": "float32",
+                     "ids": "np.random.RandomState(61)",
+                     "optimizer": "AdamW(1e-4, wd 0.01, eps 1e-6), "
+                                  "ClipGradByGlobalNorm(0.05)"},
+          "limits": {**DP_LIMITS, "os": "bitwise equal to plain dp4",
+                     "ranks": "bitwise equal after every step"},
+          "legs": [r["zero_parity"] for r in recs],
+          "seconds": max(sum(x["seconds"] for x in r["zero_parity"])
+                         for r in recs)})
+    f = MG_ZERO_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = gpt_config(f["preset"], max_position_embeddings=S_)
+    full = [r["zero_full"] for r in recs]
+    r0 = full[0]
+    levels = {}
+    for lv in f["levels"]:
+        n_params = r0[lv]["params"]
+        per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size \
+            * S_
+        s = max(r[lv]["window_s"] for r in full)
+        tok = B_ * S_ * N / s
+        x = r0[lv]
+        levels[lv] = {
+            "tokens_per_s": tok, "tokens_per_s_per_card": tok / MG_WORLD,
+            "ms_per_step": s / N * 1e3,
+            "mfu": per_token * tok / (MG_WORLD * TENSOR_FLOPS_PER_S),
+            "loss_after_window": x["window_losses"][-1],
+            "peak_mem_bytes_per_card": [r[lv]["peak_mem_bytes"]
+                                        for r in full],
+            "memz_owners_per_card": [r[lv]["memz_owners"] for r in full],
+            "owned_params_per_card": [r[lv]["owned_params"] for r in full],
+            "nccl_device_ms_rank0": x.get("nccl_device_ms"),
+            "nccl_exposed_ms_rank0": x.get("nccl_exposed_ms"),
+            "overlap_ratio_rank0": x.get("overlap_ratio"),
+            "device_idle_share_rank0": x.get("device_idle_share"),
+            "wire_bytes_per_step_rank0": x["wire_bytes_per_step"]}
+    emit({"phase": "train_gpt3_6.7b_zero_dp4", "ok": True, "cards": cards,
+          "model": cfg_line(cfg, "bfloat16"),
+          "config": {**f, "dtype": "bfloat16",
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "loss": "model.loss", "recompute": False,
+                     "source": "MG_FULL (train_gpt3_6.7b_dp2_mp2) at dp4 "
+                               "through group_sharded_parallel",
+                     "ids": "np.random.RandomState(0), labels = ids",
+                     "timing": "2 warm steps, one window of N, the "
+                               "slowest rank's; rank 0's profiled step"},
+          "mfu_peak": "989 TFLOP/s dense bf16 a card (H100 SXM data sheet)",
+          "params": r0[f["levels"][0]]["params"], "levels": levels,
+          "ranks": full,
+          "seconds": max(sum(r[lv]["seconds"] for lv in f["levels"])
+                         for r in full)})
 
 
 def mg_training_lines(recs, card, cards):
@@ -6771,9 +7635,11 @@ def main(argv=None) -> int:
     ap.add_argument("--parity-repeats", type=int, default=0, metavar="N",
                     help="run resnet_parity alone N times")
     ap.add_argument("--multi-gpu", nargs="?", const="all",
-                    choices=("all", "serving"),
+                    choices=("all", "serving", "dp", "zero"),
                     help=f"the multi-GPU run on {MG_WORLD} cards ("
-                         f"'serving': its serving phases alone)")
+                         f"'serving': its serving phases alone; 'dp': the "
+                         f"data-parallel gradient exchange's; 'zero': "
+                         f"ZeRO's)")
     args = ap.parse_args(argv)
     repeats = args.parity_repeats
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():

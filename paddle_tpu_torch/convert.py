@@ -127,16 +127,21 @@ def shard_state_from_paddle(np_state: Dict[str, np.ndarray], cfg,
             for k, v in state_dict_from_paddle(np_state, cfg).items()}
 
 
-def gather_state(state: Dict[str, torch.Tensor],
-                 mesh=None) -> Dict[str, torch.Tensor]:
+def gather_state(state: Dict[str, torch.Tensor], mesh=None,
+                 zero=None) -> Dict[str, torch.Tensor]:
     """The full state from this rank's shards: every split parameter
     (`tp_split`) all-gathered over the ``mp`` group of `mesh` (the active
-    one) and rejoined; replicated entries as they are. Every rank of the
-    group must call it; the tensors must lie on the group's device."""
+    one) and rejoined; replicated entries as they are. Under ZeRO stage 3
+    (`zero`: a TrainStep's `zero` runtime) an entry that names one of its
+    parameters is first made whole from its owner. Every rank of the
+    groups must call it; the tensors must lie on the groups' device."""
     from .distributed.collective import all_gather
     from .distributed.mesh import axis_group
     from .distributed.mpu import gather_shards
     g = axis_group("mp", mesh)
+    if zero is not None and zero.stage >= 3:
+        state = {k: zero.full_param(zero.index[k]) if k in zero.index
+                 else v for k, v in state.items()}
     out = {}
     for k, v in state.items():
         rule = tp_split(k)

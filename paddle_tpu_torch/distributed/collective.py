@@ -15,15 +15,22 @@ card's tensor never falls back to gloo. Where gloo lacks a collective
 default waits and returns None. Each group counts the all-reduces it ran
 over more than one rank (`Group.all_reduces`): the tensor-parallel
 serving plan is exactly two a layer a forward, and the tests and the
-smoke read it there.
+smoke read it there. It also counts the payload bytes its all-reduces,
+reduce-scatters, all-gathers, reduces and broadcasts carried, by
+operation and wire dtype (`Group.wire_bytes`): the port's counterpart of
+the JAX package's `collective_bytes_by_dtype`.
 """
 from __future__ import annotations
 
 import itertools
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+# the largest flattened bucket of tensors one collective of the training
+# step carries (the dp gradient average, ZeRO's runs)
+BUCKET_BYTES = 64 << 20
 
 
 class ReduceOp:
@@ -61,6 +68,8 @@ class Group:
         self.axis = axis
         # all-reduces run over this group with more than one rank
         self.all_reduces = 0
+        # payload bytes by (operation, wire dtype), over more than one rank
+        self.wire_bytes: Dict[Tuple[str, str], int] = {}
         me = dist.get_rank() if dist.is_initialized() else 0
         self.rank = self.ranks.index(me) if me in self.ranks else -1
 
@@ -77,6 +86,12 @@ class Group:
     @property
     def backend(self) -> str:
         return dist.get_backend(self.process_group)
+
+    def count(self, op: str, tensor):
+        """Add `tensor`'s payload to the (op, dtype) byte count."""
+        key = (op, str(tensor.dtype).replace("torch.", ""))
+        self.wire_bytes[key] = self.wire_bytes.get(key, 0) + \
+            tensor.numel() * tensor.element_size()
 
     def is_member(self) -> bool:
         return self.rank >= 0
@@ -162,6 +177,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
     if group.nranks == 1:
         return None
     group.all_reduces += 1
+    group.count("all_reduce", tensor)
     if op == ReduceOp.AVG:
         dist.all_reduce(tensor, dist.ReduceOp.SUM,
                         group=group.process_group)
@@ -187,6 +203,7 @@ def all_gather(tensor_list: Optional[List], tensor=None,
     if group.nranks == 1:
         out[0].copy_(t)
     else:
+        group.count("all_gather", t)
         _gather_flat(out.view(-1), t.view(-1), group=group.process_group)
     if tensor_list is None:
         return out
@@ -201,25 +218,35 @@ def broadcast(tensor, src: int = 0, group: Optional[Group] = None,
     _check(tensor, group, "broadcast")
     if group.nranks == 1:
         return None
+    group.count("broadcast", tensor)
     return _done(dist.broadcast(tensor, src, group=group.process_group,
                                 async_op=not sync_op), sync_op)
 
 
 def reduce(tensor, dst: int = 0, op=ReduceOp.SUM,
-           group: Optional[Group] = None, sync_op: bool = True):
+           group: Optional[Group] = None, sync_op: bool = True,
+           keep_input: bool = True):
     """The reduction lands on global rank `dst`; the other ranks keep
-    their input (the JAX package's rule)."""
+    their input (the JAX package's rule). With ``keep_input=False`` it
+    runs in `tensor` itself, which the other ranks hold as scratch
+    afterwards (no copy: the ZeRO gradient reduce to a parameter's
+    owner); only then does ``sync_op=False`` return the work handle (a
+    reduce that keeps its input, or an AVG, waits for its result)."""
     group = _resolve(group)
     _check(tensor, group, "reduce")
     if group.nranks == 1:
         return None
-    buf = tensor.clone()
+    group.count("reduce", tensor)
+    buf = tensor.clone() if keep_input else tensor
+    wait = sync_op or keep_input or op == ReduceOp.AVG
+    work = dist.reduce(buf, dst, dist.ReduceOp.SUM if op == ReduceOp.AVG
+                       else _TORCH_OP[op], group=group.process_group,
+                       async_op=not wait)
+    if not wait:
+        return work
     if op == ReduceOp.AVG:
-        dist.reduce(buf, dst, dist.ReduceOp.SUM, group=group.process_group)
         buf.div_(group.nranks)
-    else:
-        dist.reduce(buf, dst, _TORCH_OP[op], group=group.process_group)
-    if dist.get_rank() == dst:
+    if keep_input and dist.get_rank() == dst:
         tensor.copy_(buf)
     return None
 
@@ -242,6 +269,7 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM,
     if n == 1:
         out = chunks[0].clone()
     elif group.backend == "nccl" and op != ReduceOp.AVG:
+        group.count("reduce_scatter", chunks)
         out = torch.empty_like(chunks[0])
         _scatter_flat(out.view(-1), chunks.contiguous().view(-1),
                       _TORCH_OP[op], group=group.process_group)

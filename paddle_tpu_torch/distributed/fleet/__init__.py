@@ -4,13 +4,15 @@ paddle_tpu/distributed/fleet/__init__.py's collective half).
 `init` joins the process group (`init_parallel_env`) when it is not
 joined yet, builds the hybrid mesh from `DistributedStrategy.
 hybrid_configs` and sets it; the world's ranks beyond the product of the
-degrees become data parallel, as in the JAX package. `distributed_model`
-and `distributed_optimizer` return their argument: the tensor-parallel
-layers (`mpu`) hold their shards and call their collectives themselves,
-and `jit.TrainStep(mesh=...)` splits the batch over ``dp``, averages the
-gradients and applies the mesh-aware gradient clip. Pipeline
-parallelism, sharded optimizer state (ZeRO) and the sequence- and
-expert-parallel axes are later slices and raise.
+degrees become data parallel, as in the JAX package; a
+``sharding_degree`` builds the ``sdp`` axis. `distributed_model` returns
+its argument: the tensor-parallel layers (`mpu`) hold their shards and
+call their collectives themselves, and `jit.TrainStep(mesh=...)` splits
+the batch over ``dp``, averages the gradients and applies the mesh-aware
+gradient clip. `distributed_optimizer` marks the optimizer for ZeRO under
+`strategy.sharding` (stage `sharding_configs.stage`, over ``sdp``), as the
+JAX package does; TrainStep runs it. Pipeline parallelism and the
+sequence- and expert-parallel axes are later slices and raise.
 """
 from __future__ import annotations
 
@@ -40,10 +42,6 @@ def init(role_maker=None, is_collective: bool = True,
     if strategy.pipeline or strategy.hybrid_configs.get("pp_degree", 1) > 1:
         raise NotImplementedError(f"fleet.init: pipeline parallelism comes "
                                   f"with {_LATER}")
-    if strategy.sharding or \
-            strategy.hybrid_configs.get("sharding_degree", 1) > 1:
-        raise NotImplementedError(f"fleet.init: sharded optimizer state "
-                                  f"(strategy.sharding) comes with {_LATER}")
     axes = strategy.mesh_axes()
     for ax in ("sp", "ep"):
         if ax in axes:
@@ -60,7 +58,8 @@ def init(role_maker=None, is_collective: bool = True,
     mesh = _mesh.build_mesh(axes)
     topo = CommunicateTopology(
         hybrid_group_names=["data", "pipe", "sharding", "model"],
-        dims=[mesh.axis_size("dp"), 1, 1, mesh.axis_size("mp")])
+        dims=[mesh.axis_size("dp"), 1, mesh.axis_size("sdp"),
+              mesh.axis_size("mp")])
     hcg = HybridCommunicateGroup(topo, mesh)
     _fleet_state.update(initialized=True, strategy=strategy, hcg=hcg)
 
@@ -81,11 +80,14 @@ def distributed_optimizer(optimizer, strategy: Optional[DistributedStrategy]
                           = None):
     """Reference: fleet.distributed_optimizer. The hybrid-parallel gradient
     clip (squares of mp-sharded gradients summed over mp) is applied by
-    TrainStep(mesh=...); sharded optimizer state raises."""
+    TrainStep(mesh=...); under `strategy.sharding` the optimizer is marked
+    for ZeRO stage `sharding_configs.stage` over ``sdp``
+    (`sharding.shard_optimizer_state`, as in the JAX package)."""
     st = strategy or _fleet_state["strategy"]
     if st is not None and st.sharding:
-        raise NotImplementedError(f"distributed_optimizer: sharded optimizer "
-                                  f"state comes with {_LATER}")
+        from ..sharding import shard_optimizer_state
+        shard_optimizer_state(optimizer, stage=int(
+            st.sharding_configs.get("stage", 1)))
     return optimizer
 
 

@@ -11,6 +11,10 @@ group over the same ranks (`Mesh.control_group`): host messages travel
 there without touching the card's stream (the sharded serving engine's
 op headers).
 
+Axes: ``dp`` (data parallel), ``sdp`` (the ZeRO sharding axis,
+`distributed.sharding`) and ``mp`` (tensor parallel) train through
+`jit.TrainStep`; ``pp``, ``sp`` and ``ep`` have no runtime yet.
+
 The JAX helpers `filter_spec`, `named_sharding` and `shard_constraint`
 only steer XLA's partitioner (PartitionSpecs and sharding constraints on
 a global array). The port keeps each rank's shard explicitly and calls
@@ -47,6 +51,7 @@ class Mesh:
         self.coords = {k: int(v) for k, v in self.coords.items()}
         self._groups = groups
         self._controls = controls or {}
+        self._twins: Dict[str, Group] = {}
 
     @property
     def size(self) -> int:
@@ -66,6 +71,22 @@ class Mesh:
         """The gloo twin of `group(axis)`: the same ranks, host tensors
         (built for the ``mp`` axis only; None for the others)."""
         return self._controls.get(axis)
+
+    def twin(self, axis: str) -> Optional[Group]:
+        """A second communicator over the ranks of `group(axis)` (same
+        backend), built once: a small collective sent there never queues
+        behind the payload on the first (the int8 gradient sync's scale
+        agreement, ZeRO stage 3's parameter gathers). Collective: every
+        rank of the world calls it, in the same order, the first time."""
+        if axis not in self.shape:
+            return None
+        if axis not in self._twins:
+            for ranks in axis_groups(self.shape, axis):
+                g = new_group(ranks)
+                if self.rank in ranks:
+                    g.axis = axis
+                    self._twins[axis] = g
+        return self._twins[axis]
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"

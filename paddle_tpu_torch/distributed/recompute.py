@@ -1,6 +1,6 @@
 """Recompute (activation checkpointing): the port of
-paddle_tpu/distributed/recompute.py's `recompute`, `resolve_policy` and
-`checkpoint_tag`.
+paddle_tpu/distributed/recompute.py's `recompute`, `resolve_policy`,
+`checkpoint_tag`, `recompute_sequential` and `recompute_hybrid`.
 
 The JAX package wraps a segment in `jax.checkpoint` with a save policy;
 XLA then keeps what the policy names and rematerialises the rest in the
@@ -135,3 +135,41 @@ def recompute(function, *args, policy=None, generators=(), **kwargs):
                          **kwargs)
     return checkpoint_segment(function, *args, generators=generators,
                               dots=saved == "dots", **kwargs)
+
+
+def recompute_sequential(ctx, functions, *args, **kwargs):
+    """Reference: recompute.py recompute_sequential. The layers of
+    `functions` (an nn.Sequential or a list of callables) cut into
+    ``ctx["segments"]`` runs of len // segments layers each (the last run
+    takes the rest); each run is one `recompute` region. `kwargs` go to
+    `recompute` (``policy``, ``generators``). A layer receives the
+    previous one's output, unpacked when it is a tuple."""
+    segments = int(ctx.get("segments", 1)) if isinstance(ctx, dict) else 1
+    layers = list(functions)
+    n = len(layers)
+    seg = max(1, n // max(1, segments))
+
+    def run_span(lo, hi):
+        def f(*inp):
+            y = inp if len(inp) > 1 else inp[0]
+            for layer in layers[lo:hi]:
+                y = layer(*y) if isinstance(y, tuple) else layer(y)
+            return y
+        return f
+
+    cur, i = tuple(args), 0
+    while i < n:
+        hi = min(n, i + seg)
+        out = recompute(run_span(i, hi), *cur, **kwargs)
+        cur = out if isinstance(out, tuple) else (out,)
+        i = hi
+    return cur if len(cur) > 1 else cur[0]
+
+
+def recompute_hybrid(ctx, function, *args, **kwargs):
+    """Reference: recompute_hybrid.py, the tensor-parallel variant. The
+    port's regions already replay the generators they are given (the
+    model-parallel RNG tracker's among them), so it is `recompute`;
+    `ctx` (the reference's mp group and offload flags) is accepted and
+    unused."""
+    return recompute(function, *args, **kwargs)

@@ -4,7 +4,8 @@
 data, pipe, sharding and model dimensions; `HybridCommunicateGroup`
 builds the mesh ``{"dp", "pp", "sdp", "mp"}`` (axes of degree 1 left out,
 ``mp`` last, so model-parallel ranks are adjacent) over the initialised
-world and hands out this rank's groups, ranks and world sizes.
+world and hands out this rank's groups, ranks and world sizes, the
+sharding (``sdp``, ZeRO's) axis among them.
 """
 from __future__ import annotations
 
@@ -110,6 +111,12 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_world_size(self):
         return self._deg("sdp")
+
+    def get_sequence_parallel_world_size(self):
+        return self._deg("sp")
+
+    def get_expert_parallel_world_size(self):
+        return self._deg("ep")
 
     def get_data_parallel_rank(self):
         return self._rank("dp")

@@ -51,18 +51,21 @@ Telemetry, as in the JAX step:
 state, optimizer scalars and the scaler, in the JAX layout (`params` and
 `opt` keyed by parameter name).
 
-With ``mesh`` (a `distributed.Mesh` with axes ``dp`` and/or ``mp``, the
-model built under it), each process is one rank of the run:
+With ``mesh`` (a `distributed.Mesh` over the axes ``dp``, ``sdp`` and
+``mp``, the model built under it), each process is one rank of the run:
   * every call takes the GLOBAL batch, as the JAX step does, and each
-    ``dp`` rank uses its rows (dim 0 cut into dp equal parts; with
-    accumulation, each microbatch of the global batch is cut);
+    rank uses its rows along the one axis `data_axes` names (dim 0 cut
+    into that axis' size; with accumulation, each microbatch of the
+    global batch is cut); ranks along the other axes see the same rows
+    (the data axis is called ``dp`` below);
   * a `loss_mask` mean inside GPT's loss is the global masked mean: the
     mask's count is all-reduced over ``dp`` (`distributed.mesh.
     data_parallel_loss`), so the ranks' mean is neither a mean of
     per-rank means nor different from the single-process loss; every
     rank returns the global loss;
   * after the backward and the accumulation the gradients are averaged
-    over ``dp`` in flattened buckets of at most `BUCKET_BYTES`;
+    over ``dp`` in flattened buckets of at most `BUCKET_BYTES` (unless
+    `grad_comm` or ZeRO stage 2-3 exchange them, below);
   * the gradient clip sums the squares of ``mp``-sharded gradients over
     ``mp`` and counts replicated ones once; the GradScaler's found-inf
     flag is max-reduced over all ranks, so every rank skips the same
@@ -72,15 +75,42 @@ model built under it), each process is one rank of the run:
     ledger time and count its own process; `state_dict()` holds its
     shards (`convert.gather_state` joins them).
 A mesh whose axes have one rank each changes nothing: the step is
-bitwise the step without it. The JAX step's gradient-sync modes
-(`grad_comm`, queue item A4), graph lint, preemption and chaos hooks are
-later slices; asking for one raises. Options that only tune the JAX
-compilation (donation, the gradient-sync chunking) are not accepted.
+bitwise the step without it.
+
+`grad_comm` ("f32" or "int8", on a mesh whose only axis is the data
+axis) replaces the bucketed average by one exchange per
+`grad_layer_groups` group, started in the backward as soon as the
+group's last gradient lands (a hook on every parameter), so that it runs
+under the rest of the backward: "int8" is `distributed.quant_collectives`'
+int8 all-reduce with per-chunk scales (0/1-d leaves, or those
+`grad_comm_f32_fallback(name, shape)` picks, on an f32 lane), "f32"
+every leaf on the f32 lane. The groups start in one fixed order on every
+rank (the reverse of the parameters', the order the backward lands
+them; a group that lands early waits for the ones before it; the ranks
+compare their groups when the step is built), and the step waits for
+all of them before the clip.
+
+ZeRO (`distributed.group_sharded_parallel` or `shard_optimizer_state`
+mark the optimizer; `distributed.sharding` has the layout) shards the
+optimizer state (stage 1), the gradients (stage 2: each run of
+parameters reduced to its owner as the backward lands it) and the
+parameters (stage 3: gathered on use) over the shard axis; the clip then
+sums the owners' squares over the shard group (and over ``mp`` for split
+parameters), and found-inf stays a world MAX. `state_dict()` /
+`set_state_dict()` give and take whole tensors under every stage (a
+collective: every rank calls them).
+
+Graph lint, preemption and chaos hooks are later slices; asking for one
+raises. Options that only tune the JAX compilation (donation) are not
+accepted.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import logging
 import time
+import weakref
 from typing import Callable, Dict
 
 import numpy as np
@@ -88,7 +118,8 @@ import torch
 
 from ..amp.grad_scaler import GradScaler, found_inf
 from ..device import resolve_device
-from ..distributed.collective import ReduceOp, all_reduce, get_group
+from ..distributed.collective import (BUCKET_BYTES, ReduceOp, all_reduce,
+                                      get_group)
 from ..distributed.mesh import axis_group, data_parallel_loss
 from ..optimizer.lr import LRScheduler
 from ..profiler.timeline import current as _tl_current
@@ -96,14 +127,13 @@ from ..profiler.timeline import current as _tl_current
 _logger = logging.getLogger("paddle_tpu_torch.jit.train_step")
 
 # option -> (what brings it, ROADMAP.md queue item)
-_LATER = {"grad_comm": ("a later multi-GPU slice", "A4"),
-          "preemption": ("the resilience slice", "A6"),
+_LATER = {"preemption": ("the resilience slice", "A6"),
           "chaos": ("the resilience slice", "A6"),
           "lint": ("the tooling slice", "A8")}
 
 
-# the largest flattened bucket of gradients one dp all-reduce carries
-BUCKET_BYTES = 64 << 20
+# the in-backward exchanges left open before the oldest is finished
+INFLIGHT = 4
 
 
 def _dtype_name(dtype) -> str:
@@ -119,14 +149,99 @@ def _signature(batch):
                  for a in tree_leaves(batch))
 
 
+def _grad_hook(ref, i, g):
+    step = ref()
+    return None if step is None else step._on_grad(i, g)
+
+
+class _Landing:
+    """The gradient exchange started while the backward runs: `units` are
+    lists of parameter indices in the order their exchanges start (the
+    same on every rank); when a unit's last gradient lands, its exchange
+    and those of the completed units after it start (`start(k, grads,
+    seed)` returns a pending exchange; `seed` is `begin`'s), and at most
+    INFLIGHT exchanges are left open before the oldest is finished
+    (`finish(pending, out)` writes its gradients into out), so the
+    buffers in flight stay bounded. `end` starts what never landed (an
+    unused parameter's zeros) and finishes the rest."""
+
+    def __init__(self, units, start, finish):
+        self.units = [list(u) for u in units]
+        self.unit_of = {i: k for k, u in enumerate(self.units) for i in u}
+        self._start, self._finish = start, finish
+        self.active = False
+
+    def agree(self, group, params, device):
+        """Raise unless every rank of `group` built the same units (their
+        parameter indices, shapes and dtypes): the exchanges start in the
+        units' order, so the ranks then issue the same collectives in the
+        same order. One int64 MAX all-reduce, when the step is built."""
+        if group is None or group.nranks == 1:
+            return
+        import hashlib
+        key = repr([[(i, tuple(params[i].shape), str(params[i].dtype))
+                     for i in u] for u in self.units])
+        h = int.from_bytes(hashlib.sha1(key.encode()).digest()[:7], "big")
+        t = torch.tensor([h, -h], dtype=torch.int64, device=device)
+        all_reduce(t, ReduceOp.MAX, group=group)
+        if int(t[0]) != h or int(t[1]) != -h:
+            raise RuntimeError(
+                f"the ranks of {group} built different gradient exchange "
+                f"units ({len(self.units)} here): every rank must build the "
+                f"same model and parameter list")
+
+    def begin(self, n: int, seed: int = 0):
+        self.seed = seed
+        self.got = [{} for _ in self.units]
+        self.next = 0
+        self.pending = collections.deque()
+        self.out = [None] * n
+        self.active = True
+
+    def land(self, i, g):
+        self.got[self.unit_of[i]][i] = g
+        self._drain()
+
+    def _drain(self, params=None):
+        while self.next < len(self.units):
+            k = self.next
+            got = self.got[k]
+            if len(got) < len(self.units[k]):
+                if params is None:
+                    return
+                for i in self.units[k]:
+                    if i not in got:
+                        got[i] = torch.zeros(params[i].shape,
+                                             dtype=params[i].dtype,
+                                             device=params[i].device)
+            self.pending.append(self._start(k, got, self.seed))
+            self.got[k] = None
+            self.next += 1
+            while len(self.pending) > INFLIGHT:
+                self._finish(self.pending.popleft(), self.out)
+
+    def end(self, params):
+        """Every unit started and finished: the exchanged gradients."""
+        try:
+            self._drain(params)
+            while self.pending:
+                self._finish(self.pending.popleft(), self.out)
+        finally:
+            self.active = False
+        return self.out
+
+
 def _tensor(x, device):
-    """A state-dict entry (tensor or numpy array) as a tensor on device."""
-    if not torch.is_tensor(x):
-        a = np.asarray(x)
-        if a.dtype.name == "bfloat16":      # ml_dtypes bf16 from JAX
-            x = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            x = torch.from_numpy(np.array(a))
+    """A state-dict entry (tensor or numpy array) as a new tensor on
+    device: never the caller's own, which the step's in-place updates
+    would change."""
+    if torch.is_tensor(x):
+        return x.detach().to(device=device, copy=True)
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":      # ml_dtypes bf16 from JAX
+        x = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        x = torch.from_numpy(np.array(a))
     return x.to(device=device)
 
 
@@ -140,9 +255,10 @@ class TrainStep:
                  data_axes=("dp",), grad_accum_steps: int = 1, monitor=None,
                  numerics=None, scaler: GradScaler = None, lint=None,
                  preemption=None, chaos=None, timeline=None, memz=None,
-                 grad_comm=None, device=None):
-        asked = dict(lint=lint, preemption=preemption, chaos=chaos,
-                     grad_comm=grad_comm)
+                 grad_comm=None, grad_comm_chunk: int = 256,
+                 grad_comm_stochastic: bool = False,
+                 grad_comm_f32_fallback=None, device=None):
+        asked = dict(lint=lint, preemption=preemption, chaos=chaos)
         for opt_name, value in asked.items():
             if value is not None and value is not False:
                 what, item = _LATER[opt_name]
@@ -176,6 +292,21 @@ class TrainStep:
                                   and scaler.is_enable()) else None
         self._opt_state = None
         self._step_i = 0
+        self._grad_groups = []    # [(path, [param indices])]
+        self._landing = None      # the in-backward exchange (_Landing)
+        self._in_step = False
+        self._grad_bytes = 0      # the gradients this rank kept, last step
+        self._setup_grad_comm(grad_comm, grad_comm_chunk,
+                              grad_comm_stochastic, grad_comm_f32_fallback)
+        self._setup_zero()
+        self._hooks = []
+        if self._landing is not None or (self._zero is not None
+                                         and self._zero.stage >= 3):
+            # through a weak reference: a parameter's hook must not keep
+            # the step (and so the model) alive
+            ref = weakref.ref(self)
+            self._hooks = [p.register_hook(functools.partial(
+                _grad_hook, ref, i)) for i, p in enumerate(self._params)]
         # the batch signatures the JAX step would have compiled for, and
         # the last one per kind (the recompilation detector's input)
         self._signatures = set()
@@ -183,7 +314,6 @@ class TrainStep:
         self._numerics = None
         self._sentinel_handle = None
         self._act_paths = []      # activation row paths, filled at 1st step
-        self._grad_groups = []    # [(path, [param indices])]
         self._last_aux = None     # latest step's aux (device tensors)
         self._last_loss = None
         self._last_batch = None
@@ -205,21 +335,160 @@ class TrainStep:
                 raise ValueError("the model holds tensor-parallel shards; "
                                  "pass its mesh: TrainStep(mesh=...)")
             return
-        if self.data_axes != ("dp",):
-            raise ValueError(f"TrainStep(data_axes={data_axes!r}): the port "
-                             f"splits the batch over ('dp',) only")
-        extra = set(mesh.axis_names) - {"dp", "mp"}
+        if len(self.data_axes) != 1:
+            raise ValueError(
+                f"TrainStep(data_axes={data_axes!r}): the port splits the "
+                f"batch over ONE mesh axis; several would split dim 0 over "
+                f"their product, and its rows, loss count and gradient "
+                f"average would need a process group over that product, "
+                f"which the mesh does not build")
+        extra = set(mesh.axis_names) - {"dp", "sdp", "mp"}
         if extra:
             raise NotImplementedError(
-                f"TrainStep(mesh=...) with axes {sorted(extra)}: only dp and "
+                f"TrainStep(mesh=...) with axes {sorted(extra)}: dp, sdp and "
                 f"mp are ported; the others come with a later multi-GPU "
                 f"slice (ROADMAP.md, queue item A4)")
-        self._dp = axis_group("dp", mesh)
+        if self.data_axes[0] not in ("dp", "sdp"):
+            raise ValueError(
+                f"TrainStep(data_axes={data_axes!r}): the batch splits over "
+                f"'dp' or 'sdp'; a tensor-parallel rank needs its group's "
+                f"rows")
+        # the data group (named _dp whichever axis it runs along)
+        self._dp = axis_group(self.data_axes[0], mesh)
         self._mp = axis_group("mp", mesh)
         if mesh.size > 1:
             self._world = get_group()
             if self.device.type == "cuda" and self._world.backend != "nccl":
                 raise ValueError("a CUDA step needs an NCCL process group")
+
+    def _setup_grad_comm(self, grad_comm, chunk, stochastic, fallback):
+        """The per-layer-group exchange of `grad_comm` (the JAX step's
+        preconditions and plan)."""
+        self.grad_comm = grad_comm
+        self.grad_comm_chunk = int(chunk)
+        self.grad_comm_stochastic = bool(stochastic)
+        self._comm_groups = None
+        self._comm_flip = frozenset()
+        if grad_comm is None:
+            return
+        if grad_comm not in ("f32", "int8"):
+            raise ValueError(f"grad_comm={grad_comm!r}: expected None, "
+                             "'f32' or 'int8'")
+        mesh = self.mesh
+        if mesh is None:
+            raise ValueError("grad_comm requires TrainStep(mesh=...) — "
+                             "there is no gradient sync to replace "
+                             "without a data-parallel mesh")
+        if len(self.data_axes) != 1 or \
+                tuple(mesh.axis_names) != self.data_axes:
+            raise ValueError(
+                f"grad_comm needs a pure data-parallel mesh whose only "
+                f"axis is {self.data_axes!r} (got mesh axes "
+                f"{tuple(mesh.axis_names)}): the exchange averages each "
+                f"layer group over that one axis")
+        if self.grad_accum_steps > 1:
+            raise ValueError("grad_comm with grad_accum_steps>1 is not "
+                             "supported yet — the accumulation loop would "
+                             "need the sync after its last microbatch")
+        from ..debugging import grad_layer_groups
+        from ..distributed import quant_collectives as QC
+        from ..optimizer.optimizer import _jax_order
+        self._grad_groups = grad_layer_groups(self._param_names,
+                                              type(self.model).__name__)
+        shapes = [tuple(p.shape) for p in self._params]
+        if grad_comm == "int8":
+            plan = QC.build_comm_groups(self._param_names, shapes,
+                                        self._grad_groups, fallback)
+        else:
+            # every leaf on the f32 lane: the overlap without quantization
+            plan = [(path, (), tuple(idxs))
+                    for path, idxs in self._grad_groups]
+        self._comm_groups = plan
+        g = self._dp
+        scale_group = mesh.twin(self.data_axes[0]) \
+            if grad_comm == "int8" and g is not None else None
+        # the int8 lane flattens an nn.Linear weight in the JAX element
+        # order, so its chunks are the JAX package's
+        self._comm_flip = frozenset(
+            i for i, (n, p) in enumerate(zip(self._param_names,
+                                             self._params))
+            if _jax_order(n, p))
+        sync = QC.GroupSync(g, self.grad_comm_chunk, self.grad_comm_stochastic,
+                            scale_group=scale_group, flip=self._comm_flip)
+        n = len(plan)
+        # the backward lands the groups in about the reverse of the
+        # parameters' order: unit k is group n - 1 - k
+        self._landing = _Landing(
+            [list(q) + list(f) for _, q, f in plan[::-1]],
+            lambda k, got, seed: sync.start(got, plan[n - 1 - k], n - 1 - k,
+                                            seed),
+            sync.finish)
+        self._landing.agree(g, self._params, self.device)
+
+    def _setup_zero(self):
+        """ZeRO's runtime, when the optimizer is marked (distributed.
+        sharding; stage 3 also needs the model marked); its shard group
+        is the marked axis' (None at one rank)."""
+        from ..distributed import sharding as SH
+        self._zero = None
+        stage = int(getattr(self.optimizer, "_sharding_stage", 0) or 0)
+        if not stage:
+            return
+        if stage >= 2 and self.grad_comm is not None:
+            raise ValueError(f"grad_comm with ZeRO stage {stage}: the stage "
+                             f"reduces each gradient to its owner in place "
+                             f"of the all-reduce grad_comm replaces; use "
+                             f"stage 1 ('os') with grad_comm")
+        axis = getattr(self.optimizer, "_sharding_axis", "sdp")
+        if getattr(self.model, "_zero_param_axis", None) is None:
+            # the parameters stay whole unless shard_parameter_specs marked
+            # the model (as the JAX step keeps their specs)
+            stage = min(stage, 2)
+        mesh = self.mesh
+        group = axis_group(axis, mesh) if mesh is not None else None
+        gather = mesh.twin(axis) if stage >= 3 and group is not None \
+            else None
+        self._zero = SH.ZeroRuntime(stage, self._param_names, self._params,
+                                    group, self._dp, self.model, gather)
+        if stage >= 2:
+            z = self._zero
+            self._landing = _Landing(z.units, lambda k, got, seed:
+                                     z.issue(k, got), z.finish)
+            self._landing.agree(z.group if z.reduce_mode else z.data_group,
+                                self._params, self.device)
+
+    def _on_grad(self, i, g):
+        """A parameter's gradient landed in the step's backward: stage 3
+        frees the parameter (its last use is behind), and an exchange in
+        flight takes the gradient (the backward keeps an empty stand-in,
+        so the gradient is not held twice)."""
+        if not self._in_step:
+            return None
+        zero = self._zero
+        if zero is not None and zero.stage >= 3:
+            zero.free([i])
+        lan = self._landing
+        if lan is None or not lan.active:
+            return None
+        lan.land(i, g)
+        return torch.zeros((), dtype=g.dtype, device=g.device).expand(
+            g.shape)
+
+    def __del__(self):
+        for h in getattr(self, "_hooks", ()):
+            h.remove()
+
+    @property
+    def zero(self):
+        """The ZeRO runtime (distributed.sharding.ZeroRuntime), or None."""
+        return self._zero
+
+    def gathered(self):
+        """A context in which every parameter is whole (ZeRO stage 3
+        holds a rank's own only between steps); a no-op otherwise."""
+        import contextlib
+        return self._zero.gathered() if self._zero is not None \
+            else contextlib.nullcontext()
 
     def set_numerics(self, numerics):
         """(Re)configure the numerics mode after construction: installs the
@@ -229,6 +498,13 @@ class TrainStep:
         from ..debugging import (NumericsConfig, check_layer_numerics,
                                  grad_layer_groups)
         self._numerics = NumericsConfig.coerce(numerics)
+        zero = getattr(self, "_zero", None)
+        if self._numerics is not None and zero is not None and \
+                zero.stage >= 2:
+            self._numerics = None
+            raise ValueError("TrainStep(numerics=...) with ZeRO stage >= 2: "
+                             "its per-layer gradient rows need every "
+                             "gradient, and a rank keeps its own only")
         if self._numerics is not None:
             if self._sentinel_handle is None:
                 # idempotent: reuses hooks another handle already installed
@@ -243,8 +519,13 @@ class TrainStep:
 
     # ------------------------------------------------------------------
     def _init_opt_state(self):
+        """Each parameter's state (None where ZeRO gives it to another
+        rank)."""
+        zero = self._zero
         return [self.optimizer.init_state(p, name=n)
-                for p, n in zip(self._params, self._param_names)]
+                if zero is None or zero.owned[i] else None
+                for i, (p, n) in enumerate(zip(self._params,
+                                               self._param_names))]
 
     def _ensure_opt_state(self):
         if self._opt_state is None:
@@ -270,8 +551,11 @@ class TrainStep:
             micro = list(zip(*(a.chunk(accum, dim=0) for a in batch)))
         if self._dp is not None:
             micro = [tuple(self._dp_rows(a) for a in mb) for mb in micro]
+        zero, landing = self._zero, self._landing
         loss_sum, acc, micro_rows = None, None, []
         for mb in micro:
+            if zero is not None and zero.stage >= 3:
+                zero.gather_root()
             if numerics is not None:
                 from ..debugging.sentinel import collect_stats
                 # the scope closes before the backward: a recomputed
@@ -285,6 +569,16 @@ class TrainStep:
                 with data_parallel_loss(self._dp):
                     loss = self.loss_fn(*mb).float()
             scaled = loss * scale if scale is not None else loss
+            if landing is not None and accum == 1:
+                # the exchanges start inside the backward (_on_grad)
+                landing.begin(len(self._params), self._comm_seed)
+                try:
+                    torch.autograd.grad(scaled, self._params,
+                                        allow_unused=True)
+                finally:
+                    grads = landing.end(self._params)
+                return (self._loss_mean(loss.detach()), grads,
+                        micro_rows[0] if micro_rows else None)
             grads = torch.autograd.grad(scaled, self._params,
                                         allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
@@ -302,6 +596,14 @@ class TrainStep:
         if micro_rows and all(r is not None for r in micro_rows):
             from ..debugging.sentinel import merge_stacked
             rows = merge_stacked(torch.stack(micro_rows))
+        if landing is not None:
+            # the accumulated gradients land at once, in the backward's
+            # order
+            landing.begin(len(self._params), self._comm_seed)
+            for i in reversed(range(len(acc))):
+                landing.land(i, acc[i])
+            acc[:] = [None] * len(acc)
+            return self._loss_mean(loss_sum), landing.end(self._params), rows
         loss_sum, acc = self._dp_reduce(loss_sum, acc)
         return loss_sum, acc, rows
 
@@ -316,6 +618,15 @@ class TrainStep:
                              f"the {n} dp ranks")
         k = a.shape[0] // n
         return a[r * k:(r + 1) * k]
+
+    def _loss_mean(self, loss):
+        """The loss averaged over the data group."""
+        g = self._dp
+        if g is None:
+            return loss
+        loss = loss.clone()
+        all_reduce(loss, group=g)
+        return loss / g.nranks
 
     def _dp_reduce(self, loss, grads):
         """The loss and the gradients averaged over dp, the gradients in
@@ -353,7 +664,17 @@ class TrainStep:
         if self._scaler is not None:
             scale = torch.tensor(self._scaler.state_arrays()[0],
                                  dtype=torch.float32, device=self.device)
-        loss, grads, act_rows = self._grads(batch, scale)
+        self._in_step = True
+        self._comm_seed = step_i    # stochastic rounding: the step's key
+        try:
+            loss, grads, act_rows = self._grads(batch, scale)
+        finally:
+            self._in_step = False
+        zero = self._zero
+        # ZeRO stage >= 2: a rank holds its own parameters' gradients only
+        kept = [i for i, g in enumerate(grads) if g is not None]
+        self._grad_bytes = int(sum(grads[i].numel() * grads[i].element_size()
+                                   for i in kept))
         numerics = self._numerics
         aux = {}
         with torch.no_grad():
@@ -362,7 +683,8 @@ class TrainStep:
             if scale is not None:
                 inv = torch.tensor(1.0, dtype=torch.float32,
                                    device=self.device) / scale
-                grads = [g * inv.to(g.dtype) for g in grads]
+                grads = [None if g is None else g * inv.to(g.dtype)
+                         for g in grads]
             found = None
             need_found = self._scaler is not None or (
                 numerics is not None and numerics.skip_nonfinite_updates)
@@ -392,22 +714,34 @@ class TrainStep:
                     aux["found_inf"] = found_t
                     found = bool(found_t)      # the one read a step
             elif need_found:
-                found = found_inf(grads)
+                found = found_inf([grads[i] for i in kept])
             if found is not None and self._world is not None:
                 # every rank skips the same steps
                 flag = torch.tensor(float(found), device=grads[0].device)
                 all_reduce(flag, ReduceOp.MAX, group=self._world)
                 found = bool(flag)
             clip = self.optimizer._grad_clip
-            if clip is not None:
+            if clip is not None and zero is not None and zero.stage >= 2:
+                # the owners' squares summed over the shard group
+                sub = clip([grads[i] for i in kept],
+                           sharded=[self._sharded[i] for i in kept],
+                           group=self._mp, shard_group=zero.group,
+                           device=self.device)
+                for i, g in zip(kept, sub):
+                    grads[i] = g
+            elif clip is not None:
                 grads = clip(grads) if self._mp is None else \
                     clip(grads, sharded=self._sharded, group=self._mp)
             if not found:
                 opt = self.optimizer
                 for name, p, g, st in zip(self._param_names, self._params,
                                           grads, self._opt_state):
+                    if st is None:
+                        continue        # another rank's (ZeRO)
                     opt.update(p, g, st, lr, step_i, opt._wd_for(name),
                                name=name)
+                if zero is not None and zero.stage <= 2:
+                    zero.broadcast_params()
         if self._scaler is not None:
             self._scaler.set_state_arrays(
                 GradScaler._update_rule(*self._scaler.state_arrays(), found,
@@ -439,11 +773,18 @@ class TrainStep:
         if self.memz is None or self._memz_registered:
             return
         self._memz_registered = True
+        zero = self._zero
+        # under ZeRO stage 3 a card's own share: the parameters it owns
         self.memz.register(
             "train_params",
             lambda: int(sum(p.numel() * p.element_size()
-                            for p in self._params)),
+                            for i, p in enumerate(self._params)
+                            if zero is None or zero.stage < 3
+                            or zero.owned[i])),
             kind="params", replace=True)
+        # the gradients the last step kept (ZeRO stage >= 2: its own)
+        self.memz.register("train_grads", lambda: self._grad_bytes,
+                           kind="grads", replace=True)
         self.memz.register(
             "train_opt_state",
             lambda: int(sum(v.numel() * v.element_size()
@@ -451,7 +792,7 @@ class TrainStep:
                             for v in (st or {}).values()
                             if torch.is_tensor(v))),
             kind="opt_state", replace=True)
-        self.memz.sample("train_params", "train_opt_state")
+        self.memz.sample("train_params", "train_opt_state", "train_grads")
         if self.monitor is not None and getattr(self.monitor, "memz",
                                                 None) is None:
             self.monitor.memz = self.memz
@@ -613,15 +954,30 @@ class TrainStep:
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict:
         """A host snapshot: step counter, parameters and optimizer state by
-        parameter name, the optimizer's scalars and the scaler."""
+        parameter name, the optimizer's scalars and the scaler. Under ZeRO
+        every tensor is whole (a collective: every rank calls it)."""
         out: Dict = {"step": int(self._step_i)}
-        out["params"] = {n: p.detach().cpu().clone()
-                         for n, p in zip(self._param_names, self._params)}
-        if self._opt_state is not None:
+        zero = self._zero
+        if zero is None:
+            out["params"] = {n: p.detach().cpu().clone()
+                             for n, p in zip(self._param_names,
+                                             self._params)}
+        else:
+            out["params"] = {n: zero.full_param(i).cpu()
+                             for i, n in enumerate(self._param_names)}
+        if self._opt_state is not None and zero is None:
             out["opt"] = {n: {k: v.detach().cpu().clone()
                               for k, v in (st or {}).items()}
                           for n, st in zip(self._param_names,
                                            self._opt_state)}
+        elif self._opt_state is not None:
+            opt = self.optimizer
+            out["opt"] = {}
+            for i, (n, p, st) in enumerate(zip(
+                    self._param_names, self._params, self._opt_state)):
+                full = zero.full_state(i, st, functools.partial(
+                    opt.init_state, p, name=n))
+                out["opt"][n] = {k: v.cpu() for k, v in full.items()}
         extra: Dict = {"master_step": int(self.optimizer._step_count)}
         if isinstance(self.optimizer._lr, LRScheduler):
             extra["lr_sched"] = {
@@ -636,18 +992,26 @@ class TrainStep:
     def set_state_dict(self, state: Dict):
         """Adopt a state_dict() snapshot (tensors or numpy arrays): values
         are copied into the live parameters and optimizer state, each in
-        the dtype it was saved in."""
+        the dtype it was saved in. Under ZeRO a rank keeps its own share of
+        the whole tensors."""
         params = state.get("params", {})
         missing = [n for n in self._param_names if n not in params]
         if missing:
             raise KeyError(f"checkpoint is missing parameters: "
                            f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
-        for n, p in zip(self._param_names, self._params):
+        zero = self._zero
+        for i, (n, p) in enumerate(zip(self._param_names, self._params)):
             src = _tensor(params[n], p.device)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{n}: checkpoint shape {tuple(src.shape)}"
                                  f" != parameter {tuple(p.shape)}")
+            if zero is not None and not zero.live[i] and \
+                    not zero.owned[i]:
+                continue        # stage 3 holds another rank's data nowhere
             if src.dtype != p.dtype:
+                if zero is not None and zero.stage >= 3:
+                    raise ValueError(f"{n}: checkpoint dtype {src.dtype} != "
+                                     f"{p.dtype} under ZeRO stage 3")
                 p.data = src.clone()
             else:
                 p.copy_(src)
@@ -656,8 +1020,9 @@ class TrainStep:
             if self._opt_state is None:
                 self._opt_state = self._init_opt_state()
             self._opt_state = [
-                {k: _tensor(v, p.device) for k, v in opt.get(n, {}).items()}
-                or st
+                None if st is None else
+                ({k: _tensor(v, p.device) for k, v in opt.get(n, {}).items()}
+                 or st)
                 for n, p, st in zip(self._param_names, self._params,
                                     self._opt_state)]
         self._step_i = int(state.get("step", 0))

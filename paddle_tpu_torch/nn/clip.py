@@ -7,8 +7,11 @@ Under a tensor-parallel mesh, TrainStep calls ``clip(grads, sharded,
 group)``: `sharded` flags the gradients of parameters split over the
 ``mp`` group (`group`, a `distributed.Group`). Their squares are summed
 over the group, as the reference's HybridParallelOptimizer does, while a
-replicated gradient, the same on every rank, counts once. The JAX package
-needs no such rule: its gradients are global arrays."""
+replicated gradient, the same on every rank, counts once. Under ZeRO
+stage 2-3 a rank holds its own parameters' gradients only: TrainStep
+passes those and the shard group (`shard_group`), and both sums run over
+it as well, so each gradient counts once across the shards. The JAX
+package needs no such rule: its gradients are global arrays."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -34,9 +37,14 @@ class ClipGradByGlobalNorm:
 
     def __call__(self, grads: List[torch.Tensor],
                  sharded: Optional[Sequence[bool]] = None,
-                 group=None) -> List[torch.Tensor]:
+                 group=None, shard_group=None,
+                 device=None) -> List[torch.Tensor]:
         """The clipped gradients, each in its own dtype (see the module
-        docstring for `sharded` and `group`)."""
+        docstring for `sharded`, `group` and `shard_group`; `device` holds
+        the sums when a shard has no gradient)."""
+        if shard_group is not None:
+            return self._sharded_clip(grads, sharded, group, shard_group,
+                                      device)
         if not grads:
             return grads
         if group is None or not sharded or not any(sharded):
@@ -50,6 +58,23 @@ class ClipGradByGlobalNorm:
         scale = _norm_scale(sq, self.clip_norm)
         return [g * scale.to(g.dtype) for g in grads]
 
+    def _sharded_clip(self, grads, sharded, group, shard_group, device):
+        """The squares of this shard's gradients, [split over mp,
+        replicated], summed over the shard group, the split part then over
+        mp."""
+        flags = list(sharded) if sharded else [False] * len(grads)
+        dev = grads[0].device if grads else device
+        sq = torch.zeros(2, dtype=torch.float32, device=dev)
+        for g, s in zip(grads, flags):
+            sq[0 if s else 1] += g.float().square().sum()
+        all_reduce(sq, group=shard_group)
+        split, rep = sq[0], sq[1]
+        if group is not None:
+            split = split.clone()
+            all_reduce(split, group=group)
+        scale = _norm_scale(split + rep, self.clip_norm)
+        return [g * scale.to(g.dtype) for g in grads]
+
 
 class ClipGradByNorm:
     """Scale each gradient by min(1, clip_norm / max(||g||, 1e-12)), its
@@ -60,7 +85,9 @@ class ClipGradByNorm:
 
     def __call__(self, grads: List[torch.Tensor],
                  sharded: Optional[Sequence[bool]] = None,
-                 group=None) -> List[torch.Tensor]:
+                 group=None, shard_group=None,
+                 device=None) -> List[torch.Tensor]:
+        # a ZeRO shard holds whole parameters: each norm is local
         out = []
         for i, g in enumerate(grads):
             sq = g.float().square().sum()
@@ -79,5 +106,6 @@ class ClipGradByValue:
         self.min = -max if min is None else min
 
     def __call__(self, grads: List[torch.Tensor], sharded=None,
-                 group=None) -> List[torch.Tensor]:
+                 group=None, shard_group=None,
+                 device=None) -> List[torch.Tensor]:
         return [torch.clamp(g, self.min, self.max) for g in grads]

@@ -203,10 +203,11 @@ def test_fleet_refuses_later_modes():
     st.hybrid_configs = {"pp_degree": 2}
     with pytest.raises(NotImplementedError, match="A4"):
         pt.fleet.init(strategy=st, device="cpu")
-    st = pt.fleet.DistributedStrategy()
-    st.sharding = True
-    with pytest.raises(NotImplementedError, match="A4"):
-        pt.fleet.init(strategy=st, device="cpu")
+    for ax in ("sp", "ep"):
+        st = pt.fleet.DistributedStrategy()
+        st.hybrid_configs = {f"{ax}_degree": 2}
+        with pytest.raises(NotImplementedError, match="A4"):
+            pt.fleet.init(strategy=st, device="cpu")
 
 
 def test_init_parallel_env_raises_without_a_card_or_a_rendezvous(

@@ -636,3 +636,284 @@ def sharded_leader_fails(run_dir, where):
         json.dump({"rank": r, "seen": seen}, fh)
     sys.stdout.flush()
     os._exit(3 if seen else 0)
+
+
+# ------------------------------- data-parallel training: grad_comm, ZeRO
+def _digest(tensors):
+    """A digest of tensors' bytes (every rank's must agree)."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train(inp, mesh, steps=3, level=None, remat=None, sd_at=None,
+             load=None, fleet_opt=False, start=0, wire=None, **step_kw):
+    """The tiny GPT from the JAX weights (this rank's mp shards under an
+    mp mesh) trained `steps` AdamW steps (lr 1e-3, wd 0.01, the clip) on
+    the global batch: ZeRO at `level`, recompute under policy `remat`,
+    TrainStep options `step_kw`. Returns (losses, the whole parameters,
+    the digest of every rank's whole parameters after each step, the
+    step, the state_dict() taken after step `sd_at`, 0: before the
+    first). `load` is a
+    state_dict set before the first step, which takes batch `start`;
+    `fleet_opt` marks the optimizer through
+    fleet.distributed_optimizer. `wire` ({tag: Group}) collects each
+    group's bytes by operation and dtype over the steps alone (not the
+    state_dict() reads between them), under "tag:op/dtype"."""
+    kw = dict(use_recompute=True, recompute_policy=remat) if remat else {}
+    cfg = _gpt_cfg(inp, **kw)
+    D.set_mesh(mesh)
+    model = pt.GPTForCausalLM(cfg, device="cpu")
+    model.load_state_dict(pt.shard_state_from_paddle(_np_state(inp), cfg,
+                                                     mesh))
+    model.train()
+    opt = pt.AdamW(1e-3, parameters=model.named_parameters(),
+                   weight_decay=0.01,
+                   grad_clip=pt.ClipGradByGlobalNorm(float(inp["clip"])),
+                   device="cpu")
+    if level is not None:
+        model, opt, _ = D.group_sharded_parallel(model, opt, level=level)
+    if fleet_opt:
+        opt = pt.fleet.distributed_optimizer(opt)
+    step = pt.TrainStep(model, opt, lambda a, b: model.loss(
+        a, b, chunk_size=8), mesh=mesh, device="cpu", **step_kw)
+    if load is not None:
+        step.set_state_dict(load)
+    ids = _t(inp["ids"])
+    losses, digests = [], []
+    sd = step.state_dict() if sd_at == 0 else None
+    watch = {t: g for t, g in (wire or {}).items() if ":" not in t}
+    for i in range(steps):
+        before = {t: dict(g.wire_bytes) for t, g in watch.items()}
+        losses.append(float(step(ids[start + i], ids[start + i])))
+        for t, g in watch.items():
+            for (op, dt), b in g.wire_bytes.items():
+                k = f"{t}:{op}/{dt}"
+                b -= before[t].get((op, dt), 0)
+                if b:
+                    wire[k] = wire.get(k, 0) + b
+        full = pt.gather_state(step.state_dict()["params"], mesh)
+        digests.append(_digest(full.values()))
+        if sd_at == i + 1:
+            sd = step.state_dict()
+    full = pt.gather_state(step.state_dict()["params"], mesh)
+    D.set_mesh(None)
+    return losses, full, digests, step, sd
+
+
+def _put(out, tag, res):
+    losses, full, digests, _, _ = res
+    out[f"{tag}:losses"] = np.array(losses)
+    out[f"{tag}:digests"] = np.array(digests)
+    for n, v in full.items():
+        out[f"{tag}:param:{n}"] = v
+
+
+def quant_collectives(run_dir):
+    """int8_psum (deterministic and stochastic), sync_grad_groups, and
+    TrainStep(grad_comm=None | "f32" | "int8") on a dp mesh of the world,
+    with the wire bytes by dtype and the precondition errors."""
+    from paddle_tpu_torch.distributed import quant_collectives as QC
+    r, inp = _join(run_dir)
+    n = D.get_world_size()
+    world = D.build_mesh({"dp": n})
+    g = world.group("dp")
+    out = {}
+    out["int8_psum"] = QC.int8_psum(_t(inp["x"][r]), g, chunk=16)
+    out["int8_psum_sum"] = QC.int8_psum(_t(inp["x"][r]), g, chunk=16,
+                                        mean=False)
+    draws = []
+    for s in range(int(inp["draws"])):
+        gen = torch.Generator().manual_seed(QC.group_seed(s, 0))
+        draws.append(QC.int8_psum(_t(inp["x"][r]), g, chunk=16,
+                                  stochastic=True, generator=gen))
+    out["stochastic"] = torch.stack(draws)
+    grads = [_t(inp["g0"][r]), _t(inp["g1"][r]), _t(inp["g2"][r])]
+    plan = [("a", (0,), (1,)), ("b", (2,), ())]
+    for k, v in enumerate(QC.sync_grad_groups(grads, plan, g, chunk=16)):
+        out[f"sync{k}"] = v
+    # the training step, every mode; wire bytes of the gradient sync
+    D.set_mesh(world)
+    for mode in (None, "f32", "int8"):
+        tag = str(mode)
+        watch = {"dp": g}
+        if mode == "int8":
+            watch["scale"] = world.twin("dp")
+        res = dp_train(inp, world, grad_comm=mode, wire=watch)
+        _put(out, tag, res)
+        out[f"{tag}:wire"] = np.array(json.dumps(
+            {k: v for k, v in watch.items() if ":" in k}))
+        step = res[3]
+        if mode is not None:
+            shapes = [tuple(p.shape) for p in step._params]
+            out[f"{tag}:stats"] = np.array(json.dumps(
+                QC.comm_group_stats(step._comm_groups, shapes)))
+            out[f"{tag}:groups"] = np.array(len(step._comm_groups))
+    res = dp_train(inp, world, grad_comm="int8", grad_comm_stochastic=True)
+    _put(out, "int8_sr", res)
+    # the ranks compare their exchange units when a step is built: the
+    # same units pass; rank 1's in another order fail on every rank
+    from paddle_tpu_torch.jit.train_step import _Landing
+    ps = [torch.zeros(4), torch.zeros(2, 3)]
+    out["agree"] = np.array(json.dumps({
+        "same": _raises(lambda: _Landing([[1], [0]], None, None).agree(
+            g, ps, "cpu")),
+        "differs": _raises(lambda: _Landing(
+            [[0], [1]] if r == 1 else [[1], [0]], None, None).agree(
+                g, ps, "cpu"))}))
+    # the JAX step's preconditions
+    cfg = _gpt_cfg(inp)
+    m = pt.GPTForCausalLM(cfg, device="cpu")
+    o = pt.AdamW(1e-3, parameters=m.named_parameters(), device="cpu")
+    loss = (lambda a, b: m.loss(a, b))
+    errs = {"no_mesh": _raises(lambda: pt.TrainStep(
+                m, o, loss, grad_comm="int8", device="cpu")),
+            "mode": _raises(lambda: pt.TrainStep(
+                m, o, loss, mesh=world, grad_comm="int4", device="cpu")),
+            "accum": _raises(lambda: pt.TrainStep(
+                m, o, loss, mesh=world, grad_comm="int8",
+                grad_accum_steps=2, device="cpu"))}
+    zero2 = D.shard_optimizer_state(pt.AdamW(
+        1e-3, parameters=m.named_parameters(), device="cpu"), 2, "dp")
+    errs["zero"] = _raises(lambda: pt.TrainStep(
+        m, zero2, loss, mesh=world, grad_comm="int8", device="cpu"))
+    if n == 4:
+        hybrid = D.build_mesh({"dp": 2, "sdp": 2})
+        errs["pure"] = _raises(lambda: pt.TrainStep(
+            m, o, loss, mesh=hybrid, grad_comm="int8", device="cpu"))
+        errs["data_axes"] = _raises(lambda: pt.TrainStep(
+            m, o, loss, mesh=hybrid, data_axes=("dp", "sdp"),
+            device="cpu"))
+    D.set_mesh(None)
+    out["errors"] = np.array(json.dumps(errs))
+    _save(run_dir, r, out)
+
+
+def zero_levels(run_dir):
+    """ZeRO on 4 ranks: plain dp4 and dp4 at os / os_g / p_g_os (and
+    p_g_os with recompute save_qkv), {"sdp": 2, "mp": 2} at ZeRO-1
+    through fleet.init(strategy.sharding), {"dp": 2, "sdp": 2} at
+    p_g_os; the state_dict round trips between dp4 os_g and one process;
+    the memory ledger's owners and the wire bytes of each level."""
+    r, inp = _join(run_dir)
+    world = D.build_mesh({"dp": WORLD})
+    g = world.group("dp")
+    out = {}
+    for tag, level, remat in (("plain", None, None), ("os", "os", None),
+                              ("os_g", "os_g", None),
+                              ("p_g_os", "p_g_os", None),
+                              ("p_g_os_remat", "p_g_os", "save_qkv")):
+        watch = {"dp": g, "gather": world.twin("dp")}
+        memz = pt.obs.MemoryLedger(device="cpu")
+        res = dp_train(inp, world, level=level, remat=remat, memz=memz,
+                       sd_at=2 if tag == "os_g" else None, wire=watch)
+        _put(out, tag, res)
+        step = res[3]
+        out[f"{tag}:wire"] = np.array(json.dumps(
+            {k: v for k, v in watch.items() if ":" in k}))
+        rows = {row["owner"]: row["bytes"]
+                for row in memz.census(reconcile=False)["owners"]}
+        out[f"{tag}:memz"] = np.array(json.dumps(rows))
+        z = step.zero
+        if tag == "p_g_os":
+            # the live parameters are this rank's share; gather_state
+            # makes them whole from their owners
+            gs = pt.gather_state(dict(zip(step._param_names, step._params)),
+                                 world, zero=z)
+            sd = step.state_dict()["params"]
+            out["p_g_os:freed"] = np.array(sum(
+                q.untyped_storage().nbytes() == 0 for q in step._params))
+            out["p_g_os:gather_state_bitwise"] = np.array(all(
+                torch.equal(gs[k], sd[k]) for k in sd))
+        out[f"{tag}:owned"] = np.array([] if z is None else z.owned)
+        out[f"{tag}:stage"] = np.array(0 if z is None else z.stage)
+        if tag == "os_g":
+            sd = res[4]
+            # a one-process step from the dp4 os_g state after step 2
+            one = dp_train(inp, None, steps=1, load=sd, start=2)
+            out["os_g_to_one:loss"] = np.array(one[0])
+            for k, v in one[1].items():
+                out[f"os_g_to_one:param:{k}"] = v
+    # the one-process state after 2 steps into a dp4 os_g step and back
+    one = dp_train(inp, None, steps=2, sd_at=2)
+    sd1 = one[4]
+    back = dp_train(inp, world, steps=0, level="os_g", load=sd1)[3]
+    back_sd = back.state_dict()
+    out["one_to_os_g:bitwise"] = np.array(
+        all(torch.equal(back_sd["params"][k], sd1["params"][k])
+            for k in sd1["params"]) and
+        all(torch.equal(back_sd["opt"][k][e], sd1["opt"][k][e])
+            for k in sd1["opt"] for e in sd1["opt"][k]))
+    # ... into every level: read back whole, then its step 3
+    for level in ("os_g", "p_g_os"):
+        res = dp_train(inp, world, steps=1, level=level, load=sd1, start=2,
+                       sd_at=0)
+        sd = res[4]
+        out[f"one_to_{level}:read_back_bitwise"] = np.array(
+            all(torch.equal(sd["params"][k], sd1["params"][k])
+                for k in sd1["params"]) and
+            all(torch.equal(sd["opt"][k][e], sd1["opt"][k][e])
+                for k in sd1["opt"] for e in sd1["opt"][k]))
+        _put(out, f"one_to_{level}", res)
+    # ZeRO-1 over sdp beside mp, the shape of train_gpt_sharded.py minus
+    # its dp: every rank sees the whole batch
+    strategy = pt.fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 1}
+    strategy.hybrid_configs = {"sharding_degree": 2, "mp_degree": 2}
+    pt.fleet.init(strategy=strategy, device="cpu")
+    mesh = D.get_mesh()
+    out["sdp_mp:axes"] = np.array(json.dumps(mesh.shape))
+    hcg = pt.fleet.get_hybrid_communicate_group()
+    out["sdp_mp:hcg"] = np.array([hcg.get_sharding_parallel_world_size(),
+                                  hcg.get_sharding_parallel_rank(),
+                                  hcg.get_model_parallel_world_size()])
+    res = dp_train(inp, mesh, fleet_opt=True)
+    _put(out, "sdp_mp", res)
+    out["sdp_mp:stage"] = np.array(res[3].zero.stage)
+    # {"dp": 2, "sdp": 2} at p_g_os: the batch split over dp
+    mesh = D.build_mesh({"dp": 2, "sdp": 2})
+    D.set_mesh(mesh)
+    res = dp_train(inp, mesh, level="p_g_os")
+    _put(out, "dp_sdp", res)
+    out["dp_sdp:axis"] = np.array(res[3].optimizer._sharding_axis)
+    D.set_mesh(None)
+    _save(run_dir, r, out)
+
+
+def dgc_exchange(run_dir):
+    """sparse_allreduce of every rank's tensor (with a residual), the
+    dense all-reduce of the same top-k entries (the control), and 3 DGC
+    steps of a linear model with the error feedback carried."""
+    r, inp = _join(run_dir)
+    g = D.get_group()
+    x, res = _t(inp["x"][r]), _t(inp["res"][r])
+    s, kept = D.sparse_allreduce(x, g, float(inp["sparsity"]), residual=res)
+    flat = (x + res).reshape(-1)
+    k = max(1, int(flat.numel() * (1 - float(inp["sparsity"]))))
+    idx = torch.topk(flat.abs(), k).indices
+    dense = torch.zeros_like(flat)
+    dense[idx] = flat[idx]
+    D.all_reduce(dense, group=g)
+    out = {"sparse": s, "kept": kept, "dense_control": dense.view(x.shape)}
+    w = [torch.zeros(4, 1)]
+    resid = None
+
+    def loss_fn(params, batch):
+        xb, yb = batch
+        return ((xb @ params[0] - yb) ** 2).mean()
+
+    losses = []
+    for i in range(3):
+        loss, grads, resid = D.dgc_value_and_grad(
+            loss_fn, [t.requires_grad_(True) for t in w],
+            (_t(inp["bx"]), _t(inp["by"])), group=g,
+            sparsity=float(inp["dgc_sparsity"]), residuals=resid)
+        losses.append(float(loss))
+        w = [(p - 0.1 * gr).detach() for p, gr in zip(w, grads)]
+        out[f"dgc{i}:grad"] = grads[0]
+        out[f"dgc{i}:residual"] = resid[0]
+    out["dgc:losses"] = np.array(losses)
+    _save(run_dir, r, out)
