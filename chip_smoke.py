@@ -170,6 +170,33 @@ parameters, and the first step's gradients a rank keeps);
 train_gpt3_6.7b_zero_dp4 runs the dp2 x mp2 cell's model and batch at
 dp4 under "os_g" and "p_g_os": tokens/s a card, MFU, peak memory and
 the memory ledger's owners a card, NCCL and exposed ms.
+
+    python3 chip_smoke.py --multi-gpu sp
+    python3 chip_smoke.py --multi-gpu ep
+
+run the sequence- and expert-parallel phases alone. `sp`:
+multi_gpu_sp_parity holds {"sp": 4} with the ring and with Ulysses,
+{"dp": 2, "sp": 2} and {"sp": 2, "mp": 2} against the single card
+(gpt3-1.3b widths cut to 2 layers, f32, S 2048, 3 AdamW steps, the
+clip active, a loss mask uneven across the sp halves: losses,
+parameters, the first step's synced gradients; replicated parameters
+bitwise across sp); ring_attention_alone holds the causal ring at
+gpt3-1.3b's heads over S 16384 on sp4, #6 on every block, against the
+same ring over #6's plain versions and against dense #6 on one card,
+bf16 and f32, with a dropped-rotation control; train_gpt3_1.3b_sp4
+trains gpt3-1.3b at S 16384 (bf16, global B 1) on one card and over
+{"sp": 4} (ring, Ulysses) and {"sp": 2, "mp": 2}: tokens/s, MFU, peak
+memory a card, P2P and all-to-all NCCL ms and their exposed share, #6
+launches a step on each rank and the ring's skew across ranks. `ep`:
+multi_gpu_ep_parity holds dp4, ep4 and dp2 x ep2 against the single
+card at bench_moe's widths cut to 2 layers (f32, capacity factor 1.0),
+and dp4 with each rank's tokens routed alone must miss the limits;
+train_gpt_moe_dp2_ep2 trains bench_moe's model (bf16, global B 16, S
+1024) at dp2 x ep2 against dp4: tokens/s a card, drop rate, expert
+bytes a card, NCCL ms. Each ends with a kernels line of #6 and #11
+launched on every rank. The default run's dist_one_card also holds
+{"dp": 1, "sp": 1} and an MoE GPT on {"dp": 1, "ep": 1} bitwise to the
+steps without a mesh.
 """
 from __future__ import annotations
 
@@ -5230,8 +5257,8 @@ def moe_routing(torch, record=None, replay=None, flips=None):
     real = ML._topk_routing
     calls = None if replay is None else iter(replay)
 
-    def routing(probs, top_k, capacity):
-        out = real(probs, top_k, capacity)
+    def routing(probs, top_k, capacity, rows=1, group=None):
+        out = real(probs, top_k, capacity, rows, group)
         if record is not None:
             record.append(tuple(t.detach().clone() for t in out[1:4]))
         if calls is None:
@@ -5914,11 +5941,14 @@ def phase_dist_one_card(torch, device, card):
             # (c) slice 19's data-parallel paths on a mesh of one rank: the
             # in-backward exchange (grad_comm) and ZeRO's runtime
             dp1 = D.build_mesh({"dp": 1})
+            # slice 20: the sequence-parallel axis at one rank
+            sp1 = D.build_mesh({"dp": 1, "sp": 1})
             for key, m, mode, level in (
                     (False, None, None, None), (True, mesh, None, None),
                     ("grad_comm_f32", dp1, "f32", None),
                     ("zero_os_g", dp1, None, "os_g"),
-                    ("grad_comm_int8", dp1, "int8", None)):
+                    ("grad_comm_int8", dp1, "int8", None),
+                    ("sp_world_of_one", sp1, None, None)):
                 t_run = time.perf_counter()
                 D.set_mesh(m)
                 model = GPTForCausalLM(cfg, device=device,
@@ -5947,12 +5977,14 @@ def phase_dist_one_card(torch, device, card):
                 D.set_mesh(None)
                 del step, opt, model
             torch.cuda.empty_cache()
+            ep_rec = world_of_one_ep(torch, device)
             serve_rec = world_of_one_serving(torch, device, mesh)
         finally:
             D.destroy_parallel_env()
     (l0, p0, c0, g0, _, s0), (l1, p1, c1, _, _, _) = runs[False], runs[True]
     dp_legs = {}
-    for key in ("grad_comm_f32", "zero_os_g", "grad_comm_int8"):
+    for key in ("grad_comm_f32", "zero_os_g", "grad_comm_int8",
+                "sp_world_of_one"):
         lk, pk, ck, gk, plan, sk = runs.pop(key)
         leg = {"losses": lk.tolist(), "seconds": sk,
                "losses_bitwise": torch.equal(l0, lk),
@@ -5978,8 +6010,11 @@ def phase_dist_one_card(torch, device, card):
                 "no_mesh_seconds": s0,
                 # slice 19: "f32" and os_g bitwise; int8's first-step
                 # gradients within half a chunk scale (and the bf16
-                # rounding of the synced value) of the unsynced ones
-                "data_parallel_world_of_one": dp_legs}
+                # rounding of the synced value) of the unsynced ones;
+                # slice 20: {"dp": 1, "sp": 1} bitwise
+                "data_parallel_world_of_one": dp_legs,
+                # slice 20: an MoE GPT on {"dp": 1, "ep": 1}, bitwise
+                "expert_parallel_world_of_one": ep_rec}
     out = {"phase": "dist_one_card", "ok": True, "card": card,
            "vocab_parallel_merge": rows,
            # the route's #11 launches in the checks above (not the timing)
@@ -5993,7 +6028,9 @@ def phase_dist_one_card(torch, device, card):
           and all(dp_legs[k]["losses_bitwise"] and
                   dp_legs[k]["params_bitwise"] and
                   dp_legs[k]["launches_equal"]
-                  for k in ("grad_comm_f32", "zero_os_g"))
+                  for k in ("grad_comm_f32", "zero_os_g", "sp_world_of_one"))
+          and ep_rec["losses_bitwise"] and ep_rec["params_bitwise"]
+          and ep_rec["launches_equal"]
           and dp_legs["grad_comm_int8"]["grad_err_over_half_scale"] <= 1.0
           and dp_legs["grad_comm_int8"]["launches_equal"],
           f"dist_one_card: the world-size-1 mesh step: {step_rec}")
@@ -6001,6 +6038,55 @@ def phase_dist_one_card(torch, device, card):
     del runs, p0, p1
     torch.cuda.empty_cache()
     return route_launches
+
+
+# dist_one_card's expert-parallel world of one: bench_moe's widths cut to
+# 2 layers (one MoE block of 8 experts), bf16
+DIST_EP = {"preset": "gpt3-350m", "layers": 2, "experts": 8, "B": 2,
+           "S": 1024, "steps": 3, "cf": 1.0}
+
+
+def world_of_one_ep(torch, device):
+    """An MoE GPT (DIST_EP) on the world of one: TrainStep on {"dp": 1,
+    "ep": 1} against the same steps without a mesh, bitwise (losses,
+    parameters, launch counts)."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t0 = time.perf_counter()
+    p = DIST_EP
+    cfg = moe_cfg(p, num_layers=p["layers"])
+    ids = torch.from_numpy(np.random.RandomState(71).randint(
+        0, cfg.vocab_size, (p["steps"], p["B"], p["S"])).astype(
+            np.int64)).to(device)
+    runs = []
+    for m in (None, D.build_mesh({"dp": 1, "ep": 1})):
+        D.set_mesh(m)
+        model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                               seed=0)
+        opt = AdamW(1e-4, parameters=model.named_parameters(),
+                    moment_dtype="bfloat16", device=device)
+        step = TrainStep(model, opt, lambda a, b: model.loss(a, b),
+                         mesh=m, device=device)
+        KB.reset_launch_counts()
+        losses = torch.stack([step(ids[i], ids[i])
+                              for i in range(p["steps"])])
+        torch.cuda.synchronize()
+        runs.append((losses, {k: q.detach().clone() for k, q in
+                              model.named_parameters()},
+                     {k: KB.LAUNCHES[k] for k in MG_KERNELS}))
+        D.set_mesh(None)
+        del step, opt, model
+    (l0, p0, c0), (l1, p1, c1) = runs
+    rec = {"config": {**p, "dtype": "bfloat16"}, "losses": l1.tolist(),
+           "losses_bitwise": torch.equal(l0, l1),
+           "params_bitwise": all(torch.equal(p0[k], p1[k]) for k in p0),
+           "launches_equal": c0 == c1 and all(c0[k] > 0 for k in c0),
+           "seconds": time.perf_counter() - t0}
+    del runs, p0, p1
+    torch.cuda.empty_cache()
+    return rec
 
 
 class FirstGrads:
@@ -7235,19 +7321,726 @@ def mg_serving_full(torch, device):
     return rec
 
 
+# ------------------- multi-GPU sequence and expert parallelism (slice 20)
+# --multi-gpu sp: the sp meshes at MG_PARITY's widths (S 2048) against the
+# single card, ring attention alone at the timed run's shapes, then
+# gpt3-1.3b at S 16384 over sp (bench_gpt's settings, long context)
+MG_SP_LEGS = (("sp4_ring", {"sp": 4}, "ring"),
+              ("sp4_ulysses", {"sp": 4}, "ulysses"),
+              ("dp2_sp2", {"dp": 2, "sp": 2}, "ring"),
+              ("sp2_mp2", {"sp": 2, "mp": 2}, "ring"))
+MG_SP_PARITY = {"preset": "gpt3-1.3b", "layers": 2, "B": 4, "S": 2048,
+                "steps": 3, "clip": 0.05}
+# the ring alone: gpt3-1.3b's heads at the timed run's sequence over sp4
+RING_CASE = {"B": 1, "S": 16384, "H": 16, "D": 128, "sp": 4}
+MG_SP_FULL = {"preset": "gpt3-1.3b", "B": 1, "S": 16384, "N": 3,
+              "chunk": 512, "legs": (("one_card", None, None),
+                                     ("sp4_ring", {"sp": 4}, "ring"),
+                                     ("sp4_ulysses", {"sp": 4}, "ulysses"),
+                                     ("sp2_mp2_ring", {"sp": 2, "mp": 2},
+                                      "ring"))}
+# --multi-gpu ep: bench_moe's widths cut to 2 layers (one MoE block of 8
+# experts) in f32 on each mesh against the single card, the per-rank
+# capacity control, then bench_moe's model at full depth at dp2 x ep2
+# against dp4 at one global batch
+MG_EP_LEGS = (("dp4", {"dp": 4}), ("ep4", {"ep": 4}),
+              ("dp2_ep2", {"dp": 2, "ep": 2}))
+MG_EP_PARITY = {"preset": "gpt3-350m", "layers": 2, "experts": 8, "B": 8,
+                "S": 1024, "steps": 3, "clip": 0.05, "cf": 1.0}
+MG_EP_FULL = {"preset": "gpt3-350m", "experts": 8, "B": 16, "S": 1024,
+              "N": 4, "cf": 1.0, "chunk": 512,
+              "legs": (("dp2_ep2", {"dp": 2, "ep": 2}), ("dp4", {"dp": 4}))}
+SPEP_LIMITS = {"loss_rel": 1e-5, "param_rel_to_max": 1e-4,
+               "grad_rel_to_max": 1e-4}
+
+
+def moe_cfg(p, **kw):
+    """bench_moe's GPT (gshard top-2, aux 0.01, every 2nd block MoE) at
+    the widths of preset p["preset"]."""
+    from paddle_tpu_torch import gpt_config
+    return gpt_config(p["preset"], max_position_embeddings=max(1024, p["S"]),
+                      moe_num_experts=p["experts"], moe_every_n_layers=2,
+                      moe_gate="gshard", moe_aux_weight=0.01,
+                      moe_capacity_factor=p["cf"], **kw)
+
+
+def spep_reference(torch, device, cfg, ids, mask):
+    """The single card's MG parity steps: losses, final parameters and
+    the first step's gradients before the clip."""
+    _, step = mg_gpt(torch, device, cfg, torch.float32, 1, None,
+                     **parity_opt_kw())
+    clip = step.optimizer._grad_clip = FirstGrads(step.optimizer._grad_clip)
+    losses = [float(step(ids[i], ids[i], mask)) for i in range(ids.shape[0])]
+    params = {k: q.detach().clone()
+              for k, q in zip(step._param_names, step._params)}
+    grads = dict(zip(step._param_names, clip.first))
+    del step, clip
+    release(torch)
+    return losses, params, grads
+
+
+def replicated_bitwise(torch, model, mesh, axis):
+    """Every parameter that `axis` does not split is bitwise the same on
+    the axis' ranks (True where the axis has one rank)."""
+    import paddle_tpu_torch.distributed as D
+    g = mesh.group(axis)
+    if g is None or g.nranks == 1:
+        return True
+    ok = True
+    for q in model.parameters():
+        if getattr(q, "mp_split", None) is None and \
+                getattr(q, "ep_split", None) is None:
+            parts = D.all_gather(q.detach(), group=g)
+            ok = ok and all(torch.equal(parts[0], x) for x in parts[1:])
+    return ok
+
+
+def spep_leg(torch, device, cfg, ids, mask, ref, tag, axes, per_rank=False):
+    """One parity leg on mesh `axes` from the reference's weights (the
+    same seed, cut): losses, gathered parameters and the first step's
+    gradients against the single card, replicated parameters bitwise
+    across the sp and ep ranks, the launches and the payload on the sp
+    and ep groups. `per_rank` routes each rank's MoE tokens alone (the
+    control: the parent tree's layer)."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gather_state
+    from paddle_tpu_torch.convert import ep_split
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    from paddle_tpu_torch.ops import linear_ce as LC
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t0 = time.perf_counter()
+    mesh = D.build_mesh(axes)
+    model, step = mg_gpt(torch, device, cfg, torch.float32, 1, mesh,
+                         **parity_opt_kw())
+    clip = step.optimizer._grad_clip = FirstGrads(step.optimizer._grad_clip)
+    groups = {ax: mesh.group(ax) for ax in ("sp", "ep") if ax in axes}
+    before = {k: dict(g.wire_bytes) for k, g in groups.items()}
+    KB.reset_launch_counts()
+    LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"] = 0
+    real = moe_layer.loss_group
+    if per_rank:
+        moe_layer.loss_group = lambda: None
+    try:
+        got = [float(step(ids[i], ids[i], mask))
+               for i in range(ids.shape[0])]
+    finally:
+        moe_layer.loss_group = real
+    torch.cuda.synchronize()
+    counts = {k: KB.LAUNCHES[k] for k in MG_KERNELS}
+    counts["vocab_parallel_linear_ce_fwd"] = \
+        LC.VOCAB_PARALLEL_LAUNCHES["linear_ce_fwd"]
+    full = gather_state({k: q.detach() for k, q in
+                         zip(step._param_names, step._params)}, mesh)
+    wire = {k: wire_delta(before[k], g) for k, g in groups.items()}
+    want_l, want_p, want_g = ref
+    errs = {k: rel_err(full[k], want_p[k]) for k in want_p}
+    worst = max(errs, key=errs.get)
+    rec = {"leg": tag, "mesh": axes, "rank": mesh.rank,
+           "coords": mesh.coords, "per_rank_routing": per_rank,
+           "losses": got, "single_card_losses": want_l,
+           "loss_max_rel_err": max(abs(a - b) / abs(b)
+                                   for a, b in zip(got, want_l)),
+           "param_worst": worst, "param_worst_rel_to_max": errs[worst],
+           "replicated_bitwise": {ax: replicated_bitwise(torch, model, mesh,
+                                                         ax)
+                                  for ax in ("sp", "ep") if ax in axes},
+           "launches": counts, "wire_bytes": wire,
+           "expert_bytes_this_card": sum(
+               q.numel() * q.element_size()
+               for n, q in model.named_parameters() if ep_split(n))}
+    rec.update(first_grads(torch, step, mesh, clip.first, {}, want_g))
+    D.set_mesh(None)
+    rec["seconds"] = time.perf_counter() - t0
+    del model, step, clip, full
+    release(torch)
+    return rec
+
+
+def spep_gate(rec):
+    """A parity leg within SPEP_LIMITS of the single card."""
+    return (rec["loss_max_rel_err"] <= SPEP_LIMITS["loss_rel"]
+            and rec["param_worst_rel_to_max"]
+            <= SPEP_LIMITS["param_rel_to_max"]
+            and rec["grad_worst_rel_to_max"]
+            <= SPEP_LIMITS["grad_rel_to_max"]
+            and all(rec["replicated_bitwise"].values()))
+
+
+def mg_sp_parity(torch, device):
+    """One rank's sp parity legs (MG_SP_LEGS at MG_SP_PARITY): each mesh
+    step against the single card's, the loss mask uneven across the sp
+    halves, #6 and #11 launched on every rank."""
+    import numpy as np
+    from paddle_tpu_torch import gpt_config
+    p = MG_SP_PARITY
+    rs = np.random.RandomState(62)
+    base = gpt_config(p["preset"], num_layers=p["layers"],
+                      max_position_embeddings=p["S"])
+    ids = torch.from_numpy(rs.randint(0, base.vocab_size, (
+        p["steps"], p["B"], p["S"])).astype(np.int64)).to(device)
+    mask = torch.ones(p["B"], p["S"], device=device)
+    mask[:, p["S"] // 2:] = 0.0
+    mask[0, p["S"] - 7:] = 1.0         # the second halves: 7 tokens
+    ref = spep_reference(torch, device, base, ids, mask)
+    recs = []
+    for tag, axes, schedule in MG_SP_LEGS:
+        cfg = gpt_config(p["preset"], num_layers=p["layers"],
+                         max_position_embeddings=p["S"],
+                         sequence_parallel=schedule)
+        rec = spep_leg(torch, device, cfg, ids, mask, ref, tag, axes)
+        rec["schedule"] = schedule
+        recs.append(rec)
+        check(spep_gate(rec) and all(rec["launches"][k] > 0
+                                     for k in MG_KERNELS),
+              f"sp parity {tag}, rank {rec['rank']}: {rec}")
+    return recs
+
+
+def ring_inputs(torch, device, dtype, c, seed=63):
+    """q, k, v and dout [B, S, H, D], the same on every card (one seeded
+    generator each)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(c["B"], c["S"], c["H"], c["D"], generator=g,
+                        device=device).to(dtype) for _ in range(4)]
+
+
+def ring_run(torch, fn, leaves, dout):
+    """(out, [dq, dk, dv]) of fn on fresh leaves."""
+    ls = [x.detach().clone().requires_grad_() for x in leaves]
+    out = fn(*ls)
+    return out.detach(), list(torch.autograd.grad(out, ls, dout))
+
+
+def mg_ring_alone(torch, device):
+    """The causal ring at RING_CASE over the sp4 group, in bf16 and f32:
+    #6 on every block against the same ring over #6's plain versions
+    (`flash_forward_reference`; `flash_bwd_reference` on the kernels' own
+    merged out and lse, as phase 2 holds #6's backward) and against dense
+    #6 on this card over the whole sequence (this rank's rows), per row
+    within #6's limits (FLASH_TOL) on out, dq, dk and dv; a ring whose
+    last forward rotation is dropped must fail them. Returns this rank's
+    record, and on rank 0 the kernels-line rows of #6 at a ring block's
+    shape and of #11 at a rank's tokens of the timed run."""
+    import paddle_tpu_torch.distributed as D
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import ring_attention as RA
+    from paddle_tpu_torch.ops.cuda import build as KB
+    t0 = time.perf_counter()
+    c = RING_CASE
+    mesh = D.build_mesh({"sp": c["sp"]})
+    g = mesh.group("sp")
+    w = c["S"] // c["sp"]
+    cut = slice(g.rank * w, (g.rank + 1) * w)
+    ring = lambda q, k, v: RA.ring_attention(q, k, v, is_causal=True,  # noqa
+                                             group=g)
+    rec = {"case": c, "rank": mesh.rank, "dtypes": {}}
+    for dt in ("bfloat16", "float32"):
+        q, k, v, do = ring_inputs(torch, device, getattr(torch, dt), c)
+        mine = [t[:, cut].contiguous() for t in (q, k, v)]
+        KB.reset_launch_counts()
+        ko, kg = ring_run(torch, ring, mine, do[:, cut])
+        launches = {n: KB.LAUNCHES[n] for n in MG_KERNELS[:3]}
+        # the plain ring: the forward over #6's plain forward; the backward
+        # over its plain backward on the kernels' own merged out and lse
+        # (phase 2's comparison: delta from another rounding of out would
+        # move rows whose true dq is near zero)
+        blk_f, blk_b = RA._block_fwd, RA._block_bwd
+        RA._block_fwd = lambda q, kb, vb, causal, scale: \
+            FA.flash_forward_reference(q, kb, vb, causal=causal, scale=scale)
+        try:
+            with torch.no_grad():
+                po = ring(*mine)
+        finally:
+            RA._block_fwd = blk_f
+        RA._block_bwd = lambda q, kb, vb, out, lse, dout, delta, causal, \
+            scale: FA.flash_bwd_reference(q, kb, vb, out, lse, dout,
+                                          causal=causal, scale=scale)
+        try:
+            _, pg = ring_run(torch, ring, mine, do[:, cut])
+        finally:
+            RA._block_bwd = blk_b
+        do_, dg = ring_run(torch, lambda q, k, v: FA.flash_attention(
+            q, k, v, causal=True), [q, k, v], do)
+        do_, dg = do_[:, cut], [x[:, cut] for x in dg]
+        real, calls = C.rotate, [0]
+
+        def dropped(tensors, group, shift=1):
+            if len(tensors) == 2:
+                calls[0] += 1
+                if calls[0] == group.nranks - 1:
+                    return list(tensors)
+            return real(tensors, group, shift)
+        C.rotate = dropped
+        try:
+            with torch.no_grad():
+                co = ring(*mine)
+        finally:
+            C.rotate = real
+        # a causal ring's last rotation reaches the last rank only: the
+        # control's error is the worst over the ranks
+        cerr = torch.tensor([row_err(co, po)], device=device)
+        D.all_reduce(cerr, op=D.ReduceOp.MAX, group=g)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dt][0]
+        vs_plain = flash_errs(ko, kg, po, pg)
+        vs_dense = flash_errs(ko, kg, do_, dg)
+        r = {"tol_row": tol, "vs_plain_ring": vs_plain,
+             "vs_dense_kernel": vs_dense,
+             "ring_launches": launches,
+             "control": "the forward's last rotation dropped",
+             "control_row_err_vs_plain": float(cerr)}
+        r["control_rejected"] = r["control_row_err_vs_plain"] > tol
+        rec["dtypes"][dt] = r
+        check(all(e[0] <= tol for e in vs_plain.values())
+              and all(e[0] <= tol for e in vs_dense.values())
+              and r["control_rejected"]
+              and launches["flash_fwd"] == g.rank + 1
+              and launches["flash_bwd_dq"] == g.rank + 1,
+              f"ring attention {dt}, rank {mesh.rank}: {r}")
+        del q, k, v, do, mine, ko, kg, po, pg, do_, dg, co
+        release(torch)
+    rows = None
+    if mesh.rank == 0:
+        blk = ("ring_block_sp4", c["B"], w, w, c["H"], c["D"], False, None)
+        rows = kernel_rows(torch, device, blk, {
+            "T": c["B"] * w, "H": c["H"] * c["D"], "V": 50304,
+            "case": "gpt3-1.3b head, a sp4 rank's tokens"})
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, rows
+
+
+def kernel_rows(torch, device, fcase, ce):
+    """The kernels-line figures of #6 (forward, dQ, dK/dV) at flash case
+    `fcase` and of #11 at `ce` ({T, H, V}), bf16: the kernel against its
+    plain version (max abs error), then the times of the kernel, the plain
+    version and the library call, and the bound (flash_times; the
+    linear-CE phase's formulas)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import linear_ce as LC
+    from paddle_tpu_torch.ops.cuda import flash_attention as KF
+    from paddle_tpu_torch.ops.cuda import linear_ce as KL
+    run = timer(torch, device)
+    dtype = torch.bfloat16
+    leaves, split = flash_leaves(torch, device, fcase, dtype)
+    g = torch.Generator(device=device).manual_seed(22)
+    _, b, sq, _, h, d, causal, kv_len = fcase
+    dout = torch.randn(b, sq, h, d, generator=g, device=device).to(dtype)
+    ko, kg = flash_run(torch, FA.flash_attention, leaves, split, dout,
+                       causal, kv_len)
+    # the plain versions on the kernels' inputs (phase 2's comparison)
+    q, k, v = split(leaves)
+    klse = KF.flash_fwd_cuda(q, k, v, causal=causal, scale=d ** -0.5)[1]
+    po = FA.flash_forward_reference(q, k, v, causal=causal)[0]
+    pg = list(FA.flash_bwd_reference(q, k, v, ko, klse, dout,
+                                     causal=causal))
+    errs = flash_errs(ko, kg, po, pg)
+    check(errs["out"][0] <= FLASH_TOL["bfloat16"][0]
+          and max(errs[n][0] for n in ("dq", "dk", "dv"))
+          <= FLASH_TOL["bfloat16"][1], f"#6 at {fcase}: {errs}")
+    row = {"max_abs_err": {n: e[1] for n, e in errs.items()}}
+    out = flash_times(torch, F, FA, KF, run, fcase, leaves, split, dout,
+                      row)["kernels"]
+    for kname in out:
+        out[kname]["case"] = fcase[0]
+    del leaves, dout, ko, kg, po, pg, q, k, v, klse
+    t, hh, v = ce["T"], ce["H"], ce["V"]
+    x, w, labels, _ = ce_inputs(torch, device, t, hh, v, "vh", dtype)
+    kl = KL.linear_ce_fwd_cuda(x, w, labels)[0]
+    pl = LC.linear_cross_entropy_reference(x, w, labels)
+    bms, by = bound_of(2 * t * hh * v, (t * hh + v * hh) * 2 + t * 16,
+                       dtype)
+    out["linear_ce_fwd"] = {
+        "case": ce["case"], "max_abs_err": float((kl - pl).abs().max()),
+        "ms": run(lambda: KL.linear_ce_fwd_cuda(x, w, labels)),
+        "plain_ms": run(lambda: LC.linear_cross_entropy_reference(
+            x, w, labels)),
+        "library_ms": run(lambda: F.cross_entropy(
+            F.linear(x, w).float(), labels, reduction="none")),
+        "bound_ms": bms, "bound_by": by}
+    check(out["linear_ce_fwd"]["max_abs_err"] <= CE_TOL["bfloat16"][0],
+          f"#11 at {ce}: {out['linear_ce_fwd']}")
+    del x, w, labels, kl, pl
+    release(torch)
+    return out
+
+
+def spep_window(torch, step, batch, n, groups, rank, profile_ranks=(0,)):
+    """dp_window, then one step profiled on each rank of `profile_ranks`
+    (the others run it plainly)."""
+    import paddle_tpu_torch.distributed as D
+    warm, losses, dt, counts, peak, wire = dp_window(torch, step, batch, n,
+                                                     groups)
+    D.barrier()
+    if rank in profile_ranks:
+        prof = profile_dist_step(torch, lambda: step(*batch(n + 2)),
+                                 names=("fwd_wg", "dq_wg", "dkv_wg",
+                                        "lce_wg", "SendRecv", "AllToAll"),
+                                 phase=f"multi_gpu_profile_rank{rank}")
+    else:
+        step(*batch(n + 2))
+        torch.cuda.synchronize()
+        prof = None
+    rec = {"warm_losses": warm, "window_losses": losses, "window_s": dt,
+           "ms_per_step": dt / n * 1e3, "peak_mem_bytes": peak,
+           "launches": {k: counts[k] for k in MG_KERNELS},
+           "launches_per_step": {k: counts[k] / n for k in MG_KERNELS},
+           "wire_bytes_per_step": wire}
+    if prof is not None:
+        ov = prof["nccl_union_ms"]
+        rec["profile_step"] = prof
+        rec.update(nccl_device_ms=ov,
+                   nccl_exposed_ms=ov - prof["nccl_overlapped_ms"],
+                   nccl_exposed_share=(ov - prof["nccl_overlapped_ms"])
+                   / (prof["wall_s"] * 1e3),
+                   device_idle_share=prof["device_idle_share"],
+                   device_busy_ms=prof["device_busy_union_s"] * 1e3,
+                   flash_device_ms=sum(
+                       r["device_ms"] for r in prof["named_device_ops"]
+                       if "wg" in r["op"] and "lce" not in r["op"]))
+    return rec
+
+
+def mg_sp_full(torch, device):
+    """One rank's share of train_gpt3_1.3b_sp4 (MG_SP_FULL): gpt3-1.3b at
+    full width, bf16, max_position_embeddings = S = 16384, global B = 1,
+    AdamW(1e-4, bf16 moments), model.loss(chunk_size=512), on one card
+    (every rank its own) and over {"sp": 4} with the ring and with
+    Ulysses and over {"sp": 2, "mp": 2} with the ring; 2 warm steps, one
+    window of N, one step profiled (every rank in the sp4 ring leg: the
+    causal ring's skew; rank 0 otherwise)."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import gpt_config
+    f = MG_SP_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    rank = D.get_rank()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 50304, (N + 3, B_, S_)).astype(np.int64)).to(device)
+    batch = (lambda i: (ids[i], ids[i]))
+    out = {"rank": rank}
+    for tag, axes, schedule in f["legs"]:
+        t0 = time.perf_counter()
+        cfg = gpt_config(f["preset"], max_position_embeddings=S_,
+                         sequence_parallel=schedule or "ring")
+        mesh = None if axes is None else D.build_mesh(axes)
+        model, step = dp_gpt(torch, device, cfg, torch.bfloat16, mesh,
+                             chunk=f["chunk"], learning_rate=1e-4,
+                             moment_dtype="bfloat16")
+        D.set_mesh(None)
+        groups = {} if mesh is None else {
+            ax: mesh.group(ax) for ax in axes}
+        prof_ranks = (0, 1, 2, 3) if tag == "sp4_ring" else (0,)
+        rec = spep_window(torch, step, batch, N, groups, rank,
+                          prof_ranks if mesh is not None else ())
+        rec["params"] = sum(q.numel() * (mesh.axis_size("mp") if getattr(
+            q, "mp_split", None) and mesh is not None else 1)
+            for q in step._params)
+        rec["seconds"] = time.perf_counter() - t0
+        check(all(math.isfinite(x) for x in rec["warm_losses"]
+                  + rec["window_losses"])
+              and abs(rec["warm_losses"][0] - math.log(cfg.vocab_size)) < 1.0
+              and all(rec["launches_per_step"][k] > 0 for k in MG_KERNELS),
+              f"gpt3-1.3b S {S_} {tag}, rank {rank}: {rec}")
+        out[tag] = rec
+        del model, step
+        release(torch)
+    return out
+
+
+def mg_ep_parity(torch, device):
+    """One rank's ep parity legs (MG_EP_LEGS at MG_EP_PARITY) against the
+    single card, then dp4 with each rank's MoE tokens routed alone (the
+    control, which must miss the limits)."""
+    import numpy as np
+    p = MG_EP_PARITY
+    cfg = moe_cfg(p, num_layers=p["layers"])
+    rs = np.random.RandomState(64)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+        p["steps"], p["B"], p["S"])).astype(np.int64)).to(device)
+    mask = torch.ones(p["B"], p["S"], device=device)
+    mask[p["B"] // 2:, p["S"] // 8:] = 0.0
+    ref = spep_reference(torch, device, cfg, ids, mask)
+    recs = []
+    for tag, axes in MG_EP_LEGS:
+        rec = spep_leg(torch, device, cfg, ids, mask, ref, tag, axes)
+        recs.append(rec)
+        check(spep_gate(rec) and all(rec["launches"][k] > 0
+                                     for k in MG_KERNELS),
+              f"ep parity {tag}, rank {rec['rank']}: {rec}")
+    ctl = spep_leg(torch, device, cfg, ids, mask, ref, "dp4_per_rank",
+                   {"dp": 4}, per_rank=True)
+    ctl["rejected"] = not spep_gate(ctl)
+    recs.append(ctl)
+    check(ctl["rejected"], f"ep parity: per-rank routing passed: {ctl}")
+    return recs
+
+
+def mg_ep_full(torch, device):
+    """One rank's share of train_gpt_moe_dp2_ep2 (MG_EP_FULL): bench_moe's
+    model (gpt3-350m, 24 layers, 8 experts every 2nd layer, top-2 gshard,
+    cf 1.0, aux 0.01), bf16, AdamW(1e-4, bf16 moments), model.loss(
+    chunk_size=512), global B = 16, S = 1024, at dp2 x ep2 and at dp4
+    (the global routing); 2 warm steps, one window of N, rank 0's step
+    profiled, the drop rate of one no-grad forward routed over the token
+    group."""
+    import numpy as np
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.convert import ep_split
+    from paddle_tpu_torch.distributed.mesh import data_parallel_loss
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    f = MG_EP_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    rank = D.get_rank()
+    cfg = moe_cfg(f)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (N + 3, B_, S_)).astype(np.int64)).to(device)
+    batch = (lambda i: (ids[i], ids[i]))
+    out = {"rank": rank}
+    for tag, axes in f["legs"]:
+        t0 = time.perf_counter()
+        mesh = D.build_mesh(axes)
+        model, step = dp_gpt(torch, device, cfg, torch.bfloat16, mesh,
+                             chunk=f["chunk"], learning_rate=1e-4,
+                             moment_dtype="bfloat16")
+        groups = {ax: mesh.group(ax) for ax in axes}
+        rec = spep_window(torch, step, batch, N, groups, rank)
+        moe_layer.record_drop_rate(True)
+        try:
+            with torch.no_grad(), data_parallel_loss(step._dp):
+                rows = step._dp_rows(ids[0])
+                model.loss(rows, rows, chunk_size=f["chunk"])
+            rec["drop_rate_this_rank"] = moe_layer.measured_drop_rate()
+        finally:
+            moe_layer.record_drop_rate(False)
+        D.set_mesh(None)
+        ep = mesh.axis_size("ep")
+        local = sum(q.numel() for q in step._params)
+        experts = sum(q.numel() for n, q in zip(step._param_names,
+                                                step._params)
+                      if ep_split(n))
+        rec.update(params_this_card=local,
+                   params=local + (ep - 1) * experts,
+                   expert_bytes_this_card=2 * experts,
+                   seconds=time.perf_counter() - t0)
+        check(all(math.isfinite(x) for x in rec["warm_losses"]
+                  + rec["window_losses"])
+              and abs(rec["warm_losses"][0] - math.log(cfg.vocab_size)) < 1.5
+              and all(rec["launches_per_step"][k] > 0 for k in MG_KERNELS),
+              f"gpt-moe {tag}, rank {rank}: {rec}")
+        out[tag] = rec
+        del model, step
+        release(torch)
+    rows = None
+    if rank == 0:
+        b = B_ // 2
+        rows = kernel_rows(torch, device, (
+            "gpt3-350m_dp2", b, S_, S_, cfg.num_heads, cfg.head_dim, True,
+            None), {"T": b * S_, "H": cfg.hidden_size, "V": cfg.vocab_size,
+                    "case": "gpt3-350m head, a dp2 rank's tokens"})
+        out["expert_gemm_dp4"] = expert_gemm_ms(torch, device, cfg, f, 4)
+    return out, rows
+
+
+def expert_gemm_ms(torch, device, cfg, f, dp):
+    """The cost of the global capacity under a token group of dp ranks:
+    one MoE layer's expert GEMMs (`moe_layer._experts`, forward and
+    backward, bf16) on the [E, C, M] slots at the capacity of the global
+    batch, which every rank runs and fills about 1 / dp of, and at the
+    capacity of one rank's rows; median device ms of 10 calls."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        moe_layer as ML
+    e, m, h = f["experts"], cfg.hidden_size, cfg.intermediate_size
+    run = timer(torch, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {"moe_layers": cfg.num_layers // 2}
+    for tag, n in (("global", f["B"] * f["S"]),
+                   ("rank", f["B"] * f["S"] // dp)):
+        c = ML._capacity(n, e, 2, f["cf"])
+        x, w1, b1, w2, b2, dy = (
+            (torch.randn(s, generator=gen, device=device) * 0.02).to(
+                torch.bfloat16).requires_grad_()
+            for s in ((e, c, m), (e, m, h), (e, h), (e, h, m), (e, m),
+                      (e, c, m)))
+        leaves = (x, w1, b1, w2, b2)
+
+        def fn():
+            y = ML._experts(x, w1, b1, w2, b2, ML._GELU)
+            torch.autograd.grad(y, leaves, dy)
+        out[tag] = {"capacity": c, "ms_per_layer": run(fn, n=10)}
+    return out
+
+
+def spep_kernels(recs, rows, legs, key):
+    """The kernels line of a `--multi-gpu sp` / `ep` run: #6's three
+    kernels and #11 with the figures of `rows` (rank 0's) and the
+    launches in the timed windows of the legs `legs` on every rank (a
+    rank that never launched one fails)."""
+    out = []
+    for name in MG_KERNELS:
+        per_rank = [sum(r[key][leg]["launches"][name] for leg in legs)
+                    for r in recs]
+        check(all(c > 0 for c in per_rank),
+              f"{name} not launched on every rank: {per_rank}")
+        row = rows[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": sum(per_rank),
+                    "launches_per_rank": per_rank,
+                    "launches_per_step_by_leg": {
+                        leg: [r[key][leg]["launches_per_step"][name]
+                              for r in recs] for leg in legs},
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"], "case": row["case"]})
+    emit({"kernels": out})
+
+
+def sp_lines(recs, card, cards):
+    """`--multi-gpu sp`'s lines from the ranks' records."""
+    from paddle_tpu_torch import gpt_config
+    emit({"phase": "multi_gpu_sp_parity", "ok": True, "card": card,
+          "config": {**MG_SP_PARITY, "dtype": "float32",
+                     "ids": "np.random.RandomState(62)",
+                     "optimizer": "AdamW(1e-4, wd 0.01, eps 1e-6), "
+                                  "ClipGradByGlobalNorm(0.05)"},
+          "limits": {**SPEP_LIMITS, "replicated": "bitwise across sp"},
+          "legs": [r["sp_parity"] for r in recs]})
+    emit({"phase": "ring_attention_alone", "ok": True, "card": card,
+          "limits": {"row_err": FLASH_TOL, "control": "must exceed"},
+          "ranks": [r["ring"] for r in recs]})
+    f = MG_SP_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = gpt_config(f["preset"], max_position_embeddings=S_)
+    full = [r["sp_full"] for r in recs]
+    n_params = full[0]["one_card"]["params"]
+    per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * S_
+    legs = {}
+    for tag, axes, _ in f["legs"]:
+        cards_n = 1 if axes is None else MG_WORLD
+        s = max(r[tag]["window_s"] for r in full) if axes else \
+            full[0][tag]["window_s"]
+        tok = B_ * S_ * N / s
+        x = full[0][tag]
+        legs[tag] = {
+            "mesh": axes, "tokens_per_s": tok,
+            "tokens_per_s_per_card": tok / cards_n,
+            "ms_per_step": s / N * 1e3,
+            "mfu": per_token * tok / (cards_n * TENSOR_FLOPS_PER_S),
+            "loss_after_window": x["window_losses"][-1],
+            "peak_mem_bytes_per_card": [r[tag]["peak_mem_bytes"]
+                                        for r in full],
+            "flash_launches_per_step_per_rank": [
+                r[tag]["launches_per_step"]["flash_fwd"] for r in full],
+            "nccl_device_ms_rank0": x.get("nccl_device_ms"),
+            "nccl_exposed_ms_rank0": x.get("nccl_exposed_ms"),
+            "nccl_exposed_share_rank0": x.get("nccl_exposed_share"),
+            "device_idle_share_rank0": x.get("device_idle_share"),
+            "wire_bytes_per_step_rank0": x["wire_bytes_per_step"]}
+        if tag == "sp4_ring":
+            legs[tag]["skew"] = {
+                "device_busy_ms_per_rank": [r[tag].get("device_busy_ms")
+                                            for r in full],
+                "flash_device_ms_per_rank": [r[tag].get("flash_device_ms")
+                                             for r in full],
+                "nccl_exposed_ms_per_rank": [r[tag].get("nccl_exposed_ms")
+                                             for r in full]}
+    emit({"phase": "train_gpt3_1.3b_sp4", "ok": True, "cards": cards,
+          "model": cfg_line(cfg, "bfloat16"),
+          "config": {**f, "legs": None, "dtype": "bfloat16",
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "loss": f"model.loss(chunk_size={f['chunk']})",
+                     "source": "bench.py:202-333 bench_gpt at S 16384",
+                     "ids": "np.random.RandomState(0), labels = ids",
+                     "timing": "2 warm steps, one window of N, the "
+                               "slowest rank's; profiled steps"},
+          "mfu_peak": "989 TFLOP/s dense bf16 a card (H100 SXM data sheet)",
+          "params": n_params, "legs": legs, "ranks": full,
+          "seconds": max(sum(r[t]["seconds"] for t in legs) for r in full)})
+    spep_kernels(recs, recs[0]["ring_rows"], [t for t in legs
+                                              if t != "one_card"], "sp_full")
+
+
+def ep_lines(recs, card, cards):
+    """`--multi-gpu ep`'s lines from the ranks' records."""
+    emit({"phase": "multi_gpu_ep_parity", "ok": True, "card": card,
+          "config": {**MG_EP_PARITY, "dtype": "float32",
+                     "ids": "np.random.RandomState(64)",
+                     "optimizer": "AdamW(1e-4, wd 0.01, eps 1e-6), "
+                                  "ClipGradByGlobalNorm(0.05)"},
+          "limits": {**SPEP_LIMITS, "replicated": "bitwise across ep",
+                     "control": "dp4 routed per rank must miss them"},
+          "legs": [r["ep_parity"] for r in recs]})
+    f = MG_EP_FULL
+    B_, S_, N = f["B"], f["S"], f["N"]
+    cfg = moe_cfg(f)
+    full = [r["ep_full"] for r in recs]
+    legs = {}
+    for tag, axes in f["legs"]:
+        n_params = full[0][tag]["params"]
+        n_active = moe_active_params(n_params, cfg, f["experts"])
+        per_token = 6 * n_active + 12 * cfg.num_layers * cfg.hidden_size \
+            * S_
+        s = max(r[tag]["window_s"] for r in full)
+        tok = B_ * S_ * N / s
+        x = full[0][tag]
+        legs[tag] = {
+            "mesh": axes, "tokens_per_s": tok,
+            "tokens_per_s_per_card": tok / MG_WORLD,
+            "ms_per_step": s / N * 1e3,
+            "mfu_active": per_token * tok / (MG_WORLD * TENSOR_FLOPS_PER_S),
+            "drop_rate": statistics.mean(r[tag]["drop_rate_this_rank"]
+                                         for r in full),
+            "expert_bytes_per_card": [r[tag]["expert_bytes_this_card"]
+                                      for r in full],
+            "peak_mem_bytes_per_card": [r[tag]["peak_mem_bytes"]
+                                        for r in full],
+            "loss_after_window": x["window_losses"][-1],
+            "nccl_device_ms_rank0": x.get("nccl_device_ms"),
+            "nccl_exposed_ms_rank0": x.get("nccl_exposed_ms"),
+            "device_idle_share_rank0": x.get("device_idle_share"),
+            "wire_bytes_per_step_rank0": x["wire_bytes_per_step"]}
+    emit({"phase": "train_gpt_moe_dp2_ep2", "ok": True, "cards": cards,
+          "model": dict(cfg_line(cfg, "bfloat16"), experts=f["experts"],
+                        moe_every_n_layers=2, gate="gshard", top_k=2,
+                        capacity_factor=f["cf"], moe_aux_weight=0.01),
+          "config": {**f, "legs": None, "dtype": "bfloat16",
+                     "optimizer": "AdamW(lr=1e-4, moment_dtype=bfloat16)",
+                     "loss": f"model.loss(chunk_size={f['chunk']})",
+                     "source": "bench.py:341-445 bench_moe",
+                     "ids": "np.random.RandomState(0), labels = ids",
+                     "timing": "2 warm steps, one window of N, the "
+                               "slowest rank's; rank 0's profiled step"},
+          "mfu_peak": "989 TFLOP/s dense bf16 a card (H100 SXM data "
+                      "sheet); active parameters (bench_moe's formula)",
+          "legs": legs, "ranks": full,
+          "expert_gemm_dp4_rank0": full[0]["expert_gemm_dp4"],
+          "seconds": max(sum(r[t]["seconds"] for t in legs) for r in full)})
+    spep_kernels(recs, recs[0]["ep_rows"], list(legs), "ep_full")
+
+
 def multi_gpu_rank(work_dir, which="all"):
     """One rank of `--multi-gpu` (started by distributed.spawn with the
     rank environment set): NCCL on cuda:LOCAL_RANK; `which` "all" runs
     the training parity legs and full-width run, then the serving ones,
     "serving" the serving ones alone, "dp" the data-parallel gradient
-    exchange's (mg_dp_parity, mg_dp_full) and "zero" ZeRO's
-    (mg_zero_parity, mg_zero_full); its record goes to
+    exchange's (mg_dp_parity, mg_dp_full), "zero" ZeRO's
+    (mg_zero_parity, mg_zero_full), "sp" sequence parallelism's
+    (mg_sp_parity, mg_ring_alone, mg_sp_full) and "ep" expert
+    parallelism's (mg_ep_parity, mg_ep_full); its record goes to
     work_dir/rank{r}.json."""
     import torch
     import paddle_tpu_torch.distributed as D
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    env = D.init_parallel_env()
+    # a file store in the run's directory: no TCP port to race for (a port
+    # found free by the parent was once taken before rank 0 bound it)
+    env = D.init_parallel_env(init_method="file://" + str(Path(work_dir,
+                                                               "store")))
     device = env.device
     rec = {"rank": env.rank, "device": str(device),
            "backend": D.get_group().backend}
@@ -7273,6 +8066,16 @@ def multi_gpu_rank(work_dir, which="all"):
         rec["zero_parity"] = mg_zero_parity(torch, device)
         path.write_text(json.dumps(rec))
         rec["zero_full"] = mg_zero_full(torch, device)
+    if which == "sp":
+        rec["sp_parity"] = mg_sp_parity(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["ring"], rec["ring_rows"] = mg_ring_alone(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["sp_full"] = mg_sp_full(torch, device)
+    if which == "ep":
+        rec["ep_parity"] = mg_ep_parity(torch, device)
+        path.write_text(json.dumps(rec))
+        rec["ep_full"], rec["ep_rows"] = mg_ep_full(torch, device)
     rec["foreign_modules"] = foreign_modules()
     check(rec["backend"] == "nccl" and not rec["foreign_modules"],
           f"rank {env.rank}: {rec['backend']}, {rec['foreign_modules']}")
@@ -7289,7 +8092,10 @@ def multi_gpu(torch, card, which="all") -> int:
     training phases (multi_gpu_parity, train_gpt3_6.7b_dp2_mp2); "dp"
     and "zero" run slice 19's data-parallel phases alone
     (multi_gpu_dp_parity and train_gpt3_2.7b_dp4_gradcomm;
-    multi_gpu_zero_parity and train_gpt3_6.7b_zero_dp4)."""
+    multi_gpu_zero_parity and train_gpt3_6.7b_zero_dp4); "sp" and "ep"
+    slice 20's (multi_gpu_sp_parity, ring_attention_alone and
+    train_gpt3_1.3b_sp4; multi_gpu_ep_parity and train_gpt_moe_dp2_ep2),
+    each with a kernels line of #6 and #11."""
     import tempfile
     import paddle_tpu_torch.distributed as D
     n = torch.cuda.device_count()
@@ -7326,6 +8132,10 @@ def multi_gpu(torch, card, which="all") -> int:
         dp_lines(recs, card, cards)
     if which == "zero":
         zero_lines(recs, card, cards)
+    if which == "sp":
+        sp_lines(recs, card, cards)
+    if which == "ep":
+        ep_lines(recs, card, cards)
     check(not foreign_modules(), "JAX or the JAX package was imported")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card_line(), flush=True)
@@ -7635,11 +8445,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parity-repeats", type=int, default=0, metavar="N",
                     help="run resnet_parity alone N times")
     ap.add_argument("--multi-gpu", nargs="?", const="all",
-                    choices=("all", "serving", "dp", "zero"),
+                    choices=("all", "serving", "dp", "zero", "sp", "ep"),
                     help=f"the multi-GPU run on {MG_WORLD} cards ("
                          f"'serving': its serving phases alone; 'dp': the "
                          f"data-parallel gradient exchange's; 'zero': "
-                         f"ZeRO's)")
+                         f"ZeRO's; 'sp': sequence parallelism's; 'ep': "
+                         f"expert parallelism's)")
     args = ap.parse_args(argv)
     repeats = args.parity_repeats
     if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():

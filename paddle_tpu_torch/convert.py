@@ -102,28 +102,41 @@ def tp_split(name: str):
     return None
 
 
-def _mp(mesh):
+# an MoE block's experts, split on dim 0 over ``ep``
+_EP_SPLIT = ("mlp.w1", "mlp.b1", "mlp.w2", "mlp.b2")
+
+
+def ep_split(name: str):
+    """(dim, groups) of a GPT parameter's split over ``ep`` (an MoE
+    block's experts), or None."""
+    return (0, 1) if name.endswith(_EP_SPLIT) else None
+
+
+def _axis(mesh, axis):
     if mesh is None:
         return 1, 0
-    return mesh.axis_size("mp"), mesh.axis_rank("mp")
+    return mesh.axis_size(axis), mesh.axis_rank(axis)
 
 
-def _shard(name, t, n, r):
+def _shard(name, t, mesh):
     from .distributed.mpu import shard_of
-    rule = tp_split(name)
-    if n == 1 or rule is None:
-        return t
-    return shard_of(t, rule[0], rule[1], r, n)
+    for axis, rule in (("mp", tp_split(name)), ("ep", ep_split(name))):
+        n, r = _axis(mesh, axis)
+        if n > 1 and rule is not None:
+            t = shard_of(t, rule[0], rule[1], r, n)
+    return t
 
 
 def shard_state_from_paddle(np_state: Dict[str, np.ndarray], cfg,
                             mesh=None) -> Dict[str, torch.Tensor]:
     """`state_dict_from_paddle`, then this rank's ``mp`` shard of every
-    split parameter (`tp_split`) of `mesh` (the active mesh when None):
-    the state the tensor-parallel model built under that mesh loads."""
+    split parameter (`tp_split`) and its ``ep`` shard of every expert
+    tensor (`ep_split`) of `mesh` (the active mesh when None): the state
+    the model built under that mesh loads (``dp`` and ``sp`` ranks hold
+    whole copies)."""
     from .distributed.mesh import get_mesh
-    n, r = _mp(mesh if mesh is not None else get_mesh())
-    return {k: _shard(k, v, n, r)
+    mesh = mesh if mesh is not None else get_mesh()
+    return {k: _shard(k, v, mesh)
             for k, v in state_dict_from_paddle(np_state, cfg).items()}
 
 
@@ -131,25 +144,26 @@ def gather_state(state: Dict[str, torch.Tensor], mesh=None,
                  zero=None) -> Dict[str, torch.Tensor]:
     """The full state from this rank's shards: every split parameter
     (`tp_split`) all-gathered over the ``mp`` group of `mesh` (the active
-    one) and rejoined; replicated entries as they are. Under ZeRO stage 3
+    one) and rejoined, every expert tensor (`ep_split`) over its ``ep``
+    group; replicated entries as they are. Under ZeRO stage 3
     (`zero`: a TrainStep's `zero` runtime) an entry that names one of its
     parameters is first made whole from its owner. Every rank of the
     groups must call it; the tensors must lie on the groups' device."""
     from .distributed.collective import all_gather
     from .distributed.mesh import axis_group
     from .distributed.mpu import gather_shards
-    g = axis_group("mp", mesh)
+    groups = {"mp": axis_group("mp", mesh), "ep": axis_group("ep", mesh)}
     if zero is not None and zero.stage >= 3:
         state = {k: zero.full_param(zero.index[k]) if k in zero.index
                  else v for k, v in state.items()}
     out = {}
     for k, v in state.items():
-        rule = tp_split(k)
-        if g is None or rule is None:
-            out[k] = v
-            continue
-        parts = all_gather(v.detach().contiguous(), group=g)
-        out[k] = gather_shards(list(parts.unbind(0)), rule[0], rule[1])
+        for axis, rule in (("mp", tp_split(k)), ("ep", ep_split(k))):
+            g = groups[axis]
+            if g is not None and rule is not None:
+                parts = all_gather(v.detach().contiguous(), group=g)
+                v = gather_shards(list(parts.unbind(0)), rule[0], rule[1])
+        out[k] = v
     return out
 
 
@@ -199,19 +213,21 @@ def train_state_from_paddle(jax_state: Dict, model: torch.nn.Module,
     buffers (a ResNet's running statistics) travel in the model's own
     state dict. For a tensor-parallel GPT (`mesh`, else the active mesh,
     with ``mp`` > 1) the parameters and their parameter-shaped optimizer
-    state (AdamW's moments, ...) are this rank's shards (`tp_split`);
-    blockwise int8 moments are refused there."""
+    state (AdamW's moments, ...) are this rank's shards (`tp_split`; over
+    ``ep``, `ep_split`); blockwise int8 moments are refused there."""
     from .distributed.mesh import get_mesh
-    n_mp, r_mp = _mp(mesh if mesh is not None else get_mesh())
+    mesh = mesh if mesh is not None else get_mesh()
+    n_mp = _axis(mesh, "mp")[0]
     keep = _paddle_layout(model)
     full = {}
     for n, p in model.named_parameters():
         if not p.requires_grad:
             continue
         shape = list(p.shape)
-        rule = getattr(p, "mp_split", None)
-        if rule is not None:
-            shape[rule[0]] *= n_mp
+        for attr, axis in (("mp_split", "mp"), ("ep_split", "ep")):
+            rule = getattr(p, attr, None)
+            if rule is not None:
+                shape[rule[0]] *= _axis(mesh, axis)[0]
         full[n] = tuple(shape)
     params = _map(jax_state["params"], full, keep)
     out = {"step": int(jax_state.get("step", 0)), "params": params,
@@ -230,10 +246,11 @@ def train_state_from_paddle(jax_state: Dict, model: torch.nn.Module,
                 if k in _PARAM_SHAPED_KEYS:
                     t = _to_torch(np.asarray(v).T if flip else v)
                     want = tuple(params[name].shape)
-                elif k in _Q8_KEYS and n_mp > 1:
+                elif k in _Q8_KEYS and (n_mp > 1 or ep_split(name)
+                                        and _axis(mesh, "ep")[0] > 1):
                     raise NotImplementedError(
                         f"{name}.{k}: blockwise int8 moments do not shard "
-                        f"over mp")
+                        f"over mp or ep")
                 elif k in _Q8_KEYS:
                     t = _to_torch(v)
                     want = _Q8_KEYS[k](nb)
@@ -244,11 +261,11 @@ def train_state_from_paddle(jax_state: Dict, model: torch.nn.Module,
                     raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} "
                                      f"!= {want} for parameter "
                                      f"{tuple(params[name].shape)}")
-                entry[k] = _shard(name, t, n_mp, r_mp) \
+                entry[k] = _shard(name, t, mesh) \
                     if k in _PARAM_SHAPED_KEYS else t
             opt[name] = entry
         out["opt"] = opt
-    out["params"] = {k: _shard(k, v, n_mp, r_mp) for k, v in params.items()}
+    out["params"] = {k: _shard(k, v, mesh) for k, v in params.items()}
     if "scaler" in jax_state:
         out["scaler"] = dict(jax_state["scaler"])
     return out

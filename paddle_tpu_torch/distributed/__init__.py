@@ -2,16 +2,17 @@
 `torch.distributed` (NCCL on the card, gloo when the caller asks for the
 CPU).
 
-`init_parallel_env` joins the process group; `build_mesh` /
-`fleet.init` lay the ranks out on named axes (``dp``, ``sdp``, ``mp``)
-with a process group per axis; the collectives (`all_reduce`, ...) have
-Paddle's per-process semantics; `mpu` holds the tensor-parallel layers and
-`spawn` starts the processes of a run on one machine. `recompute` is the
-activation-checkpointing module (`recompute_sequential`,
-`recompute_hybrid`). `jit.TrainStep(mesh=...)` trains over a ``dp`` x
-``sdp`` x ``mp`` mesh, with the int8 gradient exchange of
-`quant_collectives` (`grad_comm=`) and ZeRO (`group_sharded_parallel`);
-`dgc` is the top-k sparsified exchange.
+`init_parallel_env` joins the process group; `build_mesh` / `fleet.init` lay
+the ranks out on named axes (``dp``, ``sdp``, ``ep``, ``sp``, ``mp``) with a
+process group per axis; the collectives (`all_reduce`, ...) have Paddle's
+per-process semantics; `mpu` holds the tensor-parallel layers and `spawn`
+starts the processes of a run on one machine. `recompute` is the
+activation-checkpointing module (`recompute_sequential`, `recompute_hybrid`).
+`jit.TrainStep(mesh=...)` trains over those axes, with the int8 gradient
+exchange of `quant_collectives` (`grad_comm=`) and ZeRO
+(`group_sharded_parallel`); `dgc` is the top-k sparsified exchange;
+`ring_attention`, `ulysses_attention` and `sequence_parallel_attention`
+(`ops.ring_attention`) attend over the ``sp`` axis.
 """
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ from .parallel import (  # noqa: F401
     ParallelEnv, barrier, current_device, destroy_parallel_env, get_rank,
     get_world_size, init_parallel_env, is_initialized)
 from .collective import (  # noqa: F401
-    Group, ReduceOp, all_gather, all_reduce, alltoall, broadcast, get_group,
-    new_group, recv, reduce, reduce_scatter, scatter, send,
-    stream_all_reduce)
+    Group, P2POp, ReduceOp, all_gather, all_reduce, alltoall,
+    batch_isend_irecv, broadcast, get_group, irecv, isend, new_group, recv,
+    reduce, reduce_scatter, scatter, send, stream_all_reduce)
 from .mesh import (  # noqa: F401
     HYBRID_AXES, Mesh, axis_group, build_mesh, get_mesh, mesh_axis_rank,
     mesh_axis_size, mesh_scope, set_mesh)
@@ -41,3 +42,5 @@ from .quant_collectives import (  # noqa: F401
 from .sharding import (  # noqa: F401
     group_sharded_parallel, shard_optimizer_state, shard_parameter_specs)
 from .dgc import dgc_value_and_grad, sparse_allreduce  # noqa: F401
+from ..ops.ring_attention import (  # noqa: F401
+    ring_attention, sequence_parallel_attention, ulysses_attention)

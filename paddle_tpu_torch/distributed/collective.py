@@ -16,9 +16,15 @@ default waits and returns None. Each group counts the all-reduces it ran
 over more than one rank (`Group.all_reduces`): the tensor-parallel
 serving plan is exactly two a layer a forward, and the tests and the
 smoke read it there. It also counts the payload bytes its all-reduces,
-reduce-scatters, all-gathers, reduces and broadcasts carried, by
-operation and wire dtype (`Group.wire_bytes`): the port's counterpart of
-the JAX package's `collective_bytes_by_dtype`.
+reduce-scatters, all-gathers, reduces, broadcasts, all-to-alls and
+point-to-point sends carried, by operation and wire dtype
+(`Group.wire_bytes`): the port's counterpart of the JAX package's
+`collective_bytes_by_dtype`.
+
+The sequence-parallel attention (`ops.ring_attention`) rotates its K/V
+blocks around a group with `rotate` (one `batch_isend_irecv` of
+`P2POp`s a step) and re-shards Ulysses' sequence and heads with
+`all_to_all_dims`, whose backward is the inverse all-to-all.
 """
 from __future__ import annotations
 
@@ -305,6 +311,7 @@ def alltoall(in_tensor_list, out_tensor_list=None,
     if n == 1:
         out.copy_(inp)
     else:
+        group.count("all_to_all", inp)
         dist.all_to_all_single(out, inp, group=group.process_group)
     if out_tensor_list is not None:
         out_tensor_list.extend(out.chunk(n, dim=0) if not listed
@@ -345,6 +352,7 @@ def send(tensor, dst: int, group: Optional[Group] = None,
     """Point-to-point send to global rank `dst`."""
     group = _resolve(group)
     _check(tensor, group, "send")
+    group.count("send", tensor)
     if sync_op:
         dist.send(tensor.contiguous(), dst, group=group.process_group)
         return None
@@ -364,3 +372,91 @@ def recv(tensor, src: int, group: Optional[Group] = None,
 
 def stream_all_reduce(*args, **kwargs):
     return all_reduce(*args, **kwargs)
+
+
+def isend(tensor, dst: int, group: Optional[Group] = None):
+    """`send` without waiting: returns the work handle."""
+    return send(tensor, dst, group, sync_op=False)
+
+
+def irecv(tensor, src: int, group: Optional[Group] = None):
+    """`recv` without waiting: returns the work handle."""
+    return recv(tensor, src, group, sync_op=False)
+
+
+class P2POp:
+    """One point-to-point operation of a `batch_isend_irecv`: `op` is
+    `isend` or `irecv`, `peer` a global rank of `group`."""
+
+    def __init__(self, op, tensor, peer: int, group: Optional[Group] = None):
+        if op not in (isend, irecv):
+            raise ValueError("P2POp: op must be distributed.isend or "
+                             "distributed.irecv")
+        self.op, self.tensor, self.peer = op, tensor, int(peer)
+        self.group = group
+
+
+def batch_isend_irecv(p2p_op_list) -> List:
+    """Start every operation of the list at once (one NCCL group call on
+    the card) and return their work handles; each send is counted on its
+    group as ``("send", dtype)`` bytes."""
+    ops = []
+    for p in p2p_op_list:
+        group = _resolve(p.group)
+        _check(p.tensor, group, "batch_isend_irecv")
+        if p.op is isend:
+            group.count("send", p.tensor)
+        ops.append(dist.P2POp(dist.isend if p.op is isend else dist.irecv,
+                              p.tensor, p.peer, group=group.process_group))
+    return dist.batch_isend_irecv(ops) if ops else []
+
+
+def rotate(tensors: Sequence[torch.Tensor], group: Group,
+           shift: int = 1) -> List[torch.Tensor]:
+    """Each rank sends its `tensors` to group rank (rank + shift) mod n
+    and returns those of group rank (rank - shift) mod n: one step of a
+    ring, all tensors in one batch. A group of one rank returns them as
+    they are."""
+    n = group.nranks
+    if n == 1:
+        return list(tensors)
+    dst = group.ranks[(group.rank + shift) % n]
+    src = group.ranks[(group.rank - shift) % n]
+    sent = [t.contiguous() for t in tensors]
+    got = [torch.empty_like(t) for t in sent]
+    ops = [P2POp(isend, t, dst, group) for t in sent] + \
+        [P2POp(irecv, t, src, group) for t in got]
+    for w in batch_isend_irecv(ops):
+        w.wait()
+    return got
+
+
+def _all_to_all_dims(x, group: Group, split_dim: int, concat_dim: int):
+    n = group.nranks
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all_dims: dim {split_dim} of "
+                         f"{tuple(x.shape)} does not split over {n} ranks")
+    inp = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    out = alltoall(inp, group=group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, concat_dim, split_dim)
+        return _all_to_all_dims(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_dims(g, *ctx.args), None, None, None
+
+
+def all_to_all_dims(x, group: Group, split_dim: int, concat_dim: int):
+    """The tiled all-to-all of `jax.lax.all_to_all`: x cut into nranks
+    chunks along `split_dim`, chunk j sent to group rank j, the chunks
+    received joined along `concat_dim` in group-rank order. Differentiable:
+    the backward is the inverse all-to-all."""
+    if group is None or group.nranks == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)

@@ -11,8 +11,10 @@ call their collectives themselves, and `jit.TrainStep(mesh=...)` splits
 the batch over ``dp``, averages the gradients and applies the mesh-aware
 gradient clip. `distributed_optimizer` marks the optimizer for ZeRO under
 `strategy.sharding` (stage `sharding_configs.stage`, over ``sdp``), as the
-JAX package does; TrainStep runs it. Pipeline parallelism and the
-sequence- and expert-parallel axes are later slices and raise.
+JAX package does; TrainStep runs it. ``sp_degree`` and ``ep_degree``
+build the sequence- and expert-parallel axes (in the JAX package's
+order: pp, dp, sdp, ep, sp, mp). Pipeline parallelism is a later slice
+and raises.
 """
 from __future__ import annotations
 
@@ -43,10 +45,6 @@ def init(role_maker=None, is_collective: bool = True,
         raise NotImplementedError(f"fleet.init: pipeline parallelism comes "
                                   f"with {_LATER}")
     axes = strategy.mesh_axes()
-    for ax in ("sp", "ep"):
-        if ax in axes:
-            raise NotImplementedError(f"fleet.init: the {ax!r} axis comes "
-                                      f"with {_LATER}")
     init_parallel_env(init_method=init_method, device=device)
     world = get_world_size()
     need = int(np.prod(list(axes.values()))) if axes else 1
@@ -57,8 +55,10 @@ def init(role_maker=None, is_collective: bool = True,
         axes = {"dp": (world // need) * axes.pop("dp", 1), **axes}
     mesh = _mesh.build_mesh(axes)
     topo = CommunicateTopology(
-        hybrid_group_names=["data", "pipe", "sharding", "model"],
+        hybrid_group_names=["data", "pipe", "sharding", "expert",
+                            "sequence", "model"],
         dims=[mesh.axis_size("dp"), 1, mesh.axis_size("sdp"),
+              mesh.axis_size("ep"), mesh.axis_size("sp"),
               mesh.axis_size("mp")])
     hcg = HybridCommunicateGroup(topo, mesh)
     _fleet_state.update(initialized=True, strategy=strategy, hcg=hcg)

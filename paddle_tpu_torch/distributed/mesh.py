@@ -12,8 +12,19 @@ there without touching the card's stream (the sharded serving engine's
 op headers).
 
 Axes: ``dp`` (data parallel), ``sdp`` (the ZeRO sharding axis,
-`distributed.sharding`) and ``mp`` (tensor parallel) train through
-`jit.TrainStep`; ``pp``, ``sp`` and ``ep`` have no runtime yet.
+`distributed.sharding`), ``sp`` (sequence parallel: each rank holds S/sp
+positions of its rows, `ops.ring_attention`), ``ep`` (expert parallel:
+each rank holds E/ep experts of every MoE layer) and ``mp`` (tensor
+parallel) train through `jit.TrainStep`; ``pp`` has no runtime yet.
+
+The TOKEN group (`Mesh.token_group`) spans the ranks that hold different
+tokens of one batch and the same parameters: the ``dp`` x ``sp``
+product for each setting of the other axes (the ``dp`` group when the
+mesh has no ``sp`` axis). Losses count their tokens over it, gradients
+are averaged over it and the MoE layer ranks its slots over it; a token
+group built for ``sp`` carries `token_coords`, each member's (dp, sp)
+coordinates: the order its tokens take in the global batch (rows by dp,
+then a row's slices by sp; a group without them is in row order).
 
 The JAX helpers `filter_spec`, `named_sharding` and `shard_constraint`
 only steer XLA's partitioner (PartitionSpecs and sharding constraints on
@@ -52,6 +63,7 @@ class Mesh:
         self._groups = groups
         self._controls = controls or {}
         self._twins: Dict[str, Group] = {}
+        self._token = None
 
     @property
     def size(self) -> int:
@@ -66,6 +78,13 @@ class Mesh:
     def group(self, axis: str) -> Optional[Group]:
         """This rank's group along `axis` (None if the mesh lacks it)."""
         return self._groups.get(axis)
+
+    def token_group(self) -> Optional[Group]:
+        """The group over the dp x sp product holding this rank (the
+        module docstring), or None where it has one rank."""
+        if self.axis_size("sp") == 1:
+            return axis_group("dp", self)
+        return self._token
 
     def control_group(self, axis: str) -> Optional[Group]:
         """The gloo twin of `group(axis)`: the same ranks, host tensors
@@ -105,6 +124,20 @@ def axis_groups(axes: Dict[str, int], axis: str) -> Tuple[Tuple[int, ...],
                  for row in moved.reshape(-1, axes[axis]))
 
 
+def token_groups(axes: Dict[str, int]) -> Tuple[Tuple[int, ...], ...]:
+    """Every token group of global ranks (the dp x sp product, for each
+    setting of the other coordinates), each sorted."""
+    names = list(axes)
+    grid = np.arange(int(np.prod(list(axes.values())))).reshape(
+        tuple(axes.values()))
+    prod = [a for a in ("dp", "sp") if a in axes]
+    moved = np.moveaxis(grid, [names.index(a) for a in prod],
+                        list(range(-len(prod), 0)))
+    k = int(np.prod([axes[a] for a in prod]))
+    return tuple(tuple(sorted(int(r) for r in row))
+                 for row in moved.reshape(-1, k))
+
+
 def build_mesh(axes: Dict[str, int]) -> Mesh:
     """The mesh `axes` ({name: degree}) over the initialised world; the
     degrees must multiply to the world size. Every rank must call it (it
@@ -128,7 +161,19 @@ def build_mesh(axes: Dict[str, int]) -> Mesh:
                 if c is not None:
                     c.axis = ax
                     controls[ax] = c
-    return Mesh(axes, rank, groups, controls)
+    mesh = Mesh(axes, rank, groups, controls)
+    if axes.get("sp", 1) > 1:
+        shape = tuple(axes.values())
+        for ranks in token_groups(axes):
+            g = new_group(ranks)
+            if rank in ranks:
+                g.axis = "token"
+                cs = [dict(zip(axes, np.unravel_index(r, shape)))
+                      for r in ranks]
+                g.token_coords = [(int(c.get("dp", 0)), int(c["sp"]))
+                                  for c in cs]
+                mesh._token = g
+    return mesh
 
 
 def set_mesh(mesh: Optional[Mesh]):
@@ -170,15 +215,17 @@ def mesh_scope(mesh: Optional[Mesh]):
 
 
 def loss_group() -> Optional[Group]:
-    """The data-parallel group a masked-mean loss reduces its count over
-    (set by `data_parallel_loss`; None outside it)."""
+    """The token group a masked-mean loss reduces its count over and the
+    MoE layer ranks its slots over (set by `data_parallel_loss`; None
+    outside it)."""
     return _state.loss_group
 
 
 @contextlib.contextmanager
 def data_parallel_loss(group: Optional[Group]):
     """Within the region, masked-mean losses (GPT's `_masked_mean`) take
-    the global count over `group` (see there)."""
+    the global count over `group` (see there), and the MoE layer routes
+    the tokens of all its ranks as one batch (`token_coords` order)."""
     prev = _state.loss_group
     _state.loss_group = group
     try:

@@ -41,17 +41,20 @@ def spawn(func, args: Sequence = (), nprocs: int = -1, join: bool = True,
           daemon: bool = False, timeout: Optional[float] = 600,
           env: Optional[Dict[str, str]] = None):
     """Reference: paddle.distributed.spawn(func, args, nprocs, join).
-    Returns the processes' context; with `join`, waits up to `timeout`
-    seconds and raises if a process fails or the time runs out (the
-    processes are terminated then)."""
+    Returns the processes' context; with `join`, `wait`s for them first."""
     if nprocs < 1:
         nprocs = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     ctx = tmp.start_processes(_worker, args=(func, nprocs, free_port(), env,
                                              tuple(args)),
                               nprocs=nprocs, join=False, daemon=daemon,
                               start_method="spawn")
-    if not join:
-        return ctx
+    return wait(ctx, timeout) if join else ctx
+
+
+def wait(ctx, timeout: Optional[float] = 600):
+    """Wait up to `timeout` seconds for the processes of `spawn(...,
+    join=False)`; raise if one fails or the time runs out (the processes
+    are terminated then)."""
     deadline = None if timeout is None else time.monotonic() + timeout
     while not ctx.join(timeout=5):
         if deadline is not None and time.monotonic() > deadline:

@@ -1,11 +1,12 @@
 """Hybrid-parallel topology (the port of paddle_tpu/distributed/topology.py).
 
 `CommunicateTopology` is the reference's rank hypercube over the
-data, pipe, sharding and model dimensions; `HybridCommunicateGroup`
-builds the mesh ``{"dp", "pp", "sdp", "mp"}`` (axes of degree 1 left out,
-``mp`` last, so model-parallel ranks are adjacent) over the initialised
-world and hands out this rank's groups, ranks and world sizes, the
-sharding (``sdp``, ZeRO's) axis among them.
+data, pipe, sharding and model dimensions (and, as in the JAX package,
+the sequence and expert ones); `HybridCommunicateGroup` builds the mesh
+of its dimensions (axes of degree 1 left out, ``mp`` last, so
+model-parallel ranks are adjacent) over the initialised world and hands
+out this rank's groups, ranks and world sizes, the sharding (``sdp``,
+ZeRO's), sequence (``sp``) and expert (``ep``) axes among them.
 """
 from __future__ import annotations
 
@@ -130,6 +131,12 @@ class HybridCommunicateGroup:
     def get_sharding_parallel_rank(self):
         return self._rank("sdp")
 
+    def get_sequence_parallel_rank(self):
+        return self._rank("sp")
+
+    def get_expert_parallel_rank(self):
+        return self._rank("ep")
+
     def get_data_parallel_group(self):
         return self._mesh.group("dp")
 
@@ -142,6 +149,12 @@ class HybridCommunicateGroup:
     def get_sharding_parallel_group(self):
         return self._mesh.group("sdp")
 
+    def get_sequence_parallel_group(self):
+        return self._mesh.group("sp")
+
+    def get_expert_parallel_group(self):
+        return self._mesh.group("ep")
+
     def get_check_parallel_group(self):
         return None
 
@@ -152,7 +165,7 @@ class HybridCommunicateGroup:
             return "pipeline"
         if self._deg("sdp") > 1:
             return "sharding"
-        if self._deg("mp") > 1:
+        if self._deg("mp") > 1 or self._deg("sp") > 1:
             return "model"
         return "data"
 

@@ -51,25 +51,30 @@ Telemetry, as in the JAX step:
 state, optimizer scalars and the scaler, in the JAX layout (`params` and
 `opt` keyed by parameter name).
 
-With ``mesh`` (a `distributed.Mesh` over the axes ``dp``, ``sdp`` and
-``mp``, the model built under it), each process is one rank of the run:
+With ``mesh`` (a `distributed.Mesh` over the axes ``dp``, ``sdp``,
+``ep``, ``sp`` and ``mp``, the model built under it), each process is
+one rank of the run:
   * every call takes the GLOBAL batch, as the JAX step does, and each
     rank uses its rows along the one axis `data_axes` names (dim 0 cut
     into that axis' size; with accumulation, each microbatch of the
     global batch is cut); ranks along the other axes see the same rows
-    (the data axis is called ``dp`` below);
-  * a `loss_mask` mean inside GPT's loss is the global masked mean: the
-    mask's count is all-reduced over ``dp`` (`distributed.mesh.
-    data_parallel_loss`), so the ranks' mean is neither a mean of
-    per-rank means nor different from the single-process loss; every
-    rank returns the global loss;
+    (the data axis is called ``dp`` below): ``ep`` ranks hold the same
+    tokens, as JAX's ``data_axes=("dp",)`` gives them, and a
+    sequence-parallel GPT takes its ``sp`` rank's positions itself;
+  * the TOKEN group (`Mesh.token_group`: ``dp`` x ``sp``, else ``dp``)
+    holds the ranks whose tokens differ: a `loss_mask` mean inside
+    GPT's loss is the global masked mean, the mask's count all-reduced
+    over it (`distributed.mesh.data_parallel_loss`), so the ranks' mean
+    is neither a mean of per-rank means nor different from the
+    single-process loss, and the MoE layer routes the group's tokens as
+    one batch; every rank returns the global loss;
   * after the backward and the accumulation the gradients are averaged
-    over ``dp`` in flattened buckets of at most `BUCKET_BYTES` (unless
-    `grad_comm` or ZeRO stage 2-3 exchange them, below);
+    over the token group in flattened buckets of at most `BUCKET_BYTES`
+    (unless `grad_comm` or ZeRO stage 2-3 exchange them, below);
   * the gradient clip sums the squares of ``mp``-sharded gradients over
-    ``mp`` and counts replicated ones once; the GradScaler's found-inf
-    flag is max-reduced over all ranks, so every rank skips the same
-    steps;
+    ``mp``, those of ``ep``-sharded experts over ``ep``, and counts
+    replicated ones once; the GradScaler's found-inf flag is
+    max-reduced over all ranks, so every rank skips the same steps;
   * the telemetry options see this rank's own view: the numerics rows
     and grad norm are of its shards, the monitor, timeline and memory
     ledger time and count its own process; `state_dict()` holds its
@@ -78,23 +83,24 @@ A mesh whose axes have one rank each changes nothing: the step is
 bitwise the step without it.
 
 `grad_comm` ("f32" or "int8", on a mesh whose only axis is the data
-axis) replaces the bucketed average by one exchange per
-`grad_layer_groups` group, started in the backward as soon as the
-group's last gradient lands (a hook on every parameter), so that it runs
-under the rest of the backward: "int8" is `distributed.quant_collectives`'
-int8 all-reduce with per-chunk scales (0/1-d leaves, or those
-`grad_comm_f32_fallback(name, shape)` picks, on an f32 lane), "f32"
-every leaf on the f32 lane. The groups start in one fixed order on every
-rank (the reverse of the parameters', the order the backward lands
-them; a group that lands early waits for the ones before it; the ranks
-compare their groups when the step is built), and the step waits for
-all of them before the clip.
+axis; not with ``sp`` or ``ep``, ROADMAP A4) replaces the bucketed
+average by one exchange per `grad_layer_groups` group, started in the
+backward as soon as the group's last gradient lands (a hook on every
+parameter), so that it runs under the rest of the backward: "int8" is
+`distributed.quant_collectives`' int8 all-reduce with per-chunk scales
+(0/1-d leaves, or those `grad_comm_f32_fallback(name, shape)` picks, on
+an f32 lane), "f32" every leaf on the f32 lane. The groups start in one
+fixed order on every rank (the reverse of the parameters', the order the
+backward lands them; a group that lands early waits for the ones before
+it; the ranks compare their groups when the step is built), and the step
+waits for all of them before the clip.
 
 ZeRO (`distributed.group_sharded_parallel` or `shard_optimizer_state`
 mark the optimizer; `distributed.sharding` has the layout) shards the
 optimizer state (stage 1), the gradients (stage 2: each run of
 parameters reduced to its owner as the backward lands it) and the
-parameters (stage 3: gathered on use) over the shard axis; the clip then
+parameters (stage 3: gathered on use) over the shard axis (not on a mesh
+with ``sp`` or ``ep``, ROADMAP A4); the clip then
 sums the owners' squares over the shard group (and over ``mp`` for split
 parameters), and found-inf stays a world MAX. `state_dict()` /
 `set_state_dict()` give and take whole tensors under every stage (a
@@ -322,18 +328,22 @@ class TrainStep:
             self.set_numerics(numerics)
 
     def _set_mesh(self, mesh, data_axes):
-        """The mesh's groups: dp (batch rows, gradient average, the loss
-        count), mp (the clip) and the world (found-inf); None where an
-        axis has one rank."""
+        """The mesh's groups: the data axis (batch rows), the token group
+        (gradient average, the loss count; the data group without sp), mp
+        and ep (the clip) and the world (found-inf); None where a group
+        has one rank."""
         self.mesh = mesh
         self.data_axes = tuple(data_axes)
-        self._dp = self._mp = self._world = None
+        self._rows = self._dp = self._mp = self._ep = self._world = None
         self._sharded = [getattr(p, "mp_split", None) is not None
                          for p in self._params]
+        self._expert = [getattr(p, "ep_split", None) is not None
+                        for p in self._params]
         if mesh is None:
-            if any(self._sharded):
-                raise ValueError("the model holds tensor-parallel shards; "
-                                 "pass its mesh: TrainStep(mesh=...)")
+            if any(self._sharded) or any(self._expert):
+                raise ValueError("the model holds tensor- or expert-"
+                                 "parallel shards; pass its mesh: "
+                                 "TrainStep(mesh=...)")
             return
         if len(self.data_axes) != 1:
             raise ValueError(
@@ -342,20 +352,29 @@ class TrainStep:
                 f"their product, and its rows, loss count and gradient "
                 f"average would need a process group over that product, "
                 f"which the mesh does not build")
-        extra = set(mesh.axis_names) - {"dp", "sdp", "mp"}
+        extra = set(mesh.axis_names) - {"dp", "sdp", "ep", "sp", "mp"}
         if extra:
             raise NotImplementedError(
-                f"TrainStep(mesh=...) with axes {sorted(extra)}: dp, sdp and "
-                f"mp are ported; the others come with a later multi-GPU "
-                f"slice (ROADMAP.md, queue item A4)")
+                f"TrainStep(mesh=...) with axes {sorted(extra)}: dp, sdp, "
+                f"ep, sp and mp are ported; pipeline parallelism comes with "
+                f"a later multi-GPU slice (ROADMAP.md, queue item A4)")
         if self.data_axes[0] not in ("dp", "sdp"):
             raise ValueError(
                 f"TrainStep(data_axes={data_axes!r}): the batch splits over "
                 f"'dp' or 'sdp'; a tensor-parallel rank needs its group's "
                 f"rows")
-        # the data group (named _dp whichever axis it runs along)
-        self._dp = axis_group(self.data_axes[0], mesh)
+        spep = {"sp", "ep"} & set(mesh.axis_names)
+        if spep and self.data_axes != ("dp",):
+            raise ValueError(f"TrainStep(data_axes={data_axes!r}) on a mesh "
+                             f"with {sorted(spep)}: the batch splits over "
+                             f"'dp' there")
+        # the batch rows' group, and the token group (named _dp: the data
+        # group itself without sp)
+        self._rows = axis_group(self.data_axes[0], mesh)
+        self._dp = mesh.token_group() if "sp" in mesh.axis_names \
+            else self._rows
         self._mp = axis_group("mp", mesh)
+        self._ep = axis_group("ep", mesh)
         if mesh.size > 1:
             self._world = get_group()
             if self.device.type == "cuda" and self._world.backend != "nccl":
@@ -375,6 +394,11 @@ class TrainStep:
             raise ValueError(f"grad_comm={grad_comm!r}: expected None, "
                              "'f32' or 'int8'")
         mesh = self.mesh
+        if mesh is not None and {"sp", "ep"} & set(mesh.axis_names):
+            raise NotImplementedError(
+                "TrainStep(grad_comm=...) on a mesh with an sp or ep axis "
+                "comes with a later slice (ROADMAP.md, queue item A4): its "
+                "exchange would average over the token group")
         if mesh is None:
             raise ValueError("grad_comm requires TrainStep(mesh=...) — "
                              "there is no gradient sync to replace "
@@ -440,6 +464,11 @@ class TrainStep:
                              f"of the all-reduce grad_comm replaces; use "
                              f"stage 1 ('os') with grad_comm")
         axis = getattr(self.optimizer, "_sharding_axis", "sdp")
+        if self.mesh is not None and {"sp", "ep"} & set(
+                self.mesh.axis_names):
+            raise NotImplementedError(
+                "ZeRO on a mesh with an sp or ep axis comes with a later "
+                "slice (ROADMAP.md, queue item A4)")
         if getattr(self.model, "_zero_param_axis", None) is None:
             # the parameters stay whole unless shard_parameter_specs marked
             # the model (as the JAX step keeps their specs)
@@ -549,7 +578,7 @@ class TrainStep:
                                      f"divisible by grad_accum_steps="
                                      f"{accum}")
             micro = list(zip(*(a.chunk(accum, dim=0) for a in batch)))
-        if self._dp is not None:
+        if self._rows is not None:
             micro = [tuple(self._dp_rows(a) for a in mb) for mb in micro]
         zero, landing = self._zero, self._landing
         loss_sum, acc, micro_rows = None, None, []
@@ -612,7 +641,7 @@ class TrainStep:
         parts); scalars and non-tensors pass as they are."""
         if not torch.is_tensor(a) or a.dim() == 0:
             return a
-        n, r = self._dp.nranks, self._dp.rank
+        n, r = self._rows.nranks, self._rows.rank
         if a.shape[0] % n:
             raise ValueError(f"batch size {a.shape[0]} does not split over "
                              f"the {n} dp ranks")
@@ -729,6 +758,9 @@ class TrainStep:
                            device=self.device)
                 for i, g in zip(kept, sub):
                     grads[i] = g
+            elif clip is not None and self._ep is not None:
+                grads = clip(grads, sharded=self._sharded, group=self._mp,
+                             expert=self._expert, expert_group=self._ep)
             elif clip is not None:
                 grads = clip(grads) if self._mp is None else \
                     clip(grads, sharded=self._sharded, group=self._mp)

@@ -55,11 +55,23 @@ Under ``weight_dtype="int8"`` every projection and the LM head run the
 weight-only int8 GEMM (`ops.int8_matmul`) on a payload quantized once per
 set of weights (`quantized_params`), passed down as ``q8``.
 
+Sequence parallelism: built under a mesh whose ``sp`` axis has n > 1
+ranks, the cache-free forward takes the rank's S/n positions of every row
+it is given (rank i: i S/n .. (i + 1) S/n - 1, positions offset to
+match, as the JAX activation constraint ``P("dp", "sp", None)`` places
+them), and attention runs `ops.ring_attention` under
+``sequence_parallel`` ("ring": #6 on each ring block; "ulysses": an
+all-to-all, then #6 over the rank's heads), never the packed #7 route
+(as in the JAX package). `loss` and `GPTPretrainingCriterion` cut
+labels and `loss_mask` the same way when they are wider than the
+rank's positions.
+
 Mixture of experts: with ``moe_num_experts`` > 0 every n-th block's MLP is
 an `incubate.distributed.models.moe.MoELayer` (router, dispatch, batched
 expert matmuls and combine in plain PyTorch: the JAX package has no Pallas
-kernel there). The cache-free forward sums the MoE blocks' load-balance
-losses into ``GPTModel.last_aux_loss``, which `loss` adds with weight
+kernel there; under an ``ep`` mesh axis each rank holds E/ep experts). The
+cache-free forward sums the MoE blocks' load-balance losses into
+``GPTModel.last_aux_loss``, which `loss` adds with weight
 ``moe_aux_weight``. Serving runs the same layer; its capacity counts each
 step's b * s tokens, padded rows included, so decode can drop tokens as in
 the JAX package. Experts and router stay in the model dtype under
@@ -89,7 +101,7 @@ from ..ops.attention import (attention_q8_cache, attention_reference,
                              paged_prefix_attention_q8, quantize_kv,
                              static_cache_mask, static_cache_update,
                              static_cache_update_q8)
-from ..distributed.mesh import loss_group, mesh_axis_size
+from ..distributed.mesh import axis_group, loss_group, mesh_axis_size
 from ..distributed.collective import ReduceOp, all_gather, all_reduce
 from ..distributed.mpu import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding, _c_concat,
@@ -106,6 +118,7 @@ from ..nn.layers import LayerNorm
 from ..ops.flash_attention import flash_attention_packed_qkv
 from ..ops.int8_matmul import int8_linear_nd
 from ..ops.linear_ce import _mm_f32
+from ..ops.ring_attention import SCHEDULES, sequence_parallel_attention
 
 
 @dataclass
@@ -114,10 +127,13 @@ class GPTConfig:
     `moe_every_n_layers`-th block (layer_idx % n == n - 1) is an MoE
     block: its MLP is a routed-expert `MoELayer` (`moe_gate`,
     `moe_top_k`, `moe_capacity_factor`), and `loss` adds `moe_aux_weight`
-    times the blocks' summed load-balance loss. `sequence_parallel` is
-    accepted only at its default: the port has no sequence-parallel mesh.
-    Under a mesh, `num_heads` and `vocab_size` must divide by its ``mp``
-    degree (`check_mp`).
+    times the blocks' summed load-balance loss; under an ``ep`` mesh axis
+    `moe_num_experts` must divide by its degree. `sequence_parallel`
+    ("ring" or "ulysses") is the attention schedule under an ``sp`` mesh
+    axis of more than one rank; None there (the JAX package's dense
+    attention over gathered K/V) is refused (ROADMAP A4). Under a mesh,
+    `num_heads` and `vocab_size` must divide by its ``mp`` degree
+    (`check_mp`).
     `use_recompute`
     recomputes each block in train() mode under `recompute_policy` (None,
     "save_qkv", "save_attn", "save_big" or "dots"; see
@@ -152,13 +168,17 @@ class GPTConfig:
             raise ValueError(f"hidden_size {self.hidden_size} is not a "
                              f"multiple of num_heads {self.num_heads}")
         resolve_policy(self.recompute_policy)
-        if self.sequence_parallel != "ring":
-            raise NotImplementedError(
-                f"GPTConfig.sequence_parallel={self.sequence_parallel!r}: "
-                f"sequence parallelism is a later multi-GPU slice "
-                f"(ROADMAP.md, queue item A4)")
+        if self.sequence_parallel not in SCHEDULES + (None,):
+            raise ValueError(f"unknown sequence-parallel schedule "
+                             f"{self.sequence_parallel!r}; expected 'ring', "
+                             f"'ulysses', or None")
         self.check_mp(mesh_axis_size("mp"))
         if self.moe_num_experts:
+            if self.moe_num_experts % mesh_axis_size("ep"):
+                raise ValueError(f"GPTConfig.moe_num_experts="
+                                 f"{self.moe_num_experts} does not divide by "
+                                 f"the mesh's ep degree "
+                                 f"{mesh_axis_size('ep')}")
             if self.moe_gate not in ("naive", "gshard", "switch"):
                 raise ValueError(f"unknown moe_gate {self.moe_gate!r}")
             if self.moe_gate == "switch" and self.moe_top_k not in (None, 1):
@@ -203,6 +223,9 @@ class GPTSelfAttention(nn.Module):
         h = config.hidden_size
         self.num_heads = config.num_heads // mesh_axis_size("mp")
         self.head_dim = config.head_dim
+        # the sequence-parallel group and schedule (None: attend locally)
+        self.sp_group = axis_group("sp")
+        self.sp_schedule = config.sequence_parallel
         self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
                                         groups=3, device=device, dtype=dtype)
         self.out = RowParallelLinear(h, h, input_is_parallel=True,
@@ -299,14 +322,21 @@ class GPTSelfAttention(nn.Module):
     def attend(self, qkv3h):
         """Causal self-attention of the cache-free forward on the packed
         projection qkv3h [B, S, 3H] (the counterpart of the JAX
-        `_qkv_attention`): packed flash attention on qkv3h itself where
+        `_qkv_attention`): under a sequence-parallel group, the ring or
+        Ulysses schedule (`ops.ring_attention`) on its [B, S/sp, 3, nh,
+        hd] views; else packed flash attention on qkv3h itself where
         `_use_packed_flash()` holds, head_dim == 128 and S % 128 == 0; else
         `functional_attention` on its [B, S, 3, nh, hd] views. Returns the
         context [B, S, nh, hd] (or [B, S, H])."""
         qkv3h = checkpoint_tag(qkv3h, "qkv_proj")
         b, s = qkv3h.shape[0], qkv3h.shape[1]
         nh, hd = self.num_heads, self.head_dim
-        if hd == 128 and s % 128 == 0 and _use_packed_flash():
+        if self.sp_group is not None:
+            qkv = qkv3h.view(b, s, 3, nh, hd)
+            ctx = sequence_parallel_attention(
+                qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
+                schedule=self.sp_schedule, group=self.sp_group)
+        elif hd == 128 and s % 128 == 0 and _use_packed_flash():
             ctx = flash_attention_packed_qkv(qkv3h, nh, causal=True)
         else:
             qkv = qkv3h.view(b, s, 3, nh, hd)
@@ -537,6 +567,14 @@ class GPTModel(nn.Module):
         config.check_mp(mesh_axis_size("mp"))
         # this model's tensor-parallel group (None: not sharded)
         self.mp_group = resolve_mp_group(None)
+        # the sequence- and expert-parallel groups (None: one rank)
+        self.sp_group = axis_group("sp")
+        self.ep_group = axis_group("ep")
+        if self.sp_group is not None and config.sequence_parallel is None:
+            raise NotImplementedError(
+                "GPTConfig(sequence_parallel=None) under an sp mesh axis "
+                "(dense attention over gathered K/V) is not ported; use "
+                "'ring' or 'ulysses' (ROADMAP.md, queue item A4)")
         self.wte = VocabParallelEmbedding(config.vocab_size, h,
                                           device=device, dtype=dtype)
         self.wpe = nn.Embedding(config.max_position_embeddings, h,
@@ -557,6 +595,23 @@ class GPTModel(nn.Module):
         (a draw from `dropout_generator`), scale kept entries by 1/(1-p)."""
         return _drop(x, self.config.hidden_dropout, self.dropout_generator)
 
+    def _sp_positions(self, input_ids, position_ids):
+        """This sp rank's S/sp positions of each row, and their position
+        ids (offset by the rank's first position)."""
+        g = self.sp_group
+        s = input_ids.shape[1]
+        if s % g.nranks:
+            raise ValueError(f"sequence length {s} not divisible by "
+                             f"sp={g.nranks}")
+        w = s // g.nranks
+        cut = slice(g.rank * w, (g.rank + 1) * w)
+        if position_ids is None:
+            position_ids = torch.arange(g.rank * w, (g.rank + 1) * w,
+                                        device=input_ids.device)[None]
+        elif position_ids.shape[-1] == s:
+            position_ids = position_ids[..., cut]
+        return input_ids[:, cut], position_ids
+
     def forward(self, input_ids, position_ids=None, pools=None, tables=None,
                 lens=None, prefill=False, start=None, caches=None, q8=None):
         """Returns the final hidden states, or (hidden, new caches) when
@@ -567,9 +622,16 @@ class GPTModel(nn.Module):
         on ``last_aux_loss`` (None without MoE blocks or with pools or
         caches); under recompute it is an output of each block's
         checkpoint regions."""
+        serving = pools is not None or caches is not None
+        if self.sp_group is not None:
+            if serving:
+                raise ValueError("a sequence-parallel GPT trains; it does "
+                                 "not serve (build the serving model "
+                                 "without an sp mesh axis)")
+            input_ids, position_ids = self._sp_positions(input_ids,
+                                                         position_ids)
         s = input_ids.shape[1]
         dev = input_ids.device
-        serving = pools is not None or caches is not None
         table = self.serving_wte if serving else None
         if self.mp_group is not None and (serving or q8) and table is None:
             raise ValueError(
@@ -732,7 +794,6 @@ class GPTForCausalLM(nn.Module):
         cfg = self.config
         std = cfg.initializer_range
         deep = std / math.sqrt(2 * cfg.num_layers)
-        g = self.mp_group
         for name, p in self.named_parameters():
             if name.endswith((".bias", "mlp.b1", "mlp.b2")):
                 p.zero_()
@@ -740,7 +801,11 @@ class GPTForCausalLM(nn.Module):
             if ".ln_" in name:
                 p.fill_(1.0)
                 continue
-            split = getattr(p, "mp_split", None) if g is not None else None
+            g, split = self.mp_group, getattr(p, "mp_split", None)
+            if split is None and getattr(p, "ep_split", None) is not None:
+                g, split = self.gpt.ep_group, p.ep_split
+            if g is None:
+                split = None
             t = p
             if split is not None:
                 full = list(p.shape)
@@ -798,8 +863,12 @@ class GPTForCausalLM(nn.Module):
         the router aux loss (the criterion takes it as ``aux_loss``). A
         tensor-parallel model runs the vocab-parallel route on its head
         shard. Inside `TrainStep(mesh=...)` a `loss_mask` mean is the
-        global one over the data-parallel ranks (`_masked_mean`)."""
+        global one over the token group (`_masked_mean`); a
+        sequence-parallel model cuts labels and `loss_mask` to its
+        positions (`_sp_cut`)."""
         x = self.gpt(input_ids, position_ids)
+        labels, loss_mask = (_sp_cut(t, x.shape[1], self.gpt.sp_group)
+                             for t in (labels, loss_mask))
         tied = self.config.tie_word_embeddings
         w = self.gpt.wte.weight if tied else self.lm_head.weight
         # an untied head is nn.Linear [V, H]: the "vh" layout as it is
@@ -1308,6 +1377,18 @@ def _source(mod) -> tuple:
     return (mod.weight.data_ptr(), mod.weight._version)
 
 
+def _sp_cut(t, width: int, group):
+    """This sp rank's positions of a label or mask tensor [B, S] given
+    for whole rows (S = width * sp); anything else passes as it is."""
+    if t is None or group is None or t.dim() < 2 or t.shape[1] == width:
+        return t
+    if t.shape[1] != width * group.nranks:
+        raise ValueError(f"labels or loss_mask of width {t.shape[1]} fit "
+                         f"neither the rank's {width} positions nor the "
+                         f"{width * group.nranks} of whole rows")
+    return t[:, group.rank * width:(group.rank + 1) * width]
+
+
 def _masked_mean(per_tok, loss_mask):
     """Mean of per-token losses, or their loss_mask-weighted sum over
     max(sum(mask), 1e-8): the one reduction both loss paths share.
@@ -1349,7 +1430,12 @@ class GPTPretrainingCriterion(nn.Module):
 
     def forward(self, logits, labels, loss_mask=None, aux_loss=None):
         """`aux_loss` (an MoE model's router loss, e.g.
-        ``model.gpt.last_aux_loss``) is added to the loss as given."""
+        ``model.gpt.last_aux_loss``) is added to the loss as given. Under
+        the active mesh's ``sp`` axis, labels and `loss_mask` given for
+        whole rows are cut to the rank's positions."""
+        sp = axis_group("sp")
+        labels, loss_mask = (_sp_cut(t, logits.shape[1], sp)
+                             for t in (labels, loss_mask))
         loss = _masked_mean(cross_entropy_per_token(logits, labels),
                             loss_mask)
         return loss if aux_loss is None else loss + aux_loss

@@ -297,10 +297,12 @@ def test_int8_payload_skips_the_experts_like_jax(serve_pair, monkeypatch):
 
 
 def test_config_refusals():
-    """sequence_parallel stays refused; an unknown gate and a top-2
-    switch gate are refused."""
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        pt.GPTConfig(sequence_parallel="ulysses")
+    """An unknown sequence-parallel schedule, an unknown gate and a top-2
+    switch gate are refused; "ulysses" is accepted."""
+    assert pt.GPTConfig(sequence_parallel="ulysses").sequence_parallel \
+        == "ulysses"
+    with pytest.raises(ValueError, match="sequence-parallel schedule"):
+        pt.GPTConfig(sequence_parallel="zigzag")
     with pytest.raises(ValueError, match="moe_gate"):
         pt.GPTConfig(moe_num_experts=4, moe_gate="hash")
     with pytest.raises(ValueError, match="top-1"):

@@ -226,7 +226,8 @@ def test_switch_router_learns_from_the_task_loss_alone():
 
 def test_gate_objects_and_refusals():
     """A BaseGate sets the gate type and top-k; an unknown gate, a
-    top-2 switch and an expert-parallel group are refused."""
+    top-2 switch and an expert-parallel group that is not a Group are
+    refused."""
     for g in (TM.NaiveGate(), TM.GShardGate(), TM.SwitchGate(),
               TM.GShardGate(top_k=3)):
         layer = TM.MoELayer(8, 16, 2, gate=g, device="cpu")
@@ -235,7 +236,7 @@ def test_gate_objects_and_refusals():
         TM.MoELayer(8, 16, 2, gate="hash", device="cpu")
     with pytest.raises(ValueError, match="top-1"):
         TM.MoELayer(8, 16, 2, gate="switch", top_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe_group"):
+    with pytest.raises(TypeError, match="moe_group"):
         TM.MoELayer(8, 16, 2, moe_group=object(), device="cpu")
 
 

@@ -198,15 +198,21 @@ def test_merge_matches_jax_fused_linear_ce():
     np.testing.assert_allclose(loss.numpy(), jl, **TOL)
 
 
-def test_fleet_refuses_later_modes():
+def test_fleet_refuses_later_modes(monkeypatch):
+    """Pipeline parallelism stays refused; the sp and ep degrees build
+    mesh axes, so fleet.init goes on to join the process group (which
+    fails here for want of a rendezvous)."""
     st = pt.fleet.DistributedStrategy()
     st.hybrid_configs = {"pp_degree": 2}
     with pytest.raises(NotImplementedError, match="A4"):
         pt.fleet.init(strategy=st, device="cpu")
+    for k in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     for ax in ("sp", "ep"):
         st = pt.fleet.DistributedStrategy()
         st.hybrid_configs = {f"{ax}_degree": 2}
-        with pytest.raises(NotImplementedError, match="A4"):
+        assert st.mesh_axes() == {ax: 2}
+        with pytest.raises(RuntimeError, match="MASTER_ADDR"):
             pt.fleet.init(strategy=st, device="cpu")
 
 

@@ -203,7 +203,8 @@ def test_bf16_moments_and_later_items():
     # the options later slices bring stay refused, naming their queue item
     from paddle_tpu_torch.distributed.mesh import Mesh
     for kw, item in ((dict(mesh=Mesh({"dp": 1, "pp": 1}, 0, {})), "A4"),
-                     (dict(mesh=Mesh({"dp": 1, "sp": 1}, 0, {})), "A4"),
+                     (dict(mesh=Mesh({"dp": 1, "sp": 1}, 0, {}),
+                           grad_comm="f32"), "A4"),
                      (dict(lint=True), "A8"),
                      (dict(preemption=object()), "A6"),
                      (dict(chaos=object()), "A6")):

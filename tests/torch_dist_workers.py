@@ -27,7 +27,18 @@ WORLD = 4
 def run(func, run_dir, nprocs=WORLD):
     """Start `nprocs` ranks of `func(run_dir)`; each meets the others in
     run_dir/store."""
-    D.spawn(func, args=(str(run_dir),), nprocs=nprocs, timeout=300)
+    wait(start(func, run_dir, nprocs))
+
+
+def start(func, run_dir, nprocs=WORLD):
+    """`run` without waiting, so the caller's own work (the JAX
+    reference) overlaps the ranks'; `wait` joins them."""
+    return D.spawn(func, args=(str(run_dir),), nprocs=nprocs, join=False)
+
+
+def wait(ctx):
+    from paddle_tpu_torch.distributed.spawn import wait as join
+    join(ctx, timeout=300)
 
 
 def _join(run_dir):
@@ -916,4 +927,218 @@ def dgc_exchange(run_dir):
         out[f"dgc{i}:grad"] = grads[0]
         out[f"dgc{i}:residual"] = resid[0]
     out["dgc:losses"] = np.array(losses)
+    _save(run_dir, r, out)
+
+
+# ------------------------------------- sequence and expert parallelism
+def _sp_slice(a, mesh):
+    """This sp rank's positions of [B, S, ...] rows."""
+    n, r = mesh.axis_size("sp"), mesh.axis_rank("sp")
+    w = a.shape[1] // n
+    return a[:, r * w:(r + 1) * w]
+
+
+def _attend_leg(qkv, do, mesh, schedule, causal, out, tag):
+    """One sp attention call on this rank's shards: its output and the
+    gradients of sum(out * do) of q, k and v."""
+    leaves = [_sp_slice(_t(a), mesh).requires_grad_() for a in qkv]
+    o = D.sequence_parallel_attention(*leaves, is_causal=causal,
+                                      schedule=schedule)
+    (o * _sp_slice(_t(do), mesh)).sum().backward()
+    out[tag + ":out"] = o.detach()
+    for name, t in zip("qkv", leaves):
+        out[f"{tag}:d{name}"] = t.grad
+
+
+def ring_attention(run_dir):
+    """Ring and Ulysses attention on an {"sp": world} mesh, causal and
+    not: this rank's output and gradients; the Ulysses call at a head
+    count that does not divide by sp (it takes the ring); the dense
+    fallback on a mesh without sp; the payload each schedule put on the
+    sp group; and a ring whose last forward rotation is dropped (the
+    control)."""
+    import paddle_tpu_torch.distributed.collective as C
+    r, inp = _join(run_dir)
+    n = D.get_world_size()
+    mesh = D.build_mesh({"sp": n})
+    D.set_mesh(mesh)
+    qkv, do = [inp[k] for k in "qkv"], inp["do"]
+    out = {}
+    g = mesh.group("sp")
+    for schedule in ("ring", "ulysses"):
+        for causal in (False, True):
+            g.wire_bytes.clear()
+            _attend_leg(qkv, do, mesh, schedule, causal, out,
+                        f"{schedule}:{int(causal)}")
+            out[f"{schedule}:{int(causal)}:wire"] = np.array(
+                sorted(f"{k[0]}/{k[1]}" for k in g.wire_bytes), dtype=str)
+    g.wire_bytes.clear()
+    _attend_leg([inp[k + "3"] for k in "qkv"], inp["do3"], mesh, "ulysses",
+                True, out, "ulysses_h3")
+    out["ulysses_h3:wire"] = np.array(
+        sorted(f"{k[0]}/{k[1]}" for k in g.wire_bytes), dtype=str)
+    # the control: the forward's last rotation leaves K/V where they are
+    real, calls = C.rotate, [0]
+
+    def dropped(tensors, group, shift=1):
+        if len(tensors) == 2:
+            calls[0] += 1
+            if calls[0] == group.nranks - 1:
+                return list(tensors)
+        return real(tensors, group, shift)
+    C.rotate = dropped
+    try:
+        with torch.no_grad():
+            out["control:out"] = D.ring_attention(
+                *[_sp_slice(_t(a), mesh) for a in qkv])
+    finally:
+        C.rotate = real
+    D.set_mesh(D.build_mesh({"dp": n}))
+    with torch.no_grad():
+        out["dense:out"] = D.ring_attention(*[_t(a) for a in qkv],
+                                            is_causal=True)
+    D.set_mesh(None)
+    _save(run_dir, r, out)
+
+
+def _sp_leg(inp, axes, schedule, out, tag):
+    """The tiny GPT on mesh `axes` for 3 AdamW steps from the JAX weights
+    (the clip active, a loss mask uneven across the sp halves): losses,
+    gathered final parameters and this rank's replicated parameters."""
+    mesh = D.build_mesh(axes)
+    D.set_mesh(mesh)
+    cfg = _gpt_cfg(inp, sequence_parallel=schedule)
+    model = pt.GPTForCausalLM(cfg, device="cpu")
+    model.load_state_dict(pt.shard_state_from_paddle(_np_state(inp), cfg))
+    step = _adamw_step(model, float(inp["clip"]), mesh)
+    ids, mask = _t(inp["ids"]), _t(inp["mask"])
+    out[tag + ":losses"] = np.array([float(step(ids, ids, mask))
+                                     for _ in range(3)])
+    final = pt.gather_state({n: p.detach()
+                             for n, p in model.named_parameters()})
+    for n, v in final.items():
+        out[f"{tag}:param:{n}"] = v
+    for n, p in model.named_parameters():
+        if getattr(p, "mp_split", None) is None:
+            out[f"{tag}:local:{n}"] = p.detach()
+    out[tag + ":coords"] = np.array([mesh.axis_rank(a) for a in axes])
+    D.set_mesh(None)
+
+
+def gpt_sp(run_dir):
+    """The tiny GPT trained on the sp meshes of this world size (2:
+    {"sp": 2} ring and Ulysses; 4: {"dp": 2, "sp": 2} and {"sp": 2,
+    "mp": 2}, ring)."""
+    r, inp = _join(run_dir)
+    out = {}
+    if D.get_world_size() == 2:
+        _sp_leg(inp, {"sp": 2}, "ring", out, "sp2_ring")
+        _sp_leg(inp, {"sp": 2}, "ulysses", out, "sp2_ulysses")
+    else:
+        _sp_leg(inp, {"dp": 2, "sp": 2}, "ring", out, "dp2_sp2")
+        _sp_leg(inp, {"sp": 2, "mp": 2}, "ring", out, "sp2_mp2")
+    _save(run_dir, r, out)
+
+
+def _moe_layer(inp, mesh=None):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    d, h, e = (int(inp[k]) for k in ("moe_d", "moe_h", "moe_e"))
+    layer = MoELayer(d, h, e, gate="gshard",
+                     capacity_factor=float(inp["moe_cf"]), device="cpu")
+    ep = 1 if mesh is None else mesh.axis_size("ep")
+    er = 0 if mesh is None else mesh.axis_rank("ep")
+    with torch.no_grad():
+        for n, p in layer.named_parameters():
+            full = _t(inp["moe:" + n])
+            p.copy_(mpu.shard_of(full, 0, 1, er, ep)
+                    if getattr(p, "ep_split", None) else full)
+    return layer
+
+
+def _moe_leg(inp, mesh, routed, out, tag):
+    """The MoE layer on this rank's rows of x (all rows on a mesh without
+    dp); with `routed` the dp group routes them as one batch. The rank's
+    loss is n sum(y dy) + aux over its rows (n the dp size), so the dp
+    average of its gradients is the gradient of the global
+    sum(y dy) + aux."""
+    from paddle_tpu_torch.distributed.mesh import data_parallel_loss
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    layer = _moe_layer(inp, mesh)
+    dp = mesh.group("dp") if "dp" in mesh.shape else None
+    n, rk = (1, 0) if dp is None else (dp.nranks, dp.rank)
+    b = inp["moe_x"].shape[0] // n
+    x = _t(inp["moe_x"])[rk * b:(rk + 1) * b].requires_grad_()
+    dy = _t(inp["moe_dy"])[rk * b:(rk + 1) * b]
+    moe_layer.record_drop_rate(True)
+    with data_parallel_loss(dp if routed else None):
+        y = layer(x)
+    out[tag + ":drop"] = np.array(moe_layer.measured_drop_rate())
+    moe_layer.record_drop_rate(False)
+    loss = n * (y * dy).sum() + layer.aux_loss
+    loss.backward()
+    out[tag + ":y"] = y.detach()
+    out[tag + ":aux"] = layer.aux_loss.detach()
+    out[tag + ":dx"] = x.grad / n
+    for name, p in layer.named_parameters():
+        gr = p.grad.clone()
+        if dp is not None:
+            D.all_reduce(gr, op="avg", group=dp)
+        if getattr(p, "ep_split", None) and mesh.axis_size("ep") > 1:
+            gr = D.all_gather(gr, group=mesh.group("ep")).flatten(0, 1)
+        out[f"{tag}:grad:{name}"] = gr
+
+
+def moe_ep(run_dir):
+    """World 2: the MoE layer at dp2 routed as one batch (the repair; also
+    on the one-hot route) and routed per rank (the control), and at ep2.
+    World 4: the layer at dp2 x ep2; the tiny MoE GPT's TrainStep at dp2
+    x ep2 (losses, gathered parameters, this rank's replicated
+    parameters); the converter's ep round trip."""
+    r, inp = _join(run_dir)
+    out = {}
+    if D.get_world_size() == 2:
+        dp2 = D.build_mesh({"dp": 2})
+        _moe_leg(inp, dp2, True, out, "dp2")
+        _moe_leg(inp, dp2, False, out, "dp2_per_rank")
+        # the one-hot route (PADDLE_TPU_MOE_GATHER other than "1")
+        os.environ["PADDLE_TPU_MOE_GATHER"] = "0"
+        try:
+            _moe_leg(inp, dp2, True, out, "dp2_onehot")
+        finally:
+            del os.environ["PADDLE_TPU_MOE_GATHER"]
+        ep2 = D.build_mesh({"ep": 2})
+        D.set_mesh(ep2)
+        _moe_leg(inp, ep2, True, out, "ep2")
+        D.set_mesh(None)
+        _save(run_dir, r, out)
+        return
+    mesh = D.build_mesh({"dp": 2, "ep": 2})
+    D.set_mesh(mesh)
+    _moe_leg(inp, mesh, True, out, "dp2_ep2")
+    cfg = _gpt_cfg(inp, moe_num_experts=4, moe_every_n_layers=2)
+    np_state = _np_state(inp)
+    full = pt.state_dict_from_paddle(np_state, cfg)
+    shards = pt.shard_state_from_paddle(np_state, cfg)
+    back = pt.gather_state(shards)
+    out["roundtrip_bitwise"] = np.array(all(
+        torch.equal(back[k], full[k]) for k in full))
+    out["expert_shard_rows"] = np.array(shards["gpt.h.1.mlp.w1"].shape[0])
+    model = pt.GPTForCausalLM(cfg, device="cpu")
+    out["splits_match"] = np.array(all(
+        getattr(p, "ep_split", None) == pt.convert.ep_split(n)
+        for n, p in model.named_parameters()))
+    model.load_state_dict(shards)
+    step = _adamw_step(model, float(inp["clip"]), mesh)
+    ids, mask = _t(inp["ids"]), _t(inp["mask"])
+    out["gpt:losses"] = np.array([float(step(ids, ids, mask))
+                                  for _ in range(3)])
+    final = pt.gather_state({n: p.detach()
+                             for n, p in model.named_parameters()})
+    for n, v in final.items():
+        out["gpt:param:" + n] = v
+    for n, p in model.named_parameters():
+        if getattr(p, "ep_split", None) is None:
+            out["gpt:local:" + n] = p.detach()
+    out["coords"] = np.array([mesh.axis_rank("dp"), mesh.axis_rank("ep")])
+    D.set_mesh(None)
     _save(run_dir, r, out)
